@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Check the PyTorch port on one CUDA card: build the kernels, hold each
-against its plain version, and serve requests end to end.
+against its plain version, and serve requests end to end on every path
+the port has.
 
     python3 chip_smoke.py
 
@@ -9,19 +10,30 @@ printed only when every phase passed:
   1. the card's name and power limit; TF32 off;
   2. build the CUDA kernels from ``millieye_torch/csrc`` (one nvcc each,
      all at once);
-  3. each kernel (K1 NMS, K2 PS-RoIAlign, K3 RoIAlign, K4 stem pair)
-     against its plain version on the card, at the serving shapes (batch
-     1) and at batch 32: bit-equal (each plain version repeats its
-     kernel's operations in the kernel's order); kernel, plain and
-     library times (K2/K3: one bf16 einsum; K4: cuDNN), and the bound;
-  4. ``FusionEngine`` at ``pallas_max_s01`` on
-     ``artifacts/stage3_final.npz``: 16 requests (640x480 uint8 frames,
-     radar points and proposals from a fixed seed); every kernel must
-     have launched; the answers must be finite and bit-identical to the
-     same engine's inside ``cuda_lib.plain_versions()``; p50 latency and
-     frames/s; a
-     ``torch.profiler`` pass over 4 more requests for the device time
-     per request, its share of the wall time, and the top kernels;
+  3. each of the eight kernels (K1 blocked NMS, K2 padded PS-RoIAlign,
+     K3 RoIAlign, K4 stem pair, K5 whole-matrix NMS, K6 PS-RoIAlign on
+     the unpadded float32 map, K7 padded PS-RoIAlign on float32 operands,
+     K9 single stem stage) against its plain version on the card, at the
+     shapes the serving paths give it, at batch 1 and 32: bit-equal (each
+     plain version repeats its kernel's operations in the kernel's
+     order); kernel, plain and library times (the median of 5 repeats of
+     the timing loop, with the spread), and the bound;
+  4. the serving paths on ``artifacts/stage3_final.npz``, 8 requests or
+     calls each at batch 1 (640x480 uint8 frames, radar points and
+     proposals from a fixed seed): ``FusionEngine.infer`` at
+     ``pallas_max_s01``, ``pallas_max4``, ``pallas_stem`` and
+     ``pallas_max4`` with ``roi_precision="highest"``; ``entry()``;
+     ``build_refine`` + ``RefineNetwork.apply``; and one
+     ``batched_step_fn`` window of the 8 frames at ``pallas_max4``. The
+     launch counts are set to 0 before each path and read after it; every
+     kernel the path names must have launched on every request; the
+     answers, the window's too, must be finite, of the right shape and
+     bit-identical to the same path inside ``cuda_lib.plain_versions()``;
+     the window's answers must also equal the per-frame answers (matched
+     by box within a stated tolerance, with at most one row of a frame on
+     one side only, where the batch-8 convolutions sum in another order);
+     p50 latency per path; a ``torch.profiler`` pass over 4 more
+     requests at ``pallas_max_s01`` and at ``pallas_max4``;
   5. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
@@ -36,30 +48,41 @@ import numpy as np
 
 CKPT = "artifacts/stage3_final.npz"
 FRAME = (640, 480)
-N_REQUESTS = 16
-N_WARM = 4
+N_REQUESTS = 8
+N_WARM = 2
+N_REPEATS = 5                  # repeats of each timing loop
 HBM_BYTES_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_S = 989e12           # dense bf16 tensor cores
 F32_FLOP_S = 67e12             # float32 outside the tensor cores
+# batch-8 against batch-1 rows: cuDNN sums a batch-8 convolution in another
+# order, which moves boxes and scores a little and may carry a row across
+# a threshold (at most ``flipped`` rows of a frame on one side only)
+WINDOW_TOL = dict(box=0.5, score=2e-2, flipped=1)
+BF16_TOL = 0.04   # a bf16 library yardstick against a plain version, as a
+                  # share of the output's largest magnitude
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(torch, fn, iters):
-    """Mean ms per call over ``iters`` calls between CUDA events, after a
-    warm-up call."""
+def cuda_ms(torch, fn, iters, repeats=N_REPEATS):
+    """ms per call: the median over ``repeats`` runs of a loop of
+    ``iters`` calls between CUDA events, after a warm-up call. Returns
+    (median, least, most)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return float(np.median(runs)), min(runs), max(runs)
 
 
 def bound_ms(nbytes, flops, flop_rate):
@@ -102,132 +125,313 @@ def nms_inputs(rng, b, k):
     return boxes, rng.random((b, k)) < 0.9
 
 
-def check_kernels(torch, engine_params, rng):
-    """Phase 3: every kernel against its plain version at batch 1 and 32.
-    Returns {name: record} for the kernels line."""
-    from millieye_torch.ops import nms_kernel, roi_kernel, stem
-    from millieye_torch.ops.roi_align import _batched_prep
-    import torch.nn.functional as F
+class KernelChecks:
+    """Phase 3. ``records[name]`` lists one dict per (case, batch): the
+    case's label, max_abs_err against the plain version, times, bound and
+    library time."""
 
-    dev = torch.device("cuda")
-    bf = torch.bfloat16
-    rec = {}
+    def __init__(self, torch, rng):
+        self.torch, self.rng = torch, rng
+        self.dev = torch.device("cuda")
+        self.records = {}
 
-    def put(name, batch, **kw):
-        rec.setdefault(name, {})[batch] = kw
-
-    for b in (1, 32):
-        # K1: NMS keep mask over the top-128 candidates
-        boxes, valid = nms_inputs(rng, b, 128)
-        tb = torch.tensor(boxes, device=dev)
-        tv = torch.tensor(valid, device=dev)
-        got = nms_kernel.nms_keep_mask_blocked(tb, tv, 0.5)
-        want = nms_kernel.nms_keep_mask_blocked_plain(tb, tv, 0.5)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K1 NMS b{b}: keep bits differ in "
-                                 f"{int((got != want).sum())} places")
-        # IoUs the greedy pass needs: each kept row against the live rows
-        # after it; ~14 float32 operations each
-        keep = want.cpu().numpy()
-        pairs = sum(int(valid[i, j + 1:].sum()) for i in range(b)
-                    for j in np.flatnonzero(keep[i]))
-        put("nms", b, err=0.0,
-            ms=cuda_ms(torch, lambda: nms_kernel.nms_keep_mask_blocked(
-                tb, tv, 0.5), 50),
-            plain_ms=cuda_ms(torch, lambda: nms_kernel
-                             .nms_keep_mask_blocked_plain(tb, tv, 0.5), 5),
-            bound=bound_ms(b * 128 * (16 + 2), 14 * pairs, F32_FLOP_S),
-            library_ms=None, library=None)
-
-        # K2 / K3: RoI crops over 26x26 maps, 64 NMS + 32 radar rows. The
-        # library yardstick is one einsum by.F.bx on the same bf16
-        # operands (cuBLAS, float32 accumulation); it rounds t and its
-        # output to bf16, so it is held to the plain version within 2% of
-        # the output's largest magnitude.
-        n, hw, ph, pw, c_out = 96, 26, 7, 7, 10
-        xy = rng.uniform(-10, 380, (b, n, 2))
-        rois = torch.tensor(np.concatenate(
-            [xy, xy + rng.uniform(4, 300, (b, n, 2))], -1),
-            dtype=torch.float32, device=dev)
-        for name, c, ps in (("ps_roi_align", ph * 128, True),
-                            ("roi_align", c_out, False)):
-            feats = torch.tensor(rng.standard_normal((b, hw, hw, c)),
-                                 dtype=bf, device=dev)
-            by, bx = _batched_prep(rois, hw, hw, (ph, pw), 1 / 16,
-                                   -0.5 if ps else 0.0, 0.1 if ps else 1.0,
-                                   -1, 4)
-            by, bx = by.to(bf).contiguous(), bx.to(bf).contiguous()
-            if ps:
-                kern = lambda: roi_kernel.ps_roi_align_padded_kernel(
-                    feats, by, bx, c_out)
-                plain = lambda: roi_kernel.ps_roi_align_padded_plain(
-                    feats, by, bx, c_out)
-                # the c_out*pw live lanes of each 128-lane block, as
-                # [B, H, W, ph, c_out, pw]: all the kernel reads
-                live = feats.view(b, hw, hw, ph, 128)[..., :c_out * pw] \
-                    .unflatten(-1, (c_out, pw))
-                library = lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu",
-                                               by, live, bx)
-                used = b * hw * hw * ph * c_out * pw
-                flops = 2 * b * n * ph * (hw * hw + hw) * c_out * pw
-            else:
-                kern = lambda: roi_kernel.roi_align_kernel(feats, by, bx)
-                plain = lambda: roi_kernel.roi_align_plain(feats, by, bx)
-                library = lambda: torch.einsum("bnph,bhwc,bnqw->bnpqc",
-                                               by, feats, bx)
-                used = feats.numel()
-                flops = 2 * b * n * ph * (hw * hw + pw * hw) * c
-            got, want = kern(), plain()
-            err = float((got - want).abs().max())
-            if not torch.equal(got, want):
-                raise AssertionError(f"{name} b{b}: not bit-equal to the "
-                                     f"plain version (max error {err})")
-            lib_err = float((library().float() - want).abs().max())
-            if not lib_err <= 0.02 * float(want.abs().max()):
-                raise AssertionError(f"{name} b{b}: the einsum yardstick "
-                                     f"is off by {lib_err}")
-            nbytes = (used + by.numel() + bx.numel()) * 2 + want.numel() * 4
-            put(name, b, err=err, ms=cuda_ms(torch, kern, 50),
-                plain_ms=cuda_ms(torch, plain, 10),
-                bound=bound_ms(nbytes, flops, BF16_FLOP_S),
-                library_ms=cuda_ms(torch, library, 50),
-                library=f"one torch.einsum by.F.bx, bf16 (max error "
-                        f"{lib_err:.3g} against the plain version)")
-
-        # K4: the stem pair on 416 px frames, with the served weights
-        p0, p2 = engine_params["darknet"][0], engine_params["darknet"][2]
-        w0, b0, w1, b1 = p0["w"], p0["b"], p2["w"], p2["b"]
-        x = torch.tensor(rng.uniform(0, 1, (b, 416, 416, 3)),
-                         dtype=torch.float32, device=dev)
-        got = stem.fused_stem_pair(x, w0, b0, w1, b1)
-        want = stem.fused_stem_pair_plain(x, w0, b0, w1, b1)
+    def case(self, name, label, batch, kern, plain, nbytes, flops, rate,
+             library=None, lib_note=None, lib_tol=None, iters=20):
+        """Hold ``kern()`` bit-equal to ``plain()``, time both and the
+        library call, and record the bound."""
+        torch = self.torch
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        if not torch.equal(got, want):
-            raise AssertionError(f"K4 stem b{b}: not bit-equal to the plain "
-                                 f"version (max error {err})")
-        wl0, wl1 = w0.to(bf), w1.to(bf)
-        bl0, bl1 = b0.to(bf), b1.to(bf)
-        xl = x.permute(0, 3, 1, 2).to(bf).contiguous(
-            memory_format=torch.channels_last)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"{name} {label} b{batch}: not bit-equal to "
+                                 f"the plain version (max error {err})")
+        lib_ms = lib_err = scale = None
+        if library is not None:
+            lib_err = float((library().float() - want.float()).abs().max())
+            scale = float(want.float().abs().max())
+            if not lib_err <= lib_tol * scale:
+                raise AssertionError(f"{name} {label} b{batch}: the library "
+                                     f"yardstick is off by {lib_err} "
+                                     f"(largest value {scale})")
+            lib_ms = cuda_ms(torch, library, iters)
+        rec = dict(case=label, batch=batch, err=err,
+                   ms=cuda_ms(torch, kern, iters),
+                   plain_ms=cuda_ms(torch, plain, 1, 3),
+                   bound=bound_ms(nbytes, flops, rate), library_ms=lib_ms,
+                   library=None if library is None else
+                   f"{lib_note} (max error {lib_err:.3g} against the plain "
+                   f"version, largest value {scale:.3g})")
+        self.records.setdefault(name, []).append(rec)
 
-        def cudnn():
-            y = F.max_pool2d(F.leaky_relu(F.conv2d(xl, wl0, bl0, padding=1),
-                                          0.1), 2)
-            return F.max_pool2d(F.leaky_relu(F.conv2d(y, wl1, bl1,
-                                                      padding=1), 0.1), 2)
+    # ------------------------------------------------------------- NMS
+    def nms(self, b):
+        """K1 at 128 and 512 candidates, K5 at 512 and 135, on knife-edge
+        inputs; the plain versions also against the sequential golden."""
+        from millieye_torch.ops import nms_kernel
+        from millieye_torch.ops.nms import nms_keep_mask_ref
+        torch = self.torch
+        for name, kern, plain, ks in (
+                ("nms", nms_kernel.nms_keep_mask_blocked,
+                 nms_kernel.nms_keep_mask_blocked_plain, (128, 512)),
+                ("nms_full", nms_kernel.nms_keep_mask_full,
+                 nms_kernel.nms_keep_mask_full_plain, (512, 135))):
+            for k in ks:
+                boxes, valid = nms_inputs(self.rng, b, k)
+                tb = torch.tensor(boxes, device=self.dev)
+                tv = torch.tensor(valid, device=self.dev)
+                want = plain(tb, tv, 0.5)
+                for i in range(min(b, 4)):   # the sequential golden
+                    if not torch.equal(want[i], nms_keep_mask_ref(
+                            tb[i], tv[i], 0.5)):
+                        raise AssertionError(f"{name} K={k} b{b}: the plain "
+                                             f"version differs from the "
+                                             f"golden on image {i}")
+                # IoUs the greedy answer needs: each kept row against the
+                # live rows after it; ~14 float32 operations each
+                keep = want.cpu().numpy()
+                pairs = sum(int(valid[i, j + 1:].sum()) for i in range(b)
+                            for j in np.flatnonzero(keep[i]))
+                self.case(name, f"K={k}", b,
+                          lambda: kern(tb, tv, 0.5),
+                          lambda: plain(tb, tv, 0.5),
+                          b * k * (16 + 2), 14 * pairs, F32_FLOP_S, iters=50)
 
-        flops = 2 * b * (416 * 416 * 16 * 27 + 208 * 208 * 32 * 144)
-        nbytes = x.numel() * 4 + want.numel() * 2 + (w0.numel()
-                                                     + w1.numel()) * 2
-        put("stem_pair", b, err=err,
-            ms=cuda_ms(torch, lambda: stem.fused_stem_pair(x, w0, b0, w1,
-                                                           b1), 20),
-            plain_ms=cuda_ms(torch, lambda: stem.fused_stem_pair_plain(
-                x, w0, b0, w1, b1), 5),
-            bound=bound_ms(nbytes, flops, BF16_FLOP_S),
-            library_ms=cuda_ms(torch, cudnn, 20),
-            library="cuDNN conv2d+bias+leaky+max_pool2d twice, bf16")
-    return rec
+    # ------------------------------------------------------------- RoI
+    def _rois(self, b, n):
+        xy = self.rng.uniform(-10, 380, (b, n, 2))
+        return self.torch.tensor(np.concatenate(
+            [xy, xy + self.rng.uniform(4, 300, (b, n, 2))], -1),
+            dtype=self.torch.float32, device=self.dev)
+
+    def _prep(self, rois, hw, ps):
+        from millieye_torch.ops.roi_align import _batched_prep
+        return _batched_prep(rois, hw, hw, (7, 7), 1 / 16,
+                             -0.5 if ps else 0.0, 0.1 if ps else 1.0, -1, 4)
+
+    def roi_bf16(self, b):
+        """K2 and K3 on bf16 operands, N = 96 (64 NMS + 32 radar rows) and
+        N = 232 (200 + 32). The library yardstick is one einsum by.F.bx
+        on the same bf16 operands (cuBLAS, float32 accumulation); it
+        rounds t and its output to bf16, so it is held to the plain
+        version within 4% of the output's largest magnitude."""
+        from millieye_torch.ops import roi_kernel
+        torch, bf = self.torch, self.torch.bfloat16
+        hw, ph, pw, c_out = 26, 7, 7, 10
+        for n in (96, 232):
+            rois = self._rois(b, n)
+            feats = torch.tensor(
+                self.rng.standard_normal((b, hw, hw, ph * 128)), dtype=bf,
+                device=self.dev)
+            by, bx = (t.to(bf).contiguous() for t in self._prep(rois, hw,
+                                                                True))
+            # the c_out*pw live lanes of each 128-lane block, as
+            # [B, H, W, ph, c_out, pw]: all the kernel reads
+            live = feats.view(b, hw, hw, ph, 128)[..., :c_out * pw] \
+                .unflatten(-1, (c_out, pw))
+            used = b * hw * hw * ph * c_out * pw
+            self.case(
+                "ps_roi_align", f"N={n}", b,
+                lambda: roi_kernel.ps_roi_align_padded_kernel(feats, by, bx,
+                                                              c_out),
+                lambda: roi_kernel.ps_roi_align_padded_plain(feats, by, bx,
+                                                             c_out),
+                (used + by.numel() + bx.numel()) * 2
+                + b * n * ph * pw * c_out * 4,
+                2 * b * n * ph * (hw * hw + hw) * c_out * pw, BF16_FLOP_S,
+                lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu", by, live,
+                                     bx),
+                "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
+            rfeats = torch.tensor(
+                self.rng.standard_normal((b, hw, hw, c_out)), dtype=bf,
+                device=self.dev)
+            ry, rx = (t.to(bf).contiguous() for t in self._prep(rois, hw,
+                                                                False))
+            self.case(
+                "roi_align", f"N={n} bf16", b,
+                lambda: roi_kernel.roi_align_kernel(rfeats, ry, rx),
+                lambda: roi_kernel.roi_align_plain(rfeats, ry, rx),
+                (rfeats.numel() + ry.numel() + rx.numel()) * 2
+                + b * n * ph * pw * c_out * 4,
+                2 * b * n * ph * (hw * hw + pw * hw) * c_out, BF16_FLOP_S,
+                lambda: torch.einsum("bnph,bhwc,bnqw->bnpqc", ry, rfeats,
+                                     rx),
+                "one torch.einsum by.F.bx, bf16", BF16_TOL)
+
+    def roi_f32(self, b):
+        """K6 (N = 200, both channel orders, "default" and "highest"), K7
+        (N = 232, "split" and "highest"), K3 on float32 operands (N = 232,
+        "highest") and the same crop through K6 (layout "c", what
+        ``roi_align(pack_p=False)`` runs), held bit-equal to K3's.
+        Library: one einsum by.F.bx, float32 with
+        TF32 off, or on bf16 operands at "default" (4% as above). Bound:
+        "highest" counts its products at the float32 rate; "default" one
+        bf16 product, "split" three for t and two for the w-sum, at the
+        bf16 tensor-core rate."""
+        from millieye_torch.ops import roi_kernel
+        torch, bf = self.torch, self.torch.bfloat16
+        hw, ph, pw, c_out = 26, 7, 7, 10
+        lib_tol = {"default": BF16_TOL, "split": 2.0 ** -14,
+                   "highest": 1e-5}
+
+        def ps_flops(n, precision):
+            s1, s2 = 2 * b * n * ph * hw * hw * c_out * pw, \
+                2 * b * n * ph * hw * c_out * pw
+            if precision == "split":
+                return 3 * s1 + 2 * s2, BF16_FLOP_S
+            return s1 + s2, (F32_FLOP_S if precision == "highest"
+                             else BF16_FLOP_S)
+
+        def einsum_for(spec, by, f, bx, precision):
+            if precision == "default":
+                by, f, bx = by.to(bf), f.to(bf), bx.to(bf)
+            return (lambda: torch.einsum(spec, by, f, bx),
+                    "one torch.einsum by.F.bx, "
+                    + ("bf16" if precision == "default"
+                       else "float32, TF32 off"))
+
+        n = 200
+        rois = self._rois(b, n)
+        by, bx = (t.contiguous() for t in self._prep(rois, hw, True))
+        feats = torch.tensor(self.rng.standard_normal((b, hw, hw, 490)),
+                             dtype=torch.float32, device=self.dev)
+        nbytes = (feats.numel() + by.numel() + bx.numel()
+                  + b * n * ph * pw * c_out) * 4
+        for order, view, spec in (
+                ("upq", feats.view(b, hw, hw, c_out, ph, pw),
+                 "bnph,bhwupq,bnqw->bnpqu"),
+                ("puq", feats.view(b, hw, hw, ph, c_out, pw),
+                 "bnph,bhwpuq,bnqw->bnpqu")):
+            for precision in ("default", "highest"):
+                lib, note = einsum_for(spec, by, view, bx, precision)
+                self.case(
+                    "ps_roi_align_f32", f"N={n} {order} {precision}", b,
+                    lambda: roi_kernel.ps_roi_align_f32_kernel(
+                        feats, by, bx, c_out, precision, order),
+                    lambda: roi_kernel.ps_roi_align_f32_plain(
+                        feats, by, bx, c_out, precision, order),
+                    nbytes, *ps_flops(n, precision), lib, note,
+                    lib_tol[precision])
+
+        n = 232
+        rois = self._rois(b, n)
+        by, bx = (t.contiguous() for t in self._prep(rois, hw, True))
+        fpad = torch.zeros((b, hw, hw, ph * 128), device=self.dev)
+        fpad[..., torch.as_tensor(roi_kernel.ps_channel_perm_pad(
+            c_out, ph, pw), device=self.dev)] = torch.tensor(
+                self.rng.standard_normal((b, hw, hw, 490)),
+                dtype=torch.float32, device=self.dev)
+        live = fpad.view(b, hw, hw, ph, 128)[..., :c_out * pw] \
+            .unflatten(-1, (c_out, pw))
+        nbytes = (b * hw * hw * 490 + by.numel() + bx.numel()
+                  + b * n * ph * pw * c_out) * 4
+        for precision in ("split", "highest"):
+            lib, note = einsum_for("bnph,bhwpuq,bnqw->bnpqu", by, live, bx,
+                                   precision)
+            self.case(
+                "ps_roi_align_padded_f32", f"N={n} {precision}", b,
+                lambda: roi_kernel.ps_roi_align_padded_f32_kernel(
+                    fpad, by, bx, c_out, precision),
+                lambda: roi_kernel.ps_roi_align_f32_plain(
+                    fpad, by, bx, c_out, precision, "padded"),
+                nbytes, *ps_flops(n, precision), lib, note,
+                lib_tol[precision])
+
+        by, bx = (t.contiguous() for t in self._prep(rois, hw, False))
+        feats = torch.tensor(self.rng.standard_normal((b, hw, hw, c_out)),
+                             dtype=torch.float32, device=self.dev)
+        lib, note = einsum_for("bnph,bhwc,bnqw->bnpqc", by, feats, bx,
+                               "highest")
+        self.case(
+            "roi_align", f"N={n} float32 highest", b,
+            lambda: roi_kernel.roi_align_kernel(feats, by, bx, "highest"),
+            lambda: roi_kernel.roi_align_f32_plain(feats, by, bx, "highest"),
+            (feats.numel() + by.numel() + bx.numel()
+             + b * n * ph * pw * c_out) * 4,
+            2 * b * n * ph * (hw * hw + pw * hw) * c_out, F32_FLOP_S,
+            lib, note, lib_tol["highest"])
+        if not torch.equal(
+                roi_kernel.ps_roi_align_f32_kernel(feats, by, bx, c_out,
+                                                   "highest", "c"),
+                roi_kernel.roi_align_kernel(feats, by, bx, "highest")):
+            raise AssertionError(f"b{b}: K6 at layout 'c' differs from K3 "
+                                 f"on float32 operands")
+        self.case(
+            "ps_roi_align_f32", f"N={n} c highest", b,
+            lambda: roi_kernel.ps_roi_align_f32_kernel(feats, by, bx, c_out,
+                                                       "highest", "c"),
+            lambda: roi_kernel.roi_align_f32_plain(feats, by, bx, "highest"),
+            (feats.numel() + by.numel() + bx.numel()
+             + b * n * ph * pw * c_out) * 4,
+            2 * b * n * ph * (hw * hw + pw * hw) * c_out, F32_FLOP_S,
+            lib, note, lib_tol["highest"])
+
+    # ------------------------------------------------------------ stems
+    def stems(self, b, darknet_params):
+        """K4 on 416 px frames and K9 at the four stage shapes of the
+        416 px network, with the served (folded) weights. Library: cuDNN
+        conv2d + bias + leaky_relu + max_pool2d on channels_last
+        operands, bf16 where the kernel's products are bf16 and float32
+        (TF32 off) at "highest"; held within 4% (bf16) or 0.2% (float32;
+        the float16 store may round the other way) of the largest
+        output."""
+        import torch.nn.functional as F
+        from millieye_torch.ops import stem
+        torch, bf = self.torch, self.torch.bfloat16
+
+        def cudnn_stages(x, stages, dtype):
+            xl = x.permute(0, 3, 1, 2).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+            ws = [(w.to(dtype), bs.to(dtype)) for w, bs in stages]
+
+            def run():
+                y = xl
+                for w, bs in ws:
+                    y = F.max_pool2d(F.leaky_relu(
+                        F.conv2d(y, w, bs, padding=1), 0.1), 2)
+                return y.permute(0, 2, 3, 1)
+            return run
+
+        def wb(i):
+            return (darknet_params[i]["w"].float(),
+                    darknet_params[i]["b"].float())
+
+        (w0, b0), (w1, b1) = wb(0), wb(2)
+        x = torch.tensor(self.rng.uniform(0, 1, (b, 416, 416, 3)),
+                         dtype=torch.float32, device=self.dev)
+        self.case(
+            "stem_pair", "416 px", b,
+            lambda: stem.fused_stem_pair(x, w0, b0, w1, b1),
+            lambda: stem.fused_stem_pair_plain(x, w0, b0, w1, b1),
+            x.numel() * 4 + b * 104 * 104 * 32 * 2
+            + (w0.numel() + w1.numel()) * 2,
+            2 * b * (416 * 416 * 16 * 27 + 208 * 208 * 32 * 144),
+            BF16_FLOP_S, cudnn_stages(x, [(w0, b0), (w1, b1)], bf),
+            "cuDNN conv2d+bias+leaky+max_pool2d twice, bf16", BF16_TOL)
+
+        for i, hw, precision, store in ((0, 416, "highest", torch.float16),
+                                        (2, 208, "highest", torch.float16),
+                                        (4, 104, "default", torch.float16),
+                                        (6, 52, "default", torch.bfloat16)):
+            w, bs = wb(i)
+            cout, cin = w.shape[0], w.shape[1]
+            x = torch.tensor(self.rng.uniform(0, 1, (b, hw, hw, cin)),
+                             dtype=torch.float32, device=self.dev)
+            hi = precision == "highest"
+            self.case(
+                "stem_stage", f"stage {i}: {hw} px {cin}->{cout} "
+                f"{precision} {str(store)[6:]}", b,
+                lambda: stem.fused_stem_stage(x, w, bs, precision, store),
+                lambda: stem.fused_stem_stage_plain(x, w, bs, precision,
+                                                    store),
+                x.numel() * 4 + b * (hw // 2) ** 2 * cout * 2
+                + w.numel() * 4 + cout * 4,
+                2 * b * hw * hw * cout * 9 * cin,
+                F32_FLOP_S if hi else BF16_FLOP_S,
+                cudnn_stages(x, [(w, bs)], torch.float32 if hi else bf),
+                "cuDNN conv2d+bias+leaky+max_pool2d, "
+                + ("float32, TF32 off" if hi else "bf16"),
+                2e-3 if hi else BF16_TOL)
 
 
 def requests(rng, n):
@@ -244,8 +448,8 @@ def requests(rng, n):
     return out
 
 
-def profile_requests(torch, engine, reqs):
-    """Device time per request from a torch.profiler trace of ``reqs``:
+def profile_calls(torch, label, calls):
+    """Device time per call from a torch.profiler trace of ``calls``:
     kernel time summed over the CUDA events, against the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -254,23 +458,48 @@ def profile_requests(torch, engine, reqs):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        for frame, pts, props in reqs:
-            engine.infer(frame, pts, props)
-        wall = (time.perf_counter() - t) * 1e3 / len(reqs)
+        for call in calls:
+            call()
+        wall = (time.perf_counter() - t) * 1e3 / len(calls)
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
-    dev = sum(e.self_device_time_total for e in kern) / 1e3 / len(reqs)
-    n_launch = sum(e.count for e in kern) / len(reqs)
+    dev = sum(e.self_device_time_total for e in kern) / 1e3 / len(calls)
+    n_launch = sum(e.count for e in kern) / len(calls)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    log(f"profile over {len(reqs)} requests: device busy {dev:.3f} ms of "
-        f"{wall:.2f} ms wall per request ({100 * dev / wall:.1f}%), "
-        f"{n_launch:.0f} device activities per request (profiled wall "
-        f"includes the profiler's overhead)")
-    for e in top:
-        log(f"  {e.self_device_time_total / 1e3 / len(reqs):8.4f} ms/request"
-            f"  x{e.count / len(reqs):g}  {e.key[:90]}")
+    log(f"profile of {label} over {len(calls)} requests: device busy "
+        f"{dev:.3f} ms of {wall:.2f} ms wall per request "
+        f"({100 * dev / wall:.1f}%), {n_launch:.0f} device activities per "
+        f"request (profiled wall includes the profiler's overhead)")
+    own = [e for e in kern if "(anonymous namespace)::" in e.key
+           and "at::" not in e.key
+           and e not in top]             # the port's kernels below the top
+    for e in top + own:
+        log(f"  {e.self_device_time_total / 1e3 / len(calls):8.4f} ms/request"
+            f"  x{e.count / len(calls):g}  {e.key[:90]}")
     return {"device_ms_per_request": dev, "wall_ms_per_request": wall,
             "device_activities_per_request": n_launch}
+
+
+def rows_match(got, want, tol):
+    """Hold (rows, valid) pairs together: each valid row is paired with
+    the nearest row of the other side by box; a pair counts when its
+    boxes agree within ``tol["box"]``. Returns (ok, largest box
+    difference, largest score difference, rows without a partner): ok
+    when the paired scores agree within ``tol["score"]`` and at most
+    ``tol["flipped"]`` rows stand on one side only."""
+    g, w = got[0][got[1]], want[0][want[1]]
+    if len(g) == 0 or len(w) == 0:
+        return len(g) + len(w) <= tol["flipped"], 0.0, 0.0, len(g) + len(w)
+    dist = np.abs(g[:, None, :4] - w[None, :, :4]).max(-1)
+    match = dist.argmin(1)
+    paired = [i for i in range(len(g)) if dist[i, match[i]] <= tol["box"]
+              and dist[:, match[i]].argmin() == i]
+    flipped = len(g) + len(w) - 2 * len(paired)
+    d_box = float(dist[paired, match[paired]].max()) if paired else 0.0
+    d_score = float(np.abs(g[paired, 4:] - w[match[paired], 4:]).max()) \
+        if paired else 0.0
+    return (d_score <= tol["score"] and flipped <= tol["flipped"], d_box,
+            d_score, flipped)
 
 
 def main():
@@ -279,10 +508,11 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
-    from millieye_torch.cli._common import build_fusion
+    from millieye_torch.cli._common import build_fusion, build_refine
     from millieye_torch.device import set_numerics
+    from millieye_torch.entry import entry
     from millieye_torch.ops import cuda_lib, nms_kernel, roi_kernel, stem
-    from millieye_torch.runtime.engine import FusionEngine
+    from millieye_torch.runtime.engine import FusionEngine, fold_for_serving
 
     t_start = time.time()
     card = subprocess.run(
@@ -311,79 +541,245 @@ def main():
                       "millieye_tpu/ops/roi_pallas.py:237"),
         "stem_pair": (stem.fused_stem_pair, "millieye_torch/csrc/stem.cu",
                       "millieye_tpu/ops/stem_pallas.py:941"),
+        "nms_full": (nms_kernel.nms_keep_mask_full,
+                     "millieye_torch/csrc/nms.cu",
+                     "millieye_tpu/ops/nms_pallas.py:80"),
+        "ps_roi_align_f32": (roi_kernel.ps_roi_align_f32_kernel,
+                             "millieye_torch/csrc/roi_align.cu",
+                             "millieye_tpu/ops/roi_pallas.py:119"),
+        "ps_roi_align_padded_f32": (roi_kernel.ps_roi_align_padded_f32_kernel,
+                                    "millieye_torch/csrc/roi_align.cu",
+                                    "millieye_tpu/ops/roi_pallas.py:344"),
+        "stem_stage": (stem.fused_stem_stage, "millieye_torch/csrc/stem.cu",
+                       "millieye_tpu/ops/stem_pallas.py:500"),
     }
 
-    model, params, state = build_fusion(CKPT, "pallas_max_s01")
-    engine = FusionEngine(model, params, state, frame_size=FRAME)
+    def engine_at(preset, **cfg):
+        model, params, state = build_fusion(CKPT, preset, **cfg)
+        return FusionEngine(model, params, state, frame_size=FRAME)
+
+    engines = {"pallas_max_s01": engine_at("pallas_max_s01"),
+               "pallas_max4": engine_at("pallas_max4"),
+               "pallas_stem": engine_at("pallas_stem"),
+               "pallas_max4+highest": engine_at("pallas_max4",
+                                                roi_precision="highest")}
 
     rng = np.random.default_rng(0)
-    rec = check_kernels(torch, engine.params, rng)
+    checks = KernelChecks(torch, rng)
+    t = time.time()
+    for b in (1, 32):
+        checks.nms(b)
+        checks.roi_bf16(b)
+        checks.roi_f32(b)
+        checks.stems(b, engines["pallas_max_s01"].params["darknet"])
+    torch.cuda.empty_cache()
+    log(f"kernel phase: {sum(map(len, checks.records.values()))} cases "
+        f"bit-equal to their plain versions, {time.time() - t:.1f} s")
 
+    rng = np.random.default_rng(1)      # the requests' own stream
     reqs = requests(rng, N_REQUESTS)
-    for fn, *_ in kernels.values():
-        fn.launches = 0
-    answers, lat = [], []
-    for i, (frame, pts, props) in enumerate(reqs):
-        t = time.perf_counter()
-        answers.append(engine.infer(frame, pts, props))
-        lat.append(time.perf_counter() - t)
-    launches = {name: fn.launches for name, (fn, *_) in kernels.items()}
-    log(f"main path launches over {N_REQUESTS} requests: {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    n_valid = []
-    for i, (frame, pts, props) in enumerate(reqs):
-        boxes, valid = answers[i]
-        if boxes.shape != (model.cfg.max_det + model.cfg.max_radar, 6) \
-                or not np.isfinite(boxes).all():
-            raise AssertionError(f"request {i}: bad answer {boxes.shape}")
-        with cuda_lib.plain_versions():
-            ref = engine.infer(frame, pts, props)
-        if not (np.array_equal(boxes, ref[0])
-                and np.array_equal(valid, ref[1])):
-            raise AssertionError(f"request {i}: kernels and plain versions "
-                                 f"disagree\n{boxes[valid]}\n"
-                                 f"{ref[0][ref[1]]}")
-        n_valid.append(int(valid.sum()))
-    timed = np.array(lat[N_WARM:]) * 1e3
-    prof = profile_requests(torch, engine, reqs[:4])
-    log(f"served {N_REQUESTS} requests at pallas_max_s01 (416 px, b1): "
-        f"valid rows per answer {n_valid}; every answer bit-identical to "
-        f"the same engine's inside cuda_lib.plain_versions()")
-    log(f"latency over the last {len(timed)} requests: p50 "
-        f"{np.median(timed):.2f} ms, max {timed.max():.2f} ms, "
-        f"{1e3 / timed.mean():.1f} frames/s (host clock, each request "
-        f"ends in a copy to the host)")
+    launches_by_path, answers_by_path, summary = {}, {}, {}
+
+    def drive(path, calls, shape, must_launch):
+        """Run ``calls`` with the launch counts at 0, check the counts,
+        the answers and their equality to the plain-version run."""
+        for fn, *_ in kernels.values():
+            fn.launches = 0
+        answers, lat = [], []
+        for call in calls:
+            t0 = time.perf_counter()
+            answers.append(call())
+            lat.append(time.perf_counter() - t0)
+        launches = {name: fn.launches for name, (fn, *_) in kernels.items()}
+        launches_by_path[path] = launches
+        short = {k: launches[k] for k, per in must_launch.items()
+                 if launches[k] < per * len(calls)}
+        if short:
+            raise AssertionError(f"{path}: kernels launched too few times "
+                                 f"over {len(calls)} calls: {short} (need "
+                                 f"{must_launch} per call)")
+        n_valid = []
+        for i, (call, (boxes, valid)) in enumerate(zip(calls, answers)):
+            if boxes.shape != shape or not np.isfinite(boxes).all():
+                raise AssertionError(f"{path} call {i}: bad answer "
+                                     f"{boxes.shape}, want {shape}")
+            with cuda_lib.plain_versions():
+                ref = call()
+            if not (np.array_equal(boxes, ref[0])
+                    and np.array_equal(valid, ref[1])):
+                raise AssertionError(
+                    f"{path} call {i}: kernels and plain versions disagree\n"
+                    f"{boxes[valid]}\n{ref[0][ref[1]]}")
+            n_valid.append(int(valid.sum()))
+        timed = np.array(lat[N_WARM:]) * 1e3
+        used = {k: v for k, v in launches.items() if v}
+        log(f"path {path}: {len(calls)} calls at 416 px, batch 1; launches "
+            f"{used}; valid rows per answer {n_valid}; every answer "
+            f"bit-identical to the same path inside "
+            f"cuda_lib.plain_versions(); p50 {np.median(timed):.2f} ms, max "
+            f"{timed.max():.2f} ms, {1e3 / timed.mean():.1f} calls/s over "
+            f"the last {len(timed)} (host clock, each call ends in a copy "
+            f"to the host)")
+        answers_by_path[path] = answers
+        summary[path] = {"calls": len(calls),
+                         "p50_ms": float(np.median(timed)),
+                         "per_s": float(1e3 / timed.mean()),
+                         "valid_rows": n_valid}
+
+    def infer_calls(engine):
+        return [lambda r=r: engine.infer(*r) for r in reqs]
+
+    def rows(engine):
+        return (engine.model.cfg.max_det + engine.model.cfg.max_radar, 6)
+
+    one = dict.fromkeys
+    eng = engines["pallas_max_s01"]
+    drive("pallas_max_s01", infer_calls(eng), rows(eng),
+          one(("nms", "ps_roi_align", "roi_align", "stem_pair"), 1))
+    eng = engines["pallas_max4"]
+    drive("pallas_max4", infer_calls(eng), rows(eng),
+          one(("stem_stage", "stem_pair", "nms", "ps_roi_align",
+               "roi_align"), 1))
+    eng = engines["pallas_stem"]
+    drive("pallas_stem", infer_calls(eng), rows(eng),
+          {"stem_stage": 2, "nms": 1})
+    eng = engines["pallas_max4+highest"]
+    drive("pallas_max4+highest", infer_calls(eng), rows(eng),
+          one(("ps_roi_align_padded_f32", "roi_align", "stem_stage",
+               "stem_pair", "nms"), 1))
+
+    # entry(): the float32 flagship forward; its example inputs with a new
+    # image for each call
+    fn, args = entry()
+    images = [torch.tensor(rng.uniform(size=(1, 416, 416, 3)),
+                           dtype=torch.float32, device="cuda")
+              for _ in range(N_REQUESTS)]
+    images[0] = args[2]
+
+    def entry_call(img):
+        boxes, valid = fn(args[0], args[1], img, *args[3:])
+        return boxes.cpu().numpy(), valid.cpu().numpy()
+
+    drive("entry", [lambda im=im: entry_call(im) for im in images],
+          (1, 232, 7), {"nms_full": 1})
+
+    # module2: the camera-only refinement network through kernel K6
+    model2, p2, s2 = build_refine(CKPT, "f32", roi_impl="kernel")
+    p2, s2 = fold_for_serving(model2, p2, s2)
+    log("refine path: Darknet and the score-map stack from the fusion "
+        "checkpoint; the refinement and ensemble heads are UNTRAINED "
+        "(seeded initialisers, torch.Generator().manual_seed(0)): no "
+        "module2 checkpoint is tracked")
+
+    @torch.no_grad()
+    def refine_call(img):
+        out = model2.apply(p2, s2, img)
+        return out["boxes"].cpu().numpy(), out["valid"].cpu().numpy()
+
+    drive("refine", [lambda im=im: refine_call(im) for im in images],
+          (1, 200, 7), {"ps_roi_align_f32": 1, "nms": 1})
+
+    # one batched window of the 8 frames at pallas_max4
+    eng = engines["pallas_max4"]
+    packed = [eng.pack_radar(pts, props) for _, pts, props in reqs]
+    tens = [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to("cuda")
+            for a in [[f for f, _, _ in reqs]] + [list(c)
+                                                  for c in zip(*packed)]]
+    step = eng.batched_step_fn(0)
+    step(*tens)                                   # warm-up at batch 8
+    for wfn, *_ in kernels.values():
+        wfn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wrows, wvalid = step(*tens)
+    wrows, wvalid = wrows.cpu().numpy(), wvalid.cpu().numpy()
+    window_ms = (time.perf_counter() - t0) * 1e3
+    launches = {name: wfn.launches for name, (wfn, *_) in kernels.items()}
+    launches_by_path["window8@pallas_max4"] = launches
+    short = [k for k in ("stem_stage", "stem_pair", "nms", "ps_roi_align",
+                         "roi_align") if launches[k] < 1]
+    if short:
+        raise AssertionError(f"batched window: kernels not launched: {short}")
+    if wrows.shape != (N_REQUESTS,) + rows(eng) \
+            or not np.isfinite(wrows).all():
+        raise AssertionError(f"batched window: bad answer {wrows.shape}")
+    with cuda_lib.plain_versions():
+        prows, pvalid = step(*tens)
+    if not (np.array_equal(wrows, prows.cpu().numpy())
+            and np.array_equal(wvalid, pvalid.cpu().numpy())):
+        raise AssertionError("batched window: kernels and plain versions "
+                             "disagree")
+    exact, d_box, d_score, flipped = 0, 0.0, 0.0, 0
+    for i, want in enumerate(answers_by_path["pallas_max4"]):
+        got = (wrows[i], wvalid[i])
+        if np.array_equal(got[0], want[0]) and np.array_equal(got[1],
+                                                              want[1]):
+            exact += 1
+            continue
+        ok, db, ds, fl = rows_match(got, want, WINDOW_TOL)
+        if not ok:
+            raise AssertionError(
+                f"batched window, frame {i}: differs from the per-frame "
+                f"answer beyond {WINDOW_TOL} (box {db}, score {ds}, {fl} "
+                f"rows on one side only)\n"
+                f"{got[0][got[1]]}\n{want[0][want[1]]}")
+        d_box, d_score = max(d_box, db), max(d_score, ds)
+        flipped += fl
+    n_rows = int(sum(v.sum() for _, v in answers_by_path["pallas_max4"]))
+    log(f"batched window of {N_REQUESTS} frames at pallas_max4: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; bit-identical to "
+        f"the same window inside cuda_lib.plain_versions(); {exact} of "
+        f"{N_REQUESTS} answers bit-identical to the per-frame answers, the "
+        f"rest paired by box within {d_box:.3g} px and {d_score:.3g} on "
+        f"scores, {flipped} of {n_rows} rows on one side only (tolerance "
+        f"{WINDOW_TOL} per frame: cuDNN sums a batch-8 convolution in "
+        f"another order); {window_ms:.2f} ms for the window "
+        f"({N_REQUESTS * 1e3 / window_ms:.1f} frames/s, host clock)")
+    summary["window8@pallas_max4"] = {
+        "ms": window_ms, "frames_per_s": N_REQUESTS * 1e3 / window_ms,
+        "bit_identical": exact, "max_box_diff": d_box,
+        "max_score_diff": d_score, "rows_on_one_side": flipped}
+
+    profiles = {p: profile_calls(torch, p, infer_calls(engines[p])[:4])
+                for p in ("pallas_max_s01", "pallas_max4")}
 
     line = []
-    for name, (fn, src, replaces) in kernels.items():
-        for b, r in rec[name].items():
+    for name, (_, src, replaces) in kernels.items():
+        per_path = {p: l[name] for p, l in launches_by_path.items()
+                    if l[name]}
+        for r in checks.records[name]:
             lib = ("none (no single PyTorch call computes it)"
-                   if r["library_ms"] is None
-                   else f"{r['library_ms']:.4f} ms ({r['library']})")
-            log(f"kernel {name} b{b}: max_abs_err {r['err']:.3g}, "
-                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                f"{r['bound'][0]:.6f} ms ({r['bound'][1]}), library {lib}, "
-                f"launches on the main path {launches[name]} "
-                f"({launches[name] / N_REQUESTS:g} per request)")
-        r1, r32 = rec[name][1], rec[name][32]
+                   if r["library_ms"] is None else
+                   f"{r['library_ms'][0]:.4f} ms [{r['library_ms'][1]:.4f}, "
+                   f"{r['library_ms'][2]:.4f}] ({r['library']})")
+            log(f"kernel {name} {r['case']} b{r['batch']}: max_abs_err "
+                f"{r['err']:.3g}, {r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}, "
+                f"{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} ms, bound "
+                f"{r['bound'][0]:.6f} ms ({r['bound'][1]}), library {lib}")
+        log(f"kernel {name}: launches by path {per_path}")
+
+        def flat(r):
+            return {"case": r["case"], "batch": r["batch"],
+                    "max_abs_err": r["err"], "ms": r["ms"][0],
+                    "ms_min": r["ms"][1], "ms_max": r["ms"][2],
+                    "plain_ms": r["plain_ms"][0], "bound_ms": r["bound"][0],
+                    "bound_by": r["bound"][1],
+                    "library_ms": (None if r["library_ms"] is None
+                                   else r["library_ms"][0])}
+
+        first = flat(checks.records[name][0])     # its first case, batch 1
         line.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r1["err"], "ms": r1["ms"],
-            "plain_ms": r1["plain_ms"], "bound_ms": r1["bound"][0],
-            "bound_by": r1["bound"][1], "library_ms": r1["library_ms"],
-            "b32": {"max_abs_err": r32["err"], "ms": r32["ms"],
-                    "plain_ms": r32["plain_ms"], "bound_ms": r32["bound"][0],
-                    "bound_by": r32["bound"][1],
-                    "library_ms": r32["library_ms"]}})
+            "replaces": replaces, "launches": sum(per_path.values()),
+            "launches_by_path": per_path,
+            "max_abs_err": max(r["err"] for r in checks.records[name]),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"],
+            "cases": [flat(r) for r in checks.records[name]]})
     log(f"total: {time.time() - t_start:.1f} s")
-    print(json.dumps({"kernels": line, "card": card,
-                      "requests": N_REQUESTS,
-                      "p50_ms": float(np.median(timed)),
-                      "fps": float(1e3 / timed.mean()), "profile": prof}))
+    print(json.dumps({"kernels": line, "card": card, "paths": summary,
+                      "profile": profiles}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,33 +1,86 @@
-"""The port's serving presets and network builder (port of the ``f32``
-and ``pallas_max_s01`` rows of ``millieye_tpu/cli/_common.py``)."""
+"""The port's serving presets and network constructors (port of
+``millieye_tpu/cli/_common.py``: the rows of ``SERVING_PRESETS`` whose
+kernels the port has, ``serving_overrides``, ``build_fusion``,
+``build_refine``)."""
 from __future__ import annotations
+
+import torch
 
 from millieye_torch.device import resolve_device, set_numerics
 from millieye_torch.io.checkpoint import convert, read_npz, to_device
 from millieye_torch.models.darknet import Darknet
-from millieye_torch.models.fusion import _DTYPES, FusionConfig, FusionNetwork
+from millieye_torch.models.fusion import (_DTYPES, FusionConfig,
+                                          FusionNetwork, RefineNetwork)
 from millieye_torch.models.zoo import tiny_yolov3_defs
 
-# ``pallas_max_s01``: bf16 backbone with stem stages 0/2/4 in float32
-# arithmetic and float16 storage, stages 0+2 fused into kernel K4, bf16
-# heads, NMS over the top 128 candidates (kernel K1), max_det 64, RoI
-# crops through kernels K2 and K3. ``f32``: the plain float32 network.
+_LADDER = {"compute_dtype": "bfloat16", "hi_prec": (0, 2, 4),
+           "hi_store": "float16"}
+_HEADS = dict(_LADDER, heads_dtype="bfloat16")
+# Pair variants of the JAX package that are kernel K4: "phase" (float32
+# patch scratches) and "phase_s01" (bf16 scratches) differ only in how the
+# TPU buffers the patches and give identical numbers with bf16 products,
+# so on the card both names map to the one kernel.
+_PAIR_VARIANTS = ("phase", "phase_s01")
+# stages 0+2 as the fused pair, kernel K4
+_PAIR = dict(_HEADS, stem=(0, 2), stem_pair=True, stem_precision="default",
+             stem_variant="phase")
+# + the RoI crops through kernels K2 and K3
+_MAX = dict(_PAIR, roi_impl="kernel", roi_precision="default")
+
+# The serving ladder. ``f32``: the plain float32 network. ``bf16``: bf16
+# backbone. ``bf16_f32stem`` / ``bf16_f16stem``: stem stages 0/2/4 in
+# float32 arithmetic, stored float32 / float16. ``bf16_heads``: + bf16
+# score maps, RoI crops and heads. ``pallas_stem``: + stages 0 and 2 each
+# through the single-stage kernel K9 in float32 products. ``pallas_phase``:
+# stages 0+2 through the pair kernel K4 instead. ``pallas_max``: + the
+# RoI kernels; ``pallas_max4``: + stage 4 through K9 in bf16 products;
+# ``_k256`` / ``_d64`` / ``_k128`` / ``_s01``: fewer NMS candidates and
+# detections (NMS kernel K1 at 512, 256 or 128 candidates).
 SERVING_PRESETS = {
     "f32": {},
-    "pallas_max_s01": {"compute_dtype": "bfloat16", "hi_prec": (0, 2, 4),
-                       "hi_store": "float16", "heads_dtype": "bfloat16",
-                       "stem_pair": 0, "roi_impl": "kernel",
-                       "pre_nms_top_k": 128, "max_det": 64},
+    "bf16": {"compute_dtype": "bfloat16"},
+    "bf16_f16stem": dict(_LADDER),
+    "bf16_f32stem": {"compute_dtype": "bfloat16", "hi_prec": (0, 2, 4)},
+    "bf16_heads": dict(_HEADS),
+    "pallas_stem": dict(_HEADS, stem=(0, 2)),
+    "pallas_phase": dict(_PAIR),
+    "pallas_max": dict(_MAX),
+    "pallas_max4": dict(_MAX, stem=(0, 2, 4)),
+    "pallas_max_k256": dict(_MAX, pre_nms_top_k=256),
+    "pallas_max_d64": dict(_MAX, pre_nms_top_k=256, max_det=64),
+    "pallas_max_k128": dict(_MAX, pre_nms_top_k=128, max_det=64),
+    "pallas_max_s01": dict(_MAX, stem_variant="phase_s01",
+                           pre_nms_top_k=128, max_det=64),
 }
 
 
 def serving_overrides(name):
-    """(hi_prec_stages, hi_prec_store, stem_pair, FusionConfig overrides)."""
+    """(hi_prec_stages, hi_prec_store, stem options for ``Darknet``,
+    ``FusionConfig`` overrides)."""
     preset = dict(SERVING_PRESETS[name])
     hi = tuple(preset.pop("hi_prec", ()))
     store = preset.pop("hi_store", None)
-    stem_pair = preset.pop("stem_pair", None)
-    return hi, store, stem_pair, preset
+    stem_kw = {
+        "stem_stages": tuple(preset.pop("stem", ())),
+        "stem_pair": bool(preset.pop("stem_pair", False)),
+        "stem_precision": preset.pop("stem_precision", "highest"),
+        "stem_pair_variant": preset.pop("stem_variant", "phase_s01"),
+    }
+    return hi, store, stem_kw, preset
+
+
+def _build_darknet(preset, img_size, num_classes):
+    hi, store, stem_kw, over = serving_overrides(preset)
+    variant = stem_kw.pop("stem_pair_variant")
+    if stem_kw["stem_pair"] and variant not in _PAIR_VARIANTS:
+        raise ValueError(f"stem pair variant {variant!r} has no kernel here "
+                         f"(have {_PAIR_VARIANTS})")
+    darknet = Darknet(tiny_yolov3_defs(num_classes=num_classes,
+                                       img_size=img_size),
+                      img_size=img_size, hi_prec_stages=hi,
+                      hi_prec_store=_DTYPES[store] if store else None,
+                      **stem_kw)
+    return darknet, over
 
 
 def build_fusion(weights, preset="f32", img_size=416, num_classes=12,
@@ -38,13 +91,33 @@ def build_fusion(weights, preset="f32", img_size=416, num_classes=12,
     (model, params, state) with unfolded BN (``runtime.engine`` folds)."""
     dev = resolve_device(device)
     set_numerics()
-    hi, store, stem_pair, over = serving_overrides(preset)
-    darknet = Darknet(tiny_yolov3_defs(num_classes=num_classes,
-                                       img_size=img_size),
-                      img_size=img_size, hi_prec_stages=hi,
-                      hi_prec_store=_DTYPES[store] if store else None,
-                      stem_pair=stem_pair)
+    darknet, over = _build_darknet(preset, img_size, num_classes)
     model = FusionNetwork(darknet, FusionConfig(**{**over, **overrides}))
     params, state = convert(*(read_npz(weights) if isinstance(weights, str)
                               else weights))
+    return model, to_device(params, dev), to_device(state, dev)
+
+
+def build_refine(weights, preset="f32", img_size=416, num_classes=12,
+                 device="cuda", **overrides):
+    """The camera-only refinement network (module2, ``class_num`` 12) at
+    a serving preset. ``weights``: a JAX ``(params, state)`` pair of
+    nested numpy arrays for ``RefineNetwork``, or the path of a fusion
+    ``.npz`` checkpoint: then the Darknet and the score-map stack (the
+    fusion network's ``img_cnn``, the same 256 -> 490 layout) come from
+    it, and the refinement and ensemble heads, which no such checkpoint
+    holds, from ``RefineNetwork.init_heads`` with
+    ``torch.Generator().manual_seed(0)``: untrained heads."""
+    dev = resolve_device(device)
+    set_numerics()
+    darknet, over = _build_darknet(preset, img_size, num_classes)
+    over.setdefault("class_num", 12)
+    model = RefineNetwork(darknet, FusionConfig(**{**over, **overrides}))
+    if isinstance(weights, str):
+        fp, fs = convert(*read_npz(weights))
+        hp, hs = model.init_heads(torch.Generator().manual_seed(0))
+        params = {"darknet": fp["darknet"], "fcn": fp["img_cnn"], **hp}
+        state = {"darknet": fs["darknet"], "fcn": fs["img_cnn"], **hs}
+    else:
+        params, state = convert(*weights)
     return model, to_device(params, dev), to_device(state, dev)

@@ -1,3 +1,6 @@
+// Fused stem kernels: the two-stage pair K4 (below) and the single stage
+// K9 (second half of this file).
+//
 // Fused stem pair (kernel K4):
 //   out = maxpool2(leaky(conv3x3(maxpool2(leaky(conv3x3(x, w0) + b0)), w1)
 //                  + b1))
@@ -161,6 +164,130 @@ stem_pair_kernel(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------
+// Kernel K9: one fused stem stage,
+//   out = maxpool2(leaky(conv3x3(x, w) + b))
+// for NHWC float32 x [N, H, W, Cin] -> NHWC [N, H/2, W/2, Cout] stored as
+// float32, bf16 or float16; zero padding 1, leaky slope 0.1.
+//
+// Replaces: millieye_tpu/ops/stem_pallas.py:fused_stem_planar (variants
+// "batched" and "rowdot" compute the same function). Its numerics:
+// precision="default" rounds x and w to bf16 and accumulates the products
+// in float32; "highest" is float32 throughout. Bias, leaky and the 2x2
+// max follow in float32, then one rounding to the store type.
+//
+// Bound on an H100: bytes at stages 0 and 2 (416 px: 2.08 MB in, 1.38 MB
+// float16 out per image, 1.0 us at 3.35 TB/s, against 0.30 GFLOP), and
+// operations from stage 4 on when counted at the float32 rate the CUDA
+// cores run (104 px, 32 -> 64: 0.40 GFLOP per image, 6 us at 67 TFLOP/s;
+// 0.4 us at the bf16 tensor-core rate "default" would allow). This first
+// kernel runs all products on the CUDA cores.
+//
+// Design: one thread block per 8x8 tile of pooled pixels and per slice
+// of up to 32 output channels. Input channels go through shared memory
+// in chunks of 16: the 18x18 input halo of the chunk, planar
+// [c][row][col] (so the pixels of a warp read different banks), and the
+// chunk's weights [c][u][v][co]. That keeps shared memory at 40 KB for
+// any Cin and Cout (stage 6's full weights alone are 288 KB). A thread
+// owns one pooled pixel and 8 output channels at all four pool
+// positions: per input channel it loads its 4x4 input patch once and
+// the 9 x 8 weights as broadcast float4 reads, for 288 multiply-adds.
+// The sum runs over (c, u, v), c slowest, one add at a time: with bf16
+// operands each product is exact in float32, so the FMA rounds like
+// multiply-then-add; at "highest" the product is rounded first
+// (__fmul_rn, __fadd_rn), so the plain version can repeat it bit for bit.
+constexpr int kCk = 16;                 // input channels per chunk
+constexpr int kCo = 32;                 // output channels per block
+constexpr int kHalo = 2 * kTile + 2;    // 18 input pixels per tile side
+constexpr int kPitch = kHalo + 1;       // row pitch of the planar halo
+
+enum StoreType { kStoreF32 = 0, kStoreBf16 = 1, kStoreF16 = 2 };
+
+template <bool kHighest>
+__global__ void __launch_bounds__(kThreads)
+stem_stage_kernel(const float* __restrict__ x,
+                  const float* __restrict__ wgt,   // [cin, 3, 3, cout]
+                  const float* __restrict__ bias, void* __restrict__ out,
+                  int h, int w, int cin, int cout, int store) {
+  __shared__ float s_in[kCk * kHalo * kPitch];
+  __shared__ __align__(16) float s_w[kCk * 9 * kCo];
+
+  const int tid = threadIdx.x;
+  const int slices = (cout + kCo - 1) / kCo;
+  const int n = blockIdx.z / slices, slice = blockIdx.z % slices;
+  const int co0 = slice * kCo;
+  const int co_n = min(kCo, cout - co0);       // a multiple of kGroup
+  const int ho = h / 2, wo = w / 2;
+  const int pix = tid % (kTile * kTile), g = tid / (kTile * kTile);
+  const int py = pix / kTile, px = pix % kTile;
+  const int oy = kTile * blockIdx.y + py, ox = kTile * blockIdx.x + px;
+  const bool active = g * kGroup < co_n;
+  // input halo: local (ly, lx) <-> global (2*kTile*ty - 1 + ly, ...)
+  const int iy0 = 2 * kTile * blockIdx.y - 1, ix0 = 2 * kTile * blockIdx.x - 1;
+  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+
+  float acc[4][kGroup] = {};
+  for (int c0 = 0; c0 < cin; c0 += kCk) {
+    const int cn = min(kCk, cin - c0);
+    __syncthreads();                     // the previous chunk is consumed
+    for (int e = tid; e < kHalo * kHalo * cn; e += kThreads) {
+      const int c = e % cn, p = e / cn;
+      const int ly = p / kHalo, lx = p % kHalo;
+      const int gy = iy0 + ly, gx = ix0 + lx;
+      float v = 0.0f;
+      if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+        v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c0 + c];
+      if (!kHighest) v = __bfloat162float(__float2bfloat16_rn(v));
+      s_in[(c * kHalo + ly) * kPitch + lx] = v;
+    }
+    for (int e = tid; e < cn * 9 * kCo; e += kThreads) {
+      const int co = e % kCo, ct = e / kCo;     // ct = c * 9 + u * 3 + v
+      float v = 0.0f;
+      if (co < co_n)
+        v = wgt[(static_cast<size_t>(c0) * 9 + ct) * cout + co0 + co];
+      if (!kHighest) v = __bfloat162float(__float2bfloat16_rn(v));
+      s_w[e] = v;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int c = 0; c < cn; ++c) {
+      float patch[4][4];
+      for (int r = 0; r < 4; ++r)
+        for (int q = 0; q < 4; ++q)
+          patch[r][q] = s_in[(c * kHalo + 2 * py + r) * kPitch + 2 * px + q];
+      for (int u = 0; u < 3; ++u)
+        for (int v = 0; v < 3; ++v) {
+          const float4* wr = reinterpret_cast<const float4*>(
+              s_w + (c * 9 + u * 3 + v) * kCo + g * kGroup);
+          const float4 wa = wr[0], wb = wr[1];
+          const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
+                                    wb.x, wb.y, wb.z, wb.w};
+          for (int d = 0; d < 4; ++d) {
+            const float xv = patch[(d >> 1) + u][(d & 1) + v];
+            for (int k = 0; k < kGroup; ++k)
+              acc[d][k] = kHighest
+                  ? __fadd_rn(acc[d][k], __fmul_rn(xv, wv[k]))
+                  : fmaf(xv, wv[k], acc[d][k]);
+          }
+        }
+    }
+  }
+  if (!active || oy >= ho || ox >= wo) return;
+  const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
+                   + co0 + g * kGroup;
+  for (int k = 0; k < kGroup; ++k) {
+    const float bv = bias[co0 + g * kGroup + k];
+    float m = leaky(__fadd_rn(acc[0][k], bv));
+    for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bv)));
+    if (store == kStoreF32)
+      static_cast<float*>(out)[o + k] = m;
+    else if (store == kStoreBf16)
+      static_cast<__nv_bfloat16*>(out)[o + k] = __float2bfloat16_rn(m);
+    else
+      static_cast<__half*>(out)[o + k] = __float2half_rn(m);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,6 +315,30 @@ int millieye_stem_pair(const void* x, const void* w0, const void* b0,
       static_cast<const float*>(b0), static_cast<const __nv_bfloat16*>(w1),
       static_cast<const float*>(b1), static_cast<__half*>(out), h, w, cin,
       cmid, cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [n, h, w, cin] f32, wgt [cin, 3, 3, cout] f32 (rounded to bf16 in
+// the kernel when highest == 0), bias [cout] f32 -> out [n, h/2, w/2, cout] in the
+// store type (0 float32, 1 bf16, 2 float16). Kernel K9.
+int millieye_stem_stage(const void* x, const void* wgt, const void* bias,
+                        void* out, int n, int h, int w, int cin, int cout,
+                        int highest, int store, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || h % 2 || w % 2 || cin <= 0 || cout <= 0
+      || cout % kGroup || store < 0 || store > 2)
+    return cudaErrorInvalidValue;
+  const int slices = (cout + kCo - 1) / kCo;
+  const dim3 grid((w / 2 + kTile - 1) / kTile, (h / 2 + kTile - 1) / kTile,
+                  n * slices);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (highest)
+    stem_stage_kernel<true><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(wgt),
+        static_cast<const float*>(bias), out, h, w, cin, cout, store);
+  else
+    stem_stage_kernel<false><<<grid, kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(wgt),
+        static_cast<const float*>(bias), out, h, w, cin, cout, store);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,11 @@ into nested dicts and lists of numpy arrays, with numpy alone.
 ``convert`` is the one weight converter: it takes the JAX package's
 ``(params, state)`` as nested numpy arrays (from ``read_npz``, or a JAX
 tree mapped through ``np.asarray``) and returns the port's parameters,
-float32 tensors with convolution kernels turned from HWIO to OIHW.
+float32 tensors with convolution kernels turned from HWIO to OIHW. It
+walks any tree of the JAX package: ``FusionNetwork``'s (``darknet``,
+``img_cnn``, ``radar_enc``, ``refine``, ``ensemble``) and
+``RefineNetwork``'s (``darknet``, ``fcn``, ``refine``, ``ensemble``);
+every 4-D leaf of either is a convolution kernel.
 """
 from __future__ import annotations
 

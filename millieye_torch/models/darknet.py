@@ -10,16 +10,19 @@ channels_last NCHW inside.
 Precision ladder (``hi_prec_stages`` / ``hi_prec_store``): under a
 low-precision ``compute_dtype`` the listed convolutions run in float32
 and store their output as ``hi_prec_store`` (float16 in the serving
-presets). ``stem_pair`` = lo fuses stages lo and lo+2 (conv3x3 + pool
-each) into kernel K4 (``ops/stem.py``) at inference on folded weights;
-blocks lo+1..lo+3 then pass its output through.
+presets). ``stem_stages`` lists the conv3x3 + pool stages that run
+fused at inference on folded weights: each as one launch of kernel K9
+(``ops/stem.py:fused_stem_stage``, at ``stem_precision``), its pool
+block passing the result through; with ``stem_pair`` the two lowest
+stages lo and lo+2 run together as kernel K4 (``fused_stem_pair``) and
+blocks lo+1..lo+3 pass its output through.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from millieye_torch.ops.stem import fused_stem_pair
+from millieye_torch.ops.stem import fused_stem_pair, fused_stem_stage
 
 _BN_EPS = 1e-5
 
@@ -66,17 +69,31 @@ class Darknet:
     """Layer plan + inference forward over explicit parameters."""
 
     def __init__(self, config, img_size=416, feature_tap=8,
-                 hi_prec_stages=(), hi_prec_store=None, stem_pair=None):
+                 hi_prec_stages=(), hi_prec_store=None, stem_stages=(),
+                 stem_pair=False, stem_precision="highest"):
         self.hyperparams = config[0]
         self.block_defs = list(config[1:])
         self.img_size = img_size
         self.feature_tap = feature_tap
         self.hi_prec_stages = tuple(hi_prec_stages)
         self.hi_prec_store = hi_prec_store
-        self.stem_pair = stem_pair
+        self.stem_stages = tuple(sorted(stem_stages))
+        self.stem_pair = bool(stem_pair)
+        if stem_precision not in ("highest", "default"):
+            raise ValueError(f"unknown stem_precision {stem_precision!r}")
+        self.stem_precision = stem_precision
         self._plan = self._build_plan()
-        if stem_pair is not None:
-            self._validate_stem_pair(stem_pair)
+        self._validate_stem_stages()
+        if self.stem_pair:
+            lo = self.stem_stages[0] if self.stem_stages else 0
+            if (lo, lo + 2) != self.stem_stages[:2]:
+                raise ValueError("stem_pair needs two consecutive fused "
+                                 "stages (lo, lo+2) in stem_stages, got "
+                                 f"{self.stem_stages}")
+            if stem_precision != "default":
+                raise ValueError("the fused stem pair (kernel K4) runs bf16 "
+                                 "products: stem_precision must be 'default'")
+            self._validate_stem_pair(lo)
 
     def _build_plan(self):
         """Per-block channel counts and anchor sets."""
@@ -121,16 +138,20 @@ class Darknet:
             channels.append(out)
         return plan
 
-    def _validate_stem_pair(self, lo):
-        """Stages lo and lo+2 must each be a leaky conv3x3s1 followed by
-        a maxpool2s2, and nothing may read blocks lo..lo+3 but the next
-        block (their slots hold the pair's output)."""
+    def _referenced(self):
         referenced = {self.feature_tap}
         for info in self._plan:
             referenced.update(info.get("layers", ()))
             if "frm" in info:
                 referenced.add(info["frm"])
-        for i in (lo, lo + 2):
+        return referenced
+
+    def _validate_stem_stages(self):
+        """Each fused stage must be a leaky conv3x3s1 followed by a
+        maxpool2s2, and nothing but the pool may read the conv's slot
+        (it holds the pooled result)."""
+        referenced = self._referenced()
+        for i in self.stem_stages:
             if not 0 <= i < len(self._plan) - 1:
                 raise ValueError(f"stem stage {i} out of range")
             info, nxt = self._plan[i], self._plan[i + 1]
@@ -140,7 +161,15 @@ class Darknet:
                     and nxt["stride"] == 2):
                 raise ValueError(f"block {i} is not a leaky conv3x3s1 + "
                                  "maxpool2s2 stage")
-        for j in range(lo, lo + 4):
+            if i in referenced:
+                raise ValueError(f"block {i} is route/tap-referenced; stem "
+                                 "fusion would change its resolution")
+
+    def _validate_stem_pair(self, lo):
+        """Nothing may read blocks lo+1..lo+3 but the next block: their
+        slots hold the pair's output, not the real intermediates."""
+        referenced = self._referenced()
+        for j in range(lo + 1, lo + 4):
             if j in referenced:
                 raise ValueError(f"block {j} is route/tap-referenced; cannot "
                                  "fuse the stem pair")
@@ -158,9 +187,14 @@ class Darknet:
         x_in = images.permute(0, 3, 1, 2)
         outputs, dets = [], []
         feature_map = None
-        lo = self.stem_pair
-        fuse = (lo is not None and "w" in params[lo]
-                and "gamma" not in params[lo] and "gamma" not in params[lo + 2])
+
+        def fused(j):
+            # the kernels bake bias + leaky + pool: folded weights only
+            return (j in self.stem_stages and "w" in params[j]
+                    and "gamma" not in params[j])
+
+        lo = self.stem_stages[0] if self.stem_pair else None
+        fuse = lo is not None and fused(lo) and fused(lo + 2)
         for i, info in enumerate(self._plan):
             t = info["type"]
             p = params[i] if i < len(params) else {}
@@ -178,6 +212,15 @@ class Darknet:
                     p["w"].float(), p["b"].float(), p2["w"].float(),
                     p2["b"].float())
                 x = y.permute(0, 3, 1, 2)
+            elif t == "convolutional" and fused(i):
+                y = fused_stem_stage(
+                    prev.permute(0, 2, 3, 1).float().contiguous(),
+                    p["w"].float(), p["b"].float(),
+                    precision=self.stem_precision,
+                    out_dtype=self._store_dtype(i, compute_dtype))
+                x = y.permute(0, 3, 1, 2)
+            elif t == "maxpool" and fused(i - 1):
+                x = prev              # the pool ran inside the fused stage
             elif t == "convolutional":
                 dt = (torch.float32 if i in self.hi_prec_stages
                       else compute_dtype)

@@ -1,5 +1,6 @@
-"""Radar+camera fusion detector ("module3"), inference only (port of
-``millieye_tpu/models/fusion.py:FusionNetwork``).
+"""Radar+camera fusion detector ("module3") and the camera-only
+refinement detector ("module2"), inference only (port of
+``millieye_tpu/models/fusion.py``: ``FusionNetwork``, ``RefineNetwork``).
 
 backbone -> YOLO decode -> class-aware NMS -> score maps -> RoI crops ->
 refinement / ensemble heads -> regression and priority sort, over padded
@@ -12,6 +13,10 @@ tensors with validity masks:
   reference's priority (radar confidence divided by 5).
 
 Modes: 0 millieye, 1 yolo only, 2 radar only.
+
+``RefineNetwork``: frozen YOLO -> NMS -> PS-RoIAlign over a 490-channel
+score map -> refinement head -> ensemble head -> re-scored, regressed
+boxes [B, max_det, 7]; no radar branch, all classes kept.
 """
 from __future__ import annotations
 
@@ -26,8 +31,9 @@ from millieye_torch.ops.boxes import box_regress
 from millieye_torch.ops.nms import batched_nms
 from millieye_torch.ops.roi_align import (ps_roi_align_batched,
                                           roi_align_batched)
-from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
-                                           ps_roi_align_padded, roi_align)
+from millieye_torch.ops.roi_kernel import (PRECISIONS, ps_channel_perm_pad,
+                                           ps_roi_align, ps_roi_align_padded,
+                                           roi_align)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -47,7 +53,11 @@ class FusionConfig:
     sampling_max: int = 4         # RoIAlign adaptive grid bound
     compute_dtype: str = "float32"   # backbone convolutions
     heads_dtype: str = "float32"     # score maps, RoI crops, heads
-    roi_impl: str = "einsum"      # "einsum" or "kernel" (K2 + K3)
+    nms_use_blocked: bool = None  # None: kernel K1 at K % 128 == 0;
+                                  # False pins the whole-matrix kernel K5
+    roi_impl: str = "einsum"      # "einsum" or "kernel" (the RoI kernels)
+    roi_precision: str = "default"   # the kernels' ladder: "default" (bf16
+                                     # products), "split" or "highest"
 
 
 def _eff_sampling_max(cfg, img_size):
@@ -64,14 +74,20 @@ def _cast_floats(tree, dtype):
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+def _check_config(cfg):
+    if cfg.roi_impl not in ("einsum", "kernel"):
+        raise ValueError(f"unknown roi_impl {cfg.roi_impl!r}")
+    if cfg.roi_precision not in PRECISIONS:
+        raise ValueError(f"unknown roi_precision {cfg.roi_precision!r}")
+
+
 class FusionNetwork:
     """Radar+camera fusion detector over explicit parameters."""
 
     def __init__(self, darknet: Darknet, config: FusionConfig = None):
         self.darknet = darknet
         self.cfg = config or FusionConfig()
-        if self.cfg.roi_impl not in ("einsum", "kernel"):
-            raise ValueError(f"unknown roi_impl {self.cfg.roi_impl!r}")
+        _check_config(self.cfg)
 
     def apply(self, params, state, images, radar_maps, radar_boxes,
               radar_mask, mode=0):
@@ -87,7 +103,8 @@ class FusionNetwork:
                                    compute_dtype=_DTYPES[cfg.compute_dtype])
         det, det_valid = batched_nms(
             d_out["detections"], cfg.conf_thresh, cfg.nms_thresh,
-            max_det=k_img, pre_top_k=cfg.pre_nms_top_k)
+            max_det=k_img, pre_top_k=cfg.pre_nms_top_k,
+            use_blocked=cfg.nms_use_blocked)
         det_valid = det_valid & (det[:, :, 6].long() == cfg.class_idx)
         img_xyxy, img_conf = det[:, :, 0:4], det[:, :, 4]
         img_class_score, img_class_pred = det[:, :, 5], det[:, :, 6]
@@ -142,11 +159,14 @@ class FusionNetwork:
 
         smax = _eff_sampling_max(cfg, img_size)
         if use_kernel_roi:
+            # "default": kernels K2 and K3 on bf16 operands; "split" and
+            # "highest": kernel K7 and K3 on float32 operands
             img_crop = ps_roi_align_padded(
                 roi_score_map, all_xyxy, (7, 7), 1.0 / 16, sampling_max=smax,
-                c_out=roi_c_out)
+                c_out=roi_c_out, precision=cfg.roi_precision)
             radar_crop = roi_align(radar_score_map, all_xyxy, (7, 7),
-                                   1.0 / 16, sampling_max=smax)
+                                   1.0 / 16, sampling_max=smax,
+                                   precision=cfg.roi_precision)
         else:
             img_crop = ps_roi_align_batched(roi_score_map, all_xyxy, (7, 7),
                                             1.0 / 16, sampling_max=smax,
@@ -199,3 +219,85 @@ class FusionNetwork:
                                 torch.zeros_like(boxes_out))
         return {"boxes": boxes_out, "valid": out_valid, "num_img": k_img,
                 "radar_attention": radar_score_map[..., :1]}
+
+
+class RefineNetwork:
+    """Camera-only refinement detector ("module2") over explicit
+    parameters ``{"darknet", "fcn", "refine", "ensemble"}``. Differences
+    from ``FusionNetwork``: no radar branch, all classes kept, the
+    ensemble's second layer has a LeakyReLU, and channel 1 of its output
+    is p(foreground)."""
+
+    def __init__(self, darknet: Darknet, config: FusionConfig = None):
+        self.darknet = darknet
+        self.cfg = config or FusionConfig(class_num=12)
+        _check_config(self.cfg)
+
+    def init_heads(self, gen):
+        """(params, state) of the refinement and ensemble heads from an
+        explicit ``torch.Generator``, for serving a checkpoint that has
+        none: untrained heads, in the trained layout."""
+        ref_p, ref_s = heads.refinement_head_init(
+            gen, net2_out=self.cfg.class_num + 1, with_radar=False)
+        ens_p = heads.ensemble_head_init(gen, self.cfg.class_num)
+        return {"refine": ref_p, "ensemble": ens_p}, {"refine": ref_s}
+
+    def apply(self, params, state, images):
+        """images [B, S, S, 3] letterboxed float -> {"boxes" [B, K, 7] rows
+        of (x1, y1, x2, y2, p(foreground), class_score, class_pred),
+        "valid" [B, K]}, sorted by p(foreground)."""
+        cfg = self.cfg
+        b_sz, img_size = images.shape[0], images.shape[1]
+        k_img = cfg.max_det
+
+        d_out = self.darknet.apply(params["darknet"], state["darknet"], images,
+                                   compute_dtype=_DTYPES[cfg.compute_dtype])
+        det, det_valid = batched_nms(
+            d_out["detections"], cfg.conf_thresh, cfg.nms_thresh,
+            max_det=k_img, pre_top_k=cfg.pre_nms_top_k,
+            use_blocked=cfg.nms_use_blocked)
+        img_xyxy = det[:, :, 0:4]
+
+        hd = _DTYPES[cfg.heads_dtype]
+        p_fcn, s_fcn = _cast_floats((params["fcn"], state["fcn"]), hd)
+        p_ref, s_ref = _cast_floats((params["refine"], state["refine"]), hd)
+        p_ens = _cast_floats(params["ensemble"], hd)
+        roi_score_map = heads.conv_bn_stack_apply(
+            p_fcn, s_fcn, d_out["feature_map"].to(hd))
+
+        smax = _eff_sampling_max(cfg, img_size)
+        if cfg.roi_impl == "kernel":
+            img_crop = ps_roi_align(roi_score_map, img_xyxy, (7, 7), 1.0 / 16,
+                                    sampling_max=smax,
+                                    precision=cfg.roi_precision)
+        else:
+            img_crop = ps_roi_align_batched(roi_score_map, img_xyxy, (7, 7),
+                                            1.0 / 16, sampling_max=smax,
+                                            compute_dtype=hd)
+        img_crop = img_crop.to(hd).reshape(b_sz * k_img, 7, 7, -1)
+
+        regress_param, refinement_vector = heads.refinement_head_apply(
+            p_ref, s_ref, None, img_crop, class_num=cfg.class_num)
+        regress_param = regress_param.float().reshape(b_sz, k_img, 4)
+        refinement_vector = refinement_vector.float().reshape(b_sz, k_img, -1)
+
+        yolo_vector = torch.cat([det[:, :, 4:5], det[:, :, 7:]], -1)
+        masks = heads.ensemble_head_apply(
+            p_ens, refinement_vector.to(hd).reshape(b_sz * k_img, -1),
+            yolo_vector.to(hd).reshape(b_sz * k_img, -1), fc2_leaky=True,
+        ).float().reshape(b_sz, k_img, 2)
+        fg = masks[:, :, 1]
+
+        positive = det_valid & (fg > cfg.refine_threshold_img)
+        out_xyxy = box_regress(regress_param, img_xyxy)
+        boxes_out = torch.cat([out_xyxy, fg[..., None], det[:, :, 5:6],
+                               det[:, :, 6:7]], -1)
+        priority = torch.where(positive, fg,
+                               torch.full_like(fg, float("-inf")))
+        order = torch.argsort(-priority, dim=1, stable=True)
+        boxes_out = torch.gather(boxes_out, 1,
+                                 order[..., None].expand(-1, -1, 7))
+        out_valid = torch.gather(positive, 1, order)
+        boxes_out = torch.where(out_valid[..., None], boxes_out,
+                                torch.zeros_like(boxes_out))
+        return {"boxes": boxes_out, "valid": out_valid, "num_img": k_img}

@@ -3,18 +3,20 @@
 Confidence filter and score sort become a stable descending sort cut at
 ``pre_top_k`` (``lax.top_k`` keeps ties in index order; ``torch.topk``
 promises no order, so it is not used). Class awareness is torchvision's
-coordinate-offset trick. The keep mask is the greedy one: on CUDA, where
-the JAX package launched its blocked Pallas kernel (K % 128 == 0,
-K <= 1024), this launches kernel K1 (``ops/nms_kernel.py``); elsewhere
-the fixpoint iteration runs. Outputs are padded to ``max_det`` rows with
-a validity mask.
+coordinate-offset trick. The keep mask is the greedy one, with the JAX
+package's dispatch: for K <= 1024 kernel K1 (``ops/nms_kernel.py``, the
+blocked kernel) when K % 128 == 0 and ``use_blocked`` is not False, else
+kernel K5 (the whole-matrix kernel); above 1024 candidates the fixpoint
+iteration, as the JAX package ran its XLA fixpoint there. Outputs are
+padded to ``max_det`` rows with a validity mask.
 """
 from __future__ import annotations
 
 import torch
 
 from millieye_torch.ops.boxes import iou_matrix, xywh_to_xyxy
-from millieye_torch.ops.nms_kernel import MAX_K, nms_keep_mask_blocked
+from millieye_torch.ops.nms_kernel import (MAX_K, nms_keep_mask_blocked,
+                                           nms_keep_mask_full)
 
 
 def _class_offset(boxes, valid):
@@ -87,16 +89,11 @@ def nms_xyxy(boxes, scores, labels, valid, iou_thresh, max_out,
     return _compact(rows, keep, max_out)
 
 
-def batched_nms(pred, conf_thresh, iou_thresh=0.5, max_det=200,
-                pre_top_k=512):
-    """YOLO-decode postprocessing for a batch.
-
-    pred [B, A, 5+C] rows of (cx, cy, w, h, obj, cls_0..) in image scale.
-    Returns (detections [B, max_det, 7+C], valid [B, max_det]); a row is
-    (x1, y1, x2, y2, obj, class_score, class_pred, class scores...).
-    """
-    b, a, _ = pred.shape
-    k = min(pre_top_k, a)
+def _candidates(pred, conf_thresh, pre_top_k):
+    """The top ``pre_top_k`` rows by objectness that pass the confidence
+    filter: (rows [B, K, 5+C], xyxy boxes, class-offset boxes, valid,
+    class_pred)."""
+    k = min(pre_top_k, pred.shape[1])
     obj = pred[..., 4]
     score = torch.where(obj >= conf_thresh, obj,
                         torch.full_like(obj, float("-inf")))
@@ -109,11 +106,29 @@ def batched_nms(pred, conf_thresh, iou_thresh=0.5, max_det=200,
     class_pred = torch.argmax(rows_k[..., 5:], -1).to(pred.dtype)
     shifted = (bxyxy + (class_pred * _class_offset(bxyxy, v)[:, None])
                [..., None]).contiguous()
+    return rows_k, bxyxy, shifted, v, class_pred
 
-    if k % 128 == 0 and k <= MAX_K:
+
+def batched_nms(pred, conf_thresh, iou_thresh=0.5, max_det=200,
+                pre_top_k=512, use_blocked=None):
+    """YOLO-decode postprocessing for a batch.
+
+    pred [B, A, 5+C] rows of (cx, cy, w, h, obj, cls_0..) in image scale.
+    Returns (detections [B, max_det, 7+C], valid [B, max_det]); a row is
+    (x1, y1, x2, y2, obj, class_score, class_pred, class scores...).
+    ``use_blocked=False`` pins the whole-matrix kernel K5 where K1 would
+    run; every path returns the same keep set.
+    """
+    b = pred.shape[0]
+    rows_k, bxyxy, shifted, v, class_pred = _candidates(pred, conf_thresh,
+                                                        pre_top_k)
+    k = shifted.shape[1]
+    if k > MAX_K:
+        keep = nms_keep_mask(shifted, v, iou_thresh, plus_one=False)
+    elif k % 128 == 0 and use_blocked is not False:
         keep = nms_keep_mask_blocked(shifted, v, iou_thresh)
     else:
-        keep = nms_keep_mask(shifted, v, iou_thresh, plus_one=False)
+        keep = nms_keep_mask_full(shifted, v, iou_thresh)
 
     # late assembly: compact the kept candidate positions, then gather
     # only the max_det surviving rows
@@ -136,3 +151,18 @@ def batched_nms(pred, conf_thresh, iou_thresh=0.5, max_det=200,
         torch.gather(class_pred, 1, sel)[..., None], c], -1)
     out = torch.where(valid_out[..., None], out, torch.zeros_like(out))
     return out, valid_out
+
+
+def pre_top_k_sufficient(pred, conf_thresh, iou_thresh=0.5, max_det=200,
+                         pre_top_k=512):
+    """[B] bool: whether cutting to the top ``pre_top_k`` objectness rows
+    provably leaves ``batched_nms``'s output unchanged against NMS over
+    all rows that pass the confidence filter. Suppression flows only from
+    higher to lower ranks, so the cut is exact if at most ``pre_top_k``
+    rows pass, or if at least ``max_det`` of the top ``pre_top_k`` rows
+    survive. A diagnostic for choosing ``FusionConfig.pre_nms_top_k``,
+    not part of the serving path."""
+    _, _, shifted, v, _ = _candidates(pred, conf_thresh, pre_top_k)
+    keep = nms_keep_mask(shifted, v, iou_thresh, plus_one=False)
+    n_pass = (pred[..., 4] >= conf_thresh).sum(1)
+    return (n_pass <= shifted.shape[1]) | (keep.sum(1) >= max_det)

@@ -1,5 +1,5 @@
-"""RoI crops of the fusion network: CUDA kernels K2 and K3 with their
-plain versions (port of ``millieye_tpu/ops/roi_pallas.py``).
+"""RoI crops of the fusion networks: CUDA kernels K2, K3, K6 and K7 with
+their plain versions (port of ``millieye_tpu/ops/roi_pallas.py``).
 
 * K2 ``ps_roi_align_padded`` replaces ``ps_roi_align_pallas_padded_g1``
   (reduce="dot", precision="default"): PS-RoIAlign over a score map
@@ -7,13 +7,29 @@ plain versions (port of ``millieye_tpu/ops/roi_pallas.py``).
   features [B, H, W, ph*128] -> [B, N, ph, pw, c_out] float32.
 * K3 ``roi_align`` replaces ``roi_align_pallas`` (pack_p=True,
   precision="default"): RoIAlign over the radar score map, features
-  [B, H, W, C] -> [B, N, ph, pw, C] float32.
+  [B, H, W, C] -> [B, N, ph, pw, C] float32. Off "default" it takes
+  float32 operands (the ladder below), as the TPU kernel did.
+* K6 ``ps_roi_align`` replaces ``ps_roi_align_pallas`` (``_launch``):
+  PS-RoIAlign over the unpadded float32 map in torch's bin-major channel
+  order ("upq") or permuted with ``ps_channel_perm`` ("puq"), features
+  [B, H, W, c_out*ph*pw] -> [B, N, ph, pw, c_out] float32;
+  ``roi_align(pack_p=False)`` goes through the same kernel.
+* K7 ``ps_roi_align_padded`` at precision "split"/"highest" replaces
+  ``ps_roi_align_pallas_padded``: K2's function on float32 operands.
+
+The precision ladder of K6, K7 and K3's float32 mode is the TPU's
+meaning of ``roi_pallas._dot``, spelled out in ``_crop_plain``:
+"default" rounds both operands of each stage-1 product to bf16,
+accumulates in float32 and rounds ``t * bx`` to bf16 before the w-sum;
+"split" is the three-product hi/lo expansion of stage 1 and the
+two-term one of stage 2 (lo parts rounded to bf16); "highest" is
+float32 throughout.
 
 Source: ``millieye_torch/csrc/roi_align.cu``. The interpolation matrices
-come from ``ops/roi_align.py:_batched_prep`` in float32 and are rounded
-to bf16 with the features, products accumulate in float32 and each
-``t * bx`` product is rounded to bf16 before the float32 sum over w, as
-the TPU kernels do at precision="default".
+come from ``ops/roi_align.py:_batched_prep`` in float32; K2 and K3's
+bf16 mode round them to bf16 with the features, accumulate the products
+in float32 and round each ``t * bx`` product to bf16 before the float32
+sum over w, as the TPU kernels do at precision="default".
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
@@ -89,14 +105,89 @@ def roi_align_plain(features, by, bx):
     return out
 
 
+PRECISIONS = {"default": 0, "split": 1, "highest": 2}
+
+
+def _crop_plain(f, by, t_of, bxe, precision):
+    """The float32-operand kernels' arithmetic, operation for operation.
+    f [B, H, P or 1, W, L] float32 (the map's lanes for each bin row), by
+    [B, N, P, H]; ``t_of`` reshapes t [B, N, P, W, L] so that it
+    broadcasts against bxe [..., W, L'] with W second to last. Sums run
+    over h = 0..H-1 and w = 0..W-1, one add at a time from 0; at
+    "highest" every product is rounded before its add, elsewhere the
+    products of two bf16 values are exact."""
+    hi = _bf16_round
+    h, w = f.shape[1], f.shape[3]
+
+    def sum_h(a, m):
+        t = 0.0
+        for y in range(h):
+            t = t + a[:, :, :, y, None, None] * m[:, None, y]
+        return t
+
+    if precision == "highest":
+        t = sum_h(by, f)
+    elif precision == "default":
+        t = sum_h(hi(by), hi(f))
+    else:
+        ah, bh = hi(by), hi(f)
+        al, bl = hi(by - ah), hi(f - bh)
+        t = (sum_h(ah, bh) + sum_h(al, bh)) + sum_h(ah, bl)
+    t = t_of(t)
+    o1, o2 = 0.0, 0.0
+    for x in range(w):
+        prod = t[..., x, :] * bxe[..., x, :]
+        if precision == "highest":
+            o1 = o1 + prod
+        else:
+            o1 = o1 + hi(prod)
+            if precision == "split":
+                o2 = o2 + hi(prod - hi(prod))
+    return o1 + o2 if precision == "split" else o1
+
+
+def _ps_lanes(features, ph, pw, c_out, layout):
+    """[B, H, W, C] -> [B, H, ph, W, c_out*pw]: for each bin row p the
+    lanes (u, q) of the map, by channel layout."""
+    b, h, w, c = features.shape
+    ol = c_out * pw
+    if layout == "upq":
+        f = features.reshape(b, h, w, c_out, ph, pw).permute(0, 1, 4, 2, 3, 5)
+    elif layout == "puq":
+        f = features.reshape(b, h, w, ph, c_out, pw).permute(0, 1, 3, 2, 4, 5)
+    else:                                   # "padded": p*block + u*pw + q
+        f = features.reshape(b, h, w, ph, c // ph)[..., :ol].permute(
+            0, 1, 3, 2, 4)
+    return f.reshape(b, h, ph, w, ol)
+
+
+def ps_roi_align_f32_plain(features, by, bx, c_out, precision="default",
+                           layout="upq"):
+    """K6 ("upq"/"puq") and K7 ("padded"): float32 features, by
+    [B, N, ph, H], bx [B, N, pw, W] -> [B, N, ph, pw, c_out] float32."""
+    b, n, ph, pw = by.shape[0], by.shape[1], by.shape[2], bx.shape[2]
+    q_of_j = torch.arange(c_out * pw, device=features.device) % pw
+    bxe = bx.transpose(2, 3)[..., q_of_j][:, :, None]      # [B, N, 1, W, ol]
+    out = _crop_plain(_ps_lanes(features, ph, pw, c_out, layout), by,
+                      lambda t: t, bxe, precision)
+    return out.reshape(b, n, ph, c_out, pw).transpose(3, 4)
+
+
+def roi_align_f32_plain(features, by, bx, precision="highest"):
+    """K3 on float32 operands, and ``roi_align(pack_p=False)`` through
+    K6: features [B, H, W, C] -> [B, N, ph, pw, C] float32."""
+    return _crop_plain(features[:, :, None], by, lambda t: t[:, :, :, None],
+                       bx[:, :, None, :, :, None], precision)
+
+
 # ---------------------------------------------------------------- kernels
-def _check(name, features, by, bx):
+def _check(name, features, by, bx, dtype=torch.bfloat16):
     for t in (features, by, bx):
         if t.device != features.device or t.device.type != "cuda":
             raise ValueError(f"{name}: tensors on {features.device}, "
                              f"{by.device}, {bx.device}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: want bfloat16 operands, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: want {dtype} operands, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
     b, h, w, _ = features.shape
@@ -117,6 +208,12 @@ def _lib():
                                        + [ctypes.c_int] * 7
                                        + [ctypes.c_void_p])
     lib.millieye_roi_align.restype = ctypes.c_int
+    for fn, n_int in ((lib.millieye_ps_roi_align_f32, 12),
+                      (lib.millieye_ps_roi_align_padded_f32, 9),
+                      (lib.millieye_roi_align_f32, 8)):
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -142,39 +239,157 @@ def ps_roi_align_padded_kernel(features, by, bx, c_out):
     return out
 
 
-def roi_align_kernel(features, by, bx):
-    """K3 on CUDA tensors (the plain version's contract)."""
+def roi_align_kernel(features, by, bx, precision="default"):
+    """K3 on CUDA tensors (the plain versions' contracts): bf16 operands
+    at "default", float32 operands at "split"/"highest"."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"roi_align: unknown precision {precision!r}")
+    f32 = precision != "default"
     if cuda_lib.takes_plain(features):
-        return roi_align_plain(features, by, bx)
-    _check("roi_align", features, by, bx)
+        return (roi_align_f32_plain(features, by, bx, precision) if f32
+                else roi_align_plain(features, by, bx))
+    _check("roi_align", features, by, bx,
+           torch.float32 if f32 else torch.bfloat16)
     b, h, w, c = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
     out = torch.empty((b, n, ph, pw, c), dtype=torch.float32,
                       device=features.device)
     lib = _lib()
-    rc = lib.millieye_roi_align(
-        cuda_lib.ptr(features), cuda_lib.ptr(by), cuda_lib.ptr(bx),
-        cuda_lib.ptr(out), b, n, h, w, c, ph, pw,
-        cuda_lib.stream_ptr(features.device))
+    args = (cuda_lib.ptr(features), cuda_lib.ptr(by), cuda_lib.ptr(bx),
+            cuda_lib.ptr(out), b, n, h, w, c, ph, pw)
+    if f32:
+        rc = lib.millieye_roi_align_f32(
+            *args, PRECISIONS[precision], cuda_lib.stream_ptr(features.device))
+    else:
+        rc = lib.millieye_roi_align(*args,
+                                    cuda_lib.stream_ptr(features.device))
     cuda_lib.check(lib, rc, "roi_align")
     roi_align_kernel.launches += 1
     return out
 
 
+_STRIDES = {  # channel of (p, u, q) = p*sp + u*su + q*sq, by layout
+    "upq": lambda ph, pw, c_out: (pw, ph * pw, 1),
+    "puq": lambda ph, pw, c_out: (c_out * pw, pw, 1),
+    "c": lambda ph, pw, c_out: (0, 1, 0),
+}
+
+
+def ps_roi_align_f32_kernel(features, by, bx, c_out, precision="default",
+                            layout="upq"):
+    """K6 on CUDA tensors: float32 operands; ``layout`` "upq", "puq", or
+    "c" (a map without bin channels: RoIAlign, [B, N, ph, pw, C])."""
+    if precision not in PRECISIONS or layout not in _STRIDES:
+        raise ValueError(f"ps_roi_align: precision {precision!r}, layout "
+                         f"{layout!r}")
+    if cuda_lib.takes_plain(features):
+        if layout == "c":
+            return roi_align_f32_plain(features, by, bx, precision)
+        return ps_roi_align_f32_plain(features, by, bx, c_out, precision,
+                                      layout)
+    _check("ps_roi_align", features, by, bx, torch.float32)
+    b, h, w, c = features.shape
+    n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
+    if c != (c_out if layout == "c" else c_out * ph * pw):
+        raise ValueError(f"ps_roi_align: {c} channels for c_out={c_out}, "
+                         f"bins {ph}x{pw}, layout {layout!r}")
+    out = torch.empty((b, n, ph, pw, c_out), dtype=torch.float32,
+                      device=features.device)
+    lib = _lib()
+    rc = lib.millieye_ps_roi_align_f32(
+        cuda_lib.ptr(features), cuda_lib.ptr(by), cuda_lib.ptr(bx),
+        cuda_lib.ptr(out), b, n, h, w, c, ph, pw, c_out,
+        *_STRIDES[layout](ph, pw, c_out), PRECISIONS[precision],
+        cuda_lib.stream_ptr(features.device))
+    cuda_lib.check(lib, rc, "ps_roi_align")
+    ps_roi_align_f32_kernel.launches += 1
+    return out
+
+
+def ps_roi_align_padded_f32_kernel(features, by, bx, c_out,
+                                   precision="highest"):
+    """K7 on CUDA tensors: K2's padded map with float32 operands."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"ps_roi_align_padded: unknown precision "
+                         f"{precision!r}")
+    if cuda_lib.takes_plain(features):
+        return ps_roi_align_f32_plain(features, by, bx, c_out, precision,
+                                      "padded")
+    _check("ps_roi_align_padded", features, by, bx, torch.float32)
+    b, h, w, c_pad = features.shape
+    n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
+    if c_pad % ph or c_out * pw > c_pad // ph:
+        raise ValueError(f"ps_roi_align_padded: {c_pad} channels, ph={ph}, "
+                         f"c_out*pw={c_out * pw}")
+    out = torch.empty((b, n, ph, pw, c_out), dtype=torch.float32,
+                      device=features.device)
+    lib = _lib()
+    rc = lib.millieye_ps_roi_align_padded_f32(
+        cuda_lib.ptr(features), cuda_lib.ptr(by), cuda_lib.ptr(bx),
+        cuda_lib.ptr(out), b, n, h, w, c_pad, ph, pw, c_out,
+        PRECISIONS[precision], cuda_lib.stream_ptr(features.device))
+    cuda_lib.check(lib, rc, "ps_roi_align_padded")
+    ps_roi_align_padded_f32_kernel.launches += 1
+    return out
+
+
 ps_roi_align_padded_kernel.launches = 0
 roi_align_kernel.launches = 0
+ps_roi_align_f32_kernel.launches = 0
+ps_roi_align_padded_f32_kernel.launches = 0
 
 
 # ------------------------------------------------------ public entry points
+def ps_channel_perm(c_out, ph, pw):
+    """Torch's bin-major channel order (u*ph + p)*pw + q -> the p-major
+    order p*(c_out*pw) + u*pw + q that ``channel_order="puq"`` reads:
+    ``perm[dst] = src``, to apply to the output channels of the conv
+    that produces the score map."""
+    perm = np.empty(c_out * ph * pw, np.int64)
+    for p in range(ph):
+        for u in range(c_out):
+            for q in range(pw):
+                perm[(p * c_out + u) * pw + q] = (u * ph + p) * pw + q
+    return perm
+
+
+def _f32(*tensors):
+    return [t.float().contiguous() for t in tensors]
+
+
+def ps_roi_align(features, boxes, output_size=(7, 7), spatial_scale=1.0 / 16,
+                 sampling_ratio=-1, sampling_max=4, precision="default",
+                 channel_order="upq"):
+    """PS-RoIAlign over the unpadded map (kernel K6): features [B, H, W,
+    c_out*ph*pw] in torch's bin-major order ("upq") or permuted with
+    ``ps_channel_perm`` ("puq"), boxes [B, N, 4] xyxy -> [B, N, ph, pw,
+    c_out] float32 (tv0.6: -0.5 offset, RoI size at least 0.1)."""
+    if channel_order not in ("upq", "puq"):
+        raise ValueError(f"unknown channel_order {channel_order!r}")
+    _, h, w, c_in = features.shape
+    ph, pw = output_size
+    c_out = c_in // (ph * pw)
+    if c_out * ph * pw != c_in:
+        raise ValueError(f"{c_in} channels do not factor as C_out*{ph}*{pw}")
+    by, bx = _batched_prep(boxes, h, w, output_size, spatial_scale, -0.5,
+                           0.1, sampling_ratio, sampling_max)
+    return ps_roi_align_f32_kernel(*_f32(features, by, bx), c_out, precision,
+                                   channel_order)
+
+
 def ps_roi_align_padded(features, boxes, output_size=(7, 7),
                         spatial_scale=1.0 / 16, sampling_ratio=-1,
-                        sampling_max=4, c_out=None):
+                        sampling_max=4, c_out=None, precision="default"):
     """PS-RoIAlign over the perm+padded map: features [B, H, W, ph*128],
     boxes [B, N, 4] xyxy -> [B, N, ph, pw, c_out] float32 (tv0.6: -0.5
-    offset, RoI size at least 0.1)."""
+    offset, RoI size at least 0.1). "default" runs kernel K2 on bf16
+    operands; "split" and "highest" run kernel K7 on float32 operands."""
     _, h, w, _ = features.shape
     by, bx = _batched_prep(boxes, h, w, output_size, spatial_scale, -0.5,
                            0.1, sampling_ratio, sampling_max)
+    if precision != "default":
+        return ps_roi_align_padded_f32_kernel(*_f32(features, by, bx), c_out,
+                                              precision)
     return ps_roi_align_padded_kernel(
         features.to(torch.bfloat16).contiguous(),
         by.to(torch.bfloat16).contiguous(),
@@ -182,12 +397,21 @@ def ps_roi_align_padded(features, boxes, output_size=(7, 7),
 
 
 def roi_align(features, boxes, output_size=(7, 7), spatial_scale=1.0 / 16,
-              sampling_ratio=-1, sampling_max=4):
+              sampling_ratio=-1, sampling_max=4, precision="default",
+              pack_p=True):
     """RoIAlign: features [B, H, W, C], boxes [B, N, 4] xyxy -> [B, N, ph,
-    pw, C] float32 (tv0.6 aligned=False, RoI size at least 1.0)."""
-    _, h, w, _ = features.shape
+    pw, C] float32 (tv0.6 aligned=False, RoI size at least 1.0). Operands
+    are bf16 at "default" and float32 elsewhere. ``pack_p`` (all bin rows
+    in one pass) is kernel K3; ``pack_p=False`` (a pass per bin row) goes
+    through kernel K6. Both compute the same function."""
+    _, h, w, c = features.shape
     by, bx = _batched_prep(boxes, h, w, output_size, spatial_scale, 0.0,
                            1.0, sampling_ratio, sampling_max)
-    return roi_align_kernel(features.to(torch.bfloat16).contiguous(),
-                            by.to(torch.bfloat16).contiguous(),
-                            bx.to(torch.bfloat16).contiguous())
+    ops = (features, by, bx)
+    if precision == "default":
+        ops = [t.to(torch.bfloat16).contiguous() for t in ops]
+    if pack_p:
+        if precision != "default":
+            ops = _f32(*ops)
+        return roi_align_kernel(*ops, precision)
+    return ps_roi_align_f32_kernel(*_f32(*ops), c, precision, "c")

@@ -8,6 +8,8 @@
 
 Everything after the host-side radar padding runs on the engine's
 device, in eager PyTorch with the CUDA kernels on the path.
+``batched_step_fn`` answers a window of frames with one forward pass of
+the network at batch = window.
 """
 from __future__ import annotations
 
@@ -55,39 +57,80 @@ class FusionEngine:
     device; ``infer`` answers one frame."""
 
     def __init__(self, model, params, state, frame_size=(640, 480),
-                 max_points=256, device="cuda"):
+                 max_points=256, post_nms_iou=POST_NMS_IOU, fold_bn=True,
+                 device="cuda"):
         self.device = resolve_device(device)
         set_numerics()
         self.model = model
-        self.params, self.state = fold_for_serving(
-            model, to_device(params, self.device),
-            to_device(state, self.device))
+        params = to_device(params, self.device)
+        state = to_device(state, self.device)
+        if fold_bn:
+            params, state = fold_for_serving(model, params, state)
+        self.params, self.state = params, state
         self.frame_size = frame_size
         self.max_points = max_points
+        self.post_nms_iou = post_nms_iou
+
+    def _ingest(self, frame_u8, points, pmask):
+        """One frame -> (letterboxed image [S, S, 3], heatmap [S/16, S/16,
+        3])."""
+        s = self.model.darknet.img_size
+        img, _ = lb.letterbox_image(frame_u8, s)
+        heat = radar_heatmap(points, pmask, self.frame_size)
+        heat, _ = lb.pad_to_square(heat, 0.0)
+        return img, lb.resize_bilinear_align_corners(heat, s // 16)
+
+    def _post(self, boxes, valid):
+        """Post-merge NMS across image and radar rows, then boxes to
+        camera coordinates: rows [K, 7] -> ([K, 6], valid [K])."""
+        w, h = self.frame_size
+        merged, mvalid = nms_xyxy(boxes[:, :4], boxes[:, 4],
+                                  boxes[:, 6].int(), valid,
+                                  self.post_nms_iou, boxes.shape[0])
+        cam = rescale_boxes(merged[:, :4], self.model.darknet.img_size,
+                            (h, w))
+        return torch.cat([cam, merged[:, 4:]], -1), mvalid
 
     def step_fn(self, mode=0):
         """(frame_u8, points, pmask, radar_boxes, radar_mask) tensors on
         the engine's device -> (rows [K, 6], valid [K])."""
-        s = self.model.darknet.img_size
-        w, h = self.frame_size
-
         @torch.no_grad()
         def step(frame_u8, points, pmask, radar_boxes, radar_mask):
             points, pmask, radar_boxes, radar_mask = _sanitize_radar(
                 points, pmask, radar_boxes, radar_mask)
-            img, _ = lb.letterbox_image(frame_u8, s)
-            heat = radar_heatmap(points, pmask, (w, h))
-            heat, _ = lb.pad_to_square(heat, 0.0)
-            heat = lb.resize_bilinear_align_corners(heat, s // 16)
+            img, heat = self._ingest(frame_u8, points, pmask)
             out = self.model.apply(self.params, self.state, img[None],
                                    heat[None], radar_boxes[None],
                                    radar_mask[None], mode=mode)
-            boxes, valid = out["boxes"][0], out["valid"][0]
-            merged, mvalid = nms_xyxy(boxes[:, :4], boxes[:, 4],
-                                      boxes[:, 6].int(), valid,
-                                      POST_NMS_IOU, boxes.shape[0])
-            cam = rescale_boxes(merged[:, :4], s, (h, w))
-            return torch.cat([cam, merged[:, 4:]], -1), mvalid
+            return self._post(out["boxes"][0], out["valid"][0])
+
+        return step
+
+    def batched_step_fn(self, mode=0):
+        """Window-of-frames step: (frames_u8 [W, H, W, 3], points [W, P,
+        4], pmask [W, P], radar_boxes [W, R, 4], radar_mask [W, R]) on the
+        engine's device -> (rows [W, K, 6], valid [W, K]). Ingest and the
+        post-merge NMS run frame by frame, the network once at batch =
+        window. The auto mode is chosen per frame, so a window needs a
+        static mode."""
+        if mode == 3:
+            raise ValueError("auto mode is per-frame; batched windows need "
+                             "a static mode (0/1/2)")
+
+        @torch.no_grad()
+        def step(frames_u8, points, pmask, radar_boxes, radar_mask):
+            points, pmask, radar_boxes, radar_mask = _sanitize_radar(
+                points, pmask, radar_boxes, radar_mask)
+            ingest = [self._ingest(f, p, m)
+                      for f, p, m in zip(frames_u8, points, pmask)]
+            out = self.model.apply(
+                self.params, self.state, torch.stack([i for i, _ in ingest]),
+                torch.stack([h for _, h in ingest]), radar_boxes, radar_mask,
+                mode=mode)
+            post = [self._post(b, v)
+                    for b, v in zip(out["boxes"], out["valid"])]
+            return (torch.stack([r for r, _ in post]),
+                    torch.stack([v for _, v in post]))
 
         return step
 
@@ -112,3 +155,14 @@ class FusionEngine:
                    for a in arrays]
         boxes, valid = self.step_fn(mode)(*tensors)
         return boxes.cpu().numpy(), valid.cpu().numpy()
+
+    def warmup(self, mode=0):
+        """One all-zero frame through ``infer``: builds and loads the
+        kernels, and pays the first-call costs of the libraries. Mode 3
+        warms both of its branches."""
+        w, h = self.frame_size
+        if mode == 3:
+            self.warmup(0)
+            return self.warmup(1)
+        return self.infer(np.zeros((h, w, 3), np.uint8), np.zeros((0, 4)),
+                          np.zeros((0, 4)), mode)

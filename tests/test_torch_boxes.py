@@ -10,6 +10,10 @@ import torch
 from millieye_torch.ops import boxes as tb
 from millieye_tpu.ops import boxes as jb
 
+# small shapes: one thread per process, so that test workers running side
+# by side do not oversubscribe the cores
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-6, 1e-5
 
 

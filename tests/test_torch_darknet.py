@@ -19,14 +19,20 @@ import numpy as np
 import pytest
 import torch
 
-from millieye_torch.cli._common import build_fusion
-from millieye_torch.models.darknet import _maxpool
+from millieye_torch.cli._common import SERVING_PRESETS, build_fusion
+from millieye_torch.models.darknet import Darknet, _maxpool
+from millieye_torch.models.zoo import tiny_yolov3_defs
+from millieye_torch.ops import stem as tstem
 from millieye_tpu.cli._common import serving_overrides as jax_overrides
 from millieye_tpu.io.checkpoint import load_checkpoint
 from millieye_tpu.models import darknet as jdark
 from millieye_tpu.models import tiny_yolov3_defs as jax_defs
 from millieye_tpu.models.fusion import FusionConfig as JaxConfig
 from millieye_tpu.models.fusion import FusionNetwork as JaxNetwork
+
+# small shapes: one thread per process, so that test workers running side
+# by side do not oversubscribe the cores
+torch.set_num_threads(1)
 
 S = 96
 CKPT = "artifacts/stage3_final.npz"
@@ -113,9 +119,30 @@ def test_fold_batchnorm_s01_ladder():
                                    rtol=2 ** -7, atol=1e-6)
 
 
-def test_darknet_s01_ladder(image):
-    jd, jp, js = _jax_darknet("pallas_max_s01")
-    model, params, state = build_fusion(CKPT, "pallas_max_s01", img_size=S,
+def test_darknet_s01_ladder(image, monkeypatch):
+    _check_stem_ladder(image, monkeypatch, "pallas_max_s01", 0, 1)
+
+
+@pytest.mark.parametrize("preset,stages,pairs", [("pallas_max4", 1, 1),
+                                                 ("pallas_stem", 2, 0)])
+def test_darknet_stem_ladder(image, monkeypatch, preset, stages, pairs):
+    _check_stem_ladder(image, monkeypatch, preset, stages, pairs)
+
+
+def _check_stem_ladder(image, monkeypatch, preset, stages, pairs):
+    """The bf16 ladder with the fused stem: the pair K4 (s01), the pair
+    and stage 4 through K9 at bf16 products (pallas_max4), stages 0 and 2
+    each through K9 at float32 products (pallas_stem); the JAX side runs
+    its Pallas kernels in interpret mode."""
+    calls = {"stage": 0, "pair": 0}
+    for key, name in (("stage", "fused_stem_stage"),
+                      ("pair", "fused_stem_pair")):
+        def counted(*a, _fn=getattr(tstem, name), _key=key, **kw):
+            calls[_key] += 1
+            return _fn(*a, **kw)
+        monkeypatch.setattr("millieye_torch.models.darknet." + name, counted)
+    jd, jp, js = _jax_darknet(preset)
+    model, params, state = build_fusion(CKPT, preset, img_size=S,
                                         device="cpu")
     jp, js = jd.fold_batchnorm(jp, js, dtype=jnp.bfloat16)
     tp, ts = model.darknet.fold_batchnorm(params["darknet"], state["darknet"],
@@ -132,3 +159,37 @@ def test_darknet_s01_ladder(image):
     det_g = got["detections"].numpy()
     assert np.abs(det_g[..., 4:] - det_w[..., 4:]).max() <= 0.01
     assert np.abs(det_g[..., :4] - det_w[..., :4]).max() <= 1.0
+    assert calls == {"stage": stages, "pair": pairs}
+
+
+def test_stem_options_validation():
+    """A pair needs two consecutive fused stages and a preset whose pair
+    variant has a kernel here; a stage must be a leaky conv3x3 + pool; unfolded weights
+    keep the plain convolution."""
+    defs = tiny_yolov3_defs(num_classes=12, img_size=64)
+    with pytest.raises(ValueError, match="consecutive"):
+        Darknet(defs, img_size=64, stem_stages=(0, 4), stem_pair=True,
+                stem_precision="default")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(SERVING_PRESETS, "pallas_s2d",
+                   dict(SERVING_PRESETS["pallas_phase"], stem_variant="s2d"))
+        with pytest.raises(ValueError, match="no kernel"):
+            build_fusion(CKPT, "pallas_s2d", img_size=S, device="cpu")
+    with pytest.raises(ValueError, match="default"):
+        Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True)
+    with pytest.raises(ValueError, match="not a leaky conv3x3s1"):
+        Darknet(defs, img_size=64, stem_stages=(1,))
+    with pytest.raises(ValueError, match="unknown stem_precision"):
+        Darknet(defs, img_size=64, stem_stages=(0,), stem_precision="high")
+    Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True,
+            stem_precision="default")
+    # BN not folded: the stage stays a plain convolution
+    model, params, state = build_fusion(CKPT, "pallas_stem", img_size=S,
+                                        device="cpu")
+    before = tstem.fused_stem_stage.launches
+    plain, _, _ = build_fusion(CKPT, "bf16_heads", img_size=S, device="cpu")
+    x = torch.rand((1, S, S, 3), generator=torch.Generator().manual_seed(0))
+    got = model.darknet.apply(params["darknet"], state["darknet"], x)
+    want = plain.darknet.apply(params["darknet"], state["darknet"], x)
+    assert torch.equal(got["detections"], want["detections"])
+    assert tstem.fused_stem_stage.launches == before

@@ -9,20 +9,30 @@ no JAX, so it runs where JAX is not installed:
 Every kernel is bit-equal to its plain version: each plain version
 repeats its kernel's operations in the kernel's order (products of bf16
 operands are exact in float32, so the kernels' FMAs round like the plain
-versions' adds).
+versions' adds; where operands are float32, at "highest", the kernels
+round each product before its add, as eager PyTorch does).
 """
 import numpy as np
 import pytest
 import torch
 
 from millieye_torch.device import set_numerics
+from millieye_torch.ops import nms as tnms
 from millieye_torch.ops.nms_kernel import (nms_keep_mask_blocked,
-                                           nms_keep_mask_blocked_plain)
+                                           nms_keep_mask_blocked_plain,
+                                           nms_keep_mask_full,
+                                           nms_keep_mask_full_plain)
 from millieye_torch.ops.roi_align import _batched_prep
-from millieye_torch.ops.roi_kernel import (ps_roi_align_padded_kernel,
+from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
+                                           ps_roi_align_f32_kernel,
+                                           ps_roi_align_f32_plain,
+                                           ps_roi_align_padded_f32_kernel,
+                                           ps_roi_align_padded_kernel,
                                            ps_roi_align_padded_plain,
+                                           roi_align_f32_plain,
                                            roi_align_kernel, roi_align_plain)
-from millieye_torch.ops.stem import fused_stem_pair, fused_stem_pair_plain
+from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_plain,
+                                     fused_stem_stage, fused_stem_stage_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -51,16 +61,51 @@ def test_nms_kernel_bit_equal(cuda, b, k):
         assert torch.equal(got, nms_keep_mask_blocked_plain(boxes, valid, t))
 
 
-def _roi_inputs(cuda, rng, b, n, hw, c_feat, ps):
+@pytest.mark.parametrize("b,k", [(1, 512), (3, 135), (2, 1024), (2, 33)])
+def test_nms_full_kernel_bit_equal(cuda, b, k):
+    """K5 at any K, against its plain version and the sequential golden."""
+    rng = np.random.default_rng(k)
+    c = rng.uniform(0, 100, (b, k, 2))
+    wh = rng.uniform(5, 60, (b, k, 2))
+    boxes = torch.tensor(np.concatenate([c - wh / 2, c + wh / 2], -1),
+                         dtype=torch.float32, device=cuda)
+    boxes[:, 5] = boxes[:, 4]                    # an exact duplicate
+    valid = torch.tensor(rng.random((b, k)) < 0.9, device=cuda)
+    for t in (0.5, 0.3):
+        before = nms_keep_mask_full.launches
+        got = nms_keep_mask_full(boxes, valid, t)
+        assert nms_keep_mask_full.launches == before + 1
+        assert torch.equal(got, nms_keep_mask_full_plain(boxes, valid, t))
+        assert torch.equal(got[0], tnms.nms_keep_mask_ref(boxes[0], valid[0],
+                                                          t))
+
+
+def test_batched_nms_takes_a_kernel_at_any_k(cuda):
+    """On the card no K <= 1024 reaches the Python fixpoint loop: K % 128
+    == 0 launches K1 (K5 when use_blocked is False), any other K K5."""
+    rng = np.random.default_rng(3)
+    pred = torch.tensor(rng.uniform(0, 1, (2, 300, 17)), dtype=torch.float32,
+                        device=cuda)
+    pred[..., :4] = pred[..., :4] * 60 + 20
+    for k, blocked, want in ((128, None, (1, 0)), (128, False, (0, 1)),
+                             (135, None, (0, 1))):
+        n1, n5 = nms_keep_mask_blocked.launches, nms_keep_mask_full.launches
+        tnms.batched_nms(pred, 0.2, 0.5, max_det=64, pre_top_k=k,
+                         use_blocked=blocked)
+        assert (nms_keep_mask_blocked.launches - n1,
+                nms_keep_mask_full.launches - n5) == want
+
+
+def _roi_inputs(cuda, rng, b, n, hw, c_feat, ps, dtype=torch.bfloat16):
     feats = torch.tensor(rng.standard_normal((b, hw, hw, c_feat)),
-                         dtype=torch.bfloat16, device=cuda)
+                         dtype=dtype, device=cuda)
     xy = rng.uniform(-20, 13 * hw, (b, n, 2))
     boxes = torch.tensor(np.concatenate(
         [xy, xy + rng.uniform(2, 10 * hw, (b, n, 2))], -1),
         dtype=torch.float32, device=cuda)
     by, bx = _batched_prep(boxes, hw, hw, (7, 7), 1 / 16,
                            -0.5 if ps else 0.0, 0.1 if ps else 1.0, -1, 4)
-    return feats, by.to(torch.bfloat16), bx.to(torch.bfloat16)
+    return feats, by.to(dtype).contiguous(), bx.to(dtype).contiguous()
 
 
 @pytest.mark.parametrize("b,n,hw", [(1, 96, 26), (3, 20, 13)])
@@ -72,6 +117,59 @@ def test_roi_kernels_match_plain(cuda, b, n, hw):
     f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 10, False)
     assert torch.equal(roi_align_kernel(f, by, bx),
                        roi_align_plain(f, by, bx))
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+@pytest.mark.parametrize("b,n,hw", [(1, 200, 26), (3, 20, 13)])
+def test_roi_f32_kernels_match_plain(cuda, precision, b, n, hw):
+    """K6 (both channel orders and the bin-free layout), K7 and K3's
+    float32 mode, at each rung of the precision ladder."""
+    rng = np.random.default_rng(n)
+    f32 = torch.float32
+    f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 490, True, f32)
+    for layout in ("upq", "puq"):
+        before = ps_roi_align_f32_kernel.launches
+        got = ps_roi_align_f32_kernel(f, by, bx, 10, precision, layout)
+        assert ps_roi_align_f32_kernel.launches == before + 1
+        assert torch.equal(got, ps_roi_align_f32_plain(f, by, bx, 10,
+                                                       precision, layout))
+    fpad = torch.zeros((b, hw, hw, 7 * 128), device=cuda)
+    fpad[..., torch.as_tensor(ps_channel_perm_pad(10, 7, 7), device=cuda)] = f
+    got = ps_roi_align_padded_f32_kernel(fpad, by, bx, 10, precision)
+    assert torch.equal(got, ps_roi_align_f32_plain(fpad, by, bx, 10,
+                                                   precision, "padded"))
+    # the padded map holds the same numbers as the "upq" one
+    assert torch.equal(got, ps_roi_align_f32_kernel(f, by, bx, 10, precision,
+                                                    "upq"))
+    f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 10, False, f32)
+    want = roi_align_f32_plain(f, by, bx, precision)
+    assert torch.equal(ps_roi_align_f32_kernel(f, by, bx, 10, precision, "c"),
+                       want)
+    if precision != "default":
+        assert torch.equal(roi_align_kernel(f, by, bx, precision), want)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((1, 416, 416, 3, 16), torch.float16),
+    ((2, 208, 208, 16, 32), torch.float16),
+    ((2, 104, 104, 32, 64), torch.bfloat16),
+    ((1, 52, 52, 64, 128), torch.float32),
+    ((2, 20, 36, 5, 40), torch.float32)])
+def test_stem_stage_kernel_matches_plain(cuda, precision, shape, out_dtype):
+    """K9 at the four stage shapes of the 416 px network (52 rows is a
+    ragged tile) and an odd one (40 output channels: a partial slice)."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device="cpu").manual_seed(h + cin)
+    x = torch.randn((n, h, w, cin), generator=g).to(cuda)
+    wt = (0.2 * torch.randn((cout, cin, 3, 3), generator=g)).to(cuda)
+    bs = (0.1 * torch.randn(cout, generator=g)).to(cuda)
+    before = fused_stem_stage.launches
+    got = fused_stem_stage(x, wt, bs, precision, out_dtype)
+    assert fused_stem_stage.launches == before + 1
+    assert got.dtype == out_dtype
+    assert torch.equal(got, fused_stem_stage_plain(x, wt, bs, precision,
+                                                   out_dtype))
 
 
 @pytest.mark.parametrize("shape", [(1, 416, 416, 3, 16, 32),
@@ -99,6 +197,19 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         nms_keep_mask_blocked(torch.zeros((1, 96, 4), device=cuda),
                               torch.ones((1, 96), dtype=torch.bool,
                                          device=cuda), 0.5)
+    with pytest.raises(ValueError):
+        nms_keep_mask_full(torch.zeros((1, 1025, 4), device=cuda),
+                           torch.ones((1, 1025), dtype=torch.bool,
+                                      device=cuda), 0.5)
+    with pytest.raises(TypeError):
+        ps_roi_align_f32_kernel(
+            torch.zeros((1, 13, 13, 490), dtype=torch.bfloat16, device=cuda),
+            torch.zeros((1, 4, 7, 13), device=cuda),
+            torch.zeros((1, 4, 7, 13), device=cuda), 10)
+    with pytest.raises(ValueError):
+        fused_stem_stage(torch.zeros((1, 32, 32, 3), device=cuda),
+                         torch.zeros((12, 3, 3, 3), device=cuda),
+                         torch.zeros(12, device=cuda))
     with pytest.raises(TypeError):
         fused_stem_pair(torch.zeros((1, 32, 32, 3), dtype=torch.float16,
                                     device=cuda),

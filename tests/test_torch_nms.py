@@ -1,7 +1,8 @@
-"""Port parity: millieye_torch NMS (kernel K1's plain version, the fixpoint,
-batched_nms, nms_xyxy) against millieye_tpu's. Keep sets must be BIT-EQUAL
-(tests/test_nms.py pins that for the JAX package): the IoU is elementwise
-float32 in the same expression order on both sides. The inputs carry
+"""Port parity: millieye_torch NMS (kernel K1's and K5's plain versions,
+the fixpoint, batched_nms, pre_top_k_sufficient, nms_xyxy) against
+millieye_tpu's. Keep sets must be BIT-EQUAL (tests/test_nms.py pins that
+for the JAX package): the IoU is elementwise float32 in the same
+expression order on both sides. The inputs carry
 duplicate boxes, tied scores and knife-edge IoUs: pairs whose float32 IoU
 lies on the other side of the threshold than the exact one."""
 import jax
@@ -11,9 +12,15 @@ import pytest
 import torch
 
 from millieye_torch.ops import nms as tnms
-from millieye_torch.ops.nms_kernel import nms_keep_mask_blocked
+from millieye_torch.ops.nms_kernel import (nms_keep_mask_blocked,
+                                           nms_keep_mask_full)
 from millieye_tpu.ops import nms as jnms
-from millieye_tpu.ops.nms_pallas import nms_keep_mask_pallas_blocked
+from millieye_tpu.ops.nms_pallas import (nms_keep_mask_pallas,
+                                         nms_keep_mask_pallas_blocked)
+
+# small shapes: one thread per process, so that test workers running side
+# by side do not oversubscribe the cores
+torch.set_num_threads(1)
 
 
 def _iou_np(a, b, dt):
@@ -104,6 +111,39 @@ def test_keep_mask_bit_equal_pallas_interpret(rng, k):
         np.testing.assert_array_equal(got, pallas)
 
 
+@pytest.mark.parametrize("k", [135, 512])
+def test_full_keep_mask_bit_equal_golden(rng, k):
+    """Kernel K5's plain version against the sequential golden at a K that
+    is no multiple of 32 and at the flagship's 512, knife-edge pairs
+    included."""
+    b = 2
+    boxes = _hard_boxes(rng, b, k)
+    valid = rng.random((b, k)) < 0.85
+    tbx, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
+    for thr in (0.5, 0.3):
+        got = nms_keep_mask_full(tbx, tv, thr).numpy()
+        want = np.stack([np.asarray(jnms.nms_keep_mask_ref(
+            jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr))
+            for i in range(b)])
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [135, 512])
+def test_full_keep_mask_bit_equal_pallas_interpret(rng, k):
+    """K5's plain version against the whole-matrix Pallas kernel it
+    replaces, in interpret mode, off the knife edges (where XLA:CPU's
+    fused build of the kernel leaves the eager golden)."""
+    b = 2
+    boxes = _hard_boxes(rng, b, k, knife_edges=False)
+    valid = rng.random((b, k)) < 0.85
+    for thr in (0.5, 0.3):
+        got = nms_keep_mask_full(torch.from_numpy(boxes),
+                                 torch.from_numpy(valid), thr).numpy()
+        pallas = np.asarray(nms_keep_mask_pallas(
+            jnp.asarray(boxes), jnp.asarray(valid), thr, interpret=True))
+        np.testing.assert_array_equal(got, pallas)
+
+
 def _pred(rng, b=2, a=300, classes=12):
     pred = np.zeros((b, a, 5 + classes), np.float32)
     pred[..., :2] = rng.uniform(20, 90, (b, a, 2))
@@ -115,16 +155,55 @@ def _pred(rng, b=2, a=300, classes=12):
     return pred
 
 
-@pytest.mark.parametrize("pre_top_k,max_det", [(128, 64), (96, 40)])
-def test_batched_nms_matches_jax(rng, pre_top_k, max_det):
-    """K=128 takes the kernel path (plain on the CPU), K=96 the fixpoint;
-    rows and validity must equal the JAX package's."""
+@pytest.mark.parametrize("pre_top_k,max_det,use_blocked", [
+    pytest.param(128, 64, None, id="128-64"),
+    pytest.param(96, 40, None, id="96-40"),
+    pytest.param(128, 64, False, id="128-64-whole_matrix")])
+def test_batched_nms_matches_jax(rng, pre_top_k, max_det, use_blocked):
+    """K=128 takes kernel K1's path (plain on the CPU), or K5's with
+    use_blocked=False; K=96 takes K5's; rows and validity must equal the
+    JAX package's."""
     pred = _pred(rng)
     got, gv = tnms.batched_nms(torch.from_numpy(pred), 0.2, 0.5,
-                               max_det=max_det, pre_top_k=pre_top_k)
+                               max_det=max_det, pre_top_k=pre_top_k,
+                               use_blocked=use_blocked)
     want, wv = jnms.batched_nms(jnp.asarray(pred), 0.2, 0.5, max_det=max_det,
                                 pre_top_k=pre_top_k, use_pallas=False)
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_batched_nms_dispatch(rng, monkeypatch):
+    """The JAX package's dispatch: K1 at K % 128 == 0 unless use_blocked
+    is False, else K5, the fixpoint only above 1024 candidates."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return wrapped
+
+    for name in ("nms_keep_mask_blocked", "nms_keep_mask_full",
+                 "nms_keep_mask"):
+        monkeypatch.setattr(tnms, name, spy(name, getattr(tnms, name)))
+    pred = torch.from_numpy(_pred(rng, b=1, a=1100))
+    for k, blocked in ((128, None), (128, False), (100, None), (1100, None)):
+        tnms.batched_nms(pred, 0.2, 0.5, max_det=20, pre_top_k=k,
+                         use_blocked=blocked)
+    assert calls == ["nms_keep_mask_blocked", "nms_keep_mask_full",
+                     "nms_keep_mask_full", "nms_keep_mask"]
+
+
+@pytest.mark.parametrize("pre_top_k,max_det", [(64, 200), (64, 10),
+                                               (300, 200)])
+def test_pre_top_k_sufficient_matches_jax(rng, pre_top_k, max_det):
+    pred = _pred(rng)
+    pred[1, :, 4] *= 0.25                     # few rows pass in image 1
+    got = tnms.pre_top_k_sufficient(torch.from_numpy(pred), 0.2, 0.5,
+                                    max_det=max_det, pre_top_k=pre_top_k)
+    want = jnms.pre_top_k_sufficient(jnp.asarray(pred), 0.2, 0.5,
+                                     max_det=max_det, pre_top_k=pre_top_k)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 

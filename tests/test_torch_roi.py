@@ -9,7 +9,23 @@ the float32 w-sum, so they differ only in summation order. An order
 difference in t can move a product across a bf16 rounding boundary (one
 bf16 ulp of one of the 26 summed products), so the bound is 2^-10 of the
 crop's magnitude. Measured: bit-equal at these shapes; skipping the
-product rounding alone would be off by ~2.6e-3 of the magnitude."""
+product rounding alone would be off by ~2.6e-3 of the magnitude.
+
+K6/K7 and K3's float32 mode (the precision ladder), against
+ps_roi_align_pallas / ps_roi_align_pallas_padded / roi_align_pallas in
+interpret mode and the float32 einsum. Interpret mode on the CPU
+multiplies float32 operands exactly where the chip rounds them to bf16,
+so per rung:
+* "highest": float32 summation order only, 1e-5 of the magnitude;
+* "split": the port rounds the lo parts to bf16 as the chip does, the
+  interpreter keeps them: 2^-14 of the magnitude (each lo part is 2^-8
+  down and rounds at 2^-9 of itself);
+* "default": the features are bf16 values, but by, bx and the t*bx
+  products are not: bf16 class, 2^-6 of the magnitude (measured 2^-7.9;
+  split 2^-17, highest 2^-19).
+  On boxes whose interpolation weights are dyadic (so by and bx are bf16
+  values too) the rung is held bit-equal to kernel K2's plain version,
+  which is itself held to the Pallas kernel that rounds explicitly."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +37,10 @@ from millieye_tpu.ops.roi_align import (_batched_prep as j_batched_prep,
                                         ps_roi_align_batched as j_ps_batched,
                                         roi_align_batched as j_roi_batched)
 from millieye_tpu.ops import roi_pallas as jrp
+
+# small shapes: one thread per process, so that test workers running side
+# by side do not oversubscribe the cores
+torch.set_num_threads(1)
 
 
 def _boxes(rng, b, n, hi=400):
@@ -101,3 +121,123 @@ def test_einsum_path_f32_matches(rng):
         tra.ps_roi_align_batched(torch.from_numpy(ps), tb_).numpy(),
         np.asarray(j_ps_batched(jnp.asarray(ps), jnp.asarray(boxes))),
         rtol=1e-5, atol=1e-5)
+
+
+_LADDER_TOL = {"highest": 1e-5, "split": 2.0 ** -14, "default": 2.0 ** -6}
+
+
+def _assert_ladder(got, want, precision):
+    scale = np.abs(want).max()
+    err = np.abs(got - want).max()
+    assert err <= _LADDER_TOL[precision] * scale, (precision, err, scale)
+
+
+def _bf16_values(a):
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def test_ps_channel_perm_matches():
+    np.testing.assert_array_equal(trk.ps_channel_perm(10, 7, 7),
+                                  jrp.ps_channel_perm(10, 7, 7))
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+@pytest.mark.parametrize("order", ["upq", "puq"])
+def test_plain_ps_roi_matches_pallas(rng, precision, order):
+    """K6: the unpadded map in both channel orders."""
+    b, n, hw, c_out = 2, 12, 13, 10
+    feats = _bf16_values(
+        rng.standard_normal((b, hw, hw, c_out * 49)).astype(np.float32))
+    boxes = _boxes(rng, b, n, hi=16 * hw)
+    want = np.asarray(jrp.ps_roi_align_pallas(
+        jnp.asarray(feats), jnp.asarray(boxes), precision=precision,
+        interpret=True, channel_order=order))
+    got = trk.ps_roi_align(torch.from_numpy(feats), torch.from_numpy(boxes),
+                           precision=precision, channel_order=order)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _assert_ladder(got.numpy(), want, precision)
+    if order == "upq" and precision == "highest":
+        _assert_ladder(got.numpy(), np.asarray(j_ps_batched(
+            jnp.asarray(feats), jnp.asarray(boxes))), precision)
+    if order == "puq":       # the permuted map holds the same numbers
+        src = trk.ps_channel_perm(c_out, 7, 7)
+        back = np.empty_like(feats)
+        back[..., src] = feats
+        np.testing.assert_array_equal(got.numpy(), trk.ps_roi_align(
+            torch.from_numpy(back), torch.from_numpy(boxes),
+            precision=precision, channel_order="upq").numpy())
+
+
+@pytest.mark.parametrize("precision", ["split", "highest"])
+def test_plain_ps_roi_padded_f32_matches_pallas(rng, precision):
+    """K7: the padded map with float32 operands."""
+    b, n, hw, c_out = 2, 12, 26, 10
+    feats = rng.standard_normal((b, hw, hw, c_out * 49)).astype(np.float32)
+    fpad = np.zeros((b, hw, hw, 7 * 128), np.float32)
+    fpad[..., trk.ps_channel_perm_pad(c_out, 7, 7)] = feats
+    boxes = _boxes(rng, b, n, hi=16 * hw)
+    want = np.asarray(jrp.ps_roi_align_pallas_padded(
+        jnp.asarray(fpad), jnp.asarray(boxes), c_out=c_out,
+        precision=precision, interpret=True))
+    got = trk.ps_roi_align_padded(torch.from_numpy(fpad),
+                                  torch.from_numpy(boxes), c_out=c_out,
+                                  precision=precision)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _assert_ladder(got.numpy(), want, precision)
+    _assert_ladder(got.numpy(), np.asarray(j_ps_batched(
+        jnp.asarray(feats), jnp.asarray(boxes))), precision)
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+@pytest.mark.parametrize("pack_p", [True, False])
+def test_plain_roi_align_ladder_matches_pallas(rng, precision, pack_p):
+    """K3 with float32 operands (pack_p) and RoIAlign through K6."""
+    b, n, hw, c = 2, 12, 13, 10
+    feats = _bf16_values(rng.standard_normal((b, hw, hw, c)).astype(
+        np.float32))
+    boxes = _boxes(rng, b, n, hi=16 * hw)
+    want = np.asarray(jrp.roi_align_pallas(
+        jnp.asarray(feats), jnp.asarray(boxes), precision=precision,
+        interpret=True, pack_p=pack_p))
+    got = trk.roi_align(torch.from_numpy(feats), torch.from_numpy(boxes),
+                        precision=precision, pack_p=pack_p)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    if precision == "default" and pack_p:
+        # the packed Pallas kernel ships bf16 operands and rounds t*bx
+        # explicitly, so both sides round alike; the per-bin-row one
+        # leaves the product to the chip's dot, which the interpreter
+        # does not round (the ladder's bound)
+        _close_to_order(got.numpy(), want)
+    else:
+        _assert_ladder(got.numpy(), want, precision)
+    if not pack_p:      # the two kernels compute one function, bit for bit
+        np.testing.assert_array_equal(got.numpy(), trk.roi_align(
+            torch.from_numpy(feats), torch.from_numpy(boxes),
+            precision=precision, pack_p=True).numpy())
+
+
+def test_default_rung_equals_k2_on_dyadic_boxes(rng):
+    """With by and bx holding bf16 values (boxes of 7 or 14 cells on the
+    cell grid: one or two taps per bin, weights 1 or 1/2), K6's and K7's
+    "default" rung rounds what kernel K2 rounds, and must equal it."""
+    b, n, hw, c_out = 2, 10, 26, 10
+    feats = _bf16_values(
+        rng.standard_normal((b, hw, hw, c_out * 49)).astype(np.float32))
+    cells = rng.integers(1, 3, (b, n, 2)) * 7
+    start = rng.integers(0, 26 - 14, (b, n, 2))
+    boxes = (np.concatenate([start, start + cells], -1) * 16).astype(
+        np.float32)
+    by, bx = tra._batched_prep(torch.from_numpy(boxes), hw, hw, (7, 7),
+                               1 / 16, -0.5, 0.1, -1, 4)
+    assert torch.equal(by.to(torch.bfloat16).float(), by)
+    assert torch.equal(bx.to(torch.bfloat16).float(), bx)
+    fpad = np.zeros((b, hw, hw, 7 * 128), np.float32)
+    fpad[..., trk.ps_channel_perm_pad(c_out, 7, 7)] = feats
+    tb_ = torch.from_numpy(boxes)
+    want = trk.ps_roi_align_padded(torch.from_numpy(fpad), tb_, c_out=c_out)
+    assert float(want.abs().max()) > 0.1
+    np.testing.assert_array_equal(
+        trk.ps_roi_align(torch.from_numpy(feats), tb_).numpy(), want.numpy())
+    np.testing.assert_array_equal(trk.ps_roi_align_padded_f32_kernel(
+        torch.from_numpy(fpad), by, bx, c_out, "default").numpy(),
+        want.numpy())
