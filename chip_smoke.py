@@ -10,30 +10,37 @@ printed only when every phase passed:
   1. the card's name and power limit; TF32 off;
   2. build the CUDA kernels from ``millieye_torch/csrc`` (one nvcc each,
      all at once);
-  3. each of the eight kernels (K1 blocked NMS, K2 padded PS-RoIAlign,
-     K3 RoIAlign, K4 stem pair, K5 whole-matrix NMS, K6 PS-RoIAlign on
+  3. each kernel wrapper against its plain version on the card, at the
+     shapes the serving paths give it, at batch 1 and 32: K1 blocked NMS,
+     K2 padded PS-RoIAlign (and its ``reduce="vpu"`` wrapper), K3
+     RoIAlign, the stem pair as K4, K8 (hi/lo pool select), K11 and K12,
+     K12's deep pair (stages 4+6), K5 whole-matrix NMS, K6 PS-RoIAlign on
      the unpadded float32 map, K7 padded PS-RoIAlign on float32 operands,
-     K9 single stem stage) against its plain version on the card, at the
-     shapes the serving paths give it, at batch 1 and 32: bit-equal (each
-     plain version repeats its kernel's operations in the kernel's
-     order); kernel, plain and library times (the median of 5 repeats of
-     the timing loop, with the spread), and the bound;
+     K9 single stem stage; the pairs at "default" and "highest":
+     bit-equal (each plain version repeats its kernel's operations in the
+     kernel's order); kernel, plain and library times (the median of 5
+     repeats of the timing loop, with the spread), and the bound; how
+     many outputs K8 moves against K4 on the same inputs;
   4. the serving paths on ``artifacts/stage3_final.npz``, 8 requests or
      calls each at batch 1 (640x480 uint8 frames, radar points and
      proposals from a fixed seed): ``FusionEngine.infer`` at
      ``pallas_max_s01``, ``pallas_max4``, ``pallas_stem`` and
      ``pallas_max4`` with ``roi_precision="highest"``; ``entry()``;
-     ``build_refine`` + ``RefineNetwork.apply``; and one
-     ``batched_step_fn`` window of the 8 frames at ``pallas_max4``. The
-     launch counts are set to 0 before each path and read after it; every
-     kernel the path names must have launched on every request; the
-     answers, the window's too, must be finite, of the right shape and
-     bit-identical to the same path inside ``cuda_lib.plain_versions()``;
-     the window's answers must also equal the per-frame answers (matched
-     by box within a stated tolerance, with at most one row of a frame on
-     one side only, where the batch-8 convolutions sum in another order);
-     p50 latency per path; a ``torch.profiler`` pass over 4 more
-     requests at ``pallas_max_s01`` and at ``pallas_max4``;
+     ``build_refine`` + ``RefineNetwork.apply``; ``FusionEngine.infer`` at
+     ``pallas_stem2``, ``pallas_max_pk``, ``pallas_pair2``, ``pallas_deep``
+     and ``pallas_lat``; and one ``batched_step_fn`` window of the 8
+     frames at ``pallas_max4``. The launch counts are set to 0 before
+     each path and read after it; every kernel the path names must have
+     launched on every request; the answers, the window's too, must be
+     finite, of the right shape and bit-identical to the same path inside
+     ``cuda_lib.plain_versions()``; the window's answers must also equal
+     the per-frame answers (matched by box within a stated tolerance,
+     with at most one row of a frame on one side only, where the batch-8
+     convolutions sum in another order); p50 latency per path; then one
+     request at each alias row (buffering-only or same-function twins of
+     the rows above), its launches checked and its answer bit-identical
+     to its twin's; a ``torch.profiler`` pass over 4 more requests at
+     ``pallas_max_s01``, ``pallas_max4`` and ``pallas_pair2``;
   5. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
@@ -134,6 +141,7 @@ class KernelChecks:
         self.torch, self.rng = torch, rng
         self.dev = torch.device("cuda")
         self.records = {}
+        self.k8_vs_k4 = []     # (batch, outputs that differ, outputs)
 
     def case(self, name, label, batch, kern, plain, nbytes, flops, rate,
              library=None, lib_note=None, lib_tol=None, iters=20):
@@ -166,14 +174,14 @@ class KernelChecks:
 
     # ------------------------------------------------------------- NMS
     def nms(self, b):
-        """K1 at 128 and 512 candidates, K5 at 512 and 135, on knife-edge
+        """K1 at 128, 256 and 512 candidates, K5 at 512 and 135, on knife-edge
         inputs; the plain versions also against the sequential golden."""
         from millieye_torch.ops import nms_kernel
         from millieye_torch.ops.nms import nms_keep_mask_ref
         torch = self.torch
         for name, kern, plain, ks in (
                 ("nms", nms_kernel.nms_keep_mask_blocked,
-                 nms_kernel.nms_keep_mask_blocked_plain, (128, 512)),
+                 nms_kernel.nms_keep_mask_blocked_plain, (128, 256, 512)),
                 ("nms_full", nms_kernel.nms_keep_mask_full,
                  nms_kernel.nms_keep_mask_full_plain, (512, 135))):
             for k in ks:
@@ -234,6 +242,18 @@ class KernelChecks:
                 "ps_roi_align", f"N={n}", b,
                 lambda: roi_kernel.ps_roi_align_padded_kernel(feats, by, bx,
                                                               c_out),
+                lambda: roi_kernel.ps_roi_align_padded_plain(feats, by, bx,
+                                                             c_out),
+                (used + by.numel() + bx.numel()) * 2
+                + b * n * ph * pw * c_out * 4,
+                2 * b * n * ph * (hw * hw + hw) * c_out * pw, BF16_FLOP_S,
+                lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu", by, live,
+                                     bx),
+                "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
+            self.case(
+                "ps_roi_align_vpu", f"N={n}", b,
+                lambda: roi_kernel.ps_roi_align_padded_vpu_kernel(
+                    feats, by, bx, c_out),
                 lambda: roi_kernel.ps_roi_align_padded_plain(feats, by, bx,
                                                              c_out),
                 (used + by.numel() + bx.numel()) * 2
@@ -368,8 +388,10 @@ class KernelChecks:
 
     # ------------------------------------------------------------ stems
     def stems(self, b, darknet_params):
-        """K4 on 416 px frames and K9 at the four stage shapes of the
-        416 px network, with the served (folded) weights. Library: cuDNN
+        """The stem pair (K4, K8, K11, K12 at groups0 4 and 8) on 416 px
+        frames at both precisions, K12's deep pair on stage 4's input
+        shape, and K9 at the four stage shapes of the 416 px network,
+        with the served (folded) weights. Library: cuDNN
         conv2d + bias + leaky_relu + max_pool2d on channels_last
         operands, bf16 where the kernel's products are bf16 and float32
         (TF32 off) at "highest"; held within 4% (bf16) or 0.2% (float32;
@@ -399,15 +421,65 @@ class KernelChecks:
         (w0, b0), (w1, b1) = wb(0), wb(2)
         x = torch.tensor(self.rng.uniform(0, 1, (b, 416, 416, 3)),
                          dtype=torch.float32, device=self.dev)
-        self.case(
-            "stem_pair", "416 px", b,
-            lambda: stem.fused_stem_pair(x, w0, b0, w1, b1),
-            lambda: stem.fused_stem_pair_plain(x, w0, b0, w1, b1),
-            x.numel() * 4 + b * 104 * 104 * 32 * 2
-            + (w0.numel() + w1.numel()) * 2,
-            2 * b * (416 * 416 * 16 * 27 + 208 * 208 * 32 * 144),
-            BF16_FLOP_S, cudnn_stages(x, [(w0, b0), (w1, b1)], bf),
-            "cuDNN conv2d+bias+leaky+max_pool2d twice, bf16", BF16_TOL)
+        args = (x, w0, b0, w1, b1)
+        for precision in ("default", "highest"):
+            hi = precision == "highest"
+            store = torch.float32 if hi else torch.float16
+            lib = cudnn_stages(x, [(w0, b0), (w1, b1)],
+                               torch.float32 if hi else bf)
+            note = ("cuDNN conv2d+bias+leaky+max_pool2d twice, "
+                    + ("float32, TF32 off" if hi else "bf16"))
+            for name, fn, kw, select in (
+                    ("stem_pair", stem.fused_stem_pair, {}, False),
+                    ("stem_pair_select", stem.fused_stem_pair_select, {},
+                     not hi),
+                    ("stem_pair_packed", stem.fused_stem_pair_packed, {},
+                     False),
+                    ("stem_pair_s2d", stem.fused_stem_pair_s2d,
+                     {"groups0": 4}, False),
+                    ("stem_pair_s2d", stem.fused_stem_pair_s2d,
+                     {"groups0": 8}, False)):
+                label = (f"416 px 3->16->32 {precision} {str(store)[6:]}"
+                         + (f" groups0={kw['groups0']}" if kw else ""))
+                self.case(
+                    name, label, b,
+                    lambda fn=fn, kw=kw: fn(*args, precision, store, **kw),
+                    lambda select=select: stem.fused_stem_pair_plain(
+                        *args, precision, store, select),
+                    x.numel() * 4 + b * 104 * 104 * 32 * store.itemsize
+                    + (w0.numel() + w1.numel()) * (4 if hi else 2),
+                    2 * b * (416 * 416 * 16 * 27 + 208 * 208 * 32 * 144),
+                    F32_FLOP_S if hi else BF16_FLOP_S, lib, note,
+                    2e-3 if hi else BF16_TOL)
+            if not hi:
+                k8 = stem.fused_stem_pair_select(*args, precision, store)
+                k4 = stem.fused_stem_pair(*args, precision, store)
+                self.k8_vs_k4.append((b, int((k8 != k4).sum()), k8.numel()))
+
+        # the deep pair: stages 4+6 on 104 px, bf16 store
+        (w4, b4), (w6, b6) = wb(4), wb(6)
+        x = torch.tensor(self.rng.uniform(0, 1, (b, 104, 104, 32)),
+                         dtype=torch.float32, device=self.dev)
+        for precision in ("default", "highest"):
+            hi = precision == "highest"
+            self.case(
+                "stem_pair_deep",
+                f"104 px 32->64->128 {precision} bf16", b,
+                lambda: stem.fused_stem_pair_s2d(x, w4, b4, w6, b6, precision,
+                                                 torch.bfloat16, groups0=2),
+                lambda: stem.fused_stem_pair_deep_plain(
+                    x, w4, b4, w6, b6, precision, torch.bfloat16),
+                x.numel() * 4 + b * 26 * 26 * 128 * 2
+                + (w4.numel() + w6.numel()) * (4 if hi else 2),
+                2 * b * (104 * 104 * 64 * 288 + 52 * 52 * 128 * 576),
+                F32_FLOP_S if hi else BF16_FLOP_S,
+                cudnn_stages(x, [(w4, b4), (w6, b6)],
+                             torch.float32 if hi else bf),
+                "cuDNN conv2d+bias+leaky+max_pool2d twice, "
+                + ("float32, TF32 off" if hi else "bf16"),
+                # float32 against the plain version's bf16 store at
+                # "highest": half a bf16 ulp, 2^-9 of the value, and order
+                2.0 ** -8 if hi else BF16_TOL)
 
         for i, hw, precision, store in ((0, 416, "highest", torch.float16),
                                         (2, 208, "highest", torch.float16),
@@ -552,6 +624,21 @@ def main():
                                     "millieye_tpu/ops/roi_pallas.py:344"),
         "stem_stage": (stem.fused_stem_stage, "millieye_torch/csrc/stem.cu",
                        "millieye_tpu/ops/stem_pallas.py:500"),
+        "stem_pair_select": (stem.fused_stem_pair_select,
+                             "millieye_torch/csrc/stem.cu",
+                             "millieye_tpu/ops/stem_pallas.py:416"),
+        "stem_pair_packed": (stem.fused_stem_pair_packed,
+                             "millieye_torch/csrc/stem.cu",
+                             "millieye_tpu/ops/stem_pallas_rejected.py:267"),
+        "stem_pair_s2d": (stem.fused_stem_pair_s2d,
+                          "millieye_torch/csrc/stem.cu",
+                          "millieye_tpu/ops/stem_pallas_rejected.py:615"),
+        "stem_pair_deep": (stem.fused_stem_pair_deep,
+                           "millieye_torch/csrc/stem.cu",
+                           "millieye_tpu/ops/stem_pallas_rejected.py:615"),
+        "ps_roi_align_vpu": (roi_kernel.ps_roi_align_padded_vpu_kernel,
+                             "millieye_torch/csrc/roi_align.cu",
+                             "millieye_tpu/ops/roi_pallas.py:439"),
     }
 
     def engine_at(preset, **cfg):
@@ -563,6 +650,9 @@ def main():
                "pallas_stem": engine_at("pallas_stem"),
                "pallas_max4+highest": engine_at("pallas_max4",
                                                 roi_precision="highest")}
+    for preset in ("pallas_stem2", "pallas_max_pk", "pallas_pair2",
+                   "pallas_deep", "pallas_lat"):
+        engines[preset] = engine_at(preset)
 
     rng = np.random.default_rng(0)
     checks = KernelChecks(torch, rng)
@@ -575,6 +665,9 @@ def main():
     torch.cuda.empty_cache()
     log(f"kernel phase: {sum(map(len, checks.records.values()))} cases "
         f"bit-equal to their plain versions, {time.time() - t:.1f} s")
+    for b, moved, total in checks.k8_vs_k4:
+        log(f"K8 against K4 at 416 px, 'default', b{b}: {moved} of {total} "
+            f"float16 outputs differ (the hi/lo pool select)")
 
     rng = np.random.default_rng(1)      # the requests' own stream
     reqs = requests(rng, N_REQUESTS)
@@ -647,6 +740,34 @@ def main():
     drive("pallas_max4+highest", infer_calls(eng), rows(eng),
           one(("ps_roi_align_padded_f32", "roi_align", "stem_stage",
                "stem_pair", "nms"), 1))
+
+    # the stem-kernel ladder: K8, K11, K12 (stem pair, deep pair) and K2's
+    # "vpu" reduce on their serving rows
+    for path, must in (
+            ("pallas_stem2", ("stem_pair_select", "nms")),
+            ("pallas_max_pk", ("stem_pair_packed", "ps_roi_align",
+                               "roi_align", "nms")),
+            ("pallas_pair2", ("stem_pair_s2d", "stem_pair_deep",
+                              "ps_roi_align", "roi_align", "nms")),
+            ("pallas_deep", ("stem_pair_s2d", "ps_roi_align", "roi_align",
+                             "nms")),
+            ("pallas_lat", ("stem_pair", "ps_roi_align_vpu", "roi_align",
+                            "nms"))):
+        eng = engines[path]
+        need = one(must, 1)
+        if path == "pallas_deep":
+            need["stem_stage"] = 2               # stages 4 and 6
+        drive(path, infer_calls(eng), rows(eng), need)
+    # K11 computes K4's function: the packed path repeats P1's answers
+    if not all(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+               for g, w in zip(answers_by_path["pallas_max_pk"],
+                               answers_by_path["pallas_max_s01"])):
+        raise AssertionError("pallas_max_pk: answers differ from "
+                             "pallas_max_s01's")
+    lat = launches_by_path["pallas_lat"]
+    if lat["nms_full"] or lat["ps_roi_align"]:
+        raise AssertionError(f"pallas_lat: launched the whole-matrix NMS or "
+                             f"K2's 'dot' wrapper: {lat}")
 
     # entry(): the float32 flagship forward; its example inputs with a new
     # image for each call
@@ -740,8 +861,48 @@ def main():
         "bit_identical": exact, "max_box_diff": d_box,
         "max_score_diff": d_score, "rows_on_one_side": flipped}
 
+    # the alias rows: one request each; their launches, and their answer
+    # bit-identical to the row they repeat (the JAX package's comments: a
+    # bf16-scratch or VMEM-input spelling is bit-identical to its f32-DMA
+    # twin, packed and s2d compute the phase kernel's products, "vpu" the
+    # "dot" reduce's)
+    twins = {name: "pallas_max_s01" for name in (
+        "pallas_max_s2d", "pallas_max_bf16s", "pallas_max_pk_bf16s",
+        "pallas_max_s2d_bf16s", "pallas_max_vm", "pallas_max_vm_s01",
+        "pallas_max_vm_bf16s")}
+    twins.update(pallas_s2d8="pallas_s2d", pallas_maxv="pallas_s2d")
+    alias_kernel = {"pallas_max_s2d": "stem_pair_s2d",
+                    "pallas_max_s2d_bf16s": "stem_pair_s2d",
+                    "pallas_max_pk_bf16s": "stem_pair_packed",
+                    "pallas_s2d": "stem_pair_s2d",
+                    "pallas_s2d8": "stem_pair_s2d"}
+    alias_answers = {"pallas_max_s01": answers_by_path["pallas_max_s01"][0]}
+    for name in ["pallas_s2d"] + sorted(twins):
+        eng = engine_at(name)
+        for fn, *_ in kernels.values():
+            fn.launches = 0
+        got = eng.infer(*reqs[0])
+        launches = {k: fn.launches for k, (fn, *_) in kernels.items()}
+        launches_by_path[f"alias {name}"] = launches
+        need = [alias_kernel.get(name, "stem_pair"), "roi_align", "nms",
+                "ps_roi_align_vpu" if name == "pallas_maxv"
+                else "ps_roi_align"]
+        if any(launches[k] < 1 for k in need):
+            raise AssertionError(f"alias {name}: launches {launches}, need "
+                                 f"{need}")
+        alias_answers[name] = got
+        if name in twins:
+            want = alias_answers[twins[name]]
+            if not (np.array_equal(got[0], want[0])
+                    and np.array_equal(got[1], want[1])):
+                raise AssertionError(f"alias {name}: differs from "
+                                     f"{twins[name]}")
+        del eng
+    log(f"alias rows: one request each, launches as named, answers "
+        f"bit-identical to their twins {twins}")
+
     profiles = {p: profile_calls(torch, p, infer_calls(engines[p])[:4])
-                for p in ("pallas_max_s01", "pallas_max4")}
+                for p in ("pallas_max_s01", "pallas_max4", "pallas_pair2")}
 
     line = []
     for name, (_, src, replaces) in kernels.items():
@@ -779,7 +940,9 @@ def main():
             "cases": [flat(r) for r in checks.records[name]]})
     log(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": line, "card": card, "paths": summary,
-                      "profile": profiles}))
+                      "profile": profiles,
+                      "k8_vs_k4": [{"batch": b, "differ": m, "outputs": t}
+                                   for b, m, t in checks.k8_vs_k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

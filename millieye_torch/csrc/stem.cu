@@ -1,40 +1,60 @@
-// Fused stem kernels: the two-stage pair K4 (below) and the single stage
-// K9 (second half of this file).
+// Fused stem kernels: the two-stage pair (K4, and K8, K11 and K12 at the
+// stem shape), the deep pair (K12 at stages 4+6) and the single stage K9.
 //
-// Fused stem pair (kernel K4):
+// The stem pair:
 //   out = maxpool2(leaky(conv3x3(maxpool2(leaky(conv3x3(x, w0) + b0)), w1)
 //                  + b1))
-// for NHWC float32 x [N, H, W, Cin] -> NHWC float16 [N, H/4, W/4, Cout],
-// convolutions with zero padding 1, leaky slope 0.1, 2x2/2 max pools.
+// for NHWC float32 x [N, H, W, Cin] -> NHWC [N, H/4, W/4, Cout] stored as
+// float32, bf16 or float16; convolutions with zero padding 1, leaky slope
+// 0.1, 2x2/2 max pools.
 //
-// Replaces: millieye_tpu/ops/stem_pallas.py:fused_stem2_phase with
-// bf16_only="s0s1", precision="default" (the pallas_max_s01 stem). Its
-// numerics: the input and w0 are rounded to bf16, products accumulate in
-// float32, then +b0, leaky and the pool; the 2x-down intermediate stays
-// float32 and is rounded to bf16 as stage 1's operand, with w1 in bf16;
-// stage 1 accumulates in float32, then +b1, leaky, the pool, and one
-// float16 store.
+// Replaces four Pallas kernels that compute this one function on the TPU
+// and differ there in how they tile the MXU and buffer VMEM:
+// millieye_tpu/ops/stem_pallas.py:fused_stem2_phase (K4; its bf16_only,
+// scratch_dtype and input_mode options are buffering),
+// stem_pallas.py:fused_stem2_planar (K8), and
+// stem_pallas_rejected.py:fused_stem2_packed (K11, stage 0 K-packed) and
+// fused_stem2_s2d (K12, stage 1 as space-to-depth). The K-packing and the
+// s2d regrouping are MXU layouts with no meaning on this card, so K11 and
+// K12 launch the same kernel as K4. Numerics:
+//   precision "default": the input and w0 are rounded to bf16, products
+//     accumulate in float32, then +b0, leaky and the pool; the float32
+//     intermediate is rounded to bf16 as stage 1's operand, with w1 in
+//     bf16; one rounding to the store type at the end.
+//   precision "highest": float32 throughout, each product rounded before
+//     its add (__fmul_rn, __fadd_rn), so the plain version can repeat it.
+//   K8 ("select" pool, "default" only): the TPU picks the pooled columns
+//     with a one-hot matmul split into hi = bf16(v) and bf16(v - hi)
+//     (stem_pallas.py:_pool_select_dot), so each pooled value becomes
+//     hi + bf16(v - hi) at both stages before its use. At "highest" the
+//     select is exact and K8 is K4's function.
 //
 // Bound on an H100 at 416 px: bytes. Per image it must read the 2.08 MB
 // float32 input and write the 0.69 MB float16 output (0.8 us at
-// 3.35 TB/s), against 0.55 GFLOP of bf16 products (0.6 us at
-// 989 TFLOP/s on the tensor cores). This first kernel runs the products
-// on the CUDA cores in float32 FMAs, so arithmetic, not either bound,
-// sets its time; moving them to mma/wgmma is later work.
+// 3.35 TB/s), against 0.55 GFLOP of products (0.6 us at the bf16
+// 989 TFLOP/s; 8.2 us at "highest" on the 67 TFLOP/s float32 cores). This
+// first kernel runs the products on the CUDA cores in float32, so
+// arithmetic, not either bound, sets its time; moving them to mma/wgmma
+// is later work.
 //
 // Design: one thread block per 8x8 tile of output pixels. The block
-// stages a 38x38xCin input halo (bf16) and both weight sets (bf16) in
-// shared memory, computes the 18x18xCmid stage-0 intermediate it needs
-// (one halo pixel on each side) into shared memory, zeroed where it falls
-// outside the H/2 x W/2 map because stage 1 pads with zeros, then
-// computes its 8x8xCout outputs. The 2x-down intermediate (H/2 x W/2 x
-// Cmid, 1.4 MB float32 per 416 px image) never reaches device memory,
-// which is what the Pallas kernel kept in VMEM. Each thread owns 8
-// channels of one pixel at all four pool positions, so a warp reads the
-// same weights (broadcast) and neighbouring pixels.
+// stages a 38x38xCin input halo and both weight sets in shared memory
+// (bf16 at "default", float32 at "highest": 58 KB at the stem widths,
+// through the dynamic opt-in), computes the 18x18xCmid stage-0
+// intermediate it needs (one halo pixel on each side) into shared memory,
+// zeroed where it falls outside the H/2 x W/2 map because stage 1 pads
+// with zeros, then computes its 8x8xCout outputs. The 2x-down
+// intermediate (H/2 x W/2 x Cmid, 1.4 MB float32 per 416 px image) never
+// reaches device memory, which is what the Pallas kernels kept in VMEM.
+// Each thread owns 8 channels of one pixel at all four pool positions, so
+// a warp reads the same weights (broadcast) and neighbouring pixels.
+// Shapes whose weights and halo do not fit (the deep pair) take the
+// chunked kernel below.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -43,32 +63,84 @@ constexpr int kMid = 2 * kTile + 2;    // intermediate pixels, with halo
 constexpr int kIn = 4 * kTile + 6;     // input pixels, with halo
 constexpr int kThreads = 256;
 constexpr int kGroup = 8;              // channels per thread
-constexpr size_t kMaxSmem = 48 * 1024;
+constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr size_t kMaxSmem = 232448;    // the per-block opt-in limit
+
+enum StoreType { kStoreF32 = 0, kStoreBf16 = 1, kStoreF16 = 2 };
 
 __device__ __forceinline__ float leaky(float v) {
   return v > 0.0f ? v : 0.1f * v;
 }
 
-__host__ __device__ inline size_t smem_bytes(int cin, int cmid, int cout) {
-  return sizeof(float) * (cmid + cout)
-         + sizeof(__nv_bfloat16) * (9 * cin * cmid + 9 * cmid * cout
-                                    + kIn * kIn * cin + kMid * kMid * cmid);
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// one product into the float32 sum: with bf16 operands the product is
+// exact, so the FMA rounds like multiply-then-add; float32 operands round
+// the product first, as the plain version's eager multiply does
+template <bool kHighest>
+__device__ __forceinline__ float mac(float a, float b, float acc) {
+  return kHighest ? __fadd_rn(acc, __fmul_rn(a, b)) : fmaf(a, b, acc);
+}
+
+// the TPU's one-hot column select as two bf16 passes: hi + bf16(v - hi)
+// (both the difference and the sum are exact in float32)
+__device__ __forceinline__ float pool_select(float v) {
+  const float hi = bf16_round(v);
+  return __fadd_rn(hi, bf16_round(__fsub_rn(v, hi)));
+}
+
+__device__ __forceinline__ void store_value(void* out, size_t i, float v,
+                                            int store) {
+  if (store == kStoreF32)
+    static_cast<float*>(out)[i] = v;
+  else if (store == kStoreBf16)
+    static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
+  else
+    static_cast<__half*>(out)[i] = __float2half_rn(v);
+}
+
+__host__ __device__ inline size_t pair_smem_bytes(int cin, int cmid,
+                                                  int cout, bool highest) {
+  return sizeof(float) * (cmid + cout)
+         + (highest ? sizeof(float) : sizeof(__nv_bfloat16))
+               * (9 * cin * cmid + 9 * cmid * cout + kIn * kIn * cin
+                  + kMid * kMid * cmid);
+}
+
+template <bool kHighest, bool kSelect>
 __global__ void __launch_bounds__(kThreads)
 stem_pair_kernel(const float* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w0,  // [3, 3, cin, cmid]
+                 const float* __restrict__ w0,   // [3, 3, cin, cmid]
                  const float* __restrict__ b0,
-                 const __nv_bfloat16* __restrict__ w1,  // [3, 3, cmid, cout]
-                 const float* __restrict__ b1, __half* __restrict__ out,
-                 int h, int w, int cin, int cmid, int cout) {
+                 const float* __restrict__ w1,   // [3, 3, cmid, cout]
+                 const float* __restrict__ b1, void* __restrict__ out,
+                 int h, int w, int cin, int cmid, int cout, int store) {
+  // operands in shared memory: bf16 values at "default", float32 at
+  // "highest"
+  using Op = typename std::conditional<kHighest, float, __nv_bfloat16>::type;
   extern __shared__ float smem[];
   float* s_b0 = smem;
   float* s_b1 = s_b0 + cmid;
-  __nv_bfloat16* s_w0 = reinterpret_cast<__nv_bfloat16*>(s_b1 + cout);
-  __nv_bfloat16* s_w1 = s_w0 + 9 * cin * cmid;
-  __nv_bfloat16* s_in = s_w1 + 9 * cmid * cout;   // [kIn, kIn, cin]
-  __nv_bfloat16* s_mid = s_in + kIn * kIn * cin;  // [kMid, kMid, cmid]
+  Op* s_w0 = reinterpret_cast<Op*>(s_b1 + cout);
+  Op* s_w1 = s_w0 + 9 * cin * cmid;
+  Op* s_in = s_w1 + 9 * cmid * cout;   // [kIn, kIn, cin]
+  Op* s_mid = s_in + kIn * kIn * cin;  // [kMid, kMid, cmid]
 
   const int tid = threadIdx.x;
   const int n = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
@@ -76,8 +148,10 @@ stem_pair_kernel(const float* __restrict__ x,
 
   for (int i = tid; i < cmid; i += kThreads) s_b0[i] = b0[i];
   for (int i = tid; i < cout; i += kThreads) s_b1[i] = b1[i];
-  for (int i = tid; i < 9 * cin * cmid; i += kThreads) s_w0[i] = w0[i];
-  for (int i = tid; i < 9 * cmid * cout; i += kThreads) s_w1[i] = w1[i];
+  for (int i = tid; i < 9 * cin * cmid; i += kThreads)
+    s_w0[i] = from_float<Op>(w0[i]);
+  for (int i = tid; i < 9 * cmid * cout; i += kThreads)
+    s_w1[i] = from_float<Op>(w1[i]);
 
   // input halo: local (ly, lx) <-> global (4*kTile*ty - 3 + ly, ...)
   const int iy0 = 4 * kTile * ty - 3, ix0 = 4 * kTile * tx - 3;
@@ -88,7 +162,7 @@ stem_pair_kernel(const float* __restrict__ x,
     float v = 0.0f;
     if (gy >= 0 && gy < h && gx >= 0 && gx < w)
       v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c];
-    s_in[e] = __float2bfloat16_rn(v);
+    s_in[e] = from_float<Op>(v);
   }
   __syncthreads();
 
@@ -101,31 +175,32 @@ stem_pair_kernel(const float* __restrict__ x,
     const int pix = e % (kMid * kMid), g = e / (kMid * kMid);
     const int ly = pix / kMid, lx = pix % kMid;
     const int gy = my0 + ly, gx = mx0 + lx;
-    __nv_bfloat16* dst = s_mid + pix * cmid + g * kGroup;
+    Op* dst = s_mid + pix * cmid + g * kGroup;
     if (gy < 0 || gy >= hm || gx < 0 || gx >= wm) {
-      for (int k = 0; k < kGroup; ++k) dst[k] = __float2bfloat16_rn(0.0f);
+      for (int k = 0; k < kGroup; ++k) dst[k] = from_float<Op>(0.0f);
       continue;
     }
     float acc[4][kGroup] = {};
     for (int u = 0; u < 3; ++u)
       for (int v = 0; v < 3; ++v)
         for (int c = 0; c < cin; ++c) {
-          const __nv_bfloat16* wr = s_w0 + ((u * 3 + v) * cin + c) * cmid
-                                    + g * kGroup;
+          const Op* wr = s_w0 + ((u * 3 + v) * cin + c) * cmid + g * kGroup;
           float wv[kGroup];
-          for (int k = 0; k < kGroup; ++k) wv[k] = __bfloat162float(wr[k]);
+          for (int k = 0; k < kGroup; ++k) wv[k] = to_float(wr[k]);
           for (int d = 0; d < 4; ++d) {
             const int r = 2 * ly + (d >> 1) + u, s = 2 * lx + (d & 1) + v;
-            const float xv = __bfloat162float(s_in[(r * kIn + s) * cin + c]);
+            const float xv = to_float(s_in[(r * kIn + s) * cin + c]);
             for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = fmaf(xv, wv[k], acc[d][k]);
+              acc[d][k] = mac<kHighest>(xv, wv[k], acc[d][k]);
           }
         }
     for (int k = 0; k < kGroup; ++k) {
       const float bias = s_b0[g * kGroup + k];
-      float m = leaky(acc[0][k] + bias);
-      for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(acc[d][k] + bias));
-      dst[k] = __float2bfloat16_rn(m);  // stage 1's bf16 operand
+      float m = leaky(__fadd_rn(acc[0][k], bias));
+      for (int d = 1; d < 4; ++d)
+        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+      if (kSelect) m = pool_select(m);
+      dst[k] = from_float<Op>(m);   // stage 1's operand
     }
   }
   __syncthreads();
@@ -142,24 +217,209 @@ stem_pair_kernel(const float* __restrict__ x,
     for (int u = 0; u < 3; ++u)
       for (int v = 0; v < 3; ++v)
         for (int c = 0; c < cmid; ++c) {
-          const __nv_bfloat16* wr = s_w1 + ((u * 3 + v) * cmid + c) * cout
-                                    + g * kGroup;
+          const Op* wr = s_w1 + ((u * 3 + v) * cmid + c) * cout + g * kGroup;
           float wv[kGroup];
-          for (int k = 0; k < kGroup; ++k) wv[k] = __bfloat162float(wr[k]);
+          for (int k = 0; k < kGroup; ++k) wv[k] = to_float(wr[k]);
           for (int d = 0; d < 4; ++d) {
             const int r = 2 * py + (d >> 1) + u, s = 2 * px + (d & 1) + v;
-            const float mv = __bfloat162float(s_mid[(r * kMid + s) * cmid + c]);
+            const float mv = to_float(s_mid[(r * kMid + s) * cmid + c]);
             for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = fmaf(mv, wv[k], acc[d][k]);
+              acc[d][k] = mac<kHighest>(mv, wv[k], acc[d][k]);
           }
         }
-    __half* o = out + ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
-                + g * kGroup;
+    const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
+                     + g * kGroup;
     for (int k = 0; k < kGroup; ++k) {
       const float bias = s_b1[g * kGroup + k];
-      float m = leaky(acc[0][k] + bias);
-      for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(acc[d][k] + bias));
-      o[k] = __float2half_rn(m);
+      float m = leaky(__fadd_rn(acc[0][k], bias));
+      for (int d = 1; d < 4; ++d)
+        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+      if (kSelect) m = pool_select(m);
+      store_value(out, o + k, m, store);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The deep pair (kernel K12 at stages 4+6 of the network): the pair's
+// function at 104 px, 32 -> 64 -> 128 channels, bf16 store.
+//
+// Replaces: millieye_tpu/ops/stem_pallas_rejected.py:fused_stem2_s2d with
+// groups0=2, as models/darknet.py runs it for the second pair of
+// pallas_stem_pairs="all" (the pallas_pair2 preset). Numerics as the stem
+// pair above, at either precision.
+//
+// Bound on an H100, per image: 0.80 GFLOP of products (2 x 398.7 MFLOP;
+// 0.81 us at the bf16 989 TFLOP/s, 11.9 us on the 67 TFLOP/s float32
+// cores) against 1.38 MB of float32 input and 0.17 MB of bf16 output
+// (0.46 us at 3.35 TB/s): operations. This first kernel runs the products
+// on the CUDA cores; tensor cores (mma/wgmma) are later work.
+//
+// Design. The stem pair's layout does not fit: w0 and w1 hold 92,160
+// weights (184 KB in bf16, 368 KB in float32), and the 38x38x32 input
+// halo of an 8x8 output tile is another 92 KB in bf16, against 227 KB a
+// block may have. So, as kernel K9 does, channels go through shared
+// memory in chunks of 8: the 22x22 input halo of the chunk (planar, a
+// padded row pitch) with its w0 slice, then, for stage 1, the w1 slice.
+// Only the stage-0 intermediate of the tile stays whole (10x10xCmid
+// float32, 28 KB at Cmid 64): 64 KB of dynamic shared memory in all.
+// The output tile is 4x4 pooled pixels: the 26x26 map at 104 px is then
+// 7x7 = 49 blocks at batch 1 (8x8 tiles would give 16 blocks for 132
+// SMs), at the cost of recomputing the stage-0 halo (a 10x10
+// intermediate for 8x8 stage-1 positions, 1.56x the stage-0 work; 2x2
+// tiles would cost 2.25x and leave stage 1 with 64 of 256 threads). The
+// output channels are not split across blocks, since each slice would
+// recompute the whole stage 0. A thread owns 8 channels of one pixel at
+// all four pool positions (32 accumulators); the sums run over (c, u, v),
+// c slowest, as in K9.
+constexpr int kDTile = 4;                 // output pixels per tile side
+constexpr int kDMid = 2 * kDTile + 2;     // 10 intermediate pixels
+constexpr int kDIn = 4 * kDTile + 6;      // 22 input pixels
+constexpr int kDMidPitch = kDMid + 1;
+constexpr int kDInPitch = kDIn + 1;
+constexpr int kDCk = 8;                   // channels per chunk
+
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
+__host__ __device__ inline size_t deep_smem_floats(int cmid, int cout) {
+  const int chunk0 = align4(kDCk * kDIn * kDInPitch) + kDCk * 9 * cmid;
+  const int chunk1 = kDCk * 9 * cout;
+  return align4(cmid * kDMid * kDMidPitch)
+         + (chunk0 > chunk1 ? chunk0 : chunk1);
+}
+
+template <bool kHighest>
+__global__ void __launch_bounds__(kThreads)
+stem_pair_deep_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w0,   // [cin, 3, 3, cmid]
+                      const float* __restrict__ b0,
+                      const float* __restrict__ w1,   // [cmid, 3, 3, cout]
+                      const float* __restrict__ b1, void* __restrict__ out,
+                      int h, int w, int cin, int cmid, int cout, int store) {
+  extern __shared__ __align__(16) float dsmem[];
+  float* s_mid = dsmem;                     // [cmid][kDMid][kDMidPitch]
+  float* s_chunk = s_mid + align4(cmid * kDMid * kDMidPitch);
+  float* s_in = s_chunk;                    // [kDCk][kDIn][kDInPitch]
+  float* s_w0 = s_in + align4(kDCk * kDIn * kDInPitch);  // [kDCk*9][cmid]
+  float* s_w1 = s_chunk;                    // [kDCk*9][cout]
+
+  const int tid = threadIdx.x;
+  const int n = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
+  const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
+  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+  // input local (ly, lx) <-> global (4*kDTile*ty - 3 + ly, ...);
+  // intermediate local <-> global (2*kDTile*ty - 1 + ly, ...)
+  const int iy0 = 4 * kDTile * ty - 3, ix0 = 4 * kDTile * tx - 3;
+  const int my0 = 2 * kDTile * ty - 1, mx0 = 2 * kDTile * tx - 1;
+
+  // stage 0, in rounds of kThreads (pixel, channel group) items
+  const int items0 = kDMid * kDMid * (cmid / kGroup);
+  for (int base = 0; base < items0; base += kThreads) {
+    const int e = base + tid;
+    const bool active = e < items0;
+    const int pix = e % (kDMid * kDMid), g = e / (kDMid * kDMid);
+    const int ly = pix / kDMid, lx = pix % kDMid;
+    float acc[4][kGroup] = {};
+    for (int c0 = 0; c0 < cin; c0 += kDCk) {
+      const int cn = min(kDCk, cin - c0);
+      __syncthreads();                   // the previous chunk is consumed
+      for (int i = tid; i < kDIn * kDIn * cn; i += kThreads) {
+        const int c = i % cn, p = i / cn;
+        const int gy = iy0 + p / kDIn, gx = ix0 + p % kDIn;
+        float v = 0.0f;
+        if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+          v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c0 + c];
+        if (!kHighest) v = bf16_round(v);
+        s_in[(c * kDIn + p / kDIn) * kDInPitch + p % kDIn] = v;
+      }
+      const float* wsrc = w0 + static_cast<size_t>(c0) * 9 * cmid;
+      for (int i = tid; i < cn * 9 * cmid; i += kThreads)
+        s_w0[i] = kHighest ? wsrc[i] : bf16_round(wsrc[i]);
+      __syncthreads();
+      if (!active) continue;
+      for (int c = 0; c < cn; ++c) {
+        float patch[4][4];
+        for (int r = 0; r < 4; ++r)
+          for (int q = 0; q < 4; ++q)
+            patch[r][q] = s_in[(c * kDIn + 2 * ly + r) * kDInPitch + 2 * lx
+                               + q];
+        for (int u = 0; u < 3; ++u)
+          for (int v = 0; v < 3; ++v) {
+            const float4* wr = reinterpret_cast<const float4*>(
+                s_w0 + (c * 9 + u * 3 + v) * cmid + g * kGroup);
+            const float4 wa = wr[0], wb = wr[1];
+            const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
+                                      wb.x, wb.y, wb.z, wb.w};
+            for (int d = 0; d < 4; ++d) {
+              const float xv = patch[(d >> 1) + u][(d & 1) + v];
+              for (int k = 0; k < kGroup; ++k)
+                acc[d][k] = mac<kHighest>(xv, wv[k], acc[d][k]);
+            }
+          }
+      }
+    }
+    if (!active) continue;
+    const int gy = my0 + ly, gx = mx0 + lx;
+    const bool inside = gy >= 0 && gy < hm && gx >= 0 && gx < wm;
+    for (int k = 0; k < kGroup; ++k) {
+      const float bias = b0[g * kGroup + k];
+      float m = leaky(__fadd_rn(acc[0][k], bias));
+      for (int d = 1; d < 4; ++d)
+        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+      // stage 1's operand; zero outside the map (stage 1's padding)
+      s_mid[((g * kGroup + k) * kDMid + ly) * kDMidPitch + lx] =
+          inside ? (kHighest ? m : bf16_round(m)) : 0.0f;
+    }
+  }
+
+  // stage 1: output local (py, px) <-> global (kDTile*ty + py, ...); its
+  // conv outputs read intermediate local rows 2*py + dy + u
+  const int items1 = kDTile * kDTile * (cout / kGroup);
+  for (int base = 0; base < items1; base += kThreads) {
+    const int e = base + tid;
+    const bool active = e < items1;
+    const int pix = e % (kDTile * kDTile), g = e / (kDTile * kDTile);
+    const int py = pix / kDTile, px = pix % kDTile;
+    float acc[4][kGroup] = {};
+    for (int c0 = 0; c0 < cmid; c0 += kDCk) {
+      const int cn = min(kDCk, cmid - c0);
+      __syncthreads();    // s_mid is written, the previous chunk consumed
+      const float* wsrc = w1 + static_cast<size_t>(c0) * 9 * cout;
+      for (int i = tid; i < cn * 9 * cout; i += kThreads)
+        s_w1[i] = kHighest ? wsrc[i] : bf16_round(wsrc[i]);
+      __syncthreads();
+      if (!active) continue;
+      for (int c = 0; c < cn; ++c) {
+        float patch[4][4];
+        for (int r = 0; r < 4; ++r)
+          for (int q = 0; q < 4; ++q)
+            patch[r][q] = s_mid[((c0 + c) * kDMid + 2 * py + r) * kDMidPitch
+                                + 2 * px + q];
+        for (int u = 0; u < 3; ++u)
+          for (int v = 0; v < 3; ++v) {
+            const float4* wr = reinterpret_cast<const float4*>(
+                s_w1 + (c * 9 + u * 3 + v) * cout + g * kGroup);
+            const float4 wa = wr[0], wb = wr[1];
+            const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
+                                      wb.x, wb.y, wb.z, wb.w};
+            for (int d = 0; d < 4; ++d) {
+              const float mv = patch[(d >> 1) + u][(d & 1) + v];
+              for (int k = 0; k < kGroup; ++k)
+                acc[d][k] = mac<kHighest>(mv, wv[k], acc[d][k]);
+            }
+          }
+      }
+    }
+    const int oy = kDTile * ty + py, ox = kDTile * tx + px;
+    if (!active || oy >= ho || ox >= wo) continue;
+    const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
+                     + g * kGroup;
+    for (int k = 0; k < kGroup; ++k) {
+      const float bias = b1[g * kGroup + k];
+      float m = leaky(__fadd_rn(acc[0][k], bias));
+      for (int d = 1; d < 4; ++d)
+        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+      store_value(out, o + k, m, store);
     }
   }
 }
@@ -200,8 +460,6 @@ constexpr int kCk = 16;                 // input channels per chunk
 constexpr int kCo = 32;                 // output channels per block
 constexpr int kHalo = 2 * kTile + 2;    // 18 input pixels per tile side
 constexpr int kPitch = kHalo + 1;       // row pitch of the planar halo
-
-enum StoreType { kStoreF32 = 0, kStoreBf16 = 1, kStoreF16 = 2 };
 
 template <bool kHighest>
 __global__ void __launch_bounds__(kThreads)
@@ -279,13 +537,33 @@ stem_stage_kernel(const float* __restrict__ x,
     const float bv = bias[co0 + g * kGroup + k];
     float m = leaky(__fadd_rn(acc[0][k], bv));
     for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bv)));
-    if (store == kStoreF32)
-      static_cast<float*>(out)[o + k] = m;
-    else if (store == kStoreBf16)
-      static_cast<__nv_bfloat16*>(out)[o + k] = __float2bfloat16_rn(m);
-    else
-      static_cast<__half*>(out)[o + k] = __float2half_rn(m);
+    store_value(out, o + k, m, store);
   }
+}
+
+template <typename Kernel>
+int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
+           const void* x, const void* w0, const void* b0, const void* w1,
+           const void* b1, void* out, int h, int w, int cin, int cmid,
+           int cout, int store) {
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0),
+      static_cast<const float*>(b0), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), out, h, w, cin, cmid, cout, store);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_pair_shape(int n, int h, int w, int cin, int cmid, int cout,
+                    int store) {
+  return n <= 0 || h <= 0 || w <= 0 || h % 4 || w % 4 || cin <= 0
+         || cmid <= 0 || cout <= 0 || cmid % kGroup || cout % kGroup
+         || store < 0 || store > 2;
 }
 
 }  // namespace
@@ -296,26 +574,51 @@ const char* millieye_cuda_error_name(int code) {
   return cudaGetErrorName(static_cast<cudaError_t>(code));
 }
 
-// x [n, h, w, cin] f32, w0 [3, 3, cin, cmid] bf16, b0 [cmid] f32,
-// w1 [3, 3, cmid, cout] bf16, b1 [cout] f32 -> out [n, h/4, w/4, cout] f16.
+// x [n, h, w, cin] f32, w0 [3, 3, cin, cmid] f32, b0 [cmid] f32,
+// w1 [3, 3, cmid, cout] f32, b1 [cout] f32 -> out [n, h/4, w/4, cout] in
+// the store type (0 float32, 1 bf16, 2 float16). highest: float32
+// products, else bf16 operands (rounded in the kernel); select: K8's
+// hi/lo pool (only with highest == 0).
 int millieye_stem_pair(const void* x, const void* w0, const void* b0,
                        const void* w1, const void* b1, void* out, int n,
                        int h, int w, int cin, int cmid, int cout,
-                       void* stream) {
-  if (n <= 0 || h <= 0 || w <= 0 || h % 4 || w % 4 || cin <= 0
-      || cmid % kGroup || cout % kGroup || cmid <= 0 || cout <= 0)
+                       int highest, int select, int store, void* stream) {
+  if (bad_pair_shape(n, h, w, cin, cmid, cout, store) || (highest && select))
     return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(cin, cmid, cout);
+  const size_t smem = pair_smem_bytes(cin, cmid, cout, highest != 0);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 grid((w / 4 + kTile - 1) / kTile, (h / 4 + kTile - 1) / kTile,
                   n);
-  stem_pair_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const __nv_bfloat16*>(w0),
-      static_cast<const float*>(b0), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<__half*>(out), h, w, cin,
-      cmid, cout);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (highest)
+    return launch(stem_pair_kernel<true, false>, grid, smem, st, x, w0, b0,
+                  w1, b1, out, h, w, cin, cmid, cout, store);
+  if (select)
+    return launch(stem_pair_kernel<false, true>, grid, smem, st, x, w0, b0,
+                  w1, b1, out, h, w, cin, cmid, cout, store);
+  return launch(stem_pair_kernel<false, false>, grid, smem, st, x, w0, b0,
+                w1, b1, out, h, w, cin, cmid, cout, store);
+}
+
+// The deep pair: x [n, h, w, cin] f32, w0 [cin, 3, 3, cmid] f32, b0,
+// w1 [cmid, 3, 3, cout] f32, b1 -> out [n, h/4, w/4, cout] in the store
+// type; weights rounded to bf16 in the kernel when highest == 0.
+int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
+                            const void* w1, const void* b1, void* out, int n,
+                            int h, int w, int cin, int cmid, int cout,
+                            int highest, int store, void* stream) {
+  if (bad_pair_shape(n, h, w, cin, cmid, cout, store))
+    return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * deep_smem_floats(cmid, cout);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const dim3 grid((w / 4 + kDTile - 1) / kDTile,
+                  (h / 4 + kDTile - 1) / kDTile, n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (highest)
+    return launch(stem_pair_deep_kernel<true>, grid, smem, st, x, w0, b0, w1,
+                  b1, out, h, w, cin, cmid, cout, store);
+  return launch(stem_pair_deep_kernel<false>, grid, smem, st, x, w0, b0, w1,
+                b1, out, h, w, cin, cmid, cout, store);
 }
 
 // x [n, h, w, cin] f32, wgt [cin, 3, 3, cout] f32 (rounded to bf16 in

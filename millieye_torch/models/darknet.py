@@ -13,18 +13,41 @@ and store their output as ``hi_prec_store`` (float16 in the serving
 presets). ``stem_stages`` lists the conv3x3 + pool stages that run
 fused at inference on folded weights: each as one launch of kernel K9
 (``ops/stem.py:fused_stem_stage``, at ``stem_precision``), its pool
-block passing the result through; with ``stem_pair`` the two lowest
-stages lo and lo+2 run together as kernel K4 (``fused_stem_pair``) and
-blocks lo+1..lo+3 pass its output through.
+block passing the result through. With ``stem_pair`` the two lowest
+stages lo and lo+2 run together as one pair kernel, chosen by
+``stem_pair_variant`` (``PAIR_KERNELS``), and blocks lo+1..lo+3 pass its
+output through; ``stem_pairs="all"`` also pairs the later consecutive
+stages (4+6, the deep pair), for the s2d variants only, as the JAX
+package does. A pair stores its output in its second stage's store type.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from millieye_torch.ops.stem import fused_stem_pair, fused_stem_stage
+from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
+                                     fused_stem_pair_s2d,
+                                     fused_stem_pair_select, fused_stem_stage)
 
 _BN_EPS = 1e-5
+
+# The JAX package's pair variants (``pallas_stem_pair_variant``) -> the
+# kernel wrapper and its keyword arguments. The four "phase" spellings
+# differ only in how the TPU buffers VMEM: kernel K4. A "_bf16s" suffix
+# (bf16 scratches, buffering too) is allowed where the JAX package allows
+# it and needs precision "default".
+PAIR_KERNELS = {
+    "select": (fused_stem_pair_select, {}),
+    "phase": (fused_stem_pair, {}),
+    "phase_s01": (fused_stem_pair, {}),
+    "phase_vmem": (fused_stem_pair, {}),
+    "phase_vmem_s01": (fused_stem_pair, {}),
+    "packed": (fused_stem_pair_packed, {}),
+    "s2d": (fused_stem_pair_s2d, {"groups0": 4}),
+    "s2d8": (fused_stem_pair_s2d, {"groups0": 8}),
+}
+_NO_BF16S = ("select", "phase_s01", "phase_vmem_s01")
+_DEEP_PAIR_VARIANTS = ("s2d", "s2d8")   # the only ones that pair stages 4+6
 
 
 def leaky(x):
@@ -70,7 +93,8 @@ class Darknet:
 
     def __init__(self, config, img_size=416, feature_tap=8,
                  hi_prec_stages=(), hi_prec_store=None, stem_stages=(),
-                 stem_pair=False, stem_precision="highest"):
+                 stem_pair=False, stem_precision="highest",
+                 stem_pair_variant="select", stem_pairs="first"):
         self.hyperparams = config[0]
         self.block_defs = list(config[1:])
         self.img_size = img_size
@@ -82,6 +106,25 @@ class Darknet:
         if stem_precision not in ("highest", "default"):
             raise ValueError(f"unknown stem_precision {stem_precision!r}")
         self.stem_precision = stem_precision
+        bf16s = stem_pair_variant.endswith("_bf16s")
+        base = stem_pair_variant[:-6] if bf16s else stem_pair_variant
+        if base not in PAIR_KERNELS or (bf16s and base in _NO_BF16S):
+            raise ValueError(f"unknown stem_pair_variant "
+                             f"{stem_pair_variant!r} (have "
+                             f"{sorted(PAIR_KERNELS)}, '_bf16s' on all but "
+                             f"{_NO_BF16S})")
+        if bf16s and stem_precision != "default":
+            raise ValueError(f"{stem_pair_variant!r}: bf16 scratches need "
+                             "stem_precision 'default'")
+        self.stem_pair_variant = stem_pair_variant
+        fn, kw = PAIR_KERNELS[base]
+        self._pair_kernel = (fn, dict(kw, scratch_dtype=torch.bfloat16)
+                             if bf16s else kw)
+        if stem_pairs not in ("first", "all"):
+            raise ValueError(f"unknown stem_pairs {stem_pairs!r}")
+        self.stem_pairs = stem_pairs
+        self._deep_pairs = (stem_pairs == "all"
+                            and base in _DEEP_PAIR_VARIANTS)
         self._plan = self._build_plan()
         self._validate_stem_stages()
         if self.stem_pair:
@@ -90,10 +133,8 @@ class Darknet:
                 raise ValueError("stem_pair needs two consecutive fused "
                                  "stages (lo, lo+2) in stem_stages, got "
                                  f"{self.stem_stages}")
-            if stem_precision != "default":
-                raise ValueError("the fused stem pair (kernel K4) runs bf16 "
-                                 "products: stem_precision must be 'default'")
-            self._validate_stem_pair(lo)
+            for lo in self._pair_candidates():
+                self._validate_stem_pair(lo)
 
     def _build_plan(self):
         """Per-block channel counts and anchor sets."""
@@ -174,6 +215,34 @@ class Darknet:
                 raise ValueError(f"block {j} is route/tap-referenced; cannot "
                                  "fuse the stem pair")
 
+    def _pair_candidates(self):
+        """The lowest stage of each pair the kernels may run: the first
+        pair, and with ``stem_pairs="all"`` every later (lo, lo+2) of
+        ``stem_stages`` for an s2d variant."""
+        if not self.stem_pair or not self.stem_stages:
+            return ()
+        los, taken = [], set()
+        for lo in self.stem_stages[:None if self._deep_pairs else 1]:
+            if lo not in taken and lo + 2 in self.stem_stages:
+                los.append(lo)
+                taken.update(range(lo, lo + 4))
+        return tuple(los)
+
+    def _run_pair(self, lo, params, x, compute_dtype):
+        """Stages lo and lo+2 as one pair kernel: NCHW in, NCHW out."""
+        fn, kw = self._pair_kernel
+        kw = dict(kw)
+        p, p2 = params[lo], params[lo + 2]
+        if lo != self.stem_stages[0]:
+            # the deep pair: the JAX package's MXU tiling for its Cmid
+            # (stem_pallas_rejected.py:fused_stem2_s2d), checked, unused
+            kw["groups0"] = max(2, min(8, 128 // max(p["w"].shape[0], 1)))
+        y = fn(x.permute(0, 2, 3, 1).float().contiguous(), p["w"].float(),
+               p["b"].float(), p2["w"].float(), p2["b"].float(),
+               precision=self.stem_precision,
+               out_dtype=self._store_dtype(lo + 2, compute_dtype), **kw)
+        return y.permute(0, 3, 1, 2)
+
     def _store_dtype(self, i, compute_dtype):
         if i in self.hi_prec_stages:
             return self.hi_prec_store or torch.float32
@@ -193,25 +262,17 @@ class Darknet:
             return (j in self.stem_stages and "w" in params[j]
                     and "gamma" not in params[j])
 
-        lo = self.stem_stages[0] if self.stem_pair else None
-        fuse = lo is not None and fused(lo) and fused(lo + 2)
+        pair_los = tuple(lo for lo in self._pair_candidates()
+                         if fused(lo) and fused(lo + 2))
         for i, info in enumerate(self._plan):
             t = info["type"]
             p = params[i] if i < len(params) else {}
             s = state[i] if i < len(state) else {}
             prev = outputs[-1] if outputs else x_in
-            if fuse and lo < i <= lo + 3:
+            if any(lo < i <= lo + 3 for lo in pair_los):
                 x = prev              # consumed by the fused pair
-            elif fuse and i == lo:
-                if self._store_dtype(lo + 2, compute_dtype) != torch.float16:
-                    raise ValueError("the fused stem pair stores float16: "
-                                     "stage lo+2 needs hi_prec_store float16")
-                p2 = params[lo + 2]
-                y = fused_stem_pair(
-                    prev.permute(0, 2, 3, 1).float().contiguous(),
-                    p["w"].float(), p["b"].float(), p2["w"].float(),
-                    p2["b"].float())
-                x = y.permute(0, 3, 1, 2)
+            elif i in pair_los:
+                x = self._run_pair(i, params, prev, compute_dtype)
             elif t == "convolutional" and fused(i):
                 y = fused_stem_stage(
                     prev.permute(0, 2, 3, 1).float().contiguous(),

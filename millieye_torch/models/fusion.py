@@ -31,9 +31,9 @@ from millieye_torch.ops.boxes import box_regress
 from millieye_torch.ops.nms import batched_nms
 from millieye_torch.ops.roi_align import (ps_roi_align_batched,
                                           roi_align_batched)
-from millieye_torch.ops.roi_kernel import (PRECISIONS, ps_channel_perm_pad,
-                                           ps_roi_align, ps_roi_align_padded,
-                                           roi_align)
+from millieye_torch.ops.roi_kernel import (PRECISIONS, REDUCES,
+                                           ps_channel_perm_pad, ps_roi_align,
+                                           ps_roi_align_padded, roi_align)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -58,6 +58,8 @@ class FusionConfig:
     roi_impl: str = "einsum"      # "einsum" or "kernel" (the RoI kernels)
     roi_precision: str = "default"   # the kernels' ladder: "default" (bf16
                                      # products), "split" or "highest"
+    roi_reduce: str = "dot"          # K2's w-sum as the TPU named it, "dot"
+                                     # or "vpu": one kernel on the card
 
 
 def _eff_sampling_max(cfg, img_size):
@@ -79,6 +81,8 @@ def _check_config(cfg):
         raise ValueError(f"unknown roi_impl {cfg.roi_impl!r}")
     if cfg.roi_precision not in PRECISIONS:
         raise ValueError(f"unknown roi_precision {cfg.roi_precision!r}")
+    if cfg.roi_reduce not in REDUCES:
+        raise ValueError(f"unknown roi_reduce {cfg.roi_reduce!r}")
 
 
 class FusionNetwork:
@@ -163,7 +167,8 @@ class FusionNetwork:
             # "highest": kernel K7 and K3 on float32 operands
             img_crop = ps_roi_align_padded(
                 roi_score_map, all_xyxy, (7, 7), 1.0 / 16, sampling_max=smax,
-                c_out=roi_c_out, precision=cfg.roi_precision)
+                c_out=roi_c_out, precision=cfg.roi_precision,
+                reduce=cfg.roi_reduce)
             radar_crop = roi_align(radar_score_map, all_xyxy, (7, 7),
                                    1.0 / 16, sampling_max=smax,
                                    precision=cfg.roi_precision)

@@ -2,9 +2,14 @@
 their plain versions (port of ``millieye_tpu/ops/roi_pallas.py``).
 
 * K2 ``ps_roi_align_padded`` replaces ``ps_roi_align_pallas_padded_g1``
-  (reduce="dot", precision="default"): PS-RoIAlign over a score map
-  whose channels were permuted and padded with ``ps_channel_perm_pad``,
-  features [B, H, W, ph*128] -> [B, N, ph, pw, c_out] float32.
+  (precision="default"): PS-RoIAlign over a score map whose channels
+  were permuted and padded with ``ps_channel_perm_pad``, features
+  [B, H, W, ph*128] -> [B, N, ph, pw, c_out] float32. Its ``reduce``
+  option picks how the TPU runs the segmented w-sum: "dot" (an S-matrix
+  matmul) or "vpu" (a vector-unit sum). Both sum the same bf16-rounded
+  products, in orders of their own; the card has one order for both, so
+  ``reduce="vpu"`` launches the same kernel through
+  ``ps_roi_align_padded_vpu_kernel``, which counts its launches apart.
 * K3 ``roi_align`` replaces ``roi_align_pallas`` (pack_p=True,
   precision="default"): RoIAlign over the radar score map, features
   [B, H, W, C] -> [B, N, ph, pw, C] float32. Off "default" it takes
@@ -217,10 +222,7 @@ def _lib():
     return lib
 
 
-def ps_roi_align_padded_kernel(features, by, bx, c_out):
-    """K2 on CUDA tensors (the plain version's contract)."""
-    if cuda_lib.takes_plain(features):
-        return ps_roi_align_padded_plain(features, by, bx, c_out)
+def _launch_k2(features, by, bx, c_out):
     _check("ps_roi_align_padded", features, by, bx)
     b, h, w, c_pad = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
@@ -235,7 +237,25 @@ def ps_roi_align_padded_kernel(features, by, bx, c_out):
         cuda_lib.ptr(out), b, n, h, w, c_pad, ph, pw, c_out,
         cuda_lib.stream_ptr(features.device))
     cuda_lib.check(lib, rc, "ps_roi_align_padded")
+    return out
+
+
+def ps_roi_align_padded_kernel(features, by, bx, c_out):
+    """K2 on CUDA tensors (the plain version's contract)."""
+    if cuda_lib.takes_plain(features):
+        return ps_roi_align_padded_plain(features, by, bx, c_out)
+    out = _launch_k2(features, by, bx, c_out)
     ps_roi_align_padded_kernel.launches += 1
+    return out
+
+
+def ps_roi_align_padded_vpu_kernel(features, by, bx, c_out):
+    """K2 for ``reduce="vpu"`` (see module): the same function and
+    kernel, its launches counted here."""
+    if cuda_lib.takes_plain(features):
+        return ps_roi_align_padded_plain(features, by, bx, c_out)
+    out = _launch_k2(features, by, bx, c_out)
+    ps_roi_align_padded_vpu_kernel.launches += 1
     return out
 
 
@@ -334,6 +354,7 @@ def ps_roi_align_padded_f32_kernel(features, by, bx, c_out,
 
 
 ps_roi_align_padded_kernel.launches = 0
+ps_roi_align_padded_vpu_kernel.launches = 0
 roi_align_kernel.launches = 0
 ps_roi_align_f32_kernel.launches = 0
 ps_roi_align_padded_f32_kernel.launches = 0
@@ -377,20 +398,29 @@ def ps_roi_align(features, boxes, output_size=(7, 7), spatial_scale=1.0 / 16,
                                    channel_order)
 
 
+REDUCES = ("dot", "vpu")
+
+
 def ps_roi_align_padded(features, boxes, output_size=(7, 7),
                         spatial_scale=1.0 / 16, sampling_ratio=-1,
-                        sampling_max=4, c_out=None, precision="default"):
+                        sampling_max=4, c_out=None, precision="default",
+                        reduce="dot"):
     """PS-RoIAlign over the perm+padded map: features [B, H, W, ph*128],
     boxes [B, N, 4] xyxy -> [B, N, ph, pw, c_out] float32 (tv0.6: -0.5
     offset, RoI size at least 0.1). "default" runs kernel K2 on bf16
-    operands; "split" and "highest" run kernel K7 on float32 operands."""
+    operands, through the wrapper ``reduce`` names; "split" and "highest"
+    run kernel K7 on float32 operands (the TPU has no ``reduce`` there)."""
+    if reduce not in REDUCES:
+        raise ValueError(f"unknown reduce {reduce!r}")
     _, h, w, _ = features.shape
     by, bx = _batched_prep(boxes, h, w, output_size, spatial_scale, -0.5,
                            0.1, sampling_ratio, sampling_max)
     if precision != "default":
         return ps_roi_align_padded_f32_kernel(*_f32(features, by, bx), c_out,
                                               precision)
-    return ps_roi_align_padded_kernel(
+    k2 = (ps_roi_align_padded_vpu_kernel if reduce == "vpu"
+          else ps_roi_align_padded_kernel)
+    return k2(
         features.to(torch.bfloat16).contiguous(),
         by.to(torch.bfloat16).contiguous(),
         bx.to(torch.bfloat16).contiguous(), c_out)

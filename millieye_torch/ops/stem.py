@@ -1,5 +1,6 @@
-"""Fused stem kernels: the two-stage pair K4 and the single stage K9,
-each with its plain version.
+"""Fused stem kernels and their plain versions: the stem pair (K4, K8,
+K11 and K12), the deep pair (K12 at stages 4+6) and the single stage K9.
+Source: ``millieye_torch/csrc/stem.cu``.
 
 K9 ``fused_stem_stage`` (port of
 ``millieye_tpu/ops/stem_pallas.py:fused_stem_planar``):
@@ -12,22 +13,45 @@ x [N, H, W, Cin] float32 NHWC -> [N, H/2, W/2, Cout] NHWC in
 products in float32; ``"highest"`` is float32 throughout; bias, leaky
 and the pool follow in float32, then one rounding to ``out_dtype``.
 
-K4 ``fused_stem_pair`` (port of
-``millieye_tpu/ops/stem_pallas.py:fused_stem2_phase`` as the
-``pallas_max_s01`` preset runs it: bf16_only="s0s1",
-precision="default", float16 output; the variant ``phase`` with float32
-scratches differs from it only in buffering on the TPU and is the same
-function):
+The stem pair, two such stages in one kernel with the half-size
+intermediate kept on chip:
 
     out = maxpool2(leaky(conv3x3(maxpool2(leaky(conv3x3(x, w0) + b0)), w1)
                    + b1))
 
-x [N, H, W, Cin] float32 NHWC -> [N, H/4, W/4, Cout] float16 NHWC, with
-the port's OIHW weights w0 [Cmid, Cin, 3, 3], w1 [Cout, Cmid, 3, 3] and
-float32 biases. Numerics: the input and w0 are rounded to bf16, products
-accumulate in float32; the intermediate stays float32 and is rounded to
-bf16 as stage 1's operand, with w1 in bf16; one float16 store at the end.
-Source: ``millieye_torch/csrc/stem.cu``.
+x [N, H, W, Cin] float32 NHWC -> [N, H/4, W/4, Cout] NHWC in
+``out_dtype``, with the port's OIHW weights w0 [Cmid, Cin, 3, 3], w1
+[Cout, Cmid, 3, 3] and float32 biases. At ``precision="default"`` the
+input and w0 are rounded to bf16, products accumulate in float32, the
+float32 intermediate is rounded to bf16 as stage 1's operand, with w1 in
+bf16; ``"highest"`` is float32 throughout; one rounding to ``out_dtype``
+at the end. Four Pallas kernels compute this function on the TPU, each
+with its own wrapper and launch count here:
+
+* K4 ``fused_stem_pair``: ``stem_pallas.py:fused_stem2_phase`` (its
+  ``bf16_only``, ``input_mode`` and ``scratch_dtype`` options buffer
+  VMEM and give the same numbers);
+* K8 ``fused_stem_pair_select``: ``stem_pallas.py:fused_stem2_planar``,
+  whose pool picks its columns with a one-hot matmul split hi/lo: at
+  "default" each pooled value becomes ``hi + bf16(v - hi)``, ``hi =
+  bf16(v)``, at both stages (``_pool_select_dot``). That can differ from
+  ``v`` where ``v`` has more than 16 significant bits, so a float16 store
+  may round it one ulp the other way: not K4's function. At "highest"
+  the select is exact;
+* K11 ``fused_stem_pair_packed``: ``stem_pallas_rejected.py:
+  fused_stem2_packed`` (stage 0 K-packed on the MXU);
+* K12 ``fused_stem_pair_s2d``: ``stem_pallas_rejected.py:fused_stem2_s2d``
+  (stage 1 as 2x2 space-to-depth), at the stem shape and as the deep pair
+  of stages 4+6 (104 px, 32 -> 64 -> 128, bf16 store).
+
+K4, K8 (in its own pool mode), K11 and K12 launch one CUDA kernel, which
+holds both weight sets and an 8x8 tile's input halo in shared memory;
+the packing and the space-to-depth regrouping are MXU layouts with no
+meaning on the card. Where the weights do not fit (the deep pair), K12
+runs ``fused_stem_pair_deep``, a kernel that streams channels through
+shared memory in chunks. ``scratch_dtype`` and ``groups0`` are checked
+as the JAX package checks them (bf16 scratches only at "default";
+``groups0`` in {2, 4, 8}) and change nothing else.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
@@ -36,6 +60,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -47,34 +72,31 @@ def _leaky(x):
     return torch.where(x > 0, x, 0.1 * x)
 
 
-def _conv3x3_taps(x, w):
-    """3x3 convolution with zero padding 1, summed as the kernel sums it:
-    taps in (u, v, c) order, one add at a time into a float32 sum that
-    starts at 0. x [N, C, H, W] and w [O, C, 3, 3] hold bf16 values, so
-    every product is exact in float32 and the kernel's FMA rounds like
-    this add."""
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _conv3x3(x, w, c_first):
+    """3x3 convolution with zero padding 1, summed as the kernels sum it:
+    one multiply and one add at a time into a float32 sum that starts at
+    0, over the taps in (c, u, v) order with ``c_first`` (K9 and the deep
+    pair) or in (u, v, c) order (the stem pair). x [N, C, H, W], w [O, C,
+    3, 3]. With bf16 operands every product is exact in float32, so the
+    kernels' FMA rounds like this add; with float32 operands the kernels
+    round the product first, as the multiply here does."""
     n, c, h, wd = x.shape
     xp = F.pad(x, (1, 1, 1, 1))
     acc = x.new_zeros((n, w.shape[0], h, wd))
-    for u in range(3):
-        for v in range(3):
-            for ci in range(c):
-                acc = acc + (xp[:, ci:ci + 1, u:u + h, v:v + wd]
-                             * w[:, ci, u, v][None, :, None, None])
+    if c_first:
+        taps = itertools.product(range(c), range(3), range(3))
+    else:
+        taps = ((ci, u, v) for u, v, ci in itertools.product(range(3),
+                                                             range(3),
+                                                             range(c)))
+    for ci, u, v in taps:
+        acc = acc + (xp[:, ci:ci + 1, u:u + h, v:v + wd]
+                     * w[:, ci, u, v][None, :, None, None])
     return acc
-
-
-def fused_stem_pair_plain(x, w0, b0, w1, b1):
-    """K4's arithmetic, operation for operation, in PyTorch: the kernel
-    and this function give bit-equal outputs."""
-    bf = torch.bfloat16
-    y = _conv3x3_taps(x.permute(0, 3, 1, 2).to(bf).float(),
-                      w0.to(bf).float()) + b0.float()[:, None, None]
-    y = F.max_pool2d(_leaky(y), 2)
-    y = _conv3x3_taps(y.to(bf).float(),
-                      w1.to(bf).float()) + b1.float()[:, None, None]
-    y = F.max_pool2d(_leaky(y), 2)
-    return y.permute(0, 2, 3, 1).to(torch.float16).contiguous()
 
 
 _STORE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -82,37 +104,77 @@ _STORE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 def fused_stem_stage_plain(x, w, b, precision="default",
                            out_dtype=torch.float32):
-    """K9's arithmetic, operation for operation, in PyTorch: taps summed
-    in (c, u, v) order, c slowest, one multiply and one add at a time
-    into a float32 sum that starts at 0 (at "default" the operands hold
-    bf16 values, so each product is exact and the kernel's FMA rounds
-    like this add)."""
+    """K9's arithmetic, operation for operation, in PyTorch (at "default"
+    the operands hold bf16 values, so each product is exact and the
+    kernel's FMA rounds like this add)."""
     xc, wc = x.permute(0, 3, 1, 2).float(), w.float()
     if precision == "default":
-        xc, wc = xc.to(torch.bfloat16).float(), wc.to(torch.bfloat16).float()
-    n, c, h, wd = xc.shape
-    xp = F.pad(xc, (1, 1, 1, 1))
-    acc = xc.new_zeros((n, w.shape[0], h, wd))
-    for ci in range(c):
-        for u in range(3):
-            for v in range(3):
-                acc = acc + (xp[:, ci:ci + 1, u:u + h, v:v + wd]
-                             * wc[:, ci, u, v][None, :, None, None])
-    y = F.max_pool2d(_leaky(acc + b.float()[:, None, None]), 2)
+        xc, wc = _bf16(xc), _bf16(wc)
+    y = _conv3x3(xc, wc, True) + b.float()[:, None, None]
+    y = F.max_pool2d(_leaky(y), 2)
     return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+
+
+def _pool_select(v):
+    """K8's pool select at "default": hi + bf16(v - hi), hi = bf16(v)
+    (the difference and the sum are exact in float32)."""
+    hi = _bf16(v)
+    return hi + _bf16(v - hi)
+
+
+def fused_stem_pair_plain(x, w0, b0, w1, b1, precision="default",
+                          out_dtype=torch.float16, select=False):
+    """The stem pair kernel's arithmetic, operation for operation, in
+    PyTorch: K4, K11 and K12 at the stem shape, and K8 with ``select``.
+    The kernel and this function give bit-equal outputs."""
+    if precision == "highest":
+        op, sel = torch.Tensor.float, (lambda v: v)
+    else:
+        op, sel = _bf16, (_pool_select if select else (lambda v: v))
+    y = _conv3x3(op(x.permute(0, 3, 1, 2)), op(w0), False) \
+        + b0.float()[:, None, None]
+    y = sel(F.max_pool2d(_leaky(y), 2))
+    y = _conv3x3(op(y), op(w1), False) + b1.float()[:, None, None]
+    y = sel(F.max_pool2d(_leaky(y), 2))
+    return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+
+
+def fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision="default",
+                               out_dtype=torch.bfloat16):
+    """The deep pair kernel's arithmetic: two K9 stages, the float32
+    intermediate never stored in another type (at "default" stage 1
+    rounds it to bf16 as its operand, as the kernel does)."""
+    y = fused_stem_stage_plain(x, w0, b0, precision, torch.float32)
+    return fused_stem_stage_plain(y, w1, b1, precision, out_dtype)
 
 
 def _lib():
     lib = cuda_lib.library("stem")
     lib.millieye_stem_pair.argtypes = ([ctypes.c_void_p] * 6
-                                       + [ctypes.c_int] * 6
+                                       + [ctypes.c_int] * 9
                                        + [ctypes.c_void_p])
-    lib.millieye_stem_pair.restype = ctypes.c_int
+    lib.millieye_stem_pair_deep.argtypes = ([ctypes.c_void_p] * 6
+                                            + [ctypes.c_int] * 8
+                                            + [ctypes.c_void_p])
     lib.millieye_stem_stage.argtypes = ([ctypes.c_void_p] * 4
                                         + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
-    lib.millieye_stem_stage.restype = ctypes.c_int
+    for fn in (lib.millieye_stem_pair, lib.millieye_stem_pair_deep,
+               lib.millieye_stem_stage):
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_cuda(name, x, *weights):
+    for t in weights:
+        if t.device != x.device:
+            raise ValueError(f"{name}: x on {x.device}, a weight on "
+                             f"{t.device}")
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise TypeError(f"{name}: want a float32 CUDA input, got {x.dtype} "
+                        f"on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: want a contiguous NHWC input")
 
 
 def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
@@ -124,14 +186,9 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
         raise TypeError(f"fused_stem_stage: cannot store {out_dtype}")
     if cuda_lib.takes_plain(x):
         return fused_stem_stage_plain(x, w, b, precision, out_dtype)
-    if w.device != x.device or b.device != x.device:
-        raise ValueError(f"fused_stem_stage: x on {x.device}, weights on "
-                         f"{w.device}, {b.device}")
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise TypeError(f"fused_stem_stage: want a float32 CUDA input, got "
-                        f"{x.dtype} on {x.device}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("fused_stem_stage: want a contiguous NHWC input")
+    _check_cuda("fused_stem_stage", x, w, b)
+    if x.dim() != 4:
+        raise ValueError("fused_stem_stage: want an NHWC input")
     n, h, wd, cin = x.shape
     cout = w.shape[0]
     if w.shape != (cout, cin, 3, 3) or b.shape != (cout,):
@@ -156,44 +213,160 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
     return out
 
 
-def fused_stem_pair(x, w0, b0, w1, b1):
-    """[N, H, W, Cin] float32 -> [N, H/4, W/4, Cout] float16 (see module)."""
-    if cuda_lib.takes_plain(x):
-        return fused_stem_pair_plain(x, w0, b0, w1, b1)
-    for t in (w0, b0, w1, b1):
-        if t.device != x.device:
-            raise ValueError(f"fused_stem_pair: x on {x.device}, a weight on "
-                             f"{t.device}")
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise TypeError(f"fused_stem_pair: want a float32 CUDA input, got "
-                        f"{x.dtype} on {x.device}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("fused_stem_pair: want a contiguous NHWC input")
+# ------------------------------------------------------------ the pairs
+_SMEM_LIMIT = 232448          # bytes of shared memory a block may opt into
+
+
+def _tile_fits(cin, cmid, cout, precision):
+    """Whether the stem pair kernel holds both weight sets, a 38x38 input
+    halo and the 18x18 intermediate of its 8x8 output tile in shared
+    memory (``pair_smem_bytes`` in csrc/stem.cu)."""
+    op = 4 if precision == "highest" else 2
+    return (4 * (cmid + cout) + op * (9 * cin * cmid + 9 * cmid * cout
+                                      + 38 * 38 * cin + 18 * 18 * cmid)
+            <= _SMEM_LIMIT)
+
+
+def _check_pair(name, x, w0, b0, w1, b1, precision, out_dtype,
+                scratch_dtype=None, h_multiple=4):
+    """The pair wrappers' argument checks (the JAX kernels' asserts), made
+    for CPU and CUDA tensors alike."""
+    if precision not in ("default", "highest"):
+        raise ValueError(f"{name}: unknown precision {precision!r}")
+    if out_dtype not in _STORE_CODES:
+        raise TypeError(f"{name}: cannot store {out_dtype}")
+    if scratch_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: scratch_dtype {scratch_dtype}")
+    if scratch_dtype == torch.bfloat16 and precision != "default":
+        raise ValueError(f"{name}: bf16 scratches change the numbers unless "
+                         f"precision is 'default'")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: want an NHWC input, got {tuple(x.shape)}")
     n, h, w, cin = x.shape
     cmid, cout = w0.shape[0], w1.shape[0]
     if (w0.shape != (cmid, cin, 3, 3) or w1.shape != (cout, cmid, 3, 3)
             or b0.shape != (cmid,) or b1.shape != (cout,)):
-        raise ValueError(f"fused_stem_pair: weights {tuple(w0.shape)}, "
+        raise ValueError(f"{name}: weights {tuple(w0.shape)}, "
                          f"{tuple(w1.shape)} for {cin} input channels")
-    if h % 4 or w % 4 or cmid % 8 or cout % 8 or n == 0:
-        raise ValueError(f"fused_stem_pair: need H, W % 4 == 0 and Cmid, "
-                         f"Cout % 8 == 0, got {tuple(x.shape)}, {cmid}, "
-                         f"{cout}")
-    # kernel layouts: HWIO bf16 weights, float32 biases
-    w0k = w0.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
-    w1k = w1.permute(2, 3, 1, 0).to(torch.bfloat16).contiguous()
+    if h % h_multiple or w % 4 or cmid % 8 or cout % 8 or n == 0:
+        raise ValueError(f"{name}: need H % {h_multiple} == 0, W % 4 == 0 "
+                         f"and Cmid, Cout % 8 == 0, got {tuple(x.shape)}, "
+                         f"{cmid}, {cout}")
+
+
+def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
+                 select=False):
+    """One launch of the stem pair kernel, or with ``deep`` of the deep
+    pair kernel; returns the output."""
+    _check_cuda(name, x, w0, b0, w1, b1)
+    n, h, w, cin = x.shape
+    cmid, cout = w0.shape[0], w1.shape[0]
+    if not deep and not _tile_fits(cin, cmid, cout, precision):
+        raise ValueError(f"{name}: {cin} -> {cmid} -> {cout} channels do not "
+                         f"fit the pair kernel's shared memory")
+    # float32 weights, HWIO for the pair kernel and [I, 3, 3, O] for the
+    # deep one; at "default" the kernels round them to bf16 as they load
+    order = (1, 2, 3, 0) if deep else (2, 3, 1, 0)
+    w0k = w0.float().permute(*order).contiguous()
+    w1k = w1.float().permute(*order).contiguous()
     b0k, b1k = b0.float().contiguous(), b1.float().contiguous()
-    out = torch.empty((n, h // 4, w // 4, cout), dtype=torch.float16,
+    out = torch.empty((n, h // 4, w // 4, cout), dtype=out_dtype,
                       device=x.device)
     lib = _lib()
-    rc = lib.millieye_stem_pair(
-        cuda_lib.ptr(x), cuda_lib.ptr(w0k), cuda_lib.ptr(b0k),
-        cuda_lib.ptr(w1k), cuda_lib.ptr(b1k), cuda_lib.ptr(out),
-        n, h, w, cin, cmid, cout, cuda_lib.stream_ptr(x.device))
-    cuda_lib.check(lib, rc, "fused_stem_pair")
+    args = [cuda_lib.ptr(t) for t in (x, w0k, b0k, w1k, b1k, out)]
+    args += [n, h, w, cin, cmid, cout, int(precision == "highest")]
+    if deep:
+        rc = lib.millieye_stem_pair_deep(*args, _STORE_CODES[out_dtype],
+                                         cuda_lib.stream_ptr(x.device))
+    else:
+        rc = lib.millieye_stem_pair(*args, int(select),
+                                    _STORE_CODES[out_dtype],
+                                    cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(lib, rc, name)
+    return out
+
+
+def fused_stem_pair(x, w0, b0, w1, b1, precision="default",
+                    out_dtype=torch.float16, scratch_dtype=None):
+    """K4: [N, H, W, Cin] float32 -> [N, H/4, W/4, Cout] (see module)."""
+    _check_pair("fused_stem_pair", x, w0, b0, w1, b1, precision, out_dtype,
+                scratch_dtype)
+    if cuda_lib.takes_plain(x):
+        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
+    out = _launch_pair("fused_stem_pair", x, w0, b0, w1, b1, precision,
+                       out_dtype)
     fused_stem_pair.launches += 1
     return out
 
 
-fused_stem_pair.launches = 0
+def fused_stem_pair_select(x, w0, b0, w1, b1, precision="default",
+                           out_dtype=torch.float16):
+    """K8: the pair with the hi/lo pool select at "default" (see
+    module); H % 32 == 0."""
+    _check_pair("fused_stem_pair_select", x, w0, b0, w1, b1, precision,
+                out_dtype, h_multiple=32)
+    select = precision == "default"
+    if cuda_lib.takes_plain(x):
+        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype,
+                                     select)
+    out = _launch_pair("fused_stem_pair_select", x, w0, b0, w1, b1,
+                       precision, out_dtype, select=select)
+    fused_stem_pair_select.launches += 1
+    return out
+
+
+def fused_stem_pair_packed(x, w0, b0, w1, b1, precision="default",
+                           out_dtype=torch.float16, scratch_dtype=None):
+    """K11: K4's function (see module); H % 32 == 0."""
+    _check_pair("fused_stem_pair_packed", x, w0, b0, w1, b1, precision,
+                out_dtype, scratch_dtype, h_multiple=32)
+    if cuda_lib.takes_plain(x):
+        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
+    out = _launch_pair("fused_stem_pair_packed", x, w0, b0, w1, b1,
+                       precision, out_dtype)
+    fused_stem_pair_packed.launches += 1
+    return out
+
+
+def fused_stem_pair_s2d(x, w0, b0, w1, b1, precision="default",
+                        out_dtype=torch.float16, scratch_dtype=None,
+                        groups0=4):
+    """K12: K4's function (see module). Channel counts whose weights do
+    not fit the pair kernel (the deep pair) go to ``fused_stem_pair_deep``,
+    which counts its own launches."""
+    _check_pair("fused_stem_pair_s2d", x, w0, b0, w1, b1, precision,
+                out_dtype, scratch_dtype)
+    if groups0 not in (2, 4, 8):
+        raise ValueError(f"fused_stem_pair_s2d: groups0 {groups0!r} not in "
+                         f"(2, 4, 8)")
+    if not _tile_fits(x.shape[3], w0.shape[0], w1.shape[0], precision):
+        return fused_stem_pair_deep(x, w0, b0, w1, b1, precision, out_dtype)
+    if cuda_lib.takes_plain(x):
+        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
+    out = _launch_pair("fused_stem_pair_s2d", x, w0, b0, w1, b1, precision,
+                       out_dtype)
+    fused_stem_pair_s2d.launches += 1
+    return out
+
+
+def fused_stem_pair_deep(x, w0, b0, w1, b1, precision="default",
+                         out_dtype=torch.bfloat16):
+    """K12's deep pair: the pair's function with channels streamed through
+    shared memory (see module), for any channel counts."""
+    _check_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
+                out_dtype)
+    if cuda_lib.takes_plain(x):
+        return fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision,
+                                          out_dtype)
+    out = _launch_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
+                       out_dtype, deep=True)
+    fused_stem_pair_deep.launches += 1
+    return out
+
+
 fused_stem_stage.launches = 0
+fused_stem_pair.launches = 0
+fused_stem_pair_select.launches = 0
+fused_stem_pair_packed.launches = 0
+fused_stem_pair_s2d.launches = 0
+fused_stem_pair_deep.launches = 0

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from millieye_torch.cli._common import SERVING_PRESETS, build_fusion
+from millieye_torch.cli._common import build_fusion
+from millieye_torch.models import darknet as tdark
 from millieye_torch.models.darknet import Darknet, _maxpool
 from millieye_torch.models.zoo import tiny_yolov3_defs
 from millieye_torch.ops import stem as tstem
@@ -48,7 +49,8 @@ def _jax_model(preset):
         pallas_stem_stages=pk["pallas_stem"],
         pallas_stem_pair=pk["pallas_pair"],
         pallas_stem_precision=pk["pallas_precision"],
-        pallas_stem_pair_variant=pk["pallas_variant"])
+        pallas_stem_pair_variant=pk["pallas_variant"],
+        pallas_stem_pairs=pk["pallas_pairs"])
     model = JaxNetwork(darknet, JaxConfig(**over))
     like = jax.eval_shape(model.init, jax.random.PRNGKey(0))
     r = load_checkpoint(CKPT, {"params": like[0], "state": like[1]})
@@ -123,24 +125,35 @@ def test_darknet_s01_ladder(image, monkeypatch):
     _check_stem_ladder(image, monkeypatch, "pallas_max_s01", 0, 1)
 
 
-@pytest.mark.parametrize("preset,stages,pairs", [("pallas_max4", 1, 1),
-                                                 ("pallas_stem", 2, 0)])
+@pytest.mark.parametrize("preset,stages,pairs", [
+    ("pallas_max4", 1, 1), ("pallas_stem", 2, 0), ("pallas_stem2", 0, 1),
+    ("pallas_packed", 0, 1), ("pallas_s2d", 0, 1), ("pallas_deep", 2, 1),
+    ("pallas_pair2", 0, 2)])
 def test_darknet_stem_ladder(image, monkeypatch, preset, stages, pairs):
     _check_stem_ladder(image, monkeypatch, preset, stages, pairs)
 
 
 def _check_stem_ladder(image, monkeypatch, preset, stages, pairs):
-    """The bf16 ladder with the fused stem: the pair K4 (s01), the pair
-    and stage 4 through K9 at bf16 products (pallas_max4), stages 0 and 2
-    each through K9 at float32 products (pallas_stem); the JAX side runs
-    its Pallas kernels in interpret mode."""
+    """The bf16 ladder with the fused stem, against the JAX Darknet whose
+    Pallas kernels run in interpret mode: the pair K4 (s01), K8 (stem2),
+    K11 (packed) or K12 (s2d) at bf16 products, stage 4 through K9
+    (pallas_max4), stages 0 and 2 each through K9 at float32 products
+    (pallas_stem), stages 4 and 6 through K9 (pallas_deep) or as K12's
+    deep pair (pallas_pair2). ``stages`` and ``pairs`` count the calls of
+    the stage and pair kernel wrappers per forward."""
     calls = {"stage": 0, "pair": 0}
-    for key, name in (("stage", "fused_stem_stage"),
-                      ("pair", "fused_stem_pair")):
-        def counted(*a, _fn=getattr(tstem, name), _key=key, **kw):
-            calls[_key] += 1
-            return _fn(*a, **kw)
-        monkeypatch.setattr("millieye_torch.models.darknet." + name, counted)
+
+    def counted(fn, key):
+        def call(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return call
+
+    monkeypatch.setattr("millieye_torch.models.darknet.fused_stem_stage",
+                        counted(tstem.fused_stem_stage, "stage"))
+    for variant, (fn, kw) in list(tdark.PAIR_KERNELS.items()):
+        monkeypatch.setitem(tdark.PAIR_KERNELS, variant,
+                            (counted(fn, "pair"), kw))
     jd, jp, js = _jax_darknet(preset)
     model, params, state = build_fusion(CKPT, preset, img_size=S,
                                         device="cpu")
@@ -163,20 +176,39 @@ def _check_stem_ladder(image, monkeypatch, preset, stages, pairs):
 
 
 def test_stem_options_validation():
-    """A pair needs two consecutive fused stages and a preset whose pair
-    variant has a kernel here; a stage must be a leaky conv3x3 + pool; unfolded weights
-    keep the plain convolution."""
+    """A pair needs two consecutive fused stages and a pair variant the
+    JAX package knows ("_bf16s" only where it allows bf16 scratches, and
+    then at "default"), ``stem_pairs`` "first" or "all"; a stage must be
+    a leaky conv3x3 + pool; unfolded weights keep the plain
+    convolution."""
     defs = tiny_yolov3_defs(num_classes=12, img_size=64)
     with pytest.raises(ValueError, match="consecutive"):
         Darknet(defs, img_size=64, stem_stages=(0, 4), stem_pair=True,
                 stem_precision="default")
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setitem(SERVING_PRESETS, "pallas_s2d",
-                   dict(SERVING_PRESETS["pallas_phase"], stem_variant="s2d"))
-        with pytest.raises(ValueError, match="no kernel"):
-            build_fusion(CKPT, "pallas_s2d", img_size=S, device="cpu")
-    with pytest.raises(ValueError, match="default"):
-        Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True)
+    for bad in ("s2d9", "select_bf16s", "phase_s01_bf16s",
+                "phase_vmem_s01_bf16s", "phase_bf16"):
+        with pytest.raises(ValueError, match="unknown stem_pair_variant"):
+            Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True,
+                    stem_precision="default", stem_pair_variant=bad)
+        # the JAX package refuses the same names
+        with pytest.raises(ValueError, match="unknown pallas_stem_pair"):
+            jdark.Darknet(jax_defs(num_classes=12, img_size=64), img_size=64,
+                          pallas_stem_pair_variant=bad)
+    with pytest.raises(ValueError, match="bf16 scratches"):
+        Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True,
+                stem_pair_variant="s2d_bf16s")
+    with pytest.raises(ValueError, match="unknown stem_pairs"):
+        Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True,
+                stem_pairs="deep")
+    with pytest.raises(ValueError, match="unknown pallas_stem_pairs"):
+        jdark.Darknet(jax_defs(num_classes=12, img_size=64), img_size=64,
+                      pallas_stem_pairs="deep")
+    for ok in ("phase_bf16s", "packed_bf16s", "s2d_bf16s", "s2d8_bf16s",
+               "phase_vmem_bf16s"):
+        Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True,
+                stem_precision="default", stem_pair_variant=ok)
+    # the pair takes "highest" too (test_darknet_pair_highest)
+    Darknet(defs, img_size=64, stem_stages=(0, 2), stem_pair=True)
     with pytest.raises(ValueError, match="not a leaky conv3x3s1"):
         Darknet(defs, img_size=64, stem_stages=(1,))
     with pytest.raises(ValueError, match="unknown stem_precision"):
@@ -193,3 +225,31 @@ def test_stem_options_validation():
     want = plain.darknet.apply(params["darknet"], state["darknet"], x)
     assert torch.equal(got["detections"], want["detections"])
     assert tstem.fused_stem_stage.launches == before
+
+
+def test_darknet_pair_highest(image):
+    """The pair (kernel K4) at precision "highest" through Darknet.apply,
+    port and JAX (interpret mode) on the float32 network: stages 0+2 as
+    the pair in float32 products and stores, so float32 summation order
+    only, as test_darknet_f32 (1e-4)."""
+    _, jp, js = _jax_darknet("f32")
+    jd = jdark.Darknet(jax_defs(num_classes=12, img_size=S), img_size=S,
+                       pallas_stem_stages=(0, 2), pallas_stem_pair=True,
+                       pallas_stem_precision="highest",
+                       pallas_stem_pair_variant="phase")
+    jp, js = jd.fold_batchnorm(jp, js)
+    _, params, state = build_fusion(CKPT, "f32", img_size=S, device="cpu")
+    td = Darknet(tiny_yolov3_defs(num_classes=12, img_size=S), img_size=S,
+                 stem_stages=(0, 2), stem_pair=True,
+                 stem_precision="highest", stem_pair_variant="phase")
+    tp, ts = td.fold_batchnorm(params["darknet"], state["darknet"])
+    before = tstem.fused_stem_pair.launches
+    want = jax.jit(jd.apply)(jp, js, jnp.asarray(image))
+    got = td.apply(tp, ts, torch.from_numpy(image))
+    np.testing.assert_allclose(got["feature_map"].numpy(),
+                               np.asarray(want["feature_map"]),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got["detections"].numpy(),
+                               np.asarray(want["detections"]),
+                               rtol=1e-4, atol=2e-3)
+    assert tstem.fused_stem_pair.launches == before      # CPU: plain

@@ -56,7 +56,12 @@ TOL = {"f32": dict(score=1e-4, box=1e-3),
        # K5's plain version, 232 proposal rows); measured scores within
        # 0.012, boxes within 0.06 px
        "pallas_max4": dict(score=2e-2, box=1.0),
-       "pallas_stem": dict(score=2e-2, box=1.0)}
+       "pallas_stem": dict(score=2e-2, box=1.0),
+       # the stem pair and the deep pair through K12 (pallas_pair2), K2's
+       # "vpu" reduce with blocked NMS at K = 256 (pallas_lat): the same
+       # bf16 class
+       "pallas_pair2": dict(score=2e-2, box=1.0),
+       "pallas_lat": dict(score=2e-2, box=1.0)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,7 +77,8 @@ def _jax_model(preset, **cfg):
         pallas_stem_stages=pk["pallas_stem"],
         pallas_stem_pair=pk["pallas_pair"],
         pallas_stem_precision=pk["pallas_precision"],
-        pallas_stem_pair_variant=pk["pallas_variant"])
+        pallas_stem_pair_variant=pk["pallas_variant"],
+        pallas_stem_pairs=pk["pallas_pairs"])
     model = JaxNetwork(darknet, JaxConfig(**over))
     like = jax.eval_shape(model.init, jax.random.PRNGKey(0))
     r = load_checkpoint(CKPT, {"params": like[0], "state": like[1]})
@@ -156,7 +162,8 @@ def _check_fusion_apply(preset, mode, cfg=None):
              TOL[preset])
 
 
-@pytest.mark.parametrize("preset", ["f32", "pallas_max_s01"])
+@pytest.mark.parametrize("preset", ["f32", "pallas_max_s01", "pallas_pair2",
+                                    "pallas_lat"])
 def test_engine_infer(preset):
     rng = np.random.default_rng(9)
     frame = (rng.uniform(size=(FRAME[1], FRAME[0], 3)) * 255).astype(np.uint8)
@@ -214,6 +221,16 @@ def test_weight_converter():
     np.testing.assert_array_equal(ts["img_cnn"][0]["var"].numpy(),
                                   np.asarray(js["img_cnn"][0]["var"]))
     assert tp["darknet"][1] == {} and len(tp["darknet"]) == 23
+
+
+def test_roi_reduce_validation():
+    """FusionConfig.roi_reduce is "dot" or "vpu"; the port refuses any
+    other name where the JAX package would run "dot" for it."""
+    model, _, _ = build_fusion(CKPT, "pallas_maxv", img_size=S, device="cpu")
+    assert model.cfg.roi_reduce == "vpu"
+    with pytest.raises(ValueError, match="unknown roi_reduce"):
+        build_fusion(CKPT, "pallas_max", img_size=S, device="cpu",
+                     roi_reduce="VPU")
 
 
 def test_port_imports_no_jax():

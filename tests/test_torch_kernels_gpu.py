@@ -29,9 +29,15 @@ from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
                                            ps_roi_align_padded_f32_kernel,
                                            ps_roi_align_padded_kernel,
                                            ps_roi_align_padded_plain,
+                                           ps_roi_align_padded_vpu_kernel,
                                            roi_align_f32_plain,
                                            roi_align_kernel, roi_align_plain)
-from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_plain,
+from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_deep,
+                                     fused_stem_pair_deep_plain,
+                                     fused_stem_pair_packed,
+                                     fused_stem_pair_plain,
+                                     fused_stem_pair_s2d,
+                                     fused_stem_pair_select,
                                      fused_stem_stage, fused_stem_stage_plain)
 
 pytestmark = pytest.mark.gpu
@@ -112,8 +118,11 @@ def _roi_inputs(cuda, rng, b, n, hw, c_feat, ps, dtype=torch.bfloat16):
 def test_roi_kernels_match_plain(cuda, b, n, hw):
     rng = np.random.default_rng(n)
     f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 7 * 128, True)
-    assert torch.equal(ps_roi_align_padded_kernel(f, by, bx, 10),
-                       ps_roi_align_padded_plain(f, by, bx, 10))
+    want = ps_roi_align_padded_plain(f, by, bx, 10)
+    assert torch.equal(ps_roi_align_padded_kernel(f, by, bx, 10), want)
+    before = ps_roi_align_padded_vpu_kernel.launches
+    assert torch.equal(ps_roi_align_padded_vpu_kernel(f, by, bx, 10), want)
+    assert ps_roi_align_padded_vpu_kernel.launches == before + 1
     f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 10, False)
     assert torch.equal(roi_align_kernel(f, by, bx),
                        roi_align_plain(f, by, bx))
@@ -187,6 +196,60 @@ def test_stem_kernel_matches_plain(cuda, shape):
                        fused_stem_pair_plain(x, w0, b0, w1, b1))
 
 
+def _pair_weights(cuda, n, h, w, cin, cmid, cout):
+    g = torch.Generator(device="cpu").manual_seed(h + cin)
+    x = torch.rand((n, h, w, cin), generator=g).to(cuda)
+    w0 = (0.3 * torch.randn((cmid, cin, 3, 3), generator=g)).to(cuda)
+    b0 = (0.1 * torch.randn(cmid, generator=g)).to(cuda)
+    w1 = (0.3 * torch.randn((cout, cmid, 3, 3), generator=g)).to(cuda)
+    b1 = (0.1 * torch.randn(cout, generator=g)).to(cuda)
+    return x, w0, b0, w1, b1
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((1, 416, 416, 3, 16, 32), torch.float16),
+    ((2, 96, 96, 3, 16, 32), torch.bfloat16),
+    ((1, 32, 48, 3, 8, 16), torch.float32)])
+def test_stem_pair_wrappers_match_plain(cuda, precision, shape, out_dtype):
+    """K4, K8, K11 and K12 at the stem widths, at both precisions, each
+    counting its own launches; K8 is its own pool mode at "default"."""
+    args = _pair_weights(cuda, *shape)
+    want = fused_stem_pair_plain(*args, precision, out_dtype)
+    for fn, select in ((fused_stem_pair, False),
+                       (fused_stem_pair_select, precision == "default"),
+                       (fused_stem_pair_packed, False),
+                       (fused_stem_pair_s2d, False)):
+        before = fn.launches
+        got = fn(*args, precision, out_dtype)
+        assert fn.launches == before + 1
+        assert got.dtype == out_dtype
+        assert torch.equal(got, fused_stem_pair_plain(
+            *args, precision, out_dtype, select) if select else want)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((2, 104, 104, 32, 64, 128), torch.bfloat16),
+    ((1, 20, 36, 8, 24, 40), torch.float32)])
+def test_deep_pair_kernel_matches_plain(cuda, precision, shape, out_dtype):
+    """The deep pair kernel at stages 4+6 of the 416 px network (26 output
+    rows: a ragged 4x4 tile) and at odd widths (channel chunks of 8 with a
+    40-channel output), through K12's wrapper where the pair kernel's
+    shared memory does not hold the weights."""
+    args = _pair_weights(cuda, *shape)
+    want = fused_stem_pair_deep_plain(*args, precision, out_dtype)
+    before = fused_stem_pair_deep.launches
+    assert torch.equal(fused_stem_pair_deep(*args, precision, out_dtype),
+                       want)
+    if shape[3] == 32:
+        n_s2d = fused_stem_pair_s2d.launches
+        assert torch.equal(fused_stem_pair_s2d(*args, precision, out_dtype,
+                                               groups0=2), want)
+        assert fused_stem_pair_s2d.launches == n_s2d
+        assert fused_stem_pair_deep.launches == before + 2
+
+
 def test_wrappers_refuse_wrong_inputs(cuda):
     with pytest.raises(TypeError):
         nms_keep_mask_blocked(torch.zeros((1, 128, 4), dtype=torch.float16,
@@ -215,3 +278,7 @@ def test_wrappers_refuse_wrong_inputs(cuda):
                                     device=cuda),
                         *(torch.zeros(s, device=cuda) for s in
                           ((8, 3, 3, 3), (8,), (8, 8, 3, 3), (8,))))
+    with pytest.raises(ValueError):            # deep widths: no fit
+        fused_stem_pair(*_pair_weights(cuda, 1, 32, 32, 32, 64, 128))
+    with pytest.raises(ValueError):            # H % 32 for K8
+        fused_stem_pair_select(*_pair_weights(cuda, 1, 20, 32, 3, 8, 16))

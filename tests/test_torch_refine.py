@@ -190,7 +190,8 @@ def test_batched_step_equals_per_frame(preset, mode):
 def test_preset_row_matches_jax(preset):
     """Each of the port's preset rows says what the JAX package's row of
     the same name says, option by option (the port calls the RoI engine
-    "kernel" and maps both buffering variants of the pair to kernel K4)."""
+    "kernel"; ``models/darknet.py:PAIR_KERNELS`` maps the pair variant
+    names to the port's kernels)."""
     assert preset in JAX_PRESETS
     _, jhi, jstore, jk, jover = jax_overrides(preset)
     hi, store, stem_kw, over = serving_overrides(preset)
@@ -198,12 +199,21 @@ def test_preset_row_matches_jax(preset):
     assert stem_kw["stem_stages"] == jk["pallas_stem"]
     assert stem_kw["stem_pair"] == jk["pallas_pair"]
     assert stem_kw["stem_precision"] == jk["pallas_precision"]
-    if stem_kw["stem_pair"]:
-        assert stem_kw["stem_pair_variant"] == jk["pallas_variant"]
+    assert stem_kw["stem_pair_variant"] == jk["pallas_variant"]
+    assert stem_kw["stem_pairs"] == jk["pallas_pairs"]
     jover = dict(jover)
     if jover.get("roi_impl") == "pallas":
         jover["roi_impl"] = "kernel"
     assert over == jover
+
+
+def test_preset_rows_missing_are_s2d_and_int8():
+    """The port has 29 of the JAX package's 33 serving rows: all but the
+    s2d stem and the int8 ladder."""
+    assert set(SERVING_PRESETS) <= set(JAX_PRESETS)
+    assert set(JAX_PRESETS) - set(SERVING_PRESETS) == {
+        "s2d", "bf16_s2d", "int8", "int8_acts"}
+    assert len(SERVING_PRESETS) == 29
 
 
 @pytest.mark.parametrize("preset", sorted(

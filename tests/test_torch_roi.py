@@ -92,6 +92,32 @@ def test_plain_ps_roi_padded_matches_pallas_g1(rng, hw):
     _close_to_order(got.numpy(), want)
 
 
+def test_plain_ps_roi_vpu_matches_pallas_g1(rng):
+    """K2 with reduce="vpu" against ps_roi_align_pallas_padded_g1(...,
+    reduce="vpu") in interpret mode, on a bf16-representable map. Both
+    sides sum the same bf16-rounded t*bx products over w, in orders of
+    their own, so float32 summation order only: 1e-5 of the crop's
+    magnitude. The port's "vpu" and "dot" are one function, bit for
+    bit."""
+    b, n, hw, c_out = 2, 12, 26, 10
+    feats = _bf16_values(
+        rng.standard_normal((b, hw, hw, c_out * 49)).astype(np.float32))
+    fpad = np.zeros((b, hw, hw, 7 * 128), np.float32)
+    fpad[..., trk.ps_channel_perm_pad(c_out, 7, 7)] = feats
+    boxes = _boxes(rng, b, n, hi=16 * hw)
+    want = np.asarray(jrp.ps_roi_align_pallas_padded_g1(
+        jnp.asarray(fpad), jnp.asarray(boxes), c_out=c_out,
+        precision="default", interpret=True, reduce="vpu"))
+    tf, tb_ = torch.from_numpy(fpad), torch.from_numpy(boxes)
+    got = trk.ps_roi_align_padded(tf, tb_, c_out=c_out, reduce="vpu")
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+    np.testing.assert_array_equal(
+        got.numpy(), trk.ps_roi_align_padded(tf, tb_, c_out=c_out).numpy())
+    with pytest.raises(ValueError, match="unknown reduce"):
+        trk.ps_roi_align_padded(tf, tb_, c_out=c_out, reduce="sum")
+
+
 @pytest.mark.parametrize("hw", [13, 26])
 def test_plain_roi_align_matches_pallas_packed(rng, hw):
     b, n, c = 2, 12, 10
