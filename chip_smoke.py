@@ -16,11 +16,16 @@ printed only when every phase passed:
      RoIAlign, the stem pair as K4, K8 (hi/lo pool select), K11 and K12,
      K12's deep pair (stages 4+6), K5 whole-matrix NMS, K6 PS-RoIAlign on
      the unpadded float32 map, K7 padded PS-RoIAlign on float32 operands,
-     K9 single stem stage; the pairs at "default" and "highest":
-     bit-equal (each plain version repeats its kernel's operations in the
-     kernel's order); kernel, plain and library times (the median of 5
-     repeats of the timing loop, with the spread), and the bound; how
-     many outputs K8 moves against K4 on the same inputs;
+     K9 single stem stage, K10 (the NHWC stage, "vconcat" and "im2col"
+     tap orders) at stages 0 and 2, K13 (stochastic int8) on block 12's
+     weight and on the (8, 128) carrier; the pairs at "default" and
+     "highest": bit-equal (each plain version repeats its kernel's
+     operations in the kernel's order); kernel, plain and library times
+     (the median of 5 repeats of the timing loop, with the spread), and
+     the bound; how many outputs K8 moves against K4 on the same inputs;
+     K13's statistics (benchmarks/quantize_tpu_check.py's checks); block
+     12's int8 x int8 -> int32 convolution bit-equal on the card and the
+     CPU, timed against cuDNN float32;
   4. the serving paths on ``artifacts/stage3_final.npz``, 8 requests or
      calls each at batch 1 (640x480 uint8 frames, radar points and
      proposals from a fixed seed): ``FusionEngine.infer`` at
@@ -28,9 +33,15 @@ printed only when every phase passed:
      ``pallas_max4`` with ``roi_precision="highest"``; ``entry()``;
      ``build_refine`` + ``RefineNetwork.apply``; ``FusionEngine.infer`` at
      ``pallas_stem2``, ``pallas_max_pk``, ``pallas_pair2``, ``pallas_deep``
-     and ``pallas_lat``; and one ``batched_step_fn`` window of the 8
-     frames at ``pallas_max4``. The launch counts are set to 0 before
-     each path and read after it; every kernel the path names must have
+     and ``pallas_lat``; ``f32``, ``s2d``, ``bf16_s2d``, ``int8`` and
+     ``int8_acts`` (calibrated with ``cli/demo.py:calibrate`` on the 8
+     frames), ``s2d``'s answers held to ``f32``'s by box, the int8 rows'
+     distance to them reported; the direct ops K10 (on each letterboxed
+     frame, held to cuDNN's float32 stage) and K13 (the carrier, seeds 0
+     and 1), as their only JAX callers run them; and one
+     ``batched_step_fn`` window of the 8 frames at ``pallas_max4``. The
+     launch counts are set to 0 before each path and read after it;
+     every kernel the path (or direct op) names must have
      launched on every request; the answers, the window's too, must be
      finite, of the right shape and bit-identical to the same path inside
      ``cuda_lib.plain_versions()``; the window's answers must also equal
@@ -61,6 +72,7 @@ N_REPEATS = 5                  # repeats of each timing loop
 HBM_BYTES_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 BF16_FLOP_S = 989e12           # dense bf16 tensor cores
 F32_FLOP_S = 67e12             # float32 outside the tensor cores
+INT8_OP_S = 1979e12            # dense int8 tensor cores
 # batch-8 against batch-1 rows: cuDNN sums a batch-8 convolution in another
 # order, which moves boxes and scores a little and may carry a row across
 # a threshold (at most ``flipped`` rows of a frame on one side only)
@@ -130,6 +142,38 @@ def nms_inputs(rng, b, k):
     dup = rng.choice(np.arange(k // 2, k), k // 8, replace=False)
     boxes[:, dup] = boxes[:, dup - 1]
     return boxes, rng.random((b, k)) < 0.9
+
+
+def cudnn_stem(torch, x, stages, dtype):
+    """The library yardstick of the stem kernels: cuDNN conv2d + bias +
+    leaky_relu + max_pool2d per stage on channels_last operands in
+    ``dtype``; x NHWC, weights OIHW; returns a callable giving NHWC."""
+    import torch.nn.functional as F
+    xl = x.permute(0, 3, 1, 2).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    ws = [(w.to(dtype), bs.to(dtype)) for w, bs in stages]
+
+    def run():
+        y = xl
+        for w, bs in ws:
+            y = F.max_pool2d(F.leaky_relu(F.conv2d(y, w, bs, padding=1), 0.1),
+                             2)
+        return y.permute(0, 2, 3, 1)
+    return run
+
+
+def stochastic_stats(q, scale):
+    """benchmarks/quantize_tpu_check.py's checks on the (8, 128) carrier:
+    0.3 at scale 1/127 is 38.1 steps. Returns (mean of the dequantized
+    body, P(39)); raises where a check fails."""
+    body = q[1:].double() * float(scale)
+    steps = set(q[1:].unique().tolist())
+    if steps != {38, 39}:
+        raise AssertionError(f"K13 carrier: steps {steps}, want 38 and 39")
+    mean, p39 = float(body.mean()), float((q[1:] == 39).double().mean())
+    if not abs(mean - 0.3) < 0.003 or q[0, 0] != 127:
+        raise AssertionError(f"K13 carrier: mean {mean}, q[0, 0] {q[0, 0]}")
+    return mean, p39
 
 
 class KernelChecks:
@@ -397,22 +441,11 @@ class KernelChecks:
         (TF32 off) at "highest"; held within 4% (bf16) or 0.2% (float32;
         the float16 store may round the other way) of the largest
         output."""
-        import torch.nn.functional as F
         from millieye_torch.ops import stem
         torch, bf = self.torch, self.torch.bfloat16
 
         def cudnn_stages(x, stages, dtype):
-            xl = x.permute(0, 3, 1, 2).to(dtype).contiguous(
-                memory_format=torch.channels_last)
-            ws = [(w.to(dtype), bs.to(dtype)) for w, bs in stages]
-
-            def run():
-                y = xl
-                for w, bs in ws:
-                    y = F.max_pool2d(F.leaky_relu(
-                        F.conv2d(y, w, bs, padding=1), 0.1), 2)
-                return y.permute(0, 2, 3, 1)
-            return run
+            return cudnn_stem(torch, x, stages, dtype)
 
         def wb(i):
             return (darknet_params[i]["w"].float(),
@@ -506,6 +539,108 @@ class KernelChecks:
                 2e-3 if hi else BF16_TOL)
 
 
+    # ------------------------------------------------------------- K10
+    def fused_stem_nhwc(self, b, darknet_params):
+        """K10 at stage 0 (416 px, 3->16) and stage 2 (208 px, 16->32) with
+        the served weights (HWIO), float32 in, float16 out, for the
+        "vconcat" and "im2col" tap orders. Library: cuDNN float32 (TF32
+        off), within 0.2% of the largest output (the float16 store may
+        round the other way). Bound: the products at the float32 rate."""
+        from millieye_torch.ops import stem
+        torch = self.torch
+        for i, hw in ((0, 416), (2, 208)):
+            w = darknet_params[i]["w"].float()
+            bs = darknet_params[i]["b"].float()
+            cout, cin = w.shape[0], w.shape[1]
+            w_hwio = w.permute(2, 3, 1, 0).contiguous()
+            x = torch.tensor(self.rng.uniform(0, 1, (b, hw, hw, cin)),
+                             dtype=torch.float32, device=self.dev)
+            for variant in ("vconcat", "im2col"):
+                self.case(
+                    "fused_stem", f"stage {i}: {hw} px {cin}->{cout} "
+                    f"{variant} f16", b,
+                    lambda: stem.fused_stem(x, w_hwio, bs, 1, torch.float16,
+                                            variant),
+                    lambda: stem.fused_stem_plain(x, w_hwio, bs, 1,
+                                                  torch.float16, variant),
+                    x.numel() * 4 + b * (hw // 2) ** 2 * cout * 2
+                    + w.numel() * 4 + cout * 4,
+                    2 * b * hw * hw * cout * 9 * cin, F32_FLOP_S,
+                    cudnn_stem(torch, x, [(w, bs)], torch.float32),
+                    "cuDNN conv2d+bias+leaky+max_pool2d, float32, TF32 off",
+                    2e-3)
+
+    # ------------------------------------------------------------- K13
+    def quantize(self, w12):
+        """K13 on block 12's served weight as the JAX package lays it out,
+        [3, 3, 512, 1024] -> [4608, 1024] (9 row tiles of 512), and on the
+        (8, 128) carrier of benchmarks/quantize_tpu_check.py, seeds 0 and
+        1: bit-equal to the plain version (same Philox words); the
+        carrier's statistics; every value floor or floor + 1 of w / scale.
+        Timed: the wrapper (the absmax pass and the kernel). Bound: bytes,
+        4 read by the absmax pass, 4 read and 1 written by the kernel per
+        element."""
+        from millieye_torch.ops import quantize
+        torch = self.torch
+        carrier = torch.full((8, 128), 0.3, device=self.dev)
+        carrier[0, 0] = 1.0
+        w2d = w12.permute(2, 3, 1, 0).reshape(-1, w12.shape[0]).float() \
+            .contiguous()
+        self.k13_stats = []
+        for label, w in (("block 12 [4608, 1024]", w2d),
+                         ("carrier [8, 128]", carrier)):
+            for seed in (0, 1):
+                q, s = quantize.quantize_int8_stochastic(w, seed)
+                wq, ws = quantize.quantize_int8_stochastic_plain(w, seed)
+                if not (torch.equal(s, ws) and torch.equal(q, wq)):
+                    raise AssertionError(f"K13 {label} seed {seed}: not "
+                                         f"bit-equal to the plain version")
+                fl = torch.floor(w / s)
+                if not ((q == fl) | (q == fl + 1) | (q.abs() == 127)).all():
+                    raise AssertionError(f"K13 {label}: a value is neither "
+                                         f"floor nor floor + 1")
+                if w is carrier:
+                    self.k13_stats.append((seed,) + stochastic_stats(q, s))
+            if w is carrier and torch.equal(
+                    quantize.quantize_int8_stochastic(w, 0)[0],
+                    quantize.quantize_int8_stochastic(w, 1)[0]):
+                raise AssertionError("K13: seeds 0 and 1 gave one stream")
+            self.case("quantize_stochastic", label, 1,
+                      lambda: quantize.quantize_int8_stochastic(w, 0)[0],
+                      lambda: quantize.quantize_int8_stochastic_plain(w, 0)[0],
+                      9 * w.numel(), 0, F32_FLOP_S, iters=50)
+
+
+def int8_conv_phase(torch, w12, rng):
+    """Block 12's int8 x int8 -> int32 convolution (13x13, 512 -> 1024,
+    3x3) through torch._int_mm: bit-equal on the card and the CPU at b1;
+    its time at b1 and b32 against cuDNN's float32 convolution of the same
+    shapes (TF32 off). Bound: the products at the int8 tensor-core rate
+    against the int8 operands and int32 result."""
+    import torch.nn.functional as F
+    from millieye_torch.ops.quantize import int8_conv2d, quantize_int8
+    q, _ = quantize_int8(w12.float())
+    out = {}
+    for b in (1, 32):
+        zq = torch.tensor(rng.integers(-127, 128, (b, 512, 13, 13)),
+                          dtype=torch.int8)
+        zc, qc = zq.cuda(), q.cuda()
+        got = int8_conv2d(zc, qc, 1, 1)
+        torch.cuda.synchronize()
+        if b == 1 and not torch.equal(got.cpu(), int8_conv2d(zq, q.cpu(), 1,
+                                                              1)):
+            raise AssertionError("int8 conv: the card and the CPU disagree")
+        xf, wf = zc.float(), qc.float()
+        ops = 2 * b * 13 * 13 * 1024 * 4608
+        out[b] = {"ms": cuda_ms(torch, lambda: int8_conv2d(zc, qc, 1, 1), 20),
+                  "cudnn_f32_ms": cuda_ms(
+                      torch, lambda: F.conv2d(xf, wf, padding=1), 20),
+                  "bound_ms": bound_ms(zq.numel() + q.numel()
+                                       + b * 13 * 13 * 1024 * 4, ops,
+                                       INT8_OP_S)}
+    return out
+
+
 def requests(rng, n):
     out = []
     for _ in range(n):
@@ -581,9 +716,11 @@ def main():
               file=sys.stderr)
         return 1
     from millieye_torch.cli._common import build_fusion, build_refine
+    from millieye_torch.cli.demo import calibrate
     from millieye_torch.device import set_numerics
     from millieye_torch.entry import entry
-    from millieye_torch.ops import cuda_lib, nms_kernel, roi_kernel, stem
+    from millieye_torch.ops import (cuda_lib, nms_kernel, quantize, roi_kernel,
+                                    stem)
     from millieye_torch.runtime.engine import FusionEngine, fold_for_serving
 
     t_start = time.time()
@@ -639,6 +776,11 @@ def main():
         "ps_roi_align_vpu": (roi_kernel.ps_roi_align_padded_vpu_kernel,
                              "millieye_torch/csrc/roi_align.cu",
                              "millieye_tpu/ops/roi_pallas.py:439"),
+        "fused_stem": (stem.fused_stem, "millieye_torch/csrc/stem.cu",
+                       "millieye_tpu/ops/stem_pallas.py:604"),
+        "quantize_stochastic": (quantize.quantize_int8_stochastic,
+                                "millieye_torch/csrc/quantize.cu",
+                                "millieye_tpu/ops/quantize.py:54"),
     }
 
     def engine_at(preset, **cfg):
@@ -651,7 +793,8 @@ def main():
                "pallas_max4+highest": engine_at("pallas_max4",
                                                 roi_precision="highest")}
     for preset in ("pallas_stem2", "pallas_max_pk", "pallas_pair2",
-                   "pallas_deep", "pallas_lat"):
+                   "pallas_deep", "pallas_lat", "f32", "s2d", "bf16_s2d",
+                   "int8"):
         engines[preset] = engine_at(preset)
 
     rng = np.random.default_rng(0)
@@ -662,9 +805,23 @@ def main():
         checks.roi_bf16(b)
         checks.roi_f32(b)
         checks.stems(b, engines["pallas_max_s01"].params["darknet"])
+        checks.fused_stem_nhwc(b, engines["pallas_max_s01"].params["darknet"])
+    w12 = engines["f32"].params["darknet"][12]["w"]
+    checks.quantize(w12)
     torch.cuda.empty_cache()
     log(f"kernel phase: {sum(map(len, checks.records.values()))} cases "
         f"bit-equal to their plain versions, {time.time() - t:.1f} s")
+    for seed, mean, p39 in checks.k13_stats:
+        log(f"K13 carrier, seed {seed}: values 38 and 39, dequantized mean "
+            f"{mean:.5f} (0.3 within 0.003), P(39) {p39:.3f} (expect ~0.10); "
+            f"seeds 0 and 1 differ")
+    int8_conv = int8_conv_phase(torch, w12, np.random.default_rng(2))
+    for b, r in int8_conv.items():
+        log(f"int8 conv, block 12 (13x13, 512->1024, 3x3), b{b}: "
+            f"{r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}, {r['ms'][2]:.4f}] "
+            f"through torch._int_mm, cuDNN float32 (TF32 off) "
+            f"{r['cudnn_f32_ms'][0]:.4f} ms, bound {r['bound_ms'][0]:.6f} ms "
+            f"({r['bound_ms'][1]}); bit-equal to the CPU at b1")
     for b, moved, total in checks.k8_vs_k4:
         log(f"K8 against K4 at 416 px, 'default', b{b}: {moved} of {total} "
             f"float16 outputs differ (the hi/lo pool select)")
@@ -768,6 +925,96 @@ def main():
     if lat["nms_full"] or lat["ps_roi_align"]:
         raise AssertionError(f"pallas_lat: launched the whole-matrix NMS or "
                              f"K2's 'dot' wrapper: {lat}")
+
+    # the s2d stem and the int8 ladder (P11-P14) beside the plain float32
+    # network; int8_acts calibrated on the requests' frames
+    model, params, state = build_fusion(CKPT, "int8_acts")
+    absmax = calibrate(model, params, state, [f for f, _, _ in reqs])
+    engines["int8_acts"] = FusionEngine(model, params, state,
+                                        frame_size=FRAME, act_absmax=absmax)
+    for path in ("f32", "s2d", "bf16_s2d", "int8", "int8_acts"):
+        eng = engines[path]
+        drive(path, infer_calls(eng), rows(eng), {"nms": 1})
+    for path in ("s2d", "int8", "int8_acts"):
+        flips, d_box, d_score, exact, near = 0, 0.0, 0.0, 0, []
+        for got, want in zip(answers_by_path[path], answers_by_path["f32"]):
+            ok, db, ds, fl = rows_match(got, want, WINDOW_TOL)
+            if path == "s2d" and not ok:
+                raise AssertionError(
+                    f"s2d: differs from f32 beyond {WINDOW_TOL} (box {db}, "
+                    f"score {ds}, {fl} rows on one side only)")
+            exact += int(np.array_equal(got[0], want[0])
+                         and np.array_equal(got[1], want[1]))
+            flips, d_box, d_score = flips + fl, max(d_box, db), max(d_score,
+                                                                    ds)
+            g, w = got[0][got[1]], want[0][want[1]]
+            if len(g) and len(w):     # each row's nearest f32 box, px
+                near += list(np.abs(g[:, None, :4] - w[None, :, :4])
+                             .max(-1).min(1))
+        n_rows = int(sum(v.sum() for _, v in answers_by_path["f32"]))
+        near_q = [float(np.percentile(near, q)) for q in (50, 90)] \
+            if near else [None, None]
+        summary[path]["against_f32"] = {
+            "bit_identical": exact, "max_box_diff": d_box,
+            "max_score_diff": d_score, "rows_on_one_side": flips,
+            "f32_rows": n_rows, "nearest_box_px_p50_p90": near_q}
+        log(f"{path} against f32 over {N_REQUESTS} requests: {exact} answers "
+            f"bit-identical, paired rows within {d_box:.3g} px and {d_score:.3g}"
+            f" on scores, {flips} of {n_rows} rows on one side only; each "
+            f"row's nearest f32 box {near_q[0]:.3g} px at the median, "
+            f"{near_q[1]:.3g} at the 90th percentile"
+            + (f" (held to {WINDOW_TOL} per request: the s2d rewrite is "
+               f"exact in real arithmetic, cuDNN sums in another order)"
+               if path == "s2d" else " (post-training quantization: "
+               "reported, not held)"))
+
+    # K10 and K13 as their only JAX callers run them: K10 as the JAX tests
+    # do, on each request's letterboxed frame with stage 0's served
+    # weights, held to cuDNN's float32 stage (atol 1e-4, their tolerance);
+    # K13 as benchmarks/quantize_tpu_check.py does, the carrier at seeds
+    # 0 and 1
+    from millieye_torch.ops import letterbox
+    dn0 = engines["f32"].params["darknet"][0]
+    w0 = dn0["w"].permute(2, 3, 1, 0).contiguous()
+    imgs = [letterbox.letterbox_image(
+        torch.from_numpy(f).cuda(), 416)[0][None] for f, _, _ in reqs]
+    carrier = torch.full((8, 128), 0.3, device="cuda")
+    carrier[0, 0] = 1.0
+    for path, name, calls in (
+            ("direct fused_stem", "fused_stem",
+             [lambda im=im: stem.fused_stem(im, w0, dn0["b"], 26)
+              for im in imgs]),
+            ("direct quantize_stochastic", "quantize_stochastic",
+             [lambda s=s: quantize.quantize_int8_stochastic(carrier, s)[0]
+              for s in (0, 1)])):
+        for fn, *_ in kernels.values():
+            fn.launches = 0
+        outs = [call() for call in calls]
+        launches_by_path[path] = {k: fn.launches
+                                  for k, (fn, *_) in kernels.items()}
+        if launches_by_path[path][name] != len(calls):
+            raise AssertionError(f"{path}: {launches_by_path[path]}")
+        with cuda_lib.plain_versions():
+            if not all(torch.equal(o, call()) for o, call in zip(outs,
+                                                                 calls)):
+                raise AssertionError(f"{path}: kernel and plain version "
+                                     f"disagree")
+        if name == "fused_stem":
+            err = max(float((o - cudnn_stem(torch, im, [(dn0["w"], dn0["b"])],
+                                            torch.float32)()).abs().max())
+                      for o, im in zip(outs, imgs))
+            if not err <= 1e-4:
+                raise AssertionError(f"{path}: off cuDNN's float32 stage by "
+                                     f"{err}")
+            note = f"within {err:.3g} of cuDNN's float32 stage"
+        else:
+            stats = [stochastic_stats(q, 1.0 / 127) for q in outs]
+            if torch.equal(outs[0], outs[1]):
+                raise AssertionError(f"{path}: seeds 0 and 1 gave one stream")
+            note = f"carrier (mean, P(39)) {stats}, seeds differ"
+        log(f"path {path}: {len(calls)} calls, launches "
+            f"{ {k: v for k, v in launches_by_path[path].items() if v} }, "
+            f"bit-identical to the plain version; {note}")
 
     # entry(): the float32 flagship forward; its example inputs with a new
     # image for each call
@@ -941,6 +1188,7 @@ def main():
     log(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": line, "card": card, "paths": summary,
                       "profile": profiles,
+                      "int8_conv": {f"b{b}": r for b, r in int8_conv.items()},
                       "k8_vs_k4": [{"batch": b, "differ": m, "outputs": t}
                                    for b, m, t in checks.k8_vs_k4]}))
     print(json.dumps({"ok": True, "device": {

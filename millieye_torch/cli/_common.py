@@ -1,7 +1,6 @@
 """The port's serving presets and network constructors (port of
-``millieye_tpu/cli/_common.py``: the rows of ``SERVING_PRESETS`` whose
-kernels the port has, ``serving_overrides``, ``build_fusion``,
-``build_refine``)."""
+``millieye_tpu/cli/_common.py``: the 33 rows of ``SERVING_PRESETS``,
+``serving_overrides``, ``build_fusion``, ``build_refine``)."""
 from __future__ import annotations
 
 import torch
@@ -42,9 +41,11 @@ _K128 = dict(_MAX, pre_nms_top_k=128, max_det=64)
 # name other pair variants: ``_pk`` K11, ``_s2d`` K12, ``_s01``, ``_vm``,
 # ``_vm_s01`` and the ``_bf16s`` twins buffering-only spellings (bf16
 # scratches, VMEM input) of the pair they name. ``pallas_lat``: top-256,
-# K2 ``vpu`` and the blocked NMS kernel pinned. Not here: ``s2d``,
-# ``bf16_s2d``, ``int8``, ``int8_acts`` (the s2d stem and the int8
-# ladder, not yet ported).
+# K2 ``vpu`` and the blocked NMS kernel pinned. ``s2d`` / ``bf16_s2d``:
+# stages 0 and 2 as space-to-depth convolutions (float32 / bf16);
+# ``int8``: + int8 weights; ``int8_acts``: + int8 activations, which need
+# an ``act_absmax`` calibration (``cli/demo.py:calibrate``) for
+# ``FusionEngine``.
 SERVING_PRESETS = {
     "f32": {},
     "bf16": {"compute_dtype": "bfloat16"},
@@ -77,16 +78,21 @@ SERVING_PRESETS = {
     "pallas_max_vm_bf16s": dict(_K128, stem_variant="phase_vmem_bf16s"),
     "pallas_lat": dict(_MAX, roi_reduce="vpu", pre_nms_top_k=256,
                        max_det=64, nms_use_blocked=True),
+    "s2d": {"s2d": True},
+    "bf16_s2d": {"compute_dtype": "bfloat16", "s2d": True},
+    "int8": {"s2d": True, "weights_int8": True},
+    "int8_acts": {"s2d": True, "weights_int8": True, "acts_int8": True},
 }
 
 
 def serving_overrides(name):
     """(hi_prec_stages, hi_prec_store, stem options for ``Darknet``,
-    ``FusionConfig`` overrides)."""
+    ``FusionConfig`` overrides). ``s2d: True`` means s2d stages (0, 2)."""
     preset = dict(SERVING_PRESETS[name])
     hi = tuple(preset.pop("hi_prec", ()))
     store = preset.pop("hi_store", None)
     stem_kw = {
+        "s2d_stages": (0, 2) if preset.pop("s2d", False) else (),
         "stem_stages": tuple(preset.pop("stem", ())),
         "stem_pair": bool(preset.pop("stem_pair", False)),
         "stem_precision": preset.pop("stem_precision", "highest"),

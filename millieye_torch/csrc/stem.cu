@@ -1,5 +1,6 @@
 // Fused stem kernels: the two-stage pair (K4, and K8, K11 and K12 at the
-// stem shape), the deep pair (K12 at stages 4+6) and the single stage K9.
+// stem shape), the deep pair (K12 at stages 4+6), the single stage K9 and
+// its NHWC spelling K10.
 //
 // The stem pair:
 //   out = maxpool2(leaky(conv3x3(maxpool2(leaky(conv3x3(x, w0) + b0)), w1)
@@ -541,6 +542,100 @@ stem_stage_kernel(const float* __restrict__ x,
   }
 }
 
+// ---------------------------------------------------------------------
+// Kernel K10: K9's function in NHWC with HWIO weights and float32
+// products, summed in the tap order of the TPU kernel's patch build,
+//   out = maxpool2(leaky(conv3x3(x, w) + b)).
+//
+// Replaces: millieye_tpu/ops/stem_pallas.py:fused_stem, whose variants
+// "vconcat" and "vroll" sum three K = 3*cin dots over v (taps (v, u, c))
+// and "im2col" one K = 9*cin dot (taps (u, v, c)), at HIGHEST precision
+// with float32 accumulation; its row band th changes nothing in the
+// result. The caller passes the JAX wrapper's [9*cin, cout] weight matrix
+// (row = tap * cin + c, taps in the variant's order); each product is
+// rounded before its add (__fmul_rn, __fadd_rn), so the plain version
+// (ops/stem.py:fused_stem_plain) repeats the sum bit for bit.
+//
+// Bound on an H100: operations at the stem shape (416 px, 3 -> 16: 0.15
+// GFLOP per image, 2.2 us at the 67 TFLOP/s float32 rate, against 3.5 MB
+// of float32 input and float16 output, 1.0 us at 3.35 TB/s), and at
+// 208 px, 16 -> 32 (0.40 GFLOP, 6.0 us, against 1.0 us of bytes).
+//
+// Design: K9's tiling (an 8x8 tile of pooled pixels and a slice of 32
+// output channels per block; a thread owns one pooled pixel and 8
+// channels at the four pool positions), but the sum runs over the taps
+// first and the channels last, so every input channel of the 18x18 halo
+// stays in shared memory (planar, padded rows) with the slice's weights:
+// 40 KB at cin 16, through the dynamic opt-in above 48 KB, up to cin 92.
+template <bool kVMajor>
+__global__ void __launch_bounds__(kThreads)
+stem_nhwc_kernel(const float* __restrict__ x,
+                 const float* __restrict__ wm,   // [9 * cin, cout]
+                 const float* __restrict__ bias, void* __restrict__ out,
+                 int h, int w, int cin, int cout, int store) {
+  extern __shared__ __align__(16) float nsmem[];
+  float* s_in = nsmem;                                 // [cin][kHalo][kPitch]
+  float* s_w = s_in + align4(cin * kHalo * kPitch);    // [9 * cin][kCo]
+
+  const int tid = threadIdx.x;
+  const int slices = (cout + kCo - 1) / kCo;
+  const int n = blockIdx.z / slices, slice = blockIdx.z % slices;
+  const int co0 = slice * kCo;
+  const int co_n = min(kCo, cout - co0);
+  const int ho = h / 2, wo = w / 2;
+  const int pix = tid % (kTile * kTile), g = tid / (kTile * kTile);
+  const int py = pix / kTile, px = pix % kTile;
+  const int oy = kTile * blockIdx.y + py, ox = kTile * blockIdx.x + px;
+  // input halo: local (ly, lx) <-> global (2*kTile*ty - 1 + ly, ...)
+  const int iy0 = 2 * kTile * blockIdx.y - 1, ix0 = 2 * kTile * blockIdx.x - 1;
+  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+
+  for (int e = tid; e < kHalo * kHalo * cin; e += kThreads) {
+    const int c = e % cin, p = e / cin;
+    const int ly = p / kHalo, lx = p % kHalo;
+    const int gy = iy0 + ly, gx = ix0 + lx;
+    float v = 0.0f;
+    if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+      v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c];
+    s_in[(c * kHalo + ly) * kPitch + lx] = v;
+  }
+  for (int e = tid; e < 9 * cin * kCo; e += kThreads) {
+    const int co = e % kCo, r = e / kCo;
+    s_w[e] = co < co_n ? wm[static_cast<size_t>(r) * cout + co0 + co] : 0.0f;
+  }
+  __syncthreads();
+  if (g * kGroup >= co_n) return;      // no barrier follows
+
+  float acc[4][kGroup] = {};
+  for (int t = 0; t < 9; ++t) {
+    const int u = kVMajor ? t % 3 : t / 3, v = kVMajor ? t / 3 : t % 3;
+    for (int c = 0; c < cin; ++c) {
+      const float* wr = s_w + (t * cin + c) * kCo + g * kGroup;
+      float wv[kGroup];
+      for (int k = 0; k < kGroup; ++k) wv[k] = wr[k];
+      for (int d = 0; d < 4; ++d) {
+        const float xv = s_in[(c * kHalo + 2 * py + (d >> 1) + u) * kPitch
+                              + 2 * px + (d & 1) + v];
+        for (int k = 0; k < kGroup; ++k)
+          acc[d][k] = __fadd_rn(acc[d][k], __fmul_rn(xv, wv[k]));
+      }
+    }
+  }
+  if (oy >= ho || ox >= wo) return;
+  const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
+                   + co0 + g * kGroup;
+  for (int k = 0; k < kGroup && g * kGroup + k < co_n; ++k) {
+    const float bv = bias[co0 + g * kGroup + k];
+    float m = leaky(__fadd_rn(acc[0][k], bv));
+    for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bv)));
+    store_value(out, o + k, m, store);
+  }
+}
+
+__host__ __device__ inline size_t nhwc_smem_bytes(int cin) {
+  return sizeof(float) * (align4(cin * kHalo * kPitch) + 9 * cin * kCo);
+}
+
 template <typename Kernel>
 int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
            const void* x, const void* w0, const void* b0, const void* w1,
@@ -642,6 +737,34 @@ int millieye_stem_stage(const void* x, const void* wgt, const void* bias,
     stem_stage_kernel<false><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(wgt),
         static_cast<const float*>(bias), out, h, w, cin, cout, store);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel K10: x [n, h, w, cin] f32, wm [9 * cin, cout] f32 (row tap * cin
+// + c, taps (v, u) when vmajor else (u, v)), bias [cout] f32 -> out
+// [n, h/2, w/2, cout] in the store type (0 float32, 1 bf16, 2 float16).
+int millieye_stem_nhwc(const void* x, const void* wm, const void* bias,
+                       void* out, int n, int h, int w, int cin, int cout,
+                       int vmajor, int store, void* stream) {
+  if (n <= 0 || h <= 0 || w <= 0 || h % 2 || w % 2 || cin <= 0 || cout <= 0
+      || store < 0 || store > 2)
+    return cudaErrorInvalidValue;
+  const size_t smem = nhwc_smem_bytes(cin);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  const int slices = (cout + kCo - 1) / kCo;
+  const dim3 grid((w / 2 + kTile - 1) / kTile, (h / 2 + kTile - 1) / kTile,
+                  n * slices);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = vmajor ? stem_nhwc_kernel<true> : stem_nhwc_kernel<false>;
+  if (smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wm),
+      static_cast<const float*>(bias), out, h, w, cin, cout, store);
   return static_cast<int>(cudaGetLastError());
 }
 

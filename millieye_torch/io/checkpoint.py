@@ -50,14 +50,19 @@ def read_npz(path):
 def _to_tensor(a):
     # numpy leaves become tensors before any cast: numpy's promotion of
     # reduced-precision arrays with Python floats differs from torch's
-    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    a = np.asarray(a)
+    t = torch.from_numpy(np.array(a, dtype=np.int8 if a.dtype == np.int8
+                                  else np.float32))
     return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
 
 
 def convert(params, state):
     """JAX ``(params, state)`` as nested numpy arrays -> the port's
-    ``(params, state)``: the same nesting, float32 CPU tensors, conv
-    kernels OIHW, linear weights kept [in, out]."""
+    ``(params, state)``: the same nesting, float32 CPU tensors (int8
+    leaves stay int8), every 4-D leaf turned HWIO -> OIHW, linear weights
+    kept [in, out]. That also carries a serving tree: ``w2`` and the int8
+    ``q``/``q2`` go OIHW, a per-channel ``scale`` [1, 1, 1, D] becomes
+    [D, 1, 1, 1], ``wi`` stays [16C, 4D] and ``xs`` a scalar."""
     def walk(node):
         if isinstance(node, dict):
             return {k: walk(v) for k, v in node.items()}

@@ -60,6 +60,11 @@ class FusionConfig:
                                      # products), "split" or "highest"
     roi_reduce: str = "dot"          # K2's w-sum as the TPU named it, "dot"
                                      # or "vpu": one kernel on the card
+    weights_int8: bool = False       # serving: backbone conv weights int8
+                                     # (per-output-channel scales)
+    acts_int8: bool = False          # serving: conv inputs int8 too
+                                     # (calibrated scales; needs
+                                     # weights_int8 and an act_absmax)
 
 
 def _eff_sampling_max(cfg, img_size):

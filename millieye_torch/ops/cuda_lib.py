@@ -30,11 +30,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 # per-source flags: the NMS keep set must be bit-equal to the float32
-# reference, so its IoU arithmetic may not be contracted into FMAs
+# reference, so its IoU arithmetic may not be contracted into FMAs. No
+# source is built with fast math: the quantizer's w / scale is IEEE.
 SOURCES = {
     "nms": ("nms.cu", ("-fmad=false",)),
     "roi_align": ("roi_align.cu", ()),
     "stem": ("stem.cu", ()),
+    "quantize": ("quantize.cu", ()),
 }
 
 _loaded = {}

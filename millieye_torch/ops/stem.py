@@ -1,6 +1,6 @@
 """Fused stem kernels and their plain versions: the stem pair (K4, K8,
-K11 and K12), the deep pair (K12 at stages 4+6) and the single stage K9.
-Source: ``millieye_torch/csrc/stem.cu``.
+K11 and K12), the deep pair (K12 at stages 4+6), the single stage K9 and
+its NHWC spelling K10. Source: ``millieye_torch/csrc/stem.cu``.
 
 K9 ``fused_stem_stage`` (port of
 ``millieye_tpu/ops/stem_pallas.py:fused_stem_planar``):
@@ -12,6 +12,14 @@ x [N, H, W, Cin] float32 NHWC -> [N, H/2, W/2, Cout] NHWC in
 ``precision="default"`` rounds x and w to bf16 and accumulates the
 products in float32; ``"highest"`` is float32 throughout; bias, leaky
 and the pool follow in float32, then one rounding to ``out_dtype``.
+
+K10 ``fused_stem`` (port of ``stem_pallas.py:fused_stem``, which the JAX
+package runs only from its tests): the same function with the JAX
+package's arguments, x [N, H, W, Cin] of any float type, w [3, 3, Cin,
+Cout] HWIO, output in ``out_dtype`` (default x's type); float32 products
+and sums, the taps in the order of the TPU kernel's patch build: (v, u,
+c) for ``variant`` "vconcat" and "vroll", (u, v, c) for "im2col". The
+row band ``th`` is checked (H/2 % th == 0) and changes nothing else.
 
 The stem pair, two such stages in one kernel with the half-size
 intermediate kept on chip:
@@ -76,24 +84,22 @@ def _bf16(x):
     return x.to(torch.bfloat16).float()
 
 
-def _conv3x3(x, w, c_first):
+def _conv3x3(x, w, order):
     """3x3 convolution with zero padding 1, summed as the kernels sum it:
     one multiply and one add at a time into a float32 sum that starts at
-    0, over the taps in (c, u, v) order with ``c_first`` (K9 and the deep
-    pair) or in (u, v, c) order (the stem pair). x [N, C, H, W], w [O, C,
-    3, 3]. With bf16 operands every product is exact in float32, so the
-    kernels' FMA rounds like this add; with float32 operands the kernels
-    round the product first, as the multiply here does."""
+    0, over the taps in ``order``, slowest first: "cuv" (K9 and the deep
+    pair), "uvc" (the stem pair, K10's "im2col") or "vuc" (K10's
+    "vconcat" and "vroll"). x [N, C, H, W], w [O, C, 3, 3]. With bf16
+    operands every product is exact in float32, so the kernels' FMA rounds
+    like this add; with float32 operands the kernels round the product
+    first, as the multiply here does."""
     n, c, h, wd = x.shape
     xp = F.pad(x, (1, 1, 1, 1))
     acc = x.new_zeros((n, w.shape[0], h, wd))
-    if c_first:
-        taps = itertools.product(range(c), range(3), range(3))
-    else:
-        taps = ((ci, u, v) for u, v, ci in itertools.product(range(3),
-                                                             range(3),
-                                                             range(c)))
-    for ci, u, v in taps:
+    ranges = {"c": range(c), "u": range(3), "v": range(3)}
+    for tap in itertools.product(*(ranges[a] for a in order)):
+        idx = dict(zip(order, tap))
+        ci, u, v = idx["c"], idx["u"], idx["v"]
         acc = acc + (xp[:, ci:ci + 1, u:u + h, v:v + wd]
                      * w[:, ci, u, v][None, :, None, None])
     return acc
@@ -110,7 +116,7 @@ def fused_stem_stage_plain(x, w, b, precision="default",
     xc, wc = x.permute(0, 3, 1, 2).float(), w.float()
     if precision == "default":
         xc, wc = _bf16(xc), _bf16(wc)
-    y = _conv3x3(xc, wc, True) + b.float()[:, None, None]
+    y = _conv3x3(xc, wc, "cuv") + b.float()[:, None, None]
     y = F.max_pool2d(_leaky(y), 2)
     return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
 
@@ -131,10 +137,10 @@ def fused_stem_pair_plain(x, w0, b0, w1, b1, precision="default",
         op, sel = torch.Tensor.float, (lambda v: v)
     else:
         op, sel = _bf16, (_pool_select if select else (lambda v: v))
-    y = _conv3x3(op(x.permute(0, 3, 1, 2)), op(w0), False) \
+    y = _conv3x3(op(x.permute(0, 3, 1, 2)), op(w0), "uvc") \
         + b0.float()[:, None, None]
     y = sel(F.max_pool2d(_leaky(y), 2))
-    y = _conv3x3(op(y), op(w1), False) + b1.float()[:, None, None]
+    y = _conv3x3(op(y), op(w1), "uvc") + b1.float()[:, None, None]
     y = sel(F.max_pool2d(_leaky(y), 2))
     return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
 
@@ -159,8 +165,11 @@ def _lib():
     lib.millieye_stem_stage.argtypes = ([ctypes.c_void_p] * 4
                                         + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
+    lib.millieye_stem_nhwc.argtypes = ([ctypes.c_void_p] * 4
+                                       + [ctypes.c_int] * 7
+                                       + [ctypes.c_void_p])
     for fn in (lib.millieye_stem_pair, lib.millieye_stem_pair_deep,
-               lib.millieye_stem_stage):
+               lib.millieye_stem_stage, lib.millieye_stem_nhwc):
         fn.restype = ctypes.c_int
     return lib
 
@@ -210,6 +219,70 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
         _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device))
     cuda_lib.check(lib, rc, "fused_stem_stage")
     fused_stem_stage.launches += 1
+    return out
+
+
+# ------------------------------------------------------------------ K10
+_NHWC_VARIANTS = ("vconcat", "vroll", "im2col")
+_NHWC_MAX_CIN = 92     # the halo and weight slice in 227 KB of shared memory
+
+
+def _check_nhwc(x, w, b, th, out_dtype, variant):
+    """The JAX wrapper's checks; returns the store type."""
+    if variant not in _NHWC_VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}")
+    if x.dim() != 4 or w.dim() != 4:
+        raise ValueError(f"fused_stem: want NHWC x and HWIO w, got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}")
+    n, h, wd, cin = x.shape
+    if tuple(w.shape[:3]) != (3, 3, cin) or tuple(b.shape) != (w.shape[3],):
+        raise ValueError(f"fused_stem: weights {tuple(w.shape)}, "
+                         f"{tuple(b.shape)} for {cin} input channels")
+    if h % 2 or wd % 2 or th < 1 or (h // 2) % th:
+        raise ValueError(f"fused_stem: need even H, W and (H/2) % th == 0, "
+                         f"got {tuple(x.shape)}, th={th}")
+    out_dtype = x.dtype if out_dtype is None else out_dtype
+    if out_dtype not in _STORE_CODES:
+        raise TypeError(f"fused_stem: cannot store {out_dtype}")
+    return out_dtype
+
+
+def fused_stem_plain(x, w, b, th=26, out_dtype=None, variant="vconcat"):
+    """K10's arithmetic, operation for operation, in PyTorch."""
+    out_dtype = _check_nhwc(x, w, b, th, out_dtype, variant)
+    order = "uvc" if variant == "im2col" else "vuc"
+    y = _conv3x3(x.permute(0, 3, 1, 2).float(),
+                 w.float().permute(3, 2, 0, 1), order) \
+        + b.float()[:, None, None]
+    y = F.max_pool2d(_leaky(y), 2)
+    return y.permute(0, 2, 3, 1).to(out_dtype).contiguous()
+
+
+def fused_stem(x, w, b, th=26, out_dtype=None, variant="vconcat"):
+    """K10: [N, H, W, Cin] -> [N, H/2, W/2, Cout] (see module)."""
+    out_dtype = _check_nhwc(x, w, b, th, out_dtype, variant)
+    if cuda_lib.takes_plain(x):
+        return fused_stem_plain(x, w, b, th, out_dtype, variant)
+    xk = x.float().contiguous()
+    _check_cuda("fused_stem", xk, w, b)
+    n, h, wd, cin = x.shape
+    cout = w.shape[3]
+    if cin > _NHWC_MAX_CIN:
+        raise ValueError(f"fused_stem: {cin} input channels do not fit the "
+                         f"kernel's shared memory (at most {_NHWC_MAX_CIN})")
+    # the JAX wrapper's [9 * cin, cout] matrix, rows in the tap order
+    wf = w.float()
+    wm = (wf if variant == "im2col" else wf.permute(1, 0, 2, 3)).reshape(
+        9 * cin, cout).contiguous()
+    out = torch.empty((n, h // 2, wd // 2, cout), dtype=out_dtype,
+                      device=x.device)
+    lib = _lib()
+    rc = lib.millieye_stem_nhwc(
+        cuda_lib.ptr(xk), cuda_lib.ptr(wm), cuda_lib.ptr(b.float().contiguous()),
+        cuda_lib.ptr(out), n, h, wd, cin, cout, int(variant != "im2col"),
+        _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(lib, rc, "fused_stem")
+    fused_stem.launches += 1
     return out
 
 
@@ -365,6 +438,7 @@ def fused_stem_pair_deep(x, w0, b0, w1, b1, precision="default",
 
 
 fused_stem_stage.launches = 0
+fused_stem.launches = 0
 fused_stem_pair.launches = 0
 fused_stem_pair_select.launches = 0
 fused_stem_pair_packed.launches = 0

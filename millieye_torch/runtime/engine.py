@@ -22,6 +22,7 @@ from millieye_torch.models.fusion import _DTYPES
 from millieye_torch.ops import letterbox as lb
 from millieye_torch.ops.boxes import rescale_boxes
 from millieye_torch.ops.nms import nms_xyxy
+from millieye_torch.ops.quantize import quantize_darknet
 from millieye_torch.ops.rasterize import radar_heatmap
 from millieye_torch.radar.pipeline import normalize_boxes_to_padded, pad_rows
 
@@ -42,13 +43,30 @@ def _sanitize_radar(points, pmask, radar_boxes, radar_mask):
     return points, pmask, rb, radar_mask & finite_rb & nonempty
 
 
-def fold_for_serving(model, params, state):
-    """Trained weights -> the serving representation: BN folded, cast to
-    the compute dtype, the hi-prec stages kept float32."""
+def fold_for_serving(model, params, state, act_absmax=None):
+    """Trained weights -> the serving representation: BN folded and cast
+    to the compute dtype (the hi-prec stages kept float32), the s2d and
+    im2col stem transforms applied, then int8 weights and activations as
+    the ``FusionConfig`` asks (``act_absmax`` from
+    ``ops.quantize.calibrate_act_scales``, needed for ``acts_int8``)."""
     cd = _DTYPES[model.cfg.compute_dtype]
-    fp, fs = model.darknet.fold_batchnorm(
-        params["darknet"], state["darknet"],
-        dtype=None if cd == torch.float32 else cd)
+    dn = model.darknet
+    fp, fs = dn.fold_batchnorm(params["darknet"], state["darknet"],
+                               dtype=None if cd == torch.float32 else cd)
+    if dn.s2d_stages:
+        fp = dn.fold_s2d(fp)
+    if dn.im2col_stages:
+        fp = dn.fold_im2col(fp)
+    if model.cfg.weights_int8:
+        kw = {}
+        if model.cfg.acts_int8:
+            if act_absmax is None:
+                raise ValueError(
+                    "acts_int8 serving needs act_absmax from "
+                    "ops.quantize.calibrate_act_scales (run on the "
+                    "folded/s2d graph over representative frames)")
+            kw = dict(act_absmax=act_absmax, act_skip=dn.act_int8_skip)
+        fp = quantize_darknet(fp, **kw)
     return dict(params, darknet=fp), dict(state, darknet=fs)
 
 
@@ -58,14 +76,15 @@ class FusionEngine:
 
     def __init__(self, model, params, state, frame_size=(640, 480),
                  max_points=256, post_nms_iou=POST_NMS_IOU, fold_bn=True,
-                 device="cuda"):
+                 act_absmax=None, device="cuda"):
         self.device = resolve_device(device)
         set_numerics()
         self.model = model
         params = to_device(params, self.device)
         state = to_device(state, self.device)
         if fold_bn:
-            params, state = fold_for_serving(model, params, state)
+            params, state = fold_for_serving(model, params, state,
+                                             act_absmax)
         self.params, self.state = params, state
         self.frame_size = frame_size
         self.max_points = max_points

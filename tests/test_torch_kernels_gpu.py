@@ -32,7 +32,9 @@ from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
                                            ps_roi_align_padded_vpu_kernel,
                                            roi_align_f32_plain,
                                            roi_align_kernel, roi_align_plain)
-from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_deep,
+from millieye_torch.ops import quantize as tq
+from millieye_torch.ops.stem import (fused_stem, fused_stem_plain,
+                                     fused_stem_pair, fused_stem_pair_deep,
                                      fused_stem_pair_deep_plain,
                                      fused_stem_pair_packed,
                                      fused_stem_pair_plain,
@@ -250,6 +252,63 @@ def test_deep_pair_kernel_matches_plain(cuda, precision, shape, out_dtype):
         assert fused_stem_pair_deep.launches == before + 2
 
 
+@pytest.mark.parametrize("variant", ["vconcat", "vroll", "im2col"])
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((2, 416, 416, 3, 16), torch.float16),
+    ((2, 208, 208, 16, 32), torch.float16),
+    ((1, 64, 48, 5, 8), torch.bfloat16),
+    ((1, 20, 36, 70, 44), torch.float32)])
+def test_fused_stem_kernel_matches_plain(cuda, variant, shape, out_dtype):
+    """K10 at the stem's two stage shapes, an odd one and a wide one (70
+    input channels: past the 48 KB shared-memory default; 44 outputs: a
+    partial slice and a partial channel group)."""
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device="cpu").manual_seed(h + cin)
+    x = torch.randn((n, h, w, cin), generator=g).to(cuda)
+    wt = (0.2 * torch.randn((3, 3, cin, cout), generator=g)).to(cuda)
+    bs = (0.1 * torch.randn(cout, generator=g)).to(cuda)
+    before = fused_stem.launches
+    got = fused_stem(x, wt, bs, th=2, out_dtype=out_dtype, variant=variant)
+    assert fused_stem.launches == before + 1
+    assert got.dtype == out_dtype
+    assert torch.equal(got, fused_stem_plain(x, wt, bs, 2, out_dtype,
+                                             variant))
+
+
+@pytest.mark.parametrize("shape,row_tile", [((8, 128), 512),
+                                            ((4608, 1024), 512),
+                                            ((1030, 130), 256),
+                                            ((5, 3), 2)])
+def test_quantize_stochastic_kernel_matches_plain(cuda, shape, row_tile):
+    """K13 on the carrier of benchmarks/quantize_tpu_check.py, block 12's
+    weight shape (9 tiles), a ragged last tile and a tiny tail: the same
+    Philox words and roundings as the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(shape[0])
+    w = torch.randn(shape, generator=g).to(cuda)
+    for seed in (0, 7, -3):
+        before = tq.quantize_int8_stochastic.launches
+        q, s = tq.quantize_int8_stochastic(w, seed, row_tile)
+        assert tq.quantize_int8_stochastic.launches == before + 1
+        wq, ws = tq.quantize_int8_stochastic_plain(w, seed, row_tile)
+        assert q.dtype == torch.int8 and torch.equal(s, ws)
+        assert torch.equal(q, wq)
+
+
+@pytest.mark.parametrize("shape,k,stride", [((1, 512, 13, 13), 3, 1),
+                                            ((4, 130, 9, 7), 3, 2),
+                                            ((2, 256, 26, 26), 1, 1)])
+def test_int8_conv_on_card_equals_cpu(cuda, shape, k, stride):
+    """The int8 x int8 -> int32 convolution through torch._int_mm on the
+    card is the exact integer result the CPU computes."""
+    g = torch.Generator(device="cpu").manual_seed(shape[1])
+    zq = torch.randint(-127, 128, shape, dtype=torch.int8, generator=g)
+    q = torch.randint(-127, 128, (shape[1] * 2, shape[1], k, k),
+                      dtype=torch.int8, generator=g)
+    want = tq.int8_conv2d(zq, q, stride, k // 2)
+    got = tq.int8_conv2d(zq.to(cuda), q.to(cuda), stride, k // 2)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+
+
 def test_wrappers_refuse_wrong_inputs(cuda):
     with pytest.raises(TypeError):
         nms_keep_mask_blocked(torch.zeros((1, 128, 4), dtype=torch.float16,
@@ -282,3 +341,7 @@ def test_wrappers_refuse_wrong_inputs(cuda):
         fused_stem_pair(*_pair_weights(cuda, 1, 32, 32, 32, 64, 128))
     with pytest.raises(ValueError):            # H % 32 for K8
         fused_stem_pair_select(*_pair_weights(cuda, 1, 20, 32, 3, 8, 16))
+    with pytest.raises(ValueError):            # too wide for shared memory
+        fused_stem(torch.zeros((1, 8, 8, 93), device=cuda),
+                   torch.zeros((3, 3, 93, 8), device=cuda),
+                   torch.zeros(8, device=cuda), th=1)

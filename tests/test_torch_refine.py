@@ -25,6 +25,7 @@ import torch
 
 from millieye_torch.cli._common import (SERVING_PRESETS, build_fusion,
                                         build_refine, serving_overrides)
+from millieye_torch.cli.demo import calibrate
 from millieye_torch.entry import entry
 from millieye_torch.runtime.engine import FusionEngine
 from millieye_tpu.cli._common import SERVING_PRESETS as JAX_PRESETS
@@ -193,9 +194,10 @@ def test_preset_row_matches_jax(preset):
     "kernel"; ``models/darknet.py:PAIR_KERNELS`` maps the pair variant
     names to the port's kernels)."""
     assert preset in JAX_PRESETS
-    _, jhi, jstore, jk, jover = jax_overrides(preset)
+    js2d, jhi, jstore, jk, jover = jax_overrides(preset)
     hi, store, stem_kw, over = serving_overrides(preset)
     assert (hi, store) == (jhi, jstore)
+    assert stem_kw["s2d_stages"] == js2d
     assert stem_kw["stem_stages"] == jk["pallas_stem"]
     assert stem_kw["stem_pair"] == jk["pallas_pair"]
     assert stem_kw["stem_precision"] == jk["pallas_precision"]
@@ -208,12 +210,10 @@ def test_preset_row_matches_jax(preset):
 
 
 def test_preset_rows_missing_are_s2d_and_int8():
-    """The port has 29 of the JAX package's 33 serving rows: all but the
-    s2d stem and the int8 ladder."""
-    assert set(SERVING_PRESETS) <= set(JAX_PRESETS)
-    assert set(JAX_PRESETS) - set(SERVING_PRESETS) == {
-        "s2d", "bf16_s2d", "int8", "int8_acts"}
-    assert len(SERVING_PRESETS) == 29
+    """The s2d stem and the int8 ladder, the last rows the port lacked,
+    are in: the port's serving rows are the JAX package's 33."""
+    assert set(SERVING_PRESETS) == set(JAX_PRESETS)
+    assert len(SERVING_PRESETS) == 33
 
 
 @pytest.mark.parametrize("preset", sorted(
@@ -221,13 +221,16 @@ def test_preset_rows_missing_are_s2d_and_int8():
 def test_preset_builds_and_serves(preset):
     """Every preset beyond f32 and pallas_max_s01 (test_torch_fusion.py
     holds those to the JAX package) builds from the checkpoint and
-    answers a frame at 96 px; at one of them warmup runs the same path."""
+    answers a frame at 96 px (int8_acts calibrated on that frame); at one
+    of them warmup runs the same path."""
     rng = np.random.default_rng(9)
     frames, pts, props = _window(rng, 1)
     model, params, state = build_fusion(CKPT, preset, img_size=S,
                                         device="cpu")
+    absmax = (calibrate(model, params, state, frames[:1])
+              if model.cfg.acts_int8 else None)
     eng = FusionEngine(model, params, state, frame_size=FRAME, max_points=32,
-                       device="cpu")
+                       act_absmax=absmax, device="cpu")
     boxes, valid = eng.infer(frames[0], pts[0], props[0])
     assert boxes.shape == (model.cfg.max_det + model.cfg.max_radar, 6)
     assert np.isfinite(boxes).all() and valid.any()
