@@ -18,9 +18,13 @@ printed only when every phase passed:
      the unpadded float32 map, K7 padded PS-RoIAlign on float32 operands,
      K9 single stem stage, K10 (the NHWC stage, "vconcat" and "im2col"
      tap orders) at stages 0 and 2, K13 (stochastic int8) on block 12's
-     weight and on the (8, 128) carrier; the pairs at "default" and
-     "highest": bit-equal (each plain version repeats its kernel's
-     operations in the kernel's order); kernel, plain and library times
+     weight and on the (8, 128) carrier; K2 also with every RoI the whole
+     frame; the pairs at "default" and "highest": bit-equal (each plain
+     version repeats its kernel's operations in the kernel's order),
+     except the stem pair at "default" (K4, K8, K11, K12 at the stem
+     shape), which runs on the tensor cores and is held within 2^-6 of its
+     plain version's largest output, its exact share reported; kernel,
+     plain and library times
      (the median of 5 repeats of the timing loop, with the spread), and
      the bound; how many outputs K8 moves against K4 on the same inputs;
      K13's statistics (benchmarks/quantize_tpu_check.py's checks); block
@@ -44,7 +48,11 @@ printed only when every phase passed:
      every kernel the path (or direct op) names must have
      launched on every request; the answers, the window's too, must be
      finite, of the right shape and bit-identical to the same path inside
-     ``cuda_lib.plain_versions()``; the window's answers must also equal
+     ``cuda_lib.plain_versions()``, or, for a path that runs the
+     tensor-core pair, bit-identical to the same path inside
+     ``cuda_lib.plain_versions(keep=<the pair's wrappers>)`` (every other
+     kernel's plain version) and within ``PAIR_PATH_TOL`` of the fully
+     plain path; the window's answers (held the same way) must also equal
      the per-frame answers (matched by box within a stated tolerance,
      with at most one row of a frame on one side only, where the batch-8
      convolutions sum in another order); p50 latency per path; then one
@@ -77,6 +85,13 @@ INT8_OP_S = 1979e12            # dense int8 tensor cores
 # order, which moves boxes and scores a little and may carry a row across
 # a threshold (at most ``flipped`` rows of a frame on one side only)
 WINDOW_TOL = dict(box=0.5, score=2e-2, flipped=1)
+# a path that runs the tensor-core pair against its fully plain run: the
+# pair perturbs a bf16 network at its first layer, and one bf16 ulp of a
+# head's regression output moves a box by up to ~1 px, so boxes are held
+# at the bf16 class of tests/test_torch_fusion.py (TOL["pallas_*"]: 1 px,
+# scores 0.02; WINDOW_TOL's 0.5 px was exceeded, 0.57 px on one row of
+# pallas_max4, on an H100)
+PAIR_PATH_TOL = dict(WINDOW_TOL, box=1.0)
 BF16_TOL = 0.04   # a bf16 library yardstick against a plain version, as a
                   # share of the output's largest magnitude
 
@@ -188,16 +203,27 @@ class KernelChecks:
         self.k8_vs_k4 = []     # (batch, outputs that differ, outputs)
 
     def case(self, name, label, batch, kern, plain, nbytes, flops, rate,
-             library=None, lib_note=None, lib_tol=None, iters=20):
-        """Hold ``kern()`` bit-equal to ``plain()``, time both and the
-        library call, and record the bound."""
+             library=None, lib_note=None, lib_tol=None, iters=20, tol=None):
+        """Hold ``kern()`` bit-equal to ``plain()`` or, with ``tol``, within
+        ``tol`` of the plain version's largest magnitude (the share of
+        outputs that are bit-equal is recorded); time both and the library
+        call, and record the bound."""
         torch = self.torch
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            raise AssertionError(f"{name} {label} b{batch}: not bit-equal to "
-                                 f"the plain version (max error {err})")
+        exact = float((got == want).double().mean()) \
+            if got.shape == want.shape else 0.0
+        if tol is None:
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"{name} {label} b{batch}: not "
+                                     f"bit-equal to the plain version (max "
+                                     f"error {err})")
+        elif (got.dtype != want.dtype or got.shape != want.shape
+              or not err <= tol * float(want.float().abs().max())):
+            raise AssertionError(f"{name} {label} b{batch}: off the plain "
+                                 f"version by {err}, beyond {tol:.3g} of its "
+                                 f"largest magnitude")
         lib_ms = lib_err = scale = None
         if library is not None:
             lib_err = float((library().float() - want.float()).abs().max())
@@ -207,7 +233,8 @@ class KernelChecks:
                                      f"yardstick is off by {lib_err} "
                                      f"(largest value {scale})")
             lib_ms = cuda_ms(torch, library, iters)
-        rec = dict(case=label, batch=batch, err=err,
+        rec = dict(case=label, batch=batch, err=err, tol=tol, exact=exact,
+                   scale=float(want.float().abs().max()),
                    ms=cuda_ms(torch, kern, iters),
                    plain_ms=cuda_ms(torch, plain, 1, 3),
                    bound=bound_ms(nbytes, flops, rate), library_ms=lib_ms,
@@ -270,8 +297,13 @@ class KernelChecks:
         from millieye_torch.ops import roi_kernel
         torch, bf = self.torch, self.torch.bfloat16
         hw, ph, pw, c_out = 26, 7, 7, 10
-        for n in (96, 232):
+        for n, whole in ((96, False), (232, False), (96, True)):
             rois = self._rois(b, n)
+            if whole:      # every RoI the whole 416 px frame: K2's worst case
+                rois = rois.new_tensor(np.concatenate(
+                    [self.rng.uniform(-2, 2, (b, n, 2)),
+                     416 + self.rng.uniform(-2, 2, (b, n, 2))], -1))
+            label = f"N={n}" + (" whole frame" if whole else "")
             feats = torch.tensor(
                 self.rng.standard_normal((b, hw, hw, ph * 128)), dtype=bf,
                 device=self.dev)
@@ -283,7 +315,7 @@ class KernelChecks:
                 .unflatten(-1, (c_out, pw))
             used = b * hw * hw * ph * c_out * pw
             self.case(
-                "ps_roi_align", f"N={n}", b,
+                "ps_roi_align", label, b,
                 lambda: roi_kernel.ps_roi_align_padded_kernel(feats, by, bx,
                                                               c_out),
                 lambda: roi_kernel.ps_roi_align_padded_plain(feats, by, bx,
@@ -295,7 +327,7 @@ class KernelChecks:
                                      bx),
                 "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
             self.case(
-                "ps_roi_align_vpu", f"N={n}", b,
+                "ps_roi_align_vpu", label, b,
                 lambda: roi_kernel.ps_roi_align_padded_vpu_kernel(
                     feats, by, bx, c_out),
                 lambda: roi_kernel.ps_roi_align_padded_plain(feats, by, bx,
@@ -306,6 +338,8 @@ class KernelChecks:
                 lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu", by, live,
                                      bx),
                 "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
+            if whole:
+                continue
             rfeats = torch.tensor(
                 self.rng.standard_normal((b, hw, hw, c_out)), dtype=bf,
                 device=self.dev)
@@ -435,7 +469,10 @@ class KernelChecks:
         """The stem pair (K4, K8, K11, K12 at groups0 4 and 8) on 416 px
         frames at both precisions, K12's deep pair on stage 4's input
         shape, and K9 at the four stage shapes of the 416 px network,
-        with the served (folded) weights. Library: cuDNN
+        with the served (folded) weights. The pair at "default" runs on
+        the tensor cores and is held within ``stem.PAIR_DEFAULT_TOL`` of
+        its plain version's largest output (the exact share recorded);
+        every other case bit-equal. Library: cuDNN
         conv2d + bias + leaky_relu + max_pool2d on channels_last
         operands, bf16 where the kernel's products are bf16 and float32
         (TF32 off) at "highest"; held within 4% (bf16) or 0.2% (float32;
@@ -483,7 +520,8 @@ class KernelChecks:
                     + (w0.numel() + w1.numel()) * (4 if hi else 2),
                     2 * b * (416 * 416 * 16 * 27 + 208 * 208 * 32 * 144),
                     F32_FLOP_S if hi else BF16_FLOP_S, lib, note,
-                    2e-3 if hi else BF16_TOL)
+                    2e-3 if hi else BF16_TOL,
+                    tol=None if hi else stem.PAIR_DEFAULT_TOL)
             if not hi:
                 k8 = stem.fused_stem_pair_select(*args, precision, store)
                 k4 = stem.fused_stem_pair(*args, precision, store)
@@ -736,7 +774,8 @@ def main():
     log(f"build: {time.time() - t:.1f} s")
     for name, out in logs.items():
         for ln in out.splitlines():
-            if "Used" in ln or "Compiling entry" in ln:
+            if "Used" in ln or "Compiling entry" in ln or (
+                    "spill" in ln and " 0 bytes spill stores" not in ln):
                 log(f"  {name}: {ln.strip()}")
 
     kernels = {  # name -> (wrapper, source, the TPU kernel it replaces)
@@ -809,8 +848,15 @@ def main():
     w12 = engines["f32"].params["darknet"][12]["w"]
     checks.quantize(w12)
     torch.cuda.empty_cache()
-    log(f"kernel phase: {sum(map(len, checks.records.values()))} cases "
-        f"bit-equal to their plain versions, {time.time() - t:.1f} s")
+    recs = [r for rs in checks.records.values() for r in rs]
+    bounded = [r for r in recs if r["tol"] is not None]
+    log(f"kernel phase: {len(recs) - len(bounded)} cases bit-equal to their "
+        f"plain versions, {len(bounded)} (the tensor-core pair at "
+        f"'default') within {stem.PAIR_DEFAULT_TOL:.3g} of their plain "
+        f"versions' largest output, at worst 2^"
+        f"{max(np.log2(max(r['err'], 1e-30) / r['scale']) for r in bounded):.2f}"
+        f" of it, at least {min(r['exact'] for r in bounded):.5f} of the "
+        f"outputs bit-equal; {time.time() - t:.1f} s")
     for seed, mean, p39 in checks.k13_stats:
         log(f"K13 carrier, seed {seed}: values 38 and 39, dequantized mean "
             f"{mean:.5f} (0.3 within 0.003), P(39) {p39:.3f} (expect ~0.10); "
@@ -830,9 +876,48 @@ def main():
     reqs = requests(rng, N_REQUESTS)
     launches_by_path, answers_by_path, summary = {}, {}, {}
 
+    pair_kernels = stem.TENSOR_CORE_PAIRS
+
+    def against_plain(path, got, call):
+        """Hold one answer to the plain versions. A path that ran the
+        tensor-core pair is held bit-identical to the same call with only
+        the pair's kernels launched (``plain_versions(keep=...)``), and
+        within PAIR_PATH_TOL of the fully plain call; any other path
+        bit-identical to the fully plain call. Returns (bit-identical to
+        the fully plain answer, largest box and score differences of the
+        paired rows, rows on one side only)."""
+        boxes, valid = got
+        with cuda_lib.plain_versions():
+            ref = call()
+        same = (np.array_equal(boxes, ref[0])
+                and np.array_equal(valid, ref[1]))
+        if path not in pair_paths:
+            if not same:
+                raise AssertionError(
+                    f"{path}: kernels and plain versions disagree\n"
+                    f"{boxes[valid]}\n{ref[0][ref[1]]}")
+            return same, 0.0, 0.0, 0
+        with cuda_lib.plain_versions(keep=pair_kernels):
+            kept = call()
+        if not (np.array_equal(boxes, kept[0])
+                and np.array_equal(valid, kept[1])):
+            raise AssertionError(
+                f"{path}: differs from its run with only the pair's kernels "
+                f"launched\n{boxes[valid]}\n{kept[0][kept[1]]}")
+        ok, db, ds, fl = rows_match((boxes, valid), ref, PAIR_PATH_TOL)
+        if not ok:
+            raise AssertionError(
+                f"{path}: differs from its fully plain run beyond "
+                f"{PAIR_PATH_TOL} (box {db}, score {ds}, {fl} rows on one "
+                f"side only)\n{boxes[valid]}\n{ref[0][ref[1]]}")
+        return same, db, ds, fl
+
+    pair_paths = set()
+
     def drive(path, calls, shape, must_launch):
         """Run ``calls`` with the launch counts at 0, check the counts,
-        the answers and their equality to the plain-version run."""
+        the answers and their agreement with the plain versions
+        (``against_plain``)."""
         for fn, *_ in kernels.values():
             fn.launches = 0
         answers, lat = [], []
@@ -848,30 +933,39 @@ def main():
             raise AssertionError(f"{path}: kernels launched too few times "
                                  f"over {len(calls)} calls: {short} (need "
                                  f"{must_launch} per call)")
-        n_valid = []
+        if any(launches[k] for k in pair_kernels):
+            pair_paths.add(path)
+        n_valid, n_same, d_box, d_score, flips = [], 0, 0.0, 0.0, 0
         for i, (call, (boxes, valid)) in enumerate(zip(calls, answers)):
             if boxes.shape != shape or not np.isfinite(boxes).all():
                 raise AssertionError(f"{path} call {i}: bad answer "
                                      f"{boxes.shape}, want {shape}")
-            with cuda_lib.plain_versions():
-                ref = call()
-            if not (np.array_equal(boxes, ref[0])
-                    and np.array_equal(valid, ref[1])):
-                raise AssertionError(
-                    f"{path} call {i}: kernels and plain versions disagree\n"
-                    f"{boxes[valid]}\n{ref[0][ref[1]]}")
+            same, db, ds, fl = against_plain(path, (boxes, valid), call)
+            n_same, flips = n_same + same, flips + fl
+            d_box, d_score = max(d_box, db), max(d_score, ds)
             n_valid.append(int(valid.sum()))
         timed = np.array(lat[N_WARM:]) * 1e3
         used = {k: v for k, v in launches.items() if v}
+        held = (f"every answer bit-identical to the same path inside "
+                f"cuda_lib.plain_versions(keep=<pair kernels>) and within "
+                f"PAIR_PATH_TOL of the fully plain path ({n_same} of "
+                f"{len(calls)} bit-identical to it, the rest paired within "
+                f"{d_box:.3g} px and {d_score:.3g} on scores, {flips} rows "
+                f"on one side only)" if path in pair_paths
+                else "every answer bit-identical to the same path inside "
+                "cuda_lib.plain_versions()")
         log(f"path {path}: {len(calls)} calls at 416 px, batch 1; launches "
-            f"{used}; valid rows per answer {n_valid}; every answer "
-            f"bit-identical to the same path inside "
-            f"cuda_lib.plain_versions(); p50 {np.median(timed):.2f} ms, max "
+            f"{used}; valid rows per answer {n_valid}; {held}; p50 "
+            f"{np.median(timed):.2f} ms, max "
             f"{timed.max():.2f} ms, {1e3 / timed.mean():.1f} calls/s over "
             f"the last {len(timed)} (host clock, each call ends in a copy "
             f"to the host)")
         answers_by_path[path] = answers
         summary[path] = {"calls": len(calls),
+                         "bit_identical_to_plain": n_same,
+                         "against_plain": {"max_box_diff": d_box,
+                                           "max_score_diff": d_score,
+                                           "rows_on_one_side": flips},
                          "p50_ms": float(np.median(timed)),
                          "per_s": float(1e3 / timed.mean()),
                          "valid_rows": n_valid}
@@ -1071,12 +1165,28 @@ def main():
     if wrows.shape != (N_REQUESTS,) + rows(eng) \
             or not np.isfinite(wrows).all():
         raise AssertionError(f"batched window: bad answer {wrows.shape}")
+    with cuda_lib.plain_versions(keep=pair_kernels):
+        krows, kvalid = step(*tens)
+    if not (np.array_equal(wrows, krows.cpu().numpy())
+            and np.array_equal(wvalid, kvalid.cpu().numpy())):
+        raise AssertionError("batched window: differs from its run with only "
+                             "the pair's kernels launched")
     with cuda_lib.plain_versions():
         prows, pvalid = step(*tens)
-    if not (np.array_equal(wrows, prows.cpu().numpy())
-            and np.array_equal(wvalid, pvalid.cpu().numpy())):
-        raise AssertionError("batched window: kernels and plain versions "
-                             "disagree")
+    prows, pvalid = prows.cpu().numpy(), pvalid.cpu().numpy()
+    window_plain_same, wp_box, wp_score, wp_flips = 0, 0.0, 0.0, 0
+    for i in range(N_REQUESTS):
+        ok, db, ds, fl = rows_match((wrows[i], wvalid[i]),
+                                    (prows[i], pvalid[i]), PAIR_PATH_TOL)
+        if not ok:
+            raise AssertionError(
+                f"batched window, frame {i}: differs from the fully plain "
+                f"window beyond {PAIR_PATH_TOL} (box {db}, score {ds}, {fl} "
+                f"rows on one side only)")
+        window_plain_same += int(np.array_equal(wrows[i], prows[i])
+                                 and np.array_equal(wvalid[i], pvalid[i]))
+        wp_box, wp_score = max(wp_box, db), max(wp_score, ds)
+        wp_flips += fl
     exact, d_box, d_score, flipped = 0, 0.0, 0.0, 0
     for i, want in enumerate(answers_by_path["pallas_max4"]):
         got = (wrows[i], wvalid[i])
@@ -1096,7 +1206,12 @@ def main():
     n_rows = int(sum(v.sum() for _, v in answers_by_path["pallas_max4"]))
     log(f"batched window of {N_REQUESTS} frames at pallas_max4: launches "
         f"{ {k: v for k, v in launches.items() if v} }; bit-identical to "
-        f"the same window inside cuda_lib.plain_versions(); {exact} of "
+        f"the same window inside cuda_lib.plain_versions(keep=<pair "
+        f"kernels>), within PAIR_PATH_TOL of the fully plain window "
+        f"({window_plain_same} of {N_REQUESTS} frames bit-identical to it, "
+        f"the rest within {wp_box:.3g} px and {wp_score:.3g} on scores, "
+        f"{wp_flips} rows on one side only); "
+        f"{exact} of "
         f"{N_REQUESTS} answers bit-identical to the per-frame answers, the "
         f"rest paired by box within {d_box:.3g} px and {d_score:.3g} on "
         f"scores, {flipped} of {n_rows} rows on one side only (tolerance "
@@ -1105,6 +1220,9 @@ def main():
         f"({N_REQUESTS * 1e3 / window_ms:.1f} frames/s, host clock)")
     summary["window8@pallas_max4"] = {
         "ms": window_ms, "frames_per_s": N_REQUESTS * 1e3 / window_ms,
+        "bit_identical_to_plain": window_plain_same,
+        "against_plain": {"max_box_diff": wp_box, "max_score_diff": wp_score,
+                          "rows_on_one_side": wp_flips},
         "bit_identical": exact, "max_box_diff": d_box,
         "max_score_diff": d_score, "rows_on_one_side": flipped}
 
@@ -1160,15 +1278,20 @@ def main():
                    if r["library_ms"] is None else
                    f"{r['library_ms'][0]:.4f} ms [{r['library_ms'][1]:.4f}, "
                    f"{r['library_ms'][2]:.4f}] ({r['library']})")
+            held = ("bit-equal" if r["tol"] is None else
+                    f"bound {r['tol']:.3g} x {r['scale']:.3g}, exact share "
+                    f"{r['exact']:.5f}")
             log(f"kernel {name} {r['case']} b{r['batch']}: max_abs_err "
-                f"{r['err']:.3g}, {r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}, "
+                f"{r['err']:.3g} ({held}), {r['ms'][0]:.4f} ms "
+                f"[{r['ms'][1]:.4f}, "
                 f"{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} ms, bound "
                 f"{r['bound'][0]:.6f} ms ({r['bound'][1]}), library {lib}")
         log(f"kernel {name}: launches by path {per_path}")
 
         def flat(r):
             return {"case": r["case"], "batch": r["batch"],
-                    "max_abs_err": r["err"], "ms": r["ms"][0],
+                    "max_abs_err": r["err"], "tol": r["tol"],
+                    "exact_share": r["exact"], "ms": r["ms"][0],
                     "ms_min": r["ms"][1], "ms_max": r["ms"][2],
                     "plain_ms": r["plain_ms"][0], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],

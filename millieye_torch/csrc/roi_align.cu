@@ -25,15 +25,28 @@
 // Both bounds are below a microsecond, so launch latency dominates at
 // batch 1.
 //
-// Design: one thread block per (image, RoI). The RoI's by and bx rows
-// sit in shared memory; t for one bin row p (K2) or all bin rows (K3)
-// is formed in shared memory, so it never reaches device memory (the
-// TPU kernel kept it in VMEM for the same reason); the feature map is
-// read from L2, where all RoIs of an image share it. K2 reads the
-// 896-wide padded NHWC map directly (channel p*128 + u*Q + q) and only
-// the C_out*Q useful lanes of each 128-lane block.
+// K2's design: one thread block per (image, RoI, bin row p), 672 blocks
+// at B = 1, N = 96. Bilinear taps make by[p, :] zero outside the few map
+// rows under bin row p, and bx[q, :] zero outside the RoI's columns, so
+// the block first finds the nonzero span [y_lo, y_hi] of by[p, :] and the
+// span [x_lo, x_hi] of the union of bx[q, :] over q, then sums only
+// there, in ascending order as before. The skipped terms are exact
+// zeros: on a finite map fmaf(0, f, acc) == acc and acc + bf16(+-0) ==
+// acc for a sum that starts at +0, so the result is bit-equal to the
+// full sum (the plain version takes the same spans, and the CPU tests
+// hold it to the full sum). t for the x span sits in shared memory: one
+// thread per (column, 8-lane group) reads each pixel's 70 live lanes as
+// nine 16-byte loads (lanes 70-71, padding, are read and dropped). Each
+// map element is read once per block, so the loads go straight from L2
+// to registers; staging them in shared memory would add a copy and no
+// reuse. A whole-frame RoI reads about 5 rows x 26 columns x 144 B =
+// 19 KB per bin row, where the first design read the whole 26x26 map.
+// K3 keeps the first design: one block per (image, RoI), t for all bin
+// rows in shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -43,51 +56,93 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kRoiThreads = 128;
+
+__global__ void __launch_bounds__(kRoiThreads)
 ps_roi_align_kernel(const __nv_bfloat16* __restrict__ feat,
                     const __nv_bfloat16* __restrict__ by,
                     const __nv_bfloat16* __restrict__ bx,
                     float* __restrict__ out, int n_roi, int h, int w,
                     int c_pad, int ph, int pw, int c_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_span[4];        // y_lo, y_hi, x_lo, x_hi
   const int block = c_pad / ph;
   const int ol = c_out * pw;
-  float* s_by = smem;              // [ph, h]
-  float* s_bx = s_by + ph * h;     // [pw, w]
-  float* s_t = s_bx + pw * w;      // [w, ol] for the current bin row
+  const int groups = (ol + 7) / 8; // 8-lane (16-byte) groups of a pixel
+  const int tl = 8 * groups;       // t's row pitch, a multiple of 4
+  float* s_by = smem;              // [h], bin row p
+  float* s_bx = s_by + h;          // [pw, w]
+  float* s_t = smem + ((h + pw * w + 3) & ~3);  // [x span, tl], 16-byte
+                                                // aligned for float4
 
-  const int roi = blockIdx.x;      // b * n_roi + n
+  const int p = blockIdx.x % ph;
+  const int roi = blockIdx.x / ph; // b * n_roi + n
   const int b = roi / n_roi;
-  const __nv_bfloat16* by_r = by + static_cast<size_t>(roi) * ph * h;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_span[0] = h;
+    s_span[1] = -1;
+    s_span[2] = w;
+    s_span[3] = -1;
+  }
+  __syncthreads();
+  const __nv_bfloat16* by_r = by + (static_cast<size_t>(roi) * ph + p) * h;
   const __nv_bfloat16* bx_r = bx + static_cast<size_t>(roi) * pw * w;
-  for (int i = threadIdx.x; i < ph * h; i += blockDim.x)
-    s_by[i] = __bfloat162float(by_r[i]);
-  for (int i = threadIdx.x; i < pw * w; i += blockDim.x)
-    s_bx[i] = __bfloat162float(bx_r[i]);
+  for (int i = tid; i < h; i += blockDim.x) {
+    const float v = __bfloat162float(by_r[i]);
+    s_by[i] = v;
+    if (v != 0.0f) {
+      atomicMin(&s_span[0], i);
+      atomicMax(&s_span[1], i);
+    }
+  }
+  for (int i = tid; i < pw * w; i += blockDim.x) {
+    const float v = __bfloat162float(bx_r[i]);
+    s_bx[i] = v;
+    if (v != 0.0f) {
+      atomicMin(&s_span[2], i % w);
+      atomicMax(&s_span[3], i % w);
+    }
+  }
+  __syncthreads();
+  const int y_lo = s_span[0], y_hi = s_span[1], x_lo = s_span[2];
+  const int nx = s_span[3] - x_lo + 1;   // <= 0 for an empty span
+
+  // t[x, j] = sum_{y in span} by[p, y] * F[y, x, p*block + j]
+  const __nv_bfloat16* f_b = feat + static_cast<size_t>(b) * h * w * c_pad
+                             + p * block;
+  for (int e = tid; e < nx * groups; e += blockDim.x) {
+    const int xi = e / groups, g = e % groups;
+    const __nv_bfloat16* f = f_b + static_cast<size_t>(x_lo + xi) * c_pad
+                             + 8 * g;
+    float acc[8] = {};
+    for (int y = y_lo; y <= y_hi; ++y) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          f + static_cast<size_t>(y) * w * c_pad);
+      const unsigned words[4] = {raw.x, raw.y, raw.z, raw.w};
+      const float wy = s_by[y];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {   // a bf16 is the top half of a float
+        acc[2 * k] = fmaf(wy, __uint_as_float(words[k] << 16), acc[2 * k]);
+        acc[2 * k + 1] = fmaf(wy, __uint_as_float(words[k] & 0xffff0000u),
+                              acc[2 * k + 1]);
+      }
+    }
+    float4* dst = reinterpret_cast<float4*>(s_t + xi * tl + 8 * g);
+    dst[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    dst[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
   __syncthreads();
 
-  const __nv_bfloat16* f_b = feat + static_cast<size_t>(b) * h * w * c_pad;
-  float* out_r = out + static_cast<size_t>(roi) * ph * pw * c_out;
-  const size_t row_stride = static_cast<size_t>(w) * c_pad;
-  for (int p = 0; p < ph; ++p) {
-    for (int e = threadIdx.x; e < w * ol; e += blockDim.x) {
-      const int x = e / ol, j = e % ol;
-      const __nv_bfloat16* f = f_b + static_cast<size_t>(x) * c_pad
-                               + p * block + j;
-      float acc = 0.0f;
-      for (int y = 0; y < h; ++y)
-        acc = fmaf(s_by[p * h + y], __bfloat162float(f[y * row_stride]), acc);
-      s_t[e] = acc;
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < ol; j += blockDim.x) {
-      const int u = j / pw, q = j % pw;
-      float acc = 0.0f;
-      for (int x = 0; x < w; ++x)
-        acc += bf16_round(__fmul_rn(s_t[x * ol + j], s_bx[q * w + x]));
-      out_r[(p * pw + q) * c_out + u] = acc;
-    }
-    __syncthreads();
+  // out[q, u] = sum_{x in span} bf16(t[x, j] * bx[q, x]), lane j = u*pw + q
+  float* out_r = out + (static_cast<size_t>(roi) * ph + p) * pw * c_out;
+  for (int j = tid; j < ol; j += blockDim.x) {
+    const int u = j / pw, q = j % pw;
+    const float* bxq = s_bx + q * w + x_lo;
+    float acc = 0.0f;
+    for (int xi = 0; xi < nx; ++xi)
+      acc += bf16_round(__fmul_rn(s_t[xi * tl + j], bxq[xi]));
+    out_r[q * c_out + u] = acc;
   }
 }
 
@@ -357,18 +412,21 @@ const char* millieye_cuda_error_name(int code) {
   return cudaGetErrorName(static_cast<cudaError_t>(code));
 }
 
-// feat [B, H, W, c_pad] bf16 (c_pad = ph * block), by [B, N, ph, H] bf16,
-// bx [B, N, pw, W] bf16 -> out [B, N, ph, pw, c_out] f32.
+// feat [B, H, W, c_pad] bf16 (c_pad = ph * block, 16-byte aligned, block
+// a multiple of 8 lanes), by [B, N, ph, H] bf16, bx [B, N, pw, W] bf16
+// -> out [B, N, ph, pw, c_out] f32.
 int millieye_ps_roi_align(const void* feat, const void* by, const void* bx,
                           void* out, int batch, int n_roi, int h, int w,
                           int c_pad, int ph, int pw, int c_out,
                           void* stream) {
   if (batch <= 0 || n_roi <= 0 || ph <= 0 || c_pad % ph != 0
-      || c_out * pw > c_pad / ph)
+      || (c_pad / ph) % 8 != 0 || 8 * ((c_out * pw + 7) / 8) > c_pad / ph
+      || reinterpret_cast<uintptr_t>(feat) % 16 != 0)
     return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (ph * h + pw * w + w * c_out * pw);
+  const size_t smem = sizeof(float)
+      * (((h + pw * w + 3) & ~3) + w * 8 * ((c_out * pw + 7) / 8));
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  ps_roi_align_kernel<<<batch * n_roi, kThreads, smem,
+  ps_roi_align_kernel<<<batch * n_roi * ph, kRoiThreads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(feat),
       static_cast<const __nv_bfloat16*>(by),

@@ -21,9 +21,14 @@
 //   precision "default": the input and w0 are rounded to bf16, products
 //     accumulate in float32, then +b0, leaky and the pool; the float32
 //     intermediate is rounded to bf16 as stage 1's operand, with w1 in
-//     bf16; one rounding to the store type at the end.
+//     bf16; one rounding to the store type at the end. The products run
+//     on the tensor cores, which sum each k-group of 16 in an order and
+//     with a rounding of their own (as the TPU's MXU does), so the
+//     kernel is held to its plain version within 2^-6 of the largest
+//     output, not bit for bit.
 //   precision "highest": float32 throughout, each product rounded before
-//     its add (__fmul_rn, __fadd_rn), so the plain version can repeat it.
+//     its add (__fmul_rn, __fadd_rn), so the plain version can repeat it
+//     bit for bit.
 //   K8 ("select" pool, "default" only): the TPU picks the pooled columns
 //     with a one-hot matmul split into hi = bf16(v) and bf16(v - hi)
 //     (stem_pallas.py:_pool_select_dot), so each pooled value becomes
@@ -31,31 +36,46 @@
 //     select is exact and K8 is K4's function.
 //
 // Bound on an H100 at 416 px: bytes. Per image it must read the 2.08 MB
-// float32 input and write the 0.69 MB float16 output (0.8 us at
-// 3.35 TB/s), against 0.55 GFLOP of products (0.6 us at the bf16
-// 989 TFLOP/s; 8.2 us at "highest" on the 67 TFLOP/s float32 cores). This
-// first kernel runs the products on the CUDA cores in float32, so
-// arithmetic, not either bound, sets its time; moving them to mma/wgmma
-// is later work.
+// float32 input and write the 0.69 MB float16 output (0.83 us at
+// 3.35 TB/s; 26.5 us at batch 32), against 0.55 GFLOP of products
+// (0.56 us at the bf16 989 TFLOP/s; 8.2 us at "highest" on the
+// 67 TFLOP/s float32 cores).
 //
-// Design: one thread block per 8x8 tile of output pixels. The block
-// stages a 38x38xCin input halo and both weight sets in shared memory
-// (bf16 at "default", float32 at "highest": 58 KB at the stem widths,
-// through the dynamic opt-in), computes the 18x18xCmid stage-0
-// intermediate it needs (one halo pixel on each side) into shared memory,
-// zeroed where it falls outside the H/2 x W/2 map because stage 1 pads
-// with zeros, then computes its 8x8xCout outputs. The 2x-down
-// intermediate (H/2 x W/2 x Cmid, 1.4 MB float32 per 416 px image) never
-// reaches device memory, which is what the Pallas kernels kept in VMEM.
-// Each thread owns 8 channels of one pixel at all four pool positions, so
-// a warp reads the same weights (broadcast) and neighbouring pixels.
-// Shapes whose weights and halo do not fit (the deep pair) take the
-// chunked kernel below.
+// Design at "default" (stem_pair_tc_kernel): a persistent grid, as many
+// 256-thread blocks as fit on the card, each walking 8x8 tiles of output
+// pixels (169 tiles at 416 px, batch 1) with a stride of the grid. A
+// block rounds both weight sets to bf16 once, in mma fragment order, into
+// shared memory. Each tile's 38x38xCin float32 input halo is copied with
+// cp.async (zero fill outside the frame: the conv's padding) while the
+// previous tile computes. Stage 0 is an implicit GEMM on
+// mma.sync.m16n8k16 (bf16 in, float32 accumulators): M = the conv
+// positions of the tile's 18x18 intermediate (one halo pixel each side),
+// N = Cmid, K = the 27 taps (u, v, c) padded to 32, A gathered from the
+// halo through a table of tap offsets. The M rows are ordered so that the
+// four conv outputs of one pooled pixel land in one thread's
+// accumulators (rows gid and gid + 8 of two m16 tiles), so +b0, leaky,
+// the 2x2 max, K8's select and the bf16 rounding are a register
+// epilogue; it writes the bf16 intermediate to shared memory (zero
+// outside the H/2 x W/2 map, stage 1's padding), columns split by parity
+// and 16-byte chunks swizzled so that ldmatrix reads it without bank
+// conflicts. Stage 1: M = the tile's 16x16 conv positions, N = Cout,
+// K = 9 taps x 16 channels, one k-step per tap, A straight from the
+// intermediate by ldmatrix at the tap's offset (no im2col buffer). The
+// same register pool, then each pixel's 8-channel groups go out as
+// 16-byte stores. The 2x-down intermediate (1.4 MB float32 per 416 px
+// image) never reaches device memory, which is what the Pallas kernels
+// kept in VMEM. 64 KB of shared memory and at most 80 registers a thread
+// at the stem widths, so three blocks share an SM.
+//
+// Design at "highest" (stem_pair_kernel): one block per 8x8 tile; the
+// 38x38xCin halo, both float32 weight sets and the float32 18x18xCmid
+// intermediate in shared memory; each thread owns 8 channels of one
+// pixel at all four pool positions, summing on the CUDA cores in the
+// plain version's order. Shapes whose weights and halo do not fit (the
+// deep pair) take the chunked kernel below.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -69,26 +89,14 @@ constexpr size_t kMaxSmem = 232448;    // the per-block opt-in limit
 
 enum StoreType { kStoreF32 = 0, kStoreBf16 = 1, kStoreF16 = 2 };
 
+__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
+
 __device__ __forceinline__ float leaky(float v) {
   return v > 0.0f ? v : 0.1f * v;
 }
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
 }
 
 // one product into the float32 sum: with bf16 operands the product is
@@ -117,31 +125,26 @@ __device__ __forceinline__ void store_value(void* out, size_t i, float v,
 }
 
 __host__ __device__ inline size_t pair_smem_bytes(int cin, int cmid,
-                                                  int cout, bool highest) {
-  return sizeof(float) * (cmid + cout)
-         + (highest ? sizeof(float) : sizeof(__nv_bfloat16))
-               * (9 * cin * cmid + 9 * cmid * cout + kIn * kIn * cin
-                  + kMid * kMid * cmid);
+                                                  int cout) {
+  return sizeof(float) * (cmid + cout + 9 * cin * cmid + 9 * cmid * cout
+                          + kIn * kIn * cin + kMid * kMid * cmid);
 }
 
-template <bool kHighest, bool kSelect>
+// The pair at precision "highest": float32 products on the CUDA cores.
 __global__ void __launch_bounds__(kThreads)
 stem_pair_kernel(const float* __restrict__ x,
-                 const float* __restrict__ w0,   // [3, 3, cin, cmid]
+                 const float* __restrict__ w0,   // [cmid, cin, 3, 3]
                  const float* __restrict__ b0,
-                 const float* __restrict__ w1,   // [3, 3, cmid, cout]
+                 const float* __restrict__ w1,   // [cout, cmid, 3, 3]
                  const float* __restrict__ b1, void* __restrict__ out,
                  int h, int w, int cin, int cmid, int cout, int store) {
-  // operands in shared memory: bf16 values at "default", float32 at
-  // "highest"
-  using Op = typename std::conditional<kHighest, float, __nv_bfloat16>::type;
   extern __shared__ float smem[];
   float* s_b0 = smem;
   float* s_b1 = s_b0 + cmid;
-  Op* s_w0 = reinterpret_cast<Op*>(s_b1 + cout);
-  Op* s_w1 = s_w0 + 9 * cin * cmid;
-  Op* s_in = s_w1 + 9 * cmid * cout;   // [kIn, kIn, cin]
-  Op* s_mid = s_in + kIn * kIn * cin;  // [kMid, kMid, cmid]
+  float* s_w0 = s_b1 + cout;
+  float* s_w1 = s_w0 + 9 * cin * cmid;
+  float* s_in = s_w1 + 9 * cmid * cout;  // [kIn, kIn, cin]
+  float* s_mid = s_in + kIn * kIn * cin; // [kMid, kMid, cmid]
 
   const int tid = threadIdx.x;
   const int n = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
@@ -149,10 +152,12 @@ stem_pair_kernel(const float* __restrict__ x,
 
   for (int i = tid; i < cmid; i += kThreads) s_b0[i] = b0[i];
   for (int i = tid; i < cout; i += kThreads) s_b1[i] = b1[i];
+  // [3, 3, ci, co] in shared memory from the OIHW weights
   for (int i = tid; i < 9 * cin * cmid; i += kThreads)
-    s_w0[i] = from_float<Op>(w0[i]);
+    s_w0[i] = w0[((i % cmid) * cin + (i / cmid) % cin) * 9 + i / cmid / cin];
   for (int i = tid; i < 9 * cmid * cout; i += kThreads)
-    s_w1[i] = from_float<Op>(w1[i]);
+    s_w1[i] = w1[((i % cout) * cmid + (i / cout) % cmid) * 9
+                 + i / cout / cmid];
 
   // input halo: local (ly, lx) <-> global (4*kTile*ty - 3 + ly, ...)
   const int iy0 = 4 * kTile * ty - 3, ix0 = 4 * kTile * tx - 3;
@@ -163,7 +168,7 @@ stem_pair_kernel(const float* __restrict__ x,
     float v = 0.0f;
     if (gy >= 0 && gy < h && gx >= 0 && gx < w)
       v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c];
-    s_in[e] = from_float<Op>(v);
+    s_in[e] = v;
   }
   __syncthreads();
 
@@ -176,23 +181,22 @@ stem_pair_kernel(const float* __restrict__ x,
     const int pix = e % (kMid * kMid), g = e / (kMid * kMid);
     const int ly = pix / kMid, lx = pix % kMid;
     const int gy = my0 + ly, gx = mx0 + lx;
-    Op* dst = s_mid + pix * cmid + g * kGroup;
+    float* dst = s_mid + pix * cmid + g * kGroup;
     if (gy < 0 || gy >= hm || gx < 0 || gx >= wm) {
-      for (int k = 0; k < kGroup; ++k) dst[k] = from_float<Op>(0.0f);
+      for (int k = 0; k < kGroup; ++k) dst[k] = 0.0f;
       continue;
     }
     float acc[4][kGroup] = {};
     for (int u = 0; u < 3; ++u)
       for (int v = 0; v < 3; ++v)
         for (int c = 0; c < cin; ++c) {
-          const Op* wr = s_w0 + ((u * 3 + v) * cin + c) * cmid + g * kGroup;
-          float wv[kGroup];
-          for (int k = 0; k < kGroup; ++k) wv[k] = to_float(wr[k]);
+          const float* wr = s_w0 + ((u * 3 + v) * cin + c) * cmid
+                            + g * kGroup;
           for (int d = 0; d < 4; ++d) {
             const int r = 2 * ly + (d >> 1) + u, s = 2 * lx + (d & 1) + v;
-            const float xv = to_float(s_in[(r * kIn + s) * cin + c]);
+            const float xv = s_in[(r * kIn + s) * cin + c];
             for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = mac<kHighest>(xv, wv[k], acc[d][k]);
+              acc[d][k] = mac<true>(xv, wr[k], acc[d][k]);
           }
         }
     for (int k = 0; k < kGroup; ++k) {
@@ -200,8 +204,7 @@ stem_pair_kernel(const float* __restrict__ x,
       float m = leaky(__fadd_rn(acc[0][k], bias));
       for (int d = 1; d < 4; ++d)
         m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      if (kSelect) m = pool_select(m);
-      dst[k] = from_float<Op>(m);   // stage 1's operand
+      dst[k] = m;
     }
   }
   __syncthreads();
@@ -218,14 +221,13 @@ stem_pair_kernel(const float* __restrict__ x,
     for (int u = 0; u < 3; ++u)
       for (int v = 0; v < 3; ++v)
         for (int c = 0; c < cmid; ++c) {
-          const Op* wr = s_w1 + ((u * 3 + v) * cmid + c) * cout + g * kGroup;
-          float wv[kGroup];
-          for (int k = 0; k < kGroup; ++k) wv[k] = to_float(wr[k]);
+          const float* wr = s_w1 + ((u * 3 + v) * cmid + c) * cout
+                            + g * kGroup;
           for (int d = 0; d < 4; ++d) {
             const int r = 2 * py + (d >> 1) + u, s = 2 * px + (d & 1) + v;
-            const float mv = to_float(s_mid[(r * kMid + s) * cmid + c]);
+            const float mv = s_mid[(r * kMid + s) * cmid + c];
             for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = mac<kHighest>(mv, wv[k], acc[d][k]);
+              acc[d][k] = mac<true>(mv, wr[k], acc[d][k]);
           }
         }
     const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
@@ -235,9 +237,326 @@ stem_pair_kernel(const float* __restrict__ x,
       float m = leaky(__fadd_rn(acc[0][k], bias));
       for (int d = 1; d < 4; ++d)
         m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      if (kSelect) m = pool_select(m);
       store_value(out, o + k, m, store);
     }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The pair at precision "default" on the tensor cores (see the note at
+// the top of the file). Stage 0 is an implicit GEMM with M = the tile's
+// conv positions, N = cmid, K = the 9*cin taps (u, v, c) padded with
+// zeros to a multiple of 16; stage 1 one with M = the tile's stage-1 conv
+// positions, N = cout, K = 9 taps x cmid channels (padded to a multiple
+// of 16: one k-step per tap and 16-channel slice). Products are
+// mma.sync.m16n8k16 on bf16 operands with float32 accumulators.
+constexpr int kWarps = kThreads / 32;
+constexpr int kMidHalf = kMid / 2;     // intermediate columns per parity
+constexpr int kOutPitch = 40;          // floats per pixel, store staging
+
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__host__ __device__ inline size_t pair_tc_smem_bytes(int cin, int cmid,
+                                                     int cout) {
+  const int ks0 = cdiv(9 * cin, 16), cs = cdiv(cmid, 16);
+  return 256 * static_cast<size_t>(ks0 * (cmid / 8) + 9 * cs * (cout / 8))
+         + 4 * (align4(cmid) + align4(cout) + 16 * ks0
+                + 2 * align4(kIn * kIn * cin))
+         + 32 * cs * kMid * kMid + 4 * kWarps * 8 * kOutPitch;
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4-byte asynchronous copy into shared memory; zero fill where !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// two floats rounded to bf16, lo in the low half (the fragments' order)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ unsigned pack_f16(float lo, float hi) {
+  const __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
+                                         uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned* a, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` (8 channels) of intermediate pixel
+// (row, col), `pitch` bytes a pixel. Columns are split by parity, so the
+// stride-2 columns that one pool position reads lie side by side, and
+// the chunk index is XORed with bit 2 of the column's place, so eight
+// side-by-side columns fall on eight distinct bank groups: ldmatrix reads
+// them without conflicts.
+__device__ __forceinline__ int mid_offset(int row, int col, int chunk,
+                                          int pitch) {
+  const int idx = col >> 1;
+  return ((row * 2 + (col & 1)) * kMidHalf + idx) * pitch
+         + ((chunk ^ ((idx >> 2) & 1)) << 4);
+}
+
+// the four pool positions of one channel: +bias, leaky, 2x2 max (in the
+// CUDA-core kernels' order), and K8's select
+template <bool kSelect>
+__device__ __forceinline__ float pool4(float a00, float a01, float a10,
+                                       float a11, float bias) {
+  float m = leaky(__fadd_rn(a00, bias));
+  m = fmaxf(m, leaky(__fadd_rn(a01, bias)));
+  m = fmaxf(m, leaky(__fadd_rn(a10, bias)));
+  m = fmaxf(m, leaky(__fadd_rn(a11, bias)));
+  return kSelect ? pool_select(m) : m;
+}
+
+// eight channels from shared memory to the output as 16-byte stores
+__device__ __forceinline__ void store8(void* out, size_t o, const float* v,
+                                       int store) {
+  if (store == kStoreF32) {
+    float4* d = reinterpret_cast<float4*>(static_cast<float*>(out) + o);
+    d[0] = make_float4(v[0], v[1], v[2], v[3]);
+    d[1] = make_float4(v[4], v[5], v[6], v[7]);
+    return;
+  }
+  const bool bf = store == kStoreBf16;
+  uint4 q;
+  q.x = bf ? pack_bf16(v[0], v[1]) : pack_f16(v[0], v[1]);
+  q.y = bf ? pack_bf16(v[2], v[3]) : pack_f16(v[2], v[3]);
+  q.z = bf ? pack_bf16(v[4], v[5]) : pack_f16(v[4], v[5]);
+  q.w = bf ? pack_bf16(v[6], v[7]) : pack_f16(v[6], v[7]);
+  *reinterpret_cast<uint4*>(static_cast<__half*>(out) + o) = q;
+}
+
+template <bool kSelect>
+__global__ void __launch_bounds__(kThreads, 3)
+stem_pair_tc_kernel(const float* __restrict__ x,
+                    const float* __restrict__ w0,   // [cmid, cin, 3, 3]
+                    const float* __restrict__ b0,
+                    const float* __restrict__ w1,   // [cout, cmid, 3, 3]
+                    const float* __restrict__ b1, void* __restrict__ out,
+                    int n, int h, int w, int cin, int cmid, int cout,
+                    int store) {
+  extern __shared__ __align__(16) unsigned char tsm[];
+  const int ks0 = cdiv(9 * cin, 16), nt0 = cmid / 8, nt1 = cout / 8;
+  const int cs = cdiv(cmid, 16), pitch = 32 * cs;
+  const int halo = align4(kIn * kIn * cin);
+  uint2* s_w0f = reinterpret_cast<uint2*>(tsm);   // [ks0][nt0][32 lanes]
+  uint2* s_w1f = s_w0f + ks0 * nt0 * 32;          // [9*cs][nt1][32 lanes]
+  float* s_b0 = reinterpret_cast<float*>(s_w1f + 9 * cs * nt1 * 32);
+  float* s_b1 = s_b0 + align4(cmid);
+  int* s_koff = reinterpret_cast<int*>(s_b1 + align4(cout));  // [16*ks0]
+  float* s_in = reinterpret_cast<float*>(s_koff + 16 * ks0);  // [2][halo]
+  unsigned char* s_mid = reinterpret_cast<unsigned char*>(s_in + 2 * halo);
+  float* s_out = reinterpret_cast<float*>(s_mid + kMid * kMid * pitch);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
+  const int tiles_x = cdiv(wo, kTile), per_img = tiles_x * cdiv(ho, kTile);
+  const int n_tiles = n * per_img;
+
+  // the input halo of a tile, float32 as stored, zero outside the frame:
+  // a warp copies whole rows, each a contiguous run of kIn*cin floats
+  auto load_halo = [&](int tile, float* dst) {
+    const int img = tile / per_img, r = tile % per_img;
+    const int iy0 = 4 * kTile * (r / tiles_x) - 3;
+    const int ix0 = 4 * kTile * (r % tiles_x) - 3;
+    const int run = kIn * cin;
+    for (int row = warp; row < kIn; row += kWarps) {
+      const int gy = iy0 + row;
+      const float* src = x + (static_cast<ptrdiff_t>(img) * h + gy) * w * cin;
+      for (int k = lane; k < run; k += 32) {
+        const int gk = ix0 * cin + k;   // float index within the frame row
+        const bool ok = gy >= 0 && gy < h && gk >= 0 && gk < w * cin;
+        cp_async4(dst + row * run + k, ok ? src + gk : x, ok);
+      }
+    }
+  };
+  int tile = blockIdx.x;
+  if (tile < n_tiles) load_halo(tile, s_in);
+  cp_async_commit();
+
+  // once per block: both weight sets rounded to bf16 in fragment order
+  // (lane l of n-tile j holds column 8j + l/4, rows 2(l%4), +1, +8, +9 of
+  // the k-step), the biases, the tap offsets of stage 0's k (-1 past 9*cin)
+  // and the intermediate zeroed (channels past cmid stay zero)
+  for (int e = tid; e < ks0 * nt0 * 32; e += kThreads) {
+    const int l = e & 31, j = (e >> 5) % nt0, ks = (e >> 5) / nt0;
+    const int col = 8 * j + (l >> 2), k = 16 * ks + 2 * (l & 3);
+    auto wv = [&](int kk) {   // k = (u*3 + v)*cin + c
+      return kk < 9 * cin ? w0[(col * cin + kk % cin) * 9 + kk / cin] : 0.0f;
+    };
+    s_w0f[e] = make_uint2(pack_bf16(wv(k), wv(k + 1)),
+                          pack_bf16(wv(k + 8), wv(k + 9)));
+  }
+  for (int e = tid; e < 9 * cs * nt1 * 32; e += kThreads) {
+    const int l = e & 31, j = (e >> 5) % nt1, ks = (e >> 5) / nt1;
+    const int tap = ks / cs, col = 8 * j + (l >> 2);
+    const int c = 16 * (ks % cs) + 2 * (l & 3);
+    auto wv = [&](int cc) {
+      return cc < cmid ? w1[(col * cmid + cc) * 9 + tap] : 0.0f;
+    };
+    s_w1f[e] = make_uint2(pack_bf16(wv(c), wv(c + 1)),
+                          pack_bf16(wv(c + 8), wv(c + 9)));
+  }
+  for (int i = tid; i < cmid; i += kThreads) s_b0[i] = b0[i];
+  for (int i = tid; i < cout; i += kThreads) s_b1[i] = b1[i];
+  for (int k = tid; k < 16 * ks0; k += kThreads) {
+    const int tap = k / cin;
+    s_koff[k] = k < 9 * cin ? ((tap / 3) * kIn + tap % 3) * cin + k % cin
+                            : -1;
+  }
+  for (int i = tid; i < kMid * kMid * pitch / 16; i += kThreads)
+    reinterpret_cast<uint4*>(s_mid)[i] = make_uint4(0, 0, 0, 0);
+
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    // the next tile's halo loads while this one computes
+    const float* cur = s_in + (it & 1) * halo;
+    if (tile + gridDim.x < n_tiles)
+      load_halo(tile + gridDim.x, s_in + ((it + 1) & 1) * halo);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    const int img = tile / per_img, r = tile % per_img;
+    const int ty = r / tiles_x, tx = r % tiles_x;
+    const int my0 = 2 * kTile * ty - 1, mx0 = 2 * kTile * tx - 1;
+
+    // stage 0. A warp takes 8 intermediate pixels at a time (one per row
+    // group gid of the mma tile) in two m16 tiles, dy = 0 and 1; rows gid
+    // and gid + 8 of a tile are dx = 0 and 1. So a thread's accumulators
+    // hold all four conv outputs of its pixel's pool.
+    for (int g = warp; 8 * g < kMid * kMid; g += kWarps) {
+      const bool live = 8 * g + gid < kMid * kMid;
+      const int p = live ? 8 * g + gid : kMid * kMid - 1;
+      const int ly = p / kMid, lx = p % kMid;
+      const bool inside = my0 + ly >= 0 && my0 + ly < hm && mx0 + lx >= 0
+                          && mx0 + lx < wm;
+      for (int j0 = 0; j0 < nt0; j0 += 4) {
+        float acc[2][4][4] = {};
+        for (int ks = 0; ks < ks0; ++ks) {
+          const int kb = 16 * ks + 2 * t4;
+          const int o0 = s_koff[kb], o1 = s_koff[kb + 1];
+          const int o2 = s_koff[kb + 8], o3 = s_koff[kb + 9];
+#pragma unroll
+          for (int dy = 0; dy < 2; ++dy) {
+            const float* p0 = cur + ((2 * ly + dy) * kIn + 2 * lx) * cin;
+            const float* p1 = p0 + cin;
+            auto at = [](const float* q, int off) {
+              return off < 0 ? 0.0f : q[off];
+            };
+            const unsigned a[4] = {
+                pack_bf16(at(p0, o0), at(p0, o1)),
+                pack_bf16(at(p1, o0), at(p1, o1)),
+                pack_bf16(at(p0, o2), at(p0, o3)),
+                pack_bf16(at(p1, o2), at(p1, o3))};
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j0 + j < nt0)
+                mma_bf16(acc[dy][j], a, s_w0f[(ks * nt0 + j0 + j) * 32 + lane]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j0 + j >= nt0) continue;
+          const int ch = 8 * (j0 + j) + 2 * t4;
+          float m[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            m[e] = inside ? pool4<kSelect>(acc[0][j][e], acc[0][j][2 + e],
+                                           acc[1][j][e], acc[1][j][2 + e],
+                                           s_b0[ch + e])
+                          : 0.0f;
+          if (live)
+            *reinterpret_cast<unsigned*>(
+                s_mid + mid_offset(ly, lx, ch >> 3, pitch) + 2 * (ch & 7)) =
+                pack_bf16(m[0], m[1]);   // stage 1's bf16 operand
+        }
+      }
+    }
+    __syncthreads();
+
+    // stage 1. A warp takes one output row of 8 pixels, again in two m16
+    // tiles (dy) whose rows gid and gid + 8 are dx = 0 and 1; A comes
+    // from the intermediate by ldmatrix at the tap's offset. Lane l gives
+    // the address of row l % 8 of matrix l / 8: matrices 0-3 are (dx 0,
+    // channels 0-7), (dx 1, 0-7), (dx 0, 8-15), (dx 1, 8-15).
+    const int mrow = lane & 7, mdx = (lane >> 3) & 1, mhalf = lane >> 4;
+    for (int py = warp; py < kTile; py += kWarps) {
+      const int oy = kTile * ty + py;
+      for (int j0 = 0; j0 < nt1; j0 += 4) {
+        float acc[2][4][4] = {};
+        for (int tap = 0; tap < 9; ++tap) {
+          const int u = tap / 3, v = tap % 3;
+          for (int sl = 0; sl < cs; ++sl) {
+            const int ks = tap * cs + sl;
+            unsigned a[2][4];
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy)
+              ldmatrix_x4(a[dy], s_mid + mid_offset(2 * py + dy + u,
+                                                    2 * mrow + mdx + v,
+                                                    2 * sl + mhalf, pitch));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j0 + j < nt1) {
+                const uint2 bw = s_w1f[(ks * nt1 + j0 + j) * 32 + lane];
+                mma_bf16(acc[0][j], a[0], bw);
+                mma_bf16(acc[1][j], a[1], bw);
+              }
+          }
+        }
+        // pool in registers, stage through shared memory, and store each
+        // pixel's 8-channel groups as 16-byte stores
+        float* so = s_out + (warp * 8 + gid) * kOutPitch;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j0 + j >= nt1) continue;
+          const int ch = 8 * (j0 + j) + 2 * t4;
+          *reinterpret_cast<float2*>(so + 8 * j + 2 * t4) = make_float2(
+              pool4<kSelect>(acc[0][j][0], acc[0][j][2], acc[1][j][0],
+                             acc[1][j][2], s_b1[ch]),
+              pool4<kSelect>(acc[0][j][1], acc[0][j][3], acc[1][j][1],
+                             acc[1][j][3], s_b1[ch + 1]));
+        }
+        __syncwarp();
+        const int px = lane >> 2, jj = lane & 3, ox = kTile * tx + px;
+        if (j0 + jj < nt1 && oy < ho && ox < wo)
+          store8(out,
+                 ((static_cast<size_t>(img) * ho + oy) * wo + ox) * cout
+                     + 8 * (j0 + jj),
+                 s_out + (warp * 8 + px) * kOutPitch + 8 * jj, store);
+        __syncwarp();
+      }
+    }
+    __syncthreads();
   }
 }
 
@@ -279,8 +598,6 @@ constexpr int kDIn = 4 * kDTile + 6;      // 22 input pixels
 constexpr int kDMidPitch = kDMid + 1;
 constexpr int kDInPitch = kDIn + 1;
 constexpr int kDCk = 8;                   // channels per chunk
-
-__host__ __device__ inline int align4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ inline size_t deep_smem_floats(int cmid, int cout) {
   const int chunk0 = align4(kDCk * kDIn * kDInPitch) + kDCk * 9 * cmid;
@@ -669,30 +986,54 @@ const char* millieye_cuda_error_name(int code) {
   return cudaGetErrorName(static_cast<cudaError_t>(code));
 }
 
-// x [n, h, w, cin] f32, w0 [3, 3, cin, cmid] f32, b0 [cmid] f32,
-// w1 [3, 3, cmid, cout] f32, b1 [cout] f32 -> out [n, h/4, w/4, cout] in
+// x [n, h, w, cin] f32, w0 [cmid, cin, 3, 3] f32, b0 [cmid] f32,
+// w1 [cout, cmid, 3, 3] f32, b1 [cout] f32 -> out [n, h/4, w/4, cout] in
 // the store type (0 float32, 1 bf16, 2 float16). highest: float32
-// products, else bf16 operands (rounded in the kernel); select: K8's
-// hi/lo pool (only with highest == 0).
+// products on the CUDA cores, else bf16 operands (rounded in the kernel)
+// on the tensor cores; select: K8's hi/lo pool (only with highest == 0).
 int millieye_stem_pair(const void* x, const void* w0, const void* b0,
                        const void* w1, const void* b1, void* out, int n,
                        int h, int w, int cin, int cmid, int cout,
                        int highest, int select, int store, void* stream) {
   if (bad_pair_shape(n, h, w, cin, cmid, cout, store) || (highest && select))
     return cudaErrorInvalidValue;
-  const size_t smem = pair_smem_bytes(cin, cmid, cout, highest != 0);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const dim3 grid((w / 4 + kTile - 1) / kTile, (h / 4 + kTile - 1) / kTile,
-                  n);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (highest)
-    return launch(stem_pair_kernel<true, false>, grid, smem, st, x, w0, b0,
-                  w1, b1, out, h, w, cin, cmid, cout, store);
-  if (select)
-    return launch(stem_pair_kernel<false, true>, grid, smem, st, x, w0, b0,
-                  w1, b1, out, h, w, cin, cmid, cout, store);
-  return launch(stem_pair_kernel<false, false>, grid, smem, st, x, w0, b0,
-                w1, b1, out, h, w, cin, cmid, cout, store);
+  if (highest) {
+    const size_t smem = pair_smem_bytes(cin, cmid, cout);
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const dim3 grid((w / 4 + kTile - 1) / kTile,
+                    (h / 4 + kTile - 1) / kTile, n);
+    return launch(stem_pair_kernel, grid, smem, st, x, w0, b0, w1, b1, out,
+                  h, w, cin, cmid, cout, store);
+  }
+  const size_t smem = pair_tc_smem_bytes(cin, cmid, cout);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = select ? stem_pair_tc_kernel<true> : stem_pair_tc_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  // a persistent grid: as many blocks as fit on the card at once, each
+  // walking the tiles with a stride of the grid
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long tiles = static_cast<long long>(n)
+      * ((w / 4 + kTile - 1) / kTile) * ((h / 4 + kTile - 1) / kTile);
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(
+      tiles < static_cast<long long>(per_sm) * sms ? tiles
+                                                   : per_sm * sms);
+  kernel<<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w0),
+      static_cast<const float*>(b0), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), out, n, h, w, cin, cmid, cout, store);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The deep pair: x [n, h, w, cin] f32, w0 [cin, 3, 3, cmid] f32, b0,

@@ -10,7 +10,8 @@ starts one ``nvcc`` for each missing library, all at once.
 
 Every kernel wrapper asks ``takes_plain`` whether to run its plain
 version instead: it does so for a CPU tensor, and for a CUDA tensor only
-inside a ``plain_versions()`` block.
+inside a ``plain_versions()`` block, unless the block keeps that
+wrapper's kernel (``keep``).
 """
 from __future__ import annotations
 
@@ -39,26 +40,45 @@ SOURCES = {
     "quantize": ("quantize.cu", ()),
 }
 
+# the kernel wrappers' names, as they ask takes_plain and as chip_smoke.py
+# reports them
+KERNELS = frozenset((
+    "nms", "nms_full", "ps_roi_align", "ps_roi_align_vpu", "roi_align",
+    "ps_roi_align_f32", "ps_roi_align_padded_f32", "stem_pair",
+    "stem_pair_select", "stem_pair_packed", "stem_pair_s2d",
+    "stem_pair_deep", "stem_stage", "fused_stem", "quantize_stochastic"))
+
 _loaded = {}
 _plain_on_cuda = False
+_kept = frozenset()
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(keep=()):
     """Inside this block every kernel wrapper runs its plain version on
     CUDA tensors too, and counts no launch: the on-card reference that
-    ``chip_smoke.py`` holds the kernel path against."""
-    global _plain_on_cuda
-    prev, _plain_on_cuda = _plain_on_cuda, True
+    ``chip_smoke.py`` holds the kernel path against. The wrappers named
+    in ``keep`` (names from ``KERNELS``) still launch their kernels, so a
+    path can be held to a run in which only those kernels ran."""
+    global _plain_on_cuda, _kept
+    keep = frozenset(keep)
+    if not keep <= KERNELS:
+        raise ValueError(f"plain_versions: unknown kernels "
+                         f"{sorted(keep - KERNELS)}")
+    prev = _plain_on_cuda, _kept
+    _plain_on_cuda, _kept = True, keep
     try:
         yield
     finally:
-        _plain_on_cuda = prev
+        _plain_on_cuda, _kept = prev
 
 
-def takes_plain(t):
-    """Whether a kernel wrapper given tensor ``t`` runs its plain version."""
-    return t.device.type == "cpu" or _plain_on_cuda
+def takes_plain(t, name):
+    """Whether the kernel wrapper ``name`` given tensor ``t`` runs its
+    plain version."""
+    if name not in KERNELS:
+        raise ValueError(f"takes_plain: unknown kernel {name!r}")
+    return t.device.type == "cpu" or (_plain_on_cuda and name not in _kept)
 
 
 def _nvcc():

@@ -90,7 +90,7 @@ def _launch(name, symbol, boxes, valid, iou_thresh, multiple):
 def nms_keep_mask_blocked(boxes, valid, iou_thresh):
     """K1: keep [B, K] bool for score-sorted boxes [B, K, 4], K % 128 == 0
     (see module)."""
-    if cuda_lib.takes_plain(boxes):
+    if cuda_lib.takes_plain(boxes, "nms"):
         return nms_keep_mask_blocked_plain(boxes, valid, iou_thresh)
     keep = _launch("nms_keep_mask_blocked", "millieye_nms_keep_mask", boxes,
                    valid, iou_thresh, 128)
@@ -101,7 +101,7 @@ def nms_keep_mask_blocked(boxes, valid, iou_thresh):
 def nms_keep_mask_full(boxes, valid, iou_thresh):
     """K5: keep [B, K] bool for score-sorted boxes [B, K, 4], any
     K <= 1024 (see module)."""
-    if cuda_lib.takes_plain(boxes):
+    if cuda_lib.takes_plain(boxes, "nms_full"):
         return nms_keep_mask_full_plain(boxes, valid, iou_thresh)
     keep = _launch("nms_keep_mask_full", "millieye_nms_keep_mask_full", boxes,
                    valid, iou_thresh, 1)

@@ -237,7 +237,7 @@ def quantize_int8_stochastic(w2d, seed, row_tile=512):
     """K13: w2d [M, N] float -> (int8 values [M, N], float32 scale []) with
     a per-tensor scale and unbiased stochastic rounding (see module)."""
     _check_stochastic(w2d, seed, row_tile)
-    if cuda_lib.takes_plain(w2d):
+    if cuda_lib.takes_plain(w2d, "quantize_stochastic"):
         return quantize_int8_stochastic_plain(w2d, seed, row_tile)
     w2d = w2d.float().contiguous()
     m, n = w2d.shape

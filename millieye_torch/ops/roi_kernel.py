@@ -71,26 +71,46 @@ def _bf16_round(x):
 
 # ------------------------------------------------------------------ plain
 # The plain versions repeat the kernels' arithmetic operation for
-# operation: t sums h = 0..H-1 and the output sums w = 0..W-1, one add
-# at a time from 0, so kernel and plain version are bit-equal. (by and
+# operation: t sums h and the output sums w in ascending order (K2 only
+# over the nonzero spans), one add at a time from 0, so kernel and plain
+# version are bit-equal. (by and
 # the features hold bf16 values, so each by*F product is exact in float32
 # and the kernels' FMA rounds like the add here.)
+def _span_mask(nonzero):
+    """True from the first to the last True along the last axis: the
+    span K2 sums over (all False where there is no True)."""
+    idx = torch.arange(nonzero.shape[-1], device=nonzero.device)
+    lo = torch.where(nonzero, idx, nonzero.shape[-1]).amin(-1, keepdim=True)
+    hi = torch.where(nonzero, idx, -1).amax(-1, keepdim=True)
+    return (idx >= lo) & (idx <= hi)
+
+
 def ps_roi_align_padded_plain(features, by, bx, c_out):
     """K2: features [B, H, W, ph*block] bf16, by [B, N, ph, H], bx
-    [B, N, pw, W] bf16 -> [B, N, ph, pw, c_out] float32."""
+    [B, N, pw, W] bf16 -> [B, N, ph, pw, c_out] float32. As the kernel,
+    t of bin row p sums only the span of nonzero by[p, :] and the output
+    only the span of columns where some bx[q, :] is nonzero; the terms
+    left out are exact zeros, so on a finite map this equals the sum over
+    every row and column bit for bit."""
     b, h, w, c_pad = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
     ol = c_out * pw
     f = features.float().reshape(b, h, w, ph, c_pad // ph)[..., :ol]
-    byf = by.float()
+    byf, bxf = by.float(), bx.float()
+    rows = _span_mask(byf != 0)                            # [B, N, ph, H]
+    cols = _span_mask((bxf != 0).any(2))                   # [B, N, W]
     t = f.new_zeros((b, n, ph, w, ol))
     for y in range(h):
-        t = t + byf[:, :, :, y, None, None] * f[:, None, y].transpose(2, 3)
+        t = torch.where(rows[:, :, :, y, None, None],
+                        t + byf[:, :, :, y, None, None]
+                        * f[:, None, y].transpose(2, 3), t)
     q_of_j = torch.arange(ol, device=features.device) % pw
-    bxj = bx.float().transpose(2, 3)[..., q_of_j]          # [B, N, W, ol]
+    bxj = bxf.transpose(2, 3)[..., q_of_j]                 # [B, N, W, ol]
     out = f.new_zeros((b, n, ph, ol))
     for x in range(w):
-        out = out + _bf16_round(t[:, :, :, x] * bxj[:, :, None, x])
+        out = torch.where(cols[:, :, x, None, None],
+                          out + _bf16_round(t[:, :, :, x]
+                                            * bxj[:, :, None, x]), out)
     return out.reshape(b, n, ph, c_out, pw).transpose(3, 4)
 
 
@@ -226,9 +246,12 @@ def _launch_k2(features, by, bx, c_out):
     _check("ps_roi_align_padded", features, by, bx)
     b, h, w, c_pad = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
-    if c_pad % ph or c_out * pw > c_pad // ph:
+    block = c_pad // ph if ph else 0
+    if (c_pad % ph or block % 8 or -(-c_out * pw // 8) * 8 > block
+            or features.data_ptr() % 16):
         raise ValueError(f"ps_roi_align_padded: {c_pad} channels, ph={ph}, "
-                         f"c_out*pw={c_out * pw}")
+                         f"c_out*pw={c_out * pw}: the kernel reads 16-byte "
+                         f"groups of 8 lanes from a 16-byte aligned map")
     out = torch.empty((b, n, ph, pw, c_out), dtype=torch.float32,
                       device=features.device)
     lib = _lib()
@@ -242,7 +265,7 @@ def _launch_k2(features, by, bx, c_out):
 
 def ps_roi_align_padded_kernel(features, by, bx, c_out):
     """K2 on CUDA tensors (the plain version's contract)."""
-    if cuda_lib.takes_plain(features):
+    if cuda_lib.takes_plain(features, "ps_roi_align"):
         return ps_roi_align_padded_plain(features, by, bx, c_out)
     out = _launch_k2(features, by, bx, c_out)
     ps_roi_align_padded_kernel.launches += 1
@@ -252,7 +275,7 @@ def ps_roi_align_padded_kernel(features, by, bx, c_out):
 def ps_roi_align_padded_vpu_kernel(features, by, bx, c_out):
     """K2 for ``reduce="vpu"`` (see module): the same function and
     kernel, its launches counted here."""
-    if cuda_lib.takes_plain(features):
+    if cuda_lib.takes_plain(features, "ps_roi_align_vpu"):
         return ps_roi_align_padded_plain(features, by, bx, c_out)
     out = _launch_k2(features, by, bx, c_out)
     ps_roi_align_padded_vpu_kernel.launches += 1
@@ -265,7 +288,7 @@ def roi_align_kernel(features, by, bx, precision="default"):
     if precision not in PRECISIONS:
         raise ValueError(f"roi_align: unknown precision {precision!r}")
     f32 = precision != "default"
-    if cuda_lib.takes_plain(features):
+    if cuda_lib.takes_plain(features, "roi_align"):
         return (roi_align_f32_plain(features, by, bx, precision) if f32
                 else roi_align_plain(features, by, bx))
     _check("roi_align", features, by, bx,
@@ -302,7 +325,7 @@ def ps_roi_align_f32_kernel(features, by, bx, c_out, precision="default",
     if precision not in PRECISIONS or layout not in _STRIDES:
         raise ValueError(f"ps_roi_align: precision {precision!r}, layout "
                          f"{layout!r}")
-    if cuda_lib.takes_plain(features):
+    if cuda_lib.takes_plain(features, "ps_roi_align_f32"):
         if layout == "c":
             return roi_align_f32_plain(features, by, bx, precision)
         return ps_roi_align_f32_plain(features, by, bx, c_out, precision,
@@ -332,7 +355,7 @@ def ps_roi_align_padded_f32_kernel(features, by, bx, c_out,
     if precision not in PRECISIONS:
         raise ValueError(f"ps_roi_align_padded: unknown precision "
                          f"{precision!r}")
-    if cuda_lib.takes_plain(features):
+    if cuda_lib.takes_plain(features, "ps_roi_align_padded_f32"):
         return ps_roi_align_f32_plain(features, by, bx, c_out, precision,
                                       "padded")
     _check("ps_roi_align_padded", features, by, bx, torch.float32)

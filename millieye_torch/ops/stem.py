@@ -55,7 +55,13 @@ with its own wrapper and launch count here:
 K4, K8 (in its own pool mode), K11 and K12 launch one CUDA kernel, which
 holds both weight sets and an 8x8 tile's input halo in shared memory;
 the packing and the space-to-depth regrouping are MXU layouts with no
-meaning on the card. Where the weights do not fit (the deep pair), K12
+meaning on the card. At "default" it runs its products on the tensor
+cores (``mma.sync`` on bf16 operands, float32 accumulators), which sum
+each k-group of 16 in an order and with a rounding that no PyTorch
+spelling repeats: there the kernel is held to its plain version within
+2^-6 of the largest output (``PAIR_DEFAULT_TOL``), not bit for bit. At
+"highest" it sums on the CUDA cores in the plain version's order and is
+bit-equal. Where the weights do not fit (the deep pair), K12
 runs ``fused_stem_pair_deep``, a kernel that streams channels through
 shared memory in chunks. ``scratch_dtype`` and ``groups0`` are checked
 as the JAX package checks them (bf16 scratches only at "default";
@@ -74,6 +80,14 @@ import torch
 import torch.nn.functional as F
 
 from millieye_torch.ops import cuda_lib
+
+
+# the pair's wrappers (names as cuda_lib.KERNELS has them), which run on the
+# tensor cores at "default", and their bound there, as a share of the
+# plain version's largest |output|
+TENSOR_CORE_PAIRS = ("stem_pair", "stem_pair_select", "stem_pair_packed",
+                     "stem_pair_s2d")
+PAIR_DEFAULT_TOL = 2.0 ** -6
 
 
 def _leaky(x):
@@ -130,9 +144,10 @@ def _pool_select(v):
 
 def fused_stem_pair_plain(x, w0, b0, w1, b1, precision="default",
                           out_dtype=torch.float16, select=False):
-    """The stem pair kernel's arithmetic, operation for operation, in
-    PyTorch: K4, K11 and K12 at the stem shape, and K8 with ``select``.
-    The kernel and this function give bit-equal outputs."""
+    """The stem pair's function in PyTorch, summed in the CUDA-core
+    order: K4, K11 and K12 at the stem shape, and K8 with ``select``. At
+    "highest" the kernel gives bit-equal outputs; at "default" its tensor
+    cores sum in their own order (within ``PAIR_DEFAULT_TOL``)."""
     if precision == "highest":
         op, sel = torch.Tensor.float, (lambda v: v)
     else:
@@ -193,7 +208,7 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
         raise ValueError(f"fused_stem_stage: unknown precision {precision!r}")
     if out_dtype not in _STORE_CODES:
         raise TypeError(f"fused_stem_stage: cannot store {out_dtype}")
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "stem_stage"):
         return fused_stem_stage_plain(x, w, b, precision, out_dtype)
     _check_cuda("fused_stem_stage", x, w, b)
     if x.dim() != 4:
@@ -261,7 +276,7 @@ def fused_stem_plain(x, w, b, th=26, out_dtype=None, variant="vconcat"):
 def fused_stem(x, w, b, th=26, out_dtype=None, variant="vconcat"):
     """K10: [N, H, W, Cin] -> [N, H/2, W/2, Cout] (see module)."""
     out_dtype = _check_nhwc(x, w, b, th, out_dtype, variant)
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "fused_stem"):
         return fused_stem_plain(x, w, b, th, out_dtype, variant)
     xk = x.float().contiguous()
     _check_cuda("fused_stem", xk, w, b)
@@ -291,13 +306,24 @@ _SMEM_LIMIT = 232448          # bytes of shared memory a block may opt into
 
 
 def _tile_fits(cin, cmid, cout, precision):
-    """Whether the stem pair kernel holds both weight sets, a 38x38 input
-    halo and the 18x18 intermediate of its 8x8 output tile in shared
-    memory (``pair_smem_bytes`` in csrc/stem.cu)."""
-    op = 4 if precision == "highest" else 2
-    return (4 * (cmid + cout) + op * (9 * cin * cmid + 9 * cmid * cout
-                                      + 38 * 38 * cin + 18 * 18 * cmid)
-            <= _SMEM_LIMIT)
+    """Whether the stem pair kernel holds its 8x8 output tile in shared
+    memory (``pair_smem_bytes`` and ``pair_tc_smem_bytes`` in
+    csrc/stem.cu): at "highest" both float32 weight sets, a 38x38 input
+    halo and the 18x18 intermediate; at "default" both bf16 weight sets in
+    fragment order, two float32 input halos, the bf16 intermediate and the
+    store staging."""
+    if precision == "highest":
+        return 4 * (cmid + cout + 9 * cin * cmid + 9 * cmid * cout
+                    + 38 * 38 * cin + 18 * 18 * cmid) <= _SMEM_LIMIT
+    ks0, cs = -(-9 * cin // 16), -(-cmid // 16)
+    floats = (_round4(cmid) + _round4(cout) + 16 * ks0
+              + 2 * _round4(38 * 38 * cin))
+    return (256 * (ks0 * (cmid // 8) + 9 * cs * (cout // 8)) + 4 * floats
+            + 32 * cs * 18 * 18 + 4 * 8 * 8 * 40) <= _SMEM_LIMIT
+
+
+def _round4(v):
+    return -(-v // 4) * 4
 
 
 def _check_pair(name, x, w0, b0, w1, b1, precision, out_dtype,
@@ -337,9 +363,10 @@ def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
     if not deep and not _tile_fits(cin, cmid, cout, precision):
         raise ValueError(f"{name}: {cin} -> {cmid} -> {cout} channels do not "
                          f"fit the pair kernel's shared memory")
-    # float32 weights, HWIO for the pair kernel and [I, 3, 3, O] for the
-    # deep one; at "default" the kernels round them to bf16 as they load
-    order = (1, 2, 3, 0) if deep else (2, 3, 1, 0)
+    # float32 weights, OIHW for the pair kernel (read once per block) and
+    # [I, 3, 3, O] for the deep one; at "default" the kernels round them
+    # to bf16 as they load
+    order = (1, 2, 3, 0) if deep else (0, 1, 2, 3)
     w0k = w0.float().permute(*order).contiguous()
     w1k = w1.float().permute(*order).contiguous()
     b0k, b1k = b0.float().contiguous(), b1.float().contiguous()
@@ -364,7 +391,7 @@ def fused_stem_pair(x, w0, b0, w1, b1, precision="default",
     """K4: [N, H, W, Cin] float32 -> [N, H/4, W/4, Cout] (see module)."""
     _check_pair("fused_stem_pair", x, w0, b0, w1, b1, precision, out_dtype,
                 scratch_dtype)
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "stem_pair"):
         return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
     out = _launch_pair("fused_stem_pair", x, w0, b0, w1, b1, precision,
                        out_dtype)
@@ -379,7 +406,7 @@ def fused_stem_pair_select(x, w0, b0, w1, b1, precision="default",
     _check_pair("fused_stem_pair_select", x, w0, b0, w1, b1, precision,
                 out_dtype, h_multiple=32)
     select = precision == "default"
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "stem_pair_select"):
         return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype,
                                      select)
     out = _launch_pair("fused_stem_pair_select", x, w0, b0, w1, b1,
@@ -393,7 +420,7 @@ def fused_stem_pair_packed(x, w0, b0, w1, b1, precision="default",
     """K11: K4's function (see module); H % 32 == 0."""
     _check_pair("fused_stem_pair_packed", x, w0, b0, w1, b1, precision,
                 out_dtype, scratch_dtype, h_multiple=32)
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "stem_pair_packed"):
         return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
     out = _launch_pair("fused_stem_pair_packed", x, w0, b0, w1, b1,
                        precision, out_dtype)
@@ -414,7 +441,7 @@ def fused_stem_pair_s2d(x, w0, b0, w1, b1, precision="default",
                          f"(2, 4, 8)")
     if not _tile_fits(x.shape[3], w0.shape[0], w1.shape[0], precision):
         return fused_stem_pair_deep(x, w0, b0, w1, b1, precision, out_dtype)
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "stem_pair_s2d"):
         return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
     out = _launch_pair("fused_stem_pair_s2d", x, w0, b0, w1, b1, precision,
                        out_dtype)
@@ -428,7 +455,7 @@ def fused_stem_pair_deep(x, w0, b0, w1, b1, precision="default",
     shared memory (see module), for any channel counts."""
     _check_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
                 out_dtype)
-    if cuda_lib.takes_plain(x):
+    if cuda_lib.takes_plain(x, "stem_pair_deep"):
         return fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision,
                                           out_dtype)
     out = _launch_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,

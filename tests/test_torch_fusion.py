@@ -258,12 +258,14 @@ def test_plain_versions_block():
     the switch on the way out, error or not. (A meta tensor stands in for
     a CUDA one.)"""
     cpu, dev = torch.zeros(1), torch.empty(1, device="meta")
-    assert cuda_lib.takes_plain(cpu) and not cuda_lib.takes_plain(dev)
+    k = "stem_pair"
+    assert cuda_lib.takes_plain(cpu, k) and not cuda_lib.takes_plain(dev, k)
     with pytest.raises(KeyError):
         with cuda_lib.plain_versions():
-            assert cuda_lib.takes_plain(dev) and cuda_lib.takes_plain(cpu)
+            assert cuda_lib.takes_plain(dev, k)
+            assert cuda_lib.takes_plain(cpu, k)
             raise KeyError
-    assert not cuda_lib.takes_plain(dev)
+    assert not cuda_lib.takes_plain(dev, k)
 
 
 def test_entry_points_need_cpu_opt_in_without_gpu():
@@ -275,3 +277,23 @@ def test_entry_points_need_cpu_opt_in_without_gpu():
                                         device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FusionEngine(model, params, state, frame_size=FRAME)
+
+
+def test_plain_versions_keep():
+    """plain_versions(keep=...): the named wrappers still take their
+    kernels on a non-CPU tensor, every other wrapper its plain version;
+    CPU tensors always take the plain version; an unknown name raises."""
+    cpu, dev = torch.zeros(1), torch.empty(1, device="meta")
+    pair = ("stem_pair", "stem_pair_select", "stem_pair_packed",
+            "stem_pair_s2d")
+    with cuda_lib.plain_versions(keep=pair):
+        for name in sorted(cuda_lib.KERNELS):
+            assert cuda_lib.takes_plain(dev, name) == (name not in pair)
+            assert cuda_lib.takes_plain(cpu, name)
+    for name in cuda_lib.KERNELS:
+        assert not cuda_lib.takes_plain(dev, name)
+    with pytest.raises(ValueError, match="unknown"):
+        with cuda_lib.plain_versions(keep=("stem_pair", "no_such_kernel")):
+            pass
+    with pytest.raises(ValueError, match="unknown"):
+        cuda_lib.takes_plain(dev, "no_such_kernel")

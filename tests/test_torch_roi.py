@@ -267,3 +267,69 @@ def test_default_rung_equals_k2_on_dyadic_boxes(rng):
     np.testing.assert_array_equal(trk.ps_roi_align_padded_f32_kernel(
         torch.from_numpy(fpad), by, bx, c_out, "default").numpy(),
         want.numpy())
+
+
+def _ps_roi_full_sum(features, by, bx, c_out):
+    """K2's function summed over every map row and column (the first
+    kernel's order): the spelling the support-restricted plain version
+    must equal bit for bit."""
+    b, h, w, c_pad = features.shape
+    n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
+    ol = c_out * pw
+    f = features.float().reshape(b, h, w, ph, c_pad // ph)[..., :ol]
+    byf = by.float()
+    t = f.new_zeros((b, n, ph, w, ol))
+    for y in range(h):
+        t = t + byf[:, :, :, y, None, None] * f[:, None, y].transpose(2, 3)
+    q_of_j = torch.arange(ol) % pw
+    bxj = bx.float().transpose(2, 3)[..., q_of_j]
+    out = f.new_zeros((b, n, ph, ol))
+    for x in range(w):
+        out = out + (t[:, :, :, x] * bxj[:, :, None, x]).to(
+            torch.bfloat16).float()
+    return out.reshape(b, n, ph, c_out, pw).transpose(3, 4)
+
+
+@pytest.mark.parametrize("case", ["random", "whole_frame", "sub_cell",
+                                  "partly_outside", "wholly_outside",
+                                  "negative_map"])
+def test_k2_support_spans_equal_full_sum(case):
+    """K2's plain version sums only the nonzero span of by's rows and of
+    bx's columns, as the kernel does; the terms it leaves out are exact
+    zeros, so it equals the full sum bit for bit on every kind of RoI."""
+    rng = np.random.default_rng(len(case))
+    b, n, hw, c_out = 2, 12, 26, 10
+    xy = rng.uniform(-20, 380, (b, n, 2))
+    wh = {"random": rng.uniform(4, 300, (b, n, 2)),
+          "whole_frame": np.full((b, n, 2), 416.0),
+          "sub_cell": rng.uniform(0.5, 12, (b, n, 2)),
+          "partly_outside": rng.uniform(120, 300, (b, n, 2)),
+          "wholly_outside": rng.uniform(10, 60, (b, n, 2)),
+          "negative_map": rng.uniform(4, 300, (b, n, 2))}[case]
+    if case == "whole_frame":
+        xy = rng.uniform(-2, 2, (b, n, 2))
+    elif case == "partly_outside":     # across the top/left or the
+        xy = np.where(rng.random((b, n, 2)) < 0.5,   # bottom/right edge
+                      rng.uniform(-100, -40, (b, n, 2)),
+                      rng.uniform(330, 400, (b, n, 2)))
+    elif case == "wholly_outside":
+        xy = rng.choice([-1.0, 1.0], (b, n, 2)) * 500 + 208
+    boxes = torch.tensor(np.concatenate([xy, xy + wh], -1),
+                         dtype=torch.float32)
+    by, bx = tra._batched_prep(boxes, hw, hw, (7, 7), 1 / 16, -0.5, 0.1, -1,
+                               4)
+    by, bx = by.to(torch.bfloat16), bx.to(torch.bfloat16)
+    feats = rng.standard_normal((b, hw, hw, 7 * 128))
+    if case == "negative_map":
+        feats = -np.abs(feats)
+    feats = torch.tensor(feats, dtype=torch.bfloat16)
+    got = trk.ps_roi_align_padded_plain(feats, by, bx, c_out)
+    want = _ps_roi_full_sum(feats, by, bx, c_out)
+    assert torch.equal(got, want)
+    rows = (by.float() != 0).sum(-1)
+    if case == "wholly_outside":
+        assert float(want.abs().max()) == 0.0
+    else:
+        assert float(want.abs().max()) > 0.0
+    if case != "wholly_outside":       # the spans really leave rows out
+        assert int(rows.max()) < hw
