@@ -21,9 +21,9 @@ printed only when every phase passed:
      weight and on the (8, 128) carrier; K2 also with every RoI the whole
      frame; the pairs at "default" and "highest": bit-equal (each plain
      version repeats its kernel's operations in the kernel's order),
-     except the stem pair at "default" (K4, K8, K11, K12 at the stem
-     shape), which runs on the tensor cores and is held within 2^-6 of its
-     plain version's largest output, its exact share reported; kernel,
+     except the stem pair, the deep pair and K9 at "default", which run
+     on the tensor cores and are held within 2^-6 of their plain
+     versions' largest output, the exact share reported; kernel,
      plain and library times
      (the median of 5 repeats of the timing loop, with the spread), and
      the bound; how many outputs K8 moves against K4 on the same inputs;
@@ -48,23 +48,27 @@ printed only when every phase passed:
      every kernel the path (or direct op) names must have
      launched on every request; the answers, the window's too, must be
      finite, of the right shape and bit-identical to the same path inside
-     ``cuda_lib.plain_versions()``, or, for a path that runs the
-     tensor-core pair, bit-identical to the same path inside
-     ``cuda_lib.plain_versions(keep=<the pair's wrappers>)`` (every other
-     kernel's plain version) and within ``PAIR_PATH_TOL`` of the fully
-     plain path; the window's answers (held the same way) must also equal
-     the per-frame answers (matched by box within a stated tolerance,
-     with at most one row of a frame on one side only, where the batch-8
-     convolutions sum in another order); p50 latency per path; then one
+     ``cuda_lib.plain_versions()``, or, for a path that runs a
+     tensor-core kernel, bit-identical to the same path inside
+     ``cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS)`` (every
+     other kernel's plain version) and within ``PAIR_PATH_TOL`` of the
+     fully plain path, or beyond it by NMS decisions alone, proven on
+     the recorded inputs of both NMS passes (``nms_flips``); the window's
+     answers (held the same way) must also equal the per-frame answers
+     (matched by box within a stated tolerance, with at most one row of
+     a frame on one side only, where the batch-8 convolutions sum in
+     another order); p50 latency per path; then one
      request at each alias row (buffering-only or same-function twins of
      the rows above), its launches checked and its answer bit-identical
      to its twin's; a ``torch.profiler`` pass over 4 more requests at
-     ``pallas_max_s01``, ``pallas_max4`` and ``pallas_pair2``;
+     ``pallas_max_s01``, ``pallas_max4``, ``pallas_pair2`` and
+     ``pallas_deep``, and over 2 windows;
   5. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -85,12 +89,16 @@ INT8_OP_S = 1979e12            # dense int8 tensor cores
 # order, which moves boxes and scores a little and may carry a row across
 # a threshold (at most ``flipped`` rows of a frame on one side only)
 WINDOW_TOL = dict(box=0.5, score=2e-2, flipped=1)
-# a path that runs the tensor-core pair against its fully plain run: the
+# a path that runs a tensor-core kernel against its fully plain run: the
 # pair perturbs a bf16 network at its first layer, and one bf16 ulp of a
 # head's regression output moves a box by up to ~1 px, so boxes are held
 # at the bf16 class of tests/test_torch_fusion.py (TOL["pallas_*"]: 1 px,
 # scores 0.02; WINDOW_TOL's 0.5 px was exceeded, 0.57 px on one row of
 # pallas_max4, on an H100)
+# An answer beyond it passes only where ``nms_flips`` proves that the two
+# runs differ by NMS decisions alone: each run's NMS passes are the plain
+# NMS of their own inputs, and the answers meet within it once one run
+# takes the other's decisions
 PAIR_PATH_TOL = dict(WINDOW_TOL, box=1.0)
 BF16_TOL = 0.04   # a bf16 library yardstick against a plain version, as a
                   # share of the output's largest magnitude
@@ -245,7 +253,8 @@ class KernelChecks:
 
     # ------------------------------------------------------------- NMS
     def nms(self, b):
-        """K1 at 128, 256 and 512 candidates, K5 at 512 and 135, on knife-edge
+        """K1 at 128, 256 and 512 candidates, K5 at 512, 135, 96 and 232
+        (the post-merge NMS of 64 + 32 and 200 + 32 rows), on knife-edge
         inputs; the plain versions also against the sequential golden."""
         from millieye_torch.ops import nms_kernel
         from millieye_torch.ops.nms import nms_keep_mask_ref
@@ -254,7 +263,7 @@ class KernelChecks:
                 ("nms", nms_kernel.nms_keep_mask_blocked,
                  nms_kernel.nms_keep_mask_blocked_plain, (128, 256, 512)),
                 ("nms_full", nms_kernel.nms_keep_mask_full,
-                 nms_kernel.nms_keep_mask_full_plain, (512, 135))):
+                 nms_kernel.nms_keep_mask_full_plain, (512, 135, 96, 232))):
             for k in ks:
                 boxes, valid = nms_inputs(self.rng, b, k)
                 tb = torch.tensor(boxes, device=self.dev)
@@ -469,11 +478,11 @@ class KernelChecks:
         """The stem pair (K4, K8, K11, K12 at groups0 4 and 8) on 416 px
         frames at both precisions, K12's deep pair on stage 4's input
         shape, and K9 at the four stage shapes of the 416 px network,
-        with the served (folded) weights. The pair at "default" runs on
-        the tensor cores and is held within ``stem.PAIR_DEFAULT_TOL`` of
-        its plain version's largest output (the exact share recorded);
-        every other case bit-equal. Library: cuDNN
-        conv2d + bias + leaky_relu + max_pool2d on channels_last
+        with the served (folded) weights. At "default" the pair, the deep
+        pair and K9 run on the tensor cores and are held within
+        ``stem.PAIR_DEFAULT_TOL`` of their plain versions' largest output
+        (the exact share recorded); every "highest" case bit-equal.
+        Library: cuDNN conv2d + bias + leaky_relu + max_pool2d on channels_last
         operands, bf16 where the kernel's products are bf16 and float32
         (TF32 off) at "highest"; held within 4% (bf16) or 0.2% (float32;
         the float16 store may round the other way) of the largest
@@ -550,7 +559,8 @@ class KernelChecks:
                 + ("float32, TF32 off" if hi else "bf16"),
                 # float32 against the plain version's bf16 store at
                 # "highest": half a bf16 ulp, 2^-9 of the value, and order
-                2.0 ** -8 if hi else BF16_TOL)
+                2.0 ** -8 if hi else BF16_TOL,
+                tol=None if hi else stem.PAIR_DEFAULT_TOL)
 
         for i, hw, precision, store in ((0, 416, "highest", torch.float16),
                                         (2, 208, "highest", torch.float16),
@@ -574,7 +584,8 @@ class KernelChecks:
                 cudnn_stages(x, [(w, bs)], torch.float32 if hi else bf),
                 "cuDNN conv2d+bias+leaky+max_pool2d, "
                 + ("float32, TF32 off" if hi else "bf16"),
-                2e-3 if hi else BF16_TOL)
+                2e-3 if hi else BF16_TOL,
+                tol=None if hi else stem.PAIR_DEFAULT_TOL)
 
 
     # ------------------------------------------------------------- K10
@@ -725,26 +736,228 @@ def profile_calls(torch, label, calls):
             "device_activities_per_request": n_launch}
 
 
+def _pairs(got, want, box_tol):
+    """Pair the valid rows of two (rows, valid) answers: a row of ``got``
+    and its nearest row of ``want`` by box, when each is the other's
+    nearest and their boxes agree within ``box_tol``. Returns index
+    pairs [(i, j), ...] into the full arrays."""
+    gi, wi = np.flatnonzero(got[1]), np.flatnonzero(want[1])
+    if len(gi) == 0 or len(wi) == 0:
+        return []
+    dist = np.abs(got[0][gi, None, :4] - want[0][None, wi, :4]).max(-1)
+    near = dist.argmin(1)
+    return [(gi[a], wi[near[a]]) for a in range(len(gi))
+            if dist[a, near[a]] <= box_tol and dist[:, near[a]].argmin() == a]
+
+
 def rows_match(got, want, tol):
     """Hold (rows, valid) pairs together: each valid row is paired with
-    the nearest row of the other side by box; a pair counts when its
-    boxes agree within ``tol["box"]``. Returns (ok, largest box
-    difference, largest score difference, rows without a partner): ok
-    when the paired scores agree within ``tol["score"]`` and at most
-    ``tol["flipped"]`` rows stand on one side only."""
-    g, w = got[0][got[1]], want[0][want[1]]
-    if len(g) == 0 or len(w) == 0:
-        return len(g) + len(w) <= tol["flipped"], 0.0, 0.0, len(g) + len(w)
-    dist = np.abs(g[:, None, :4] - w[None, :, :4]).max(-1)
-    match = dist.argmin(1)
-    paired = [i for i in range(len(g)) if dist[i, match[i]] <= tol["box"]
-              and dist[:, match[i]].argmin() == i]
-    flipped = len(g) + len(w) - 2 * len(paired)
-    d_box = float(dist[paired, match[paired]].max()) if paired else 0.0
-    d_score = float(np.abs(g[paired, 4:] - w[match[paired], 4:]).max()) \
-        if paired else 0.0
+    the nearest row of the other side by box (``_pairs``). Returns (ok,
+    largest box difference, largest score difference, rows without a
+    partner): ok when the paired scores agree within ``tol["score"]``
+    and at most ``tol["flipped"]`` rows stand on one side only."""
+    pairs = _pairs(got, want, tol["box"])
+    flipped = int(got[1].sum() + want[1].sum()) - 2 * len(pairs)
+    if not pairs:
+        return flipped <= tol["flipped"], 0.0, 0.0, flipped
+    gi, wi = (list(ix) for ix in zip(*pairs))
+    d_box = float(np.abs(got[0][gi, :4] - want[0][wi, :4]).max())
+    d_score = float(np.abs(got[0][gi, 4:] - want[0][wi, 4:]).max())
     return (d_score <= tol["score"] and flipped <= tol["flipped"], d_box,
             d_score, flipped)
+
+
+@contextlib.contextmanager
+def post_merge_inputs(eng):
+    """Record what each call of ``eng``'s post-merge NMS
+    (``FusionEngine._post``) is given, rows [K, 7] and valid [K], in
+    order."""
+    seen, post = [], eng._post
+
+    def record(boxes, valid):
+        seen.append((boxes.clone(), valid.clone()))
+        return post(boxes, valid)
+
+    eng._post = record
+    try:
+        yield seen
+    finally:
+        del eng._post
+
+
+def nms_flip_proof(torch, cuda_lib, eng, got, want, got_in, want_in, tol):
+    """Whether one frame's answers ``got`` (a kernel run) and ``want``
+    (the fully plain run), (rows [K, 6], valid), differ only by
+    post-merge NMS decisions; ``got_in`` and ``want_in`` are that NMS's
+    inputs in the two runs. Proven when (1) the inputs, as output rows
+    (camera box, score, label), agree within ``tol``; (2) each side's
+    answer is, bit for bit, the plain post-merge NMS of its own inputs;
+    and (3) each side's inputs under the other side's decisions (which
+    inputs it kept, carried over by the pairing of (1)) give the other
+    side's answer within ``tol``. Returns (proven, why not, inputs kept on
+    one side only)."""
+    from millieye_torch.ops.boxes import rescale_boxes
+    w, h = eng.frame_size
+
+    def as_rows(c):
+        boxes, valid = c
+        cam = rescale_boxes(boxes[:, :4], eng.model.darknet.img_size, (h, w))
+        return (torch.cat([cam, boxes[:, 4:5], boxes[:, 6:7]], -1).cpu()
+                .numpy(), valid.cpu().numpy())
+
+    cg, cw = as_rows(got_in), as_rows(want_in)
+    ok, db, ds, fl = rows_match(cg, cw, tol)
+    if not ok:
+        return (False, f"the NMS inputs differ beyond {tol} (box {db}, "
+                f"score {ds}, {fl} rows on one side only)", 0)
+    with cuda_lib.plain_versions():
+        for side, c, out in (("kernel", got_in, got), ("plain", want_in,
+                                                       want)):
+            r, v = (a.cpu().numpy() for a in eng._post(*c))
+            if not (np.array_equal(r, out[0]) and np.array_equal(v, out[1])):
+                return (False, f"the {side} run's answer is not the plain "
+                        f"post-merge NMS of its inputs", 0)
+
+    def kept(c, out):
+        return c[1] & (c[0][:, None] == out[0][out[1]][None]).all(-1).any(1)
+
+    kg, kw = kept(cg, got), kept(cw, want)
+    pairs = _pairs(cg, cw, tol["box"])
+    under_w, under_g = np.zeros_like(cg[1]), np.zeros_like(cw[1])
+    for i, j in pairs:
+        under_w[i], under_g[j] = kw[j], kg[i]
+    for side, rows, keep, out in (("kernel", cg[0], under_w, want),
+                                  ("plain", cw[0], under_g, got)):
+        ok, db, ds, fl = rows_match((rows, keep), out, tol)
+        if not ok:
+            return (False, f"the {side} run's inputs under the other run's "
+                    f"NMS decisions differ from its answer beyond {tol} "
+                    f"(box {db}, score {ds}, {fl} rows on one side only)", 0)
+    paired_g = {i for i, _ in pairs}
+    paired_w = {j for _, j in pairs}
+    moved = (sum(bool(kg[i] != kw[j]) for i, j in pairs)
+             + sum(bool(kg[i]) for i in range(len(kg)) if i not in paired_g)
+             + sum(bool(kw[j]) for j in range(len(kw)) if j not in paired_w))
+    return True, "", moved
+
+
+@contextlib.contextmanager
+def pre_merge_nms(torch, inject=None):
+    """Record each call of the fusion network's pre-merge NMS
+    (``models.fusion.batched_nms``): its arguments, its detections [B, A,
+    5+C], its answer and the anchor each valid answer row came from.
+    With ``inject``, another run's records call by call, each call
+    answers instead with the rows of the anchors that run kept, taken
+    from this run's detections: that run's decisions on this run's
+    inputs."""
+    from millieye_torch.models import fusion
+    from millieye_torch.ops.boxes import xywh_to_xyxy
+    seen, real = [], fusion.batched_nms
+
+    def record(pred, *args, **kw):
+        out, valid = real(pred, *args, **kw)
+        xyxy = xywh_to_xyxy(pred[..., :4])
+        same = ((xyxy[:, None] == out[:, :, None, :4]).all(-1)
+                & (pred[:, None, :, 4] == out[:, :, None, 4]))
+        if not bool(same.any(-1)[valid].all()):
+            raise AssertionError("a pre-merge NMS row is no anchor's")
+        anchors = torch.where(valid, same.int().argmax(-1), -1)
+        seen.append({"pred": pred.clone(), "args": args, "kw": kw,
+                     "out": out.clone(), "valid": valid.clone(),
+                     "anchors": anchors})
+        if inject is None:
+            return out, valid
+        other = inject[len(seen) - 1]
+        valid = other["valid"]
+        rows = torch.gather(pred, 1, other["anchors"].clamp(min=0)[..., None]
+                            .expand(-1, -1, pred.shape[-1]))
+        c = rows[..., 5:]
+        out = torch.cat([xywh_to_xyxy(rows[..., :4]), rows[..., 4:5],
+                         c.amax(-1, keepdim=True),
+                         c.argmax(-1).to(pred.dtype)[..., None], c], -1)
+        return torch.where(valid[..., None], out, torch.zeros_like(out)), \
+            valid
+
+    fusion.batched_nms = record
+    try:
+        yield seen
+    finally:
+        fusion.batched_nms = real
+
+
+def pre_merge_is_nms(torch, cuda_lib, got, want):
+    """The pre-merge NMS records of a kernel run (``got``) and its fully
+    plain run (``want``): each run's answer must be, bit for bit, the
+    plain NMS of its own detections. Returns the number of anchors kept
+    by one run only, over all frames; raises AssertionError otherwise."""
+    from millieye_torch.models import fusion
+    for side, recs in (("kernel", got), ("plain", want)):
+        for r in recs:
+            with cuda_lib.plain_versions():
+                out, valid = fusion.batched_nms(r["pred"], *r["args"],
+                                                **r["kw"])
+            if not (torch.equal(out, r["out"])
+                    and torch.equal(valid, r["valid"])):
+                raise AssertionError(f"the {side} run's pre-merge NMS "
+                                     f"answer is not the plain NMS of its "
+                                     f"detections")
+    moved = 0
+    for g, w in zip(got, want):
+        for n in range(g["pred"].shape[0]):
+            moved += len(set(g["anchors"][n][g["valid"][n]].tolist())
+                         ^ set(w["anchors"][n][w["valid"][n]].tolist()))
+    return moved
+
+
+def nms_flips(torch, cuda_lib, eng, call, first, tol):
+    """Prove that a kernel run and its fully plain run differ only by NMS
+    decisions where they differ beyond ``tol``: ``call`` returns [(rows,
+    valid)], one per frame, and ``first`` is its kernel run's answer.
+    Both run again with the inputs and answers of both NMS passes
+    recorded; the kernel run must repeat ``first``, and each run's
+    pre-merge NMS must be the plain NMS of its detections
+    (``pre_merge_is_nms``). Where the two pre-merge NMS kept other
+    anchors, each run runs once more with the other run's pre-merge
+    decisions (``pre_merge_nms(inject=)``) and must then meet the other
+    run's answer. Each pair of answers still beyond ``tol`` goes through
+    ``nms_flip_proof`` (the post-merge NMS). Returns (anchors the pre-merge NMS kept in one run only,
+    post-merge NMS inputs kept in one run only), summed over the frames;
+    raises AssertionError when a frame is not proven."""
+    with pre_merge_nms(torch) as got_nms, post_merge_inputs(eng) as got_in:
+        got = call()
+    with pre_merge_nms(torch) as want_nms, post_merge_inputs(eng) as \
+            want_in, cuda_lib.plain_versions():
+        want = call()
+    if not all(np.array_equal(g[0], f[0]) and np.array_equal(g[1], f[1])
+               for g, f in zip(got, first)):
+        raise AssertionError("a kernel run did not repeat its answer")
+    anchors = pre_merge_is_nms(torch, cuda_lib, got_nms, want_nms)
+    pairs = [(got, want, got_in, want_in)]
+    if anchors:
+        with pre_merge_nms(torch, inject=want_nms), \
+                post_merge_inputs(eng) as got2_in:
+            got2 = call()
+        with pre_merge_nms(torch, inject=got_nms), \
+                post_merge_inputs(eng) as want2_in, \
+                cuda_lib.plain_versions():
+            want2 = call()
+        pairs = [(got2, want, got2_in, want_in), (got, want2, got_in,
+                                                  want2_in)]
+    moved = 0
+    for answers in pairs:
+        for n, (g, w, gi, wi) in enumerate(zip(*answers)):
+            if rows_match(g, w, tol)[0]:
+                continue
+            ok, why, k = nms_flip_proof(torch, cuda_lib, eng, g, w, gi, wi,
+                                        tol)
+            if not ok:
+                raise AssertionError(
+                    f"frame {n}: beyond {tol} of the fully plain run, and "
+                    f"not by NMS decisions alone: {why}"
+                    + (" (with the other run's pre-merge NMS decisions)"
+                       if anchors else ""))
+            moved += k
+    return anchors, moved
 
 
 def main():
@@ -851,7 +1064,7 @@ def main():
     recs = [r for rs in checks.records.values() for r in rs]
     bounded = [r for r in recs if r["tol"] is not None]
     log(f"kernel phase: {len(recs) - len(bounded)} cases bit-equal to their "
-        f"plain versions, {len(bounded)} (the tensor-core pair at "
+        f"plain versions, {len(bounded)} (the tensor-core kernels at "
         f"'default') within {stem.PAIR_DEFAULT_TOL:.3g} of their plain "
         f"versions' largest output, at worst 2^"
         f"{max(np.log2(max(r['err'], 1e-30) / r['scale']) for r in bounded):.2f}"
@@ -876,48 +1089,60 @@ def main():
     reqs = requests(rng, N_REQUESTS)
     launches_by_path, answers_by_path, summary = {}, {}, {}
 
-    pair_kernels = stem.TENSOR_CORE_PAIRS
+    tc_kernels = stem.TENSOR_CORE_KERNELS
 
     def against_plain(path, got, call):
-        """Hold one answer to the plain versions. A path that ran the
-        tensor-core pair is held bit-identical to the same call with only
-        the pair's kernels launched (``plain_versions(keep=...)``), and
-        within PAIR_PATH_TOL of the fully plain call; any other path
+        """Hold one answer to the plain versions. A path that ran a
+        tensor-core kernel is held bit-identical to the same call with
+        only the tensor-core kernels launched (``plain_versions(keep=
+        ...)``), and within PAIR_PATH_TOL of the fully plain call, or
+        beyond it by NMS decisions alone (``nms_flips``); any other path
         bit-identical to the fully plain call. Returns (bit-identical to
         the fully plain answer, largest box and score differences of the
-        paired rows, rows on one side only)."""
+        paired rows, rows on one side only, and the anchors the pre-merge
+        NMS and the inputs the post-merge NMS kept in one run only)."""
         boxes, valid = got
         with cuda_lib.plain_versions():
             ref = call()
         same = (np.array_equal(boxes, ref[0])
                 and np.array_equal(valid, ref[1]))
-        if path not in pair_paths:
+        if path not in tc_paths:
             if not same:
                 raise AssertionError(
                     f"{path}: kernels and plain versions disagree\n"
                     f"{boxes[valid]}\n{ref[0][ref[1]]}")
-            return same, 0.0, 0.0, 0
-        with cuda_lib.plain_versions(keep=pair_kernels):
+            return same, 0.0, 0.0, 0, (0, 0)
+        with cuda_lib.plain_versions(keep=tc_kernels):
             kept = call()
         if not (np.array_equal(boxes, kept[0])
                 and np.array_equal(valid, kept[1])):
             raise AssertionError(
-                f"{path}: differs from its run with only the pair's kernels "
-                f"launched\n{boxes[valid]}\n{kept[0][kept[1]]}")
+                f"{path}: differs from its run with only the tensor-core "
+                f"kernels launched\n{boxes[valid]}\n{kept[0][kept[1]]}")
         ok, db, ds, fl = rows_match((boxes, valid), ref, PAIR_PATH_TOL)
-        if not ok:
+        if ok:
+            return same, db, ds, fl, (0, 0)
+        if path not in engines:
             raise AssertionError(
                 f"{path}: differs from its fully plain run beyond "
                 f"{PAIR_PATH_TOL} (box {db}, score {ds}, {fl} rows on one "
                 f"side only)\n{boxes[valid]}\n{ref[0][ref[1]]}")
-        return same, db, ds, fl
+        try:
+            moved = nms_flips(torch, cuda_lib, engines[path],
+                              lambda: [call()], [got], PAIR_PATH_TOL)
+        except AssertionError as e:
+            raise AssertionError(
+                f"{path}: {e}\n{boxes[valid]}\n{ref[0][ref[1]]}") from None
+        return same, db, ds, fl, moved
 
-    pair_paths = set()
+    tc_paths = set()
 
-    def drive(path, calls, shape, must_launch):
+    def drive(path, calls, shape, must_launch, bit_equal=False):
         """Run ``calls`` with the launch counts at 0, check the counts,
         the answers and their agreement with the plain versions
-        (``against_plain``)."""
+        (``against_plain``); ``bit_equal``: the path runs its kernels at
+        "highest" only, so it is held bit-identical to the fully plain
+        path whatever it launched."""
         for fn, *_ in kernels.values():
             fn.launches = 0
         answers, lat = [], []
@@ -933,25 +1158,29 @@ def main():
             raise AssertionError(f"{path}: kernels launched too few times "
                                  f"over {len(calls)} calls: {short} (need "
                                  f"{must_launch} per call)")
-        if any(launches[k] for k in pair_kernels):
-            pair_paths.add(path)
+        if not bit_equal and any(launches[k] for k in tc_kernels):
+            tc_paths.add(path)
         n_valid, n_same, d_box, d_score, flips = [], 0, 0.0, 0.0, 0
+        moved = np.zeros(2, int)
         for i, (call, (boxes, valid)) in enumerate(zip(calls, answers)):
             if boxes.shape != shape or not np.isfinite(boxes).all():
                 raise AssertionError(f"{path} call {i}: bad answer "
                                      f"{boxes.shape}, want {shape}")
-            same, db, ds, fl = against_plain(path, (boxes, valid), call)
-            n_same, flips = n_same + same, flips + fl
+            same, db, ds, fl, mv = against_plain(path, (boxes, valid), call)
+            n_same, flips, moved = n_same + same, flips + fl, moved + mv
             d_box, d_score = max(d_box, db), max(d_score, ds)
             n_valid.append(int(valid.sum()))
         timed = np.array(lat[N_WARM:]) * 1e3
         used = {k: v for k, v in launches.items() if v}
         held = (f"every answer bit-identical to the same path inside "
-                f"cuda_lib.plain_versions(keep=<pair kernels>) and within "
-                f"PAIR_PATH_TOL of the fully plain path ({n_same} of "
+                f"cuda_lib.plain_versions(keep=<tensor-core kernels>) and "
+                f"within PAIR_PATH_TOL of the fully plain path ({n_same} of "
                 f"{len(calls)} bit-identical to it, the rest paired within "
                 f"{d_box:.3g} px and {d_score:.3g} on scores, {flips} rows "
-                f"on one side only)" if path in pair_paths
+                f"on one side only; NMS decisions proven by nms_flips: "
+                f"{moved[0]} anchors kept by the pre-merge NMS and "
+                f"{moved[1]} inputs kept by the post-merge NMS in one run "
+                f"only)" if path in tc_paths
                 else "every answer bit-identical to the same path inside "
                 "cuda_lib.plain_versions()")
         log(f"path {path}: {len(calls)} calls at 416 px, batch 1; launches "
@@ -965,7 +1194,12 @@ def main():
                          "bit_identical_to_plain": n_same,
                          "against_plain": {"max_box_diff": d_box,
                                            "max_score_diff": d_score,
-                                           "rows_on_one_side": flips},
+                                           "rows_on_one_side": flips,
+                                           "nms_kept_on_one_side": {
+                                               "pre_merge_anchors":
+                                                   int(moved[0]),
+                                               "post_merge_inputs":
+                                                   int(moved[1])}},
                          "p50_ms": float(np.median(timed)),
                          "per_s": float(1e3 / timed.mean()),
                          "valid_rows": n_valid}
@@ -979,18 +1213,19 @@ def main():
     one = dict.fromkeys
     eng = engines["pallas_max_s01"]
     drive("pallas_max_s01", infer_calls(eng), rows(eng),
-          one(("nms", "ps_roi_align", "roi_align", "stem_pair"), 1))
+          one(("nms", "ps_roi_align", "roi_align", "stem_pair", "nms_full"),
+              1))
     eng = engines["pallas_max4"]
     drive("pallas_max4", infer_calls(eng), rows(eng),
           one(("stem_stage", "stem_pair", "nms", "ps_roi_align",
-               "roi_align"), 1))
+               "roi_align", "nms_full"), 1))
     eng = engines["pallas_stem"]
     drive("pallas_stem", infer_calls(eng), rows(eng),
-          {"stem_stage": 2, "nms": 1})
+          {"stem_stage": 2, "nms": 1, "nms_full": 1}, bit_equal=True)
     eng = engines["pallas_max4+highest"]
     drive("pallas_max4+highest", infer_calls(eng), rows(eng),
           one(("ps_roi_align_padded_f32", "roi_align", "stem_stage",
-               "stem_pair", "nms"), 1))
+               "stem_pair", "nms", "nms_full"), 1))
 
     # the stem-kernel ladder: K8, K11, K12 (stem pair, deep pair) and K2's
     # "vpu" reduce on their serving rows
@@ -1005,7 +1240,7 @@ def main():
             ("pallas_lat", ("stem_pair", "ps_roi_align_vpu", "roi_align",
                             "nms"))):
         eng = engines[path]
-        need = one(must, 1)
+        need = one(must + ("nms_full",), 1)
         if path == "pallas_deep":
             need["stem_stage"] = 2               # stages 4 and 6
         drive(path, infer_calls(eng), rows(eng), need)
@@ -1015,10 +1250,11 @@ def main():
                                answers_by_path["pallas_max_s01"])):
         raise AssertionError("pallas_max_pk: answers differ from "
                              "pallas_max_s01's")
+    # K = 256 takes K1 in batched_nms: K5 runs only in the post-merge NMS
     lat = launches_by_path["pallas_lat"]
-    if lat["nms_full"] or lat["ps_roi_align"]:
-        raise AssertionError(f"pallas_lat: launched the whole-matrix NMS or "
-                             f"K2's 'dot' wrapper: {lat}")
+    if lat["nms_full"] > N_REQUESTS or lat["ps_roi_align"]:
+        raise AssertionError(f"pallas_lat: launched the whole-matrix NMS "
+                             f"before the merge or K2's 'dot' wrapper: {lat}")
 
     # the s2d stem and the int8 ladder (P11-P14) beside the plain float32
     # network; int8_acts calibrated on the requests' frames
@@ -1028,7 +1264,7 @@ def main():
                                         frame_size=FRAME, act_absmax=absmax)
     for path in ("f32", "s2d", "bf16_s2d", "int8", "int8_acts"):
         eng = engines[path]
-        drive(path, infer_calls(eng), rows(eng), {"nms": 1})
+        drive(path, infer_calls(eng), rows(eng), {"nms": 1, "nms_full": 1})
     for path in ("s2d", "int8", "int8_acts"):
         flips, d_box, d_score, exact, near = 0, 0.0, 0.0, 0, []
         for got, want in zip(answers_by_path[path], answers_by_path["f32"]):
@@ -1160,33 +1396,44 @@ def main():
     launches_by_path["window8@pallas_max4"] = launches
     short = [k for k in ("stem_stage", "stem_pair", "nms", "ps_roi_align",
                          "roi_align") if launches[k] < 1]
+    if launches["nms_full"] < N_REQUESTS:      # a post-merge NMS per frame
+        short.append("nms_full")
     if short:
         raise AssertionError(f"batched window: kernels not launched: {short}")
     if wrows.shape != (N_REQUESTS,) + rows(eng) \
             or not np.isfinite(wrows).all():
         raise AssertionError(f"batched window: bad answer {wrows.shape}")
-    with cuda_lib.plain_versions(keep=pair_kernels):
+    with cuda_lib.plain_versions(keep=tc_kernels):
         krows, kvalid = step(*tens)
     if not (np.array_equal(wrows, krows.cpu().numpy())
             and np.array_equal(wvalid, kvalid.cpu().numpy())):
         raise AssertionError("batched window: differs from its run with only "
-                             "the pair's kernels launched")
+                             "the tensor-core kernels launched")
     with cuda_lib.plain_versions():
         prows, pvalid = step(*tens)
     prows, pvalid = prows.cpu().numpy(), pvalid.cpu().numpy()
-    window_plain_same, wp_box, wp_score, wp_flips = 0, 0.0, 0.0, 0
+    window_plain_same, wp_box, wp_score, wp_flips, wp_moved = (0, 0.0, 0.0,
+                                                               0, (0, 0))
+    beyond = False
     for i in range(N_REQUESTS):
         ok, db, ds, fl = rows_match((wrows[i], wvalid[i]),
                                     (prows[i], pvalid[i]), PAIR_PATH_TOL)
-        if not ok:
-            raise AssertionError(
-                f"batched window, frame {i}: differs from the fully plain "
-                f"window beyond {PAIR_PATH_TOL} (box {db}, score {ds}, {fl} "
-                f"rows on one side only)")
+        beyond |= not ok
         window_plain_same += int(np.array_equal(wrows[i], prows[i])
                                  and np.array_equal(wvalid[i], pvalid[i]))
         wp_box, wp_score = max(wp_box, db), max(wp_score, ds)
         wp_flips += fl
+
+    def window_frames():
+        r, v = (a.cpu().numpy() for a in step(*tens))
+        return list(zip(r, v))
+
+    if beyond:
+        try:
+            wp_moved = nms_flips(torch, cuda_lib, eng, window_frames,
+                                 list(zip(wrows, wvalid)), PAIR_PATH_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"batched window: {e}") from None
     exact, d_box, d_score, flipped = 0, 0.0, 0.0, 0
     for i, want in enumerate(answers_by_path["pallas_max4"]):
         got = (wrows[i], wvalid[i])
@@ -1206,11 +1453,13 @@ def main():
     n_rows = int(sum(v.sum() for _, v in answers_by_path["pallas_max4"]))
     log(f"batched window of {N_REQUESTS} frames at pallas_max4: launches "
         f"{ {k: v for k, v in launches.items() if v} }; bit-identical to "
-        f"the same window inside cuda_lib.plain_versions(keep=<pair "
-        f"kernels>), within PAIR_PATH_TOL of the fully plain window "
+        f"the same window inside cuda_lib.plain_versions(keep=<tensor-"
+        f"core kernels>), within PAIR_PATH_TOL of the fully plain window "
         f"({window_plain_same} of {N_REQUESTS} frames bit-identical to it, "
         f"the rest within {wp_box:.3g} px and {wp_score:.3g} on scores, "
-        f"{wp_flips} rows on one side only); "
+        f"{wp_flips} rows on one side only; NMS decisions proven by "
+        f"nms_flips: {wp_moved[0]} anchors kept by the pre-merge NMS and "
+        f"{wp_moved[1]} inputs kept by the post-merge NMS in one run only); "
         f"{exact} of "
         f"{N_REQUESTS} answers bit-identical to the per-frame answers, the "
         f"rest paired by box within {d_box:.3g} px and {d_score:.3g} on "
@@ -1222,7 +1471,10 @@ def main():
         "ms": window_ms, "frames_per_s": N_REQUESTS * 1e3 / window_ms,
         "bit_identical_to_plain": window_plain_same,
         "against_plain": {"max_box_diff": wp_box, "max_score_diff": wp_score,
-                          "rows_on_one_side": wp_flips},
+                          "rows_on_one_side": wp_flips,
+                          "nms_kept_on_one_side": {
+                              "pre_merge_anchors": wp_moved[0],
+                              "post_merge_inputs": wp_moved[1]}},
         "bit_identical": exact, "max_box_diff": d_box,
         "max_score_diff": d_score, "rows_on_one_side": flipped}
 
@@ -1250,7 +1502,7 @@ def main():
         launches = {k: fn.launches for k, (fn, *_) in kernels.items()}
         launches_by_path[f"alias {name}"] = launches
         need = [alias_kernel.get(name, "stem_pair"), "roi_align", "nms",
-                "ps_roi_align_vpu" if name == "pallas_maxv"
+                "nms_full", "ps_roi_align_vpu" if name == "pallas_maxv"
                 else "ps_roi_align"]
         if any(launches[k] < 1 for k in need):
             raise AssertionError(f"alias {name}: launches {launches}, need "
@@ -1267,7 +1519,11 @@ def main():
         f"bit-identical to their twins {twins}")
 
     profiles = {p: profile_calls(torch, p, infer_calls(engines[p])[:4])
-                for p in ("pallas_max_s01", "pallas_max4", "pallas_pair2")}
+                for p in ("pallas_max_s01", "pallas_max4", "pallas_pair2",
+                          "pallas_deep")}
+    profiles["window8@pallas_max4"] = profile_calls(
+        torch, "the window of 8 frames at pallas_max4 (a request: one "
+        "window)", [lambda: step(*tens)] * 2)
 
     line = []
     for name, (_, src, replaces) in kernels.items():

@@ -71,8 +71,8 @@
 // 38x38xCin halo, both float32 weight sets and the float32 18x18xCmid
 // intermediate in shared memory; each thread owns 8 channels of one
 // pixel at all four pool positions, summing on the CUDA cores in the
-// plain version's order. Shapes whose weights and halo do not fit (the
-// deep pair) take the chunked kernel below.
+// plain version's order. Shapes whose weights and halo do not fit take
+// the deep pair below (the wrappers' ops/stem.py:pair_route).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -561,26 +561,469 @@ stem_pair_tc_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------
+// Tensor-core pieces shared by K9 and the deep pair at "default".
+//
+// Weights go through device memory once per call in mma fragment order
+// (frag_weights_kernel, into scratch the wrapper allocates): for k-step
+// ks = tap * cs + sl (sl a 16-channel slice of the input channels, zero
+// past cin) and n-tile j, lane l holds column 8j + l/4 and channels
+// 16 sl + 2(l%4), +1, +8, +9 as two bf16 pairs, so a block copies its
+// weights with 16-byte cp.async and each lane reads its B fragment as one
+// 8-byte word. Activations sit in shared memory as bf16, a pixel's
+// channels padded to 16 per slice and its 16-byte chunks a power of two
+// (tile_offset), read as A fragments by ldmatrix at each tap's offset.
+
+__host__ __device__ inline int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+// bytes of the fragment-order weights of a [cin, 3, 3, cout] layer
+__host__ __device__ inline size_t frag_bytes(int cin, int cout) {
+  return 256 * static_cast<size_t>(9 * cdiv(cin, 16)) * (cout / 8);
+}
+
+// w [cin, 3, 3, cout] float32 -> frag, one uint2 a thread
+__global__ void frag_weights_kernel(const float* __restrict__ w,
+                                    uint2* __restrict__ frag, int cin,
+                                    int cout) {
+  const int cs = cdiv(cin, 16), nt = cout / 8;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= 9 * cs * nt * 32) return;
+  const int l = e & 31, j = (e >> 5) % nt, ks = (e >> 5) / nt;
+  const int tap = ks / cs, col = 8 * j + (l >> 2);
+  const int c = 16 * (ks % cs) + 2 * (l & 3);
+  auto wv = [&](int cc) {
+    return cc < cin ? w[(static_cast<size_t>(cc) * 9 + tap) * cout + col]
+                    : 0.0f;
+  };
+  frag[e] = make_uint2(pack_bf16(wv(c), wv(c + 1)),
+                       pack_bf16(wv(c + 8), wv(c + 9)));
+}
+
+int launch_frag_weights(const void* w, void* frag, int cin, int cout,
+                        cudaStream_t st) {
+  const int total = 9 * cdiv(cin, 16) * (cout / 8) * 32;
+  frag_weights_kernel<<<cdiv(total, kThreads), kThreads, 0, st>>>(
+      static_cast<const float*>(w), static_cast<uint2*>(frag), cin, cout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// 16-byte asynchronous copy into shared memory
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Byte offset of 16-byte chunk `chunk` of pixel (row, col) in a bf16
+// activation tile `half` columns per parity, `units` chunks a pixel (a
+// power of two). Columns are split by parity, so the stride-2 columns one
+// pool position reads lie side by side, and the chunk index is XORed with
+// bits of the column's place so that the eight pixels of one ldmatrix
+// phase fall on eight distinct 16-byte bank groups.
+__device__ __forceinline__ int tile_offset(int row, int col, int chunk,
+                                           int half, int units) {
+  const int idx = col >> 1;
+  const int swz = units >= 8 ? idx & 7
+                             : (idx >> (units == 4 ? 1 : 2)) & (units - 1);
+  return (((row * 2 + (col & 1)) * half + idx) * units + (chunk ^ swz)) << 4;
+}
+
+// A float32 NHWC halo into a bf16 activation tile: rows x cols pixels from
+// global (y0, x0) of image img, zero outside the frame and past cin, in
+// 16-byte chunks of 8 channels (2 cs chunks a pixel).
+__device__ __forceinline__ void load_halo_bf16(
+    unsigned char* dst, const float* __restrict__ x, int img, int h, int w,
+    int cin, int y0, int x0, int rows, int cols, int units) {
+  const int cc = 2 * cdiv(cin, 16);
+  for (int e = threadIdx.x; e < rows * cols * cc; e += blockDim.x) {
+    const int ch = e % cc, pix = e / cc;
+    const int ly = pix / cols, lx = pix % cols;
+    const int gy = y0 + ly, gx = x0 + lx, c0 = 8 * ch;
+    float v[8];
+    const bool in = gy >= 0 && gy < h && gx >= 0 && gx < w;
+    const float* src = x + ((static_cast<size_t>(img) * h + gy) * w + gx) * cin
+                       + c0;
+    if (in && (cin & 7) == 0) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+      const float4 b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = in && c0 + k < cin ? src[k] : 0.0f;
+    }
+    *reinterpret_cast<uint4*>(dst + tile_offset(ly, lx, ch, cols / 2, units)) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                   pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+  }
+}
+
+// One warp's 2x2-pooled conv row: 8 pooled pixels (px = 0..7 of pooled
+// row py) x 4 n-tiles (channels 8 (jw + j), j < 4, n-tiles past nj
+// skipped), an implicit GEMM over 9 taps x cs slices of a 16x16 conv
+// window read from the bf16 tile `act` (18 columns, rows 2py + dy + u),
+// weights `wf` with `wstride` n-tiles a k-step, first n-tile jw0. Rows
+// gid and gid + 8 of m16 tile dy are conv positions (2py + dy, 2 gid) and
+// (2py + dy, 2 gid + 1), so acc[dy][j] holds a pooled pixel's four conv
+// outputs in registers. Lane l gives ldmatrix the address of row l % 8 of
+// matrix l / 8: matrices 0-3 are (dx 0, channels 0-7), (dx 1, 0-7),
+// (dx 0, 8-15), (dx 1, 8-15) of the slice.
+__device__ __forceinline__ void conv_row_mma(
+    float (&acc)[2][4][4], const unsigned char* act, int units, int py,
+    int cs, int taps0, int ntaps, const uint2* wf, int wstride, int jw0,
+    int nj) {
+  const int lane = threadIdx.x & 31;
+  const int mrow = lane & 7, mdx = (lane >> 3) & 1, mhalf = lane >> 4;
+  for (int t = 0; t < ntaps; ++t) {
+    const int tap = taps0 + t, u = tap / 3, v = tap % 3;
+    for (int sl = 0; sl < cs; ++sl) {
+      const int ks = t * cs + sl;
+      unsigned a[2][4];
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+        ldmatrix_x4(a[dy], act + tile_offset(2 * py + dy + u,
+                                             2 * mrow + mdx + v,
+                                             2 * sl + mhalf, kMidHalf, units));
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (j < nj) {
+          const uint2 bw = wf[(ks * wstride + jw0 + j) * 32 + lane];
+          mma_bf16(acc[0][j], a[0], bw);
+          mma_bf16(acc[1][j], a[1], bw);
+        }
+    }
+  }
+}
+
+// +bias, leaky, the 2x2 max (and K8's select) of a warp's 8 pooled pixels
+// x 4 n-tiles, staged through the warp's 8 x kOutPitch floats of shared
+// memory so that each pixel's 8-channel groups go out as 16-byte stores.
+// ch0: the output channel of n-tile 0; px >= wo and n-tiles past nj are
+// not stored.
+template <bool kSelect>
+__device__ __forceinline__ void pool_store_row(
+    const float (&acc)[2][4][4], const float* bias, float* so_warp, void* out,
+    size_t row_base, int ox0, int wo, int cout, int ch0, int nj, int store) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, t4 = lane & 3;
+  float* so = so_warp + gid * kOutPitch;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (j >= nj) continue;
+    const int c = 8 * j + 2 * t4;
+    *reinterpret_cast<float2*>(so + c) = make_float2(
+        pool4<kSelect>(acc[0][j][0], acc[0][j][2], acc[1][j][0], acc[1][j][2],
+                       bias[c]),
+        pool4<kSelect>(acc[0][j][1], acc[0][j][3], acc[1][j][1], acc[1][j][3],
+                       bias[c + 1]));
+  }
+  __syncwarp();
+  const int px = lane >> 2, jj = lane & 3;
+  if (jj < nj && ox0 + px < wo)
+    store8(out, (row_base + ox0 + px) * cout + ch0 + 8 * jj,
+           so_warp + px * kOutPitch + 8 * jj, store);
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------
+// Kernel K9 at precision "default" on the tensor cores (see the K9 note
+// below for the function). A persistent grid of 256-thread blocks, each
+// fixed on one slice of `slice` output channels whose bf16 weights it
+// copies once into shared memory, walks 8x8 tiles of pooled pixels with
+// a stride of the grid. Per tile: the 18x18 float32 input halo is rounded
+// to bf16 as it lands in shared memory (two 16-byte loads per 8
+// channels); then each warp computes one pooled row as an implicit GEMM
+// (M = its 2 x 16 conv positions, N = the slice, K = 9 taps x Cin padded
+// to 16), 4 n-tiles at a time, with the bias, leaky, pool and store
+// rounding in registers and 16-byte stores. Warps whose pooled row lies
+// past the map skip the products (26 px maps fill a third of their last
+// tile row).
+__host__ __device__ inline size_t stage_tc_smem_bytes(int cin, int slice) {
+  const int units = pow2_at_least(2 * cdiv(cin, 16));
+  return frag_bytes(cin, slice) + 4 * slice + 16 * kMid * kMid * units
+         + 4 * kWarps * 8 * kOutPitch;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+stem_stage_tc_kernel(const float* __restrict__ x,
+                     const uint2* __restrict__ wf,  // frag order, all cout
+                     const float* __restrict__ bias, void* __restrict__ out,
+                     int n, int h, int w, int cin, int cout, int slice,
+                     int store) {
+  extern __shared__ __align__(16) unsigned char ssm[];
+  const int cs = cdiv(cin, 16), units = pow2_at_least(2 * cs);
+  const int nt = cout / 8, nts = slice / 8, nsl = cdiv(nt, nts);
+  uint2* s_w = reinterpret_cast<uint2*>(ssm);            // [9*cs][nts][32]
+  float* s_b = reinterpret_cast<float*>(s_w + 9 * cs * nts * 32);
+  unsigned char* s_in = reinterpret_cast<unsigned char*>(s_b + slice);
+  float* s_out = reinterpret_cast<float*>(s_in + 16 * kMid * kMid * units);
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ho = h / 2, wo = w / 2;
+  const int tiles_x = cdiv(wo, kTile), per_img = tiles_x * cdiv(ho, kTile);
+  const int n_items = n * per_img * nsl;
+  // the grid is a multiple of nsl, so a block keeps its slice
+  const int j_base = (blockIdx.x % nsl) * nts, nj = min(nts, nt - j_base);
+  for (int e = tid; e < 9 * cs * nj * 16; e += kThreads) {
+    const int row = e / (nj * 16), q = e % (nj * 16);
+    cp_async16(reinterpret_cast<unsigned char*>(s_w + row * nts * 32) + 16 * q,
+               reinterpret_cast<const unsigned char*>(
+                   wf + (static_cast<size_t>(row) * nt + j_base) * 32)
+                   + 16 * q);
+  }
+  cp_async_commit();
+  for (int i = tid; i < 8 * nj; i += kThreads) s_b[i] = bias[8 * j_base + i];
+  cp_async_wait0();
+
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int tile = item / nsl, img = tile / per_img, r = tile % per_img;
+    const int ty = r / tiles_x, tx = r % tiles_x;
+    __syncthreads();                 // the previous tile's halo is consumed
+    load_halo_bf16(s_in, x, img, h, w, cin, 2 * kTile * ty - 1,
+                   2 * kTile * tx - 1, kMid, kMid, units);
+    __syncthreads();
+    const int oy = kTile * ty + warp;
+    if (oy >= ho) continue;
+    const size_t row_base = (static_cast<size_t>(img) * ho + oy) * wo;
+    for (int j0 = 0; j0 < nj; j0 += 4) {
+      float acc[2][4][4] = {};
+      conv_row_mma(acc, s_in, units, warp, cs, 0, 9, s_w, nts, j0, nj - j0);
+      pool_store_row<false>(acc, s_b + 8 * j0, s_out + warp * 8 * kOutPitch,
+                            out, row_base, kTile * tx, wo, cout,
+                            8 * (j_base + j0), nj - j0, store);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
+// The deep pair at precision "default" on the tensor cores (see the deep
+// pair's note below for the function). A persistent grid, one 512-thread
+// block an SM (16 warps: mma.sync needs that many in flight to hide its
+// operand latency), each walking 8x8 tiles of output pixels. Per tile:
+//  - the 38x38 float32 input halo is rounded to bf16 into shared memory;
+//  - stage 0, an implicit GEMM with M = the conv positions of the 18x18
+//    intermediate (one halo pixel each side), N = Cmid, K = 9 taps x Cin
+//    (w0 resident in shared memory, fragment order): a warp takes 8
+//    intermediate pixels x 4 n-tiles at a time, the pixels in two m16
+//    tiles (dy) whose rows gid and gid + 8 are dx 0 and 1, so the pool,
+//    bias, leaky, K8's select and the bf16 rounding are a register
+//    epilogue into the bf16 intermediate (zero outside the H/2 x W/2 map:
+//    stage 1's padding). Groups of 8 pixels wholly outside the map only
+//    write their zeros;
+//  - stage 1, an implicit GEMM with M = the 16x16 conv positions, N =
+//    Cout, K = 9 taps x Cmid, a warp taking one pooled row x 4 n-tiles,
+//    A by ldmatrix from the intermediate. w1 (147 KB in bf16 at
+//    64 -> 128) does not fit beside the rest, so it streams through two
+//    shared buffers one (group of 64 output channels, tap) step at a
+//    time, the next step's 16-byte cp.async copies in flight while this
+//    one computes.
+// 8x8 output tiles rather than 4x4: a warp's m16 tiles take one pooled
+// row of 8 pixels, so a 4-pixel row would leave half of each product
+// empty, and stage 0 would recompute 1.56x its halo.
+constexpr int kDeepThreads = 512;
+constexpr int kDeepWarps = kDeepThreads / 32;
+constexpr int kDeepIn = 4 * kTile + 6;          // 38 input pixels a side
+constexpr int kDeepNj = 8;                      // n-tiles per w1 step
+
+__host__ __device__ inline size_t deep_tc_smem_bytes(int cin, int cmid,
+                                                     int cout) {
+  const int cs1 = cdiv(cmid, 16);
+  return frag_bytes(cin, cmid) + 2 * 256 * static_cast<size_t>(cs1) * kDeepNj
+         + 4 * (align4(cmid) + align4(cout))
+         + 16 * kDeepIn * kDeepIn * pow2_at_least(2 * cdiv(cin, 16))
+         + 16 * kMid * kMid * pow2_at_least(2 * cs1)
+         + 4 * kDeepWarps * 8 * kOutPitch;
+}
+
+template <bool kSelect>
+__global__ void __launch_bounds__(kDeepThreads, 1)
+stem_pair_deep_tc_kernel(const float* __restrict__ x,
+                         const uint2* __restrict__ wf0,  // frag, cin -> cmid
+                         const float* __restrict__ b0,
+                         const uint2* __restrict__ wf1,  // frag, cmid -> cout
+                         const float* __restrict__ b1, void* __restrict__ out,
+                         int n, int h, int w, int cin, int cmid, int cout,
+                         int store) {
+  extern __shared__ __align__(16) unsigned char dsm[];
+  const int cs0 = cdiv(cin, 16), cs1 = cdiv(cmid, 16);
+  const int u0 = pow2_at_least(2 * cs0), u1 = pow2_at_least(2 * cs1);
+  const int nt0 = cmid / 8, nt1 = cout / 8;
+  const int step_words = cs1 * kDeepNj * 32;     // uint2 per w1 buffer
+  uint2* s_w0 = reinterpret_cast<uint2*>(dsm);   // [9*cs0][nt0][32]
+  uint2* s_w1 = s_w0 + 9 * cs0 * nt0 * 32;        // [2][cs1][kDeepNj][32]
+  float* s_b0 = reinterpret_cast<float*>(s_w1 + 2 * step_words);
+  float* s_b1 = s_b0 + align4(cmid);
+  unsigned char* s_in = reinterpret_cast<unsigned char*>(s_b1 + align4(cout));
+  unsigned char* s_mid = s_in + 16 * kDeepIn * kDeepIn * u0;
+  float* s_out = reinterpret_cast<float*>(s_mid + 16 * kMid * kMid * u1);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, t4 = lane & 3;
+  const int mrow = lane & 7, mdx = (lane >> 3) & 1, mhalf = lane >> 4;
+  const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
+  const int tiles_x = cdiv(wo, kTile), per_img = tiles_x * cdiv(ho, kTile);
+  const int n_tiles = n * per_img;
+  const int groups1 = cdiv(nt1, kDeepNj), steps = 9 * groups1;
+  const int passes0 = cdiv(nt0, 4);
+
+  // w1 step s = (group of kDeepNj n-tiles, tap) into buffer s & 1
+  auto fetch_w1 = [&](int s) {
+    const int grp = s / 9, tap = s % 9;
+    const int jn = min(kDeepNj, nt1 - grp * kDeepNj);
+    uint2* dst = s_w1 + (s & 1) * step_words;
+    for (int e = tid; e < cs1 * jn * 16; e += kDeepThreads) {
+      const int sl = e / (jn * 16), q = e % (jn * 16);
+      cp_async16(reinterpret_cast<unsigned char*>(dst + sl * kDeepNj * 32)
+                     + 16 * q,
+                 reinterpret_cast<const unsigned char*>(
+                     wf1 + ((static_cast<size_t>(tap) * cs1 + sl) * nt1
+                            + grp * kDeepNj) * 32) + 16 * q);
+    }
+  };
+
+  // once per block: w0 in fragment order, the biases, and the
+  // intermediate zeroed (channels past cmid stay zero)
+  for (int e = tid; e < 9 * cs0 * nt0 * 16; e += kDeepThreads)
+    cp_async16(reinterpret_cast<unsigned char*>(s_w0) + 16 * e,
+               reinterpret_cast<const unsigned char*>(wf0) + 16 * e);
+  cp_async_commit();
+  for (int i = tid; i < cmid; i += kDeepThreads) s_b0[i] = b0[i];
+  for (int i = tid; i < cout; i += kDeepThreads) s_b1[i] = b1[i];
+  for (int i = tid; i < kMid * kMid * u1; i += kDeepThreads)
+    reinterpret_cast<uint4*>(s_mid)[i] = make_uint4(0, 0, 0, 0);
+  cp_async_wait0();
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int img = tile / per_img, r = tile % per_img;
+    const int ty = r / tiles_x, tx = r % tiles_x;
+    const int my0 = 2 * kTile * ty - 1, mx0 = 2 * kTile * tx - 1;
+    __syncthreads();            // the previous tile is done with every buffer
+    fetch_w1(0);                // lands while stage 0 computes
+    cp_async_commit();
+    load_halo_bf16(s_in, x, img, h, w, cin, 4 * kTile * ty - 3,
+                   4 * kTile * tx - 3, kDeepIn, kDeepIn, u0);
+    __syncthreads();
+
+    // stage 0: item it = (group g of 8 intermediate pixels, pass of 4
+    // n-tiles)
+    for (int it = warp; it < cdiv(kMid * kMid, 8) * passes0;
+         it += kDeepWarps) {
+      const int g = it / passes0, j0 = 4 * (it % passes0);
+      const bool live = 8 * g + gid < kMid * kMid;
+      const int p = live ? 8 * g + gid : kMid * kMid - 1;
+      const int ly = p / kMid, lx = p % kMid;
+      const bool inside = live && my0 + ly >= 0 && my0 + ly < hm
+                          && mx0 + lx >= 0 && mx0 + lx < wm;
+      const int pa = min(8 * g + mrow, kMid * kMid - 1);   // ldmatrix row
+      const int ay = pa / kMid, ax = pa % kMid;
+      float acc[2][4][4] = {};
+      if (__any_sync(0xffffffffu, inside))
+        for (int tap = 0; tap < 9; ++tap) {
+          const int u = tap / 3, v = tap % 3;
+          for (int sl = 0; sl < cs0; ++sl) {
+            const int ks = tap * cs0 + sl;
+            unsigned a[2][4];
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy)
+              ldmatrix_x4(a[dy], s_in + tile_offset(2 * ay + dy + u,
+                                                    2 * ax + mdx + v,
+                                                    2 * sl + mhalf,
+                                                    kDeepIn / 2, u0));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j0 + j < nt0) {
+                const uint2 bw = s_w0[(ks * nt0 + j0 + j) * 32 + lane];
+                mma_bf16(acc[0][j], a[0], bw);
+                mma_bf16(acc[1][j], a[1], bw);
+              }
+          }
+        }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j0 + j >= nt0) continue;
+        const int ch = 8 * (j0 + j) + 2 * t4;
+        float m[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          m[e] = inside ? pool4<kSelect>(acc[0][j][e], acc[0][j][2 + e],
+                                         acc[1][j][e], acc[1][j][2 + e],
+                                         s_b0[ch + e])
+                        : 0.0f;
+        if (live)
+          *reinterpret_cast<unsigned*>(
+              s_mid + tile_offset(ly, lx, ch >> 3, kMidHalf, u1)
+              + 2 * (ch & 7)) = pack_bf16(m[0], m[1]);   // stage 1's operand
+      }
+    }
+
+    // stage 1: w1 streams by (group, tap) steps through two buffers; warp
+    // w takes pooled row w % 8 and n-tiles 4 (w / 8) .. + 3 of the group
+    const int py = warp % kTile, jq = 4 * (warp / kTile);
+    const int oy = kTile * ty + py;
+    const size_t row_base = (static_cast<size_t>(img) * ho + oy) * wo;
+    float acc[2][4][4];
+    for (int s = 0; s < steps; ++s) {
+      if (s + 1 < steps) fetch_w1(s + 1);
+      cp_async_commit();
+      cp_async_wait1();
+      __syncthreads();          // step s's weights (and, at s = 0, the
+                                // intermediate) are in shared memory
+      const int grp = s / 9, tap = s % 9;
+      const int jn = min(kDeepNj, nt1 - grp * kDeepNj) - jq;
+      if (tap == 0)
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[dy][j][e] = 0.0f;
+      if (oy < ho && jn > 0) {
+        conv_row_mma(acc, s_mid, u1, py, cs1, tap, 1,
+                     s_w1 + (s & 1) * step_words, kDeepNj, jq, jn);
+        if (tap == 8) {
+          const int ch0 = (grp * kDeepNj + jq) * 8;
+          pool_store_row<kSelect>(acc, s_b1 + ch0,
+                                  s_out + warp * 8 * kOutPitch, out, row_base,
+                                  kTile * tx, wo, cout, ch0, jn, store);
+        }
+      }
+      __syncthreads();          // buffer s & 1 is free for step s + 2
+    }
+  }
+}
+
+// ---------------------------------------------------------------------
 // The deep pair (kernel K12 at stages 4+6 of the network): the pair's
 // function at 104 px, 32 -> 64 -> 128 channels, bf16 store.
 //
 // Replaces: millieye_tpu/ops/stem_pallas_rejected.py:fused_stem2_s2d with
 // groups0=2, as models/darknet.py runs it for the second pair of
-// pallas_stem_pairs="all" (the pallas_pair2 preset). Numerics as the stem
-// pair above, at either precision.
+// pallas_stem_pairs="all" (the pallas_pair2 preset), and the pair wrappers
+// (K4, K8, K11, K12) at channel counts whose weights and halos do not fit
+// the stem pair's shared memory. Numerics as the stem pair above, at
+// either precision, K8's select included.
 //
 // Bound on an H100, per image: 0.80 GFLOP of products (2 x 398.7 MFLOP;
 // 0.81 us at the bf16 989 TFLOP/s, 11.9 us on the 67 TFLOP/s float32
 // cores) against 1.38 MB of float32 input and 0.17 MB of bf16 output
-// (0.46 us at 3.35 TB/s): operations. This first kernel runs the products
-// on the CUDA cores; tensor cores (mma/wgmma) are later work.
+// (0.46 us at 3.35 TB/s): operations. At "default" the tensor-core kernel
+// above runs it (stem_pair_deep_tc_kernel); the CUDA-core kernel below
+// takes "highest", and "default" where the tensor-core kernel's halos and
+// weights do not fit shared memory (Cin above 32 at Cmid 64).
 //
-// Design. The stem pair's layout does not fit: w0 and w1 hold 92,160
-// weights (184 KB in bf16, 368 KB in float32), and the 38x38x32 input
-// halo of an 8x8 output tile is another 92 KB in bf16, against 227 KB a
-// block may have. So, as kernel K9 does, channels go through shared
-// memory in chunks of 8: the 22x22 input halo of the chunk (planar, a
-// padded row pitch) with its w0 slice, then, for stage 1, the w1 slice.
+// Design of the CUDA-core kernel. The stem pair's layout does not fit:
+// w0 and w1 hold 92,160 weights (184 KB in bf16, 368 KB in float32), and
+// the 38x38x32 input halo of an 8x8 output tile is another 92 KB in
+// bf16, against 227 KB a block may have. So, as kernel K9 does, channels
+// go through shared memory in chunks of 8: the 22x22 input halo of the
+// chunk (planar, a padded row pitch) with its w0 slice, then, for stage
+// 1, the w1 slice.
 // Only the stage-0 intermediate of the tile stays whole (10x10xCmid
 // float32, 28 KB at Cmid 64): 64 KB of dynamic shared memory in all.
 // The output tile is 4x4 pooled pixels: the 26x26 map at 104 px is then
@@ -613,7 +1056,8 @@ stem_pair_deep_kernel(const float* __restrict__ x,
                       const float* __restrict__ b0,
                       const float* __restrict__ w1,   // [cmid, 3, 3, cout]
                       const float* __restrict__ b1, void* __restrict__ out,
-                      int h, int w, int cin, int cmid, int cout, int store) {
+                      int h, int w, int cin, int cmid, int cout, int store,
+                      int select) {
   extern __shared__ __align__(16) float dsmem[];
   float* s_mid = dsmem;                     // [cmid][kDMid][kDMidPitch]
   float* s_chunk = s_mid + align4(cmid * kDMid * kDMidPitch);
@@ -684,6 +1128,7 @@ stem_pair_deep_kernel(const float* __restrict__ x,
       float m = leaky(__fadd_rn(acc[0][k], bias));
       for (int d = 1; d < 4; ++d)
         m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+      if (select) m = pool_select(m);
       // stage 1's operand; zero outside the map (stage 1's padding)
       s_mid[((g * kGroup + k) * kDMid + ly) * kDMidPitch + lx] =
           inside ? (kHighest ? m : bf16_round(m)) : 0.0f;
@@ -737,7 +1182,7 @@ stem_pair_deep_kernel(const float* __restrict__ x,
       float m = leaky(__fadd_rn(acc[0][k], bias));
       for (int d = 1; d < 4; ++d)
         m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      store_value(out, o + k, m, store);
+      store_value(out, o + k, select ? pool_select(m) : m, store);
     }
   }
 }
@@ -758,18 +1203,22 @@ stem_pair_deep_kernel(const float* __restrict__ x,
 // float16 out per image, 1.0 us at 3.35 TB/s, against 0.30 GFLOP), and
 // operations from stage 4 on when counted at the float32 rate the CUDA
 // cores run (104 px, 32 -> 64: 0.40 GFLOP per image, 6 us at 67 TFLOP/s;
-// 0.4 us at the bf16 tensor-core rate "default" would allow). This first
-// kernel runs all products on the CUDA cores.
+// 0.4 us at the bf16 tensor-core rate "default" allows). At "default"
+// the tensor-core kernel above runs it (stem_stage_tc_kernel); the
+// CUDA-core kernel below takes "highest", and "default" where not even
+// 8 output channels' weights and the halo fit shared memory (Cin above
+// 256).
 //
-// Design: one thread block per 8x8 tile of pooled pixels and per slice
-// of up to 32 output channels. Input channels go through shared memory
-// in chunks of 16: the 18x18 input halo of the chunk, planar
-// [c][row][col] (so the pixels of a warp read different banks), and the
-// chunk's weights [c][u][v][co]. That keeps shared memory at 40 KB for
-// any Cin and Cout (stage 6's full weights alone are 288 KB). A thread
-// owns one pooled pixel and 8 output channels at all four pool
-// positions: per input channel it loads its 4x4 input patch once and
-// the 9 x 8 weights as broadcast float4 reads, for 288 multiply-adds.
+// Design of the CUDA-core kernel: one thread block per 8x8 tile of
+// pooled pixels and per slice of up to 32 output channels. Input
+// channels go through shared memory in chunks of 16: the 18x18 input
+// halo of the chunk, planar [c][row][col] (so the pixels of a warp read
+// different banks), and the chunk's weights [c][u][v][co]. That keeps
+// shared memory at 40 KB for any Cin and Cout (stage 6's full weights
+// alone are 288 KB). A thread owns one pooled pixel and 8 output
+// channels at all four pool positions: per input channel it loads its
+// 4x4 input patch once and the 9 x 8 weights as broadcast float4 reads,
+// for 288 multiply-adds.
 // The sum runs over (c, u, v), c slowest, one add at a time: with bf16
 // operands each product is exact in float32, so the FMA rounds like
 // multiply-then-add; at "highest" the product is rounded first
@@ -953,22 +1402,43 @@ __host__ __device__ inline size_t nhwc_smem_bytes(int cin) {
   return sizeof(float) * (align4(cin * kHalo * kPitch) + 9 * cin * kCo);
 }
 
-template <typename Kernel>
+template <typename Kernel, typename... Args>
 int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
-           const void* x, const void* w0, const void* b0, const void* w1,
-           const void* b1, void* out, int h, int w, int cin, int cmid,
-           int cout, int store) {
+           Args... args) {
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w0),
-      static_cast<const float*>(b0), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), out, h, w, cin, cmid, cout, store);
+  kernel<<<grid, kThreads, smem, st>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A persistent grid for `kernel` at `smem` bytes: as many blocks as fit on
+// the card at once (a multiple of `multiple`), at most `items`; each
+// block walks the items with a stride of the grid.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kernel, size_t smem, long long items,
+                            int multiple, int* grid,
+                            int threads = kThreads) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  long long cap = static_cast<long long>(per_sm) * sms;
+  cap = cap < multiple ? multiple : cap - cap % multiple;
+  *grid = static_cast<int>(items < cap ? items : cap);
+  return cudaSuccess;
 }
 
 bool bad_pair_shape(int n, int h, int w, int cin, int cmid, int cout,
@@ -1003,32 +1473,20 @@ int millieye_stem_pair(const void* x, const void* w0, const void* b0,
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
     const dim3 grid((w / 4 + kTile - 1) / kTile,
                     (h / 4 + kTile - 1) / kTile, n);
-    return launch(stem_pair_kernel, grid, smem, st, x, w0, b0, w1, b1, out,
-                  h, w, cin, cmid, cout, store);
+    return launch(stem_pair_kernel, grid, smem, st,
+                  static_cast<const float*>(x), static_cast<const float*>(w0),
+                  static_cast<const float*>(b0), static_cast<const float*>(w1),
+                  static_cast<const float*>(b1), out, h, w, cin, cmid, cout,
+                  store);
   }
   const size_t smem = pair_tc_smem_bytes(cin, cmid, cout);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = select ? stem_pair_tc_kernel<true> : stem_pair_tc_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  // a persistent grid: as many blocks as fit on the card at once, each
-  // walking the tiles with a stride of the grid
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const long long tiles = static_cast<long long>(n)
       * ((w / 4 + kTile - 1) / kTile) * ((h / 4 + kTile - 1) / kTile);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int grid = static_cast<int>(
-      tiles < static_cast<long long>(per_sm) * sms ? tiles
-                                                   : per_sm * sms);
+  int grid = 0;
+  const cudaError_t err = persistent_grid(kernel, smem, tiles, 1, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(w0),
       static_cast<const float*>(b0), static_cast<const float*>(w1),
@@ -1038,46 +1496,121 @@ int millieye_stem_pair(const void* x, const void* w0, const void* b0,
 
 // The deep pair: x [n, h, w, cin] f32, w0 [cin, 3, 3, cmid] f32, b0,
 // w1 [cmid, 3, 3, cout] f32, b1 -> out [n, h/4, w/4, cout] in the store
-// type; weights rounded to bf16 in the kernel when highest == 0.
+// type; select: K8's hi/lo pool (only with highest == 0). At "default"
+// the tensor-core kernel, where its tile fits shared memory, with both
+// weight sets in fragment order in `scratch` (millieye_stem_pair_deep_
+// scratch_bytes; written here by a first launch); else, and at "highest",
+// the CUDA-core kernel, which rounds the weights to bf16 itself at
+// "default" and leaves `scratch` alone.
+size_t millieye_stem_pair_deep_scratch_bytes(int cin, int cmid, int cout) {
+  return frag_bytes(cin, cmid) + frag_bytes(cmid, cout);
+}
+
 int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
-                            const void* w1, const void* b1, void* out, int n,
-                            int h, int w, int cin, int cmid, int cout,
-                            int highest, int store, void* stream) {
-  if (bad_pair_shape(n, h, w, cin, cmid, cout, store))
+                            const void* w1, const void* b1, void* out,
+                            void* scratch, int n, int h, int w, int cin,
+                            int cmid, int cout, int highest, int select,
+                            int store, void* stream) {
+  if (bad_pair_shape(n, h, w, cin, cmid, cout, store) || (highest && select))
     return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *xf = static_cast<const float*>(x),
+              *b0f = static_cast<const float*>(b0),
+              *b1f = static_cast<const float*>(b1);
+  const size_t tc_smem = deep_tc_smem_bytes(cin, cmid, cout);
+  if (!highest && tc_smem <= kMaxSmem) {
+    uint2* wf0 = static_cast<uint2*>(scratch);
+    uint2* wf1 = reinterpret_cast<uint2*>(
+        static_cast<unsigned char*>(scratch) + frag_bytes(cin, cmid));
+    int rc = launch_frag_weights(w0, wf0, cin, cmid, st);
+    if (rc == 0) rc = launch_frag_weights(w1, wf1, cmid, cout, st);
+    if (rc != 0) return rc;
+    auto kernel = select ? stem_pair_deep_tc_kernel<true>
+                         : stem_pair_deep_tc_kernel<false>;
+    const long long tiles = static_cast<long long>(n)
+        * cdiv(w / 4, kTile) * cdiv(h / 4, kTile);
+    int grid = 0;
+    const cudaError_t err = persistent_grid(kernel, tc_smem, tiles, 1, &grid,
+                                            kDeepThreads);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kDeepThreads, tc_smem, st>>>(xf, wf0, b0f, wf1, b1f, out,
+                                               n, h, w, cin, cmid, cout,
+                                               store);
+    return static_cast<int>(cudaGetLastError());
+  }
   const size_t smem = sizeof(float) * deep_smem_floats(cmid, cout);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 grid((w / 4 + kDTile - 1) / kDTile,
                   (h / 4 + kDTile - 1) / kDTile, n);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (highest)
-    return launch(stem_pair_deep_kernel<true>, grid, smem, st, x, w0, b0, w1,
-                  b1, out, h, w, cin, cmid, cout, store);
-  return launch(stem_pair_deep_kernel<false>, grid, smem, st, x, w0, b0, w1,
-                b1, out, h, w, cin, cmid, cout, store);
+  auto kernel = highest ? stem_pair_deep_kernel<true>
+                        : stem_pair_deep_kernel<false>;
+  return launch(kernel, grid, smem, st, xf, static_cast<const float*>(w0),
+                b0f, static_cast<const float*>(w1), b1f, out, h, w, cin, cmid,
+                cout, store, select);
 }
 
 // x [n, h, w, cin] f32, wgt [cin, 3, 3, cout] f32 (rounded to bf16 in
 // the kernel when highest == 0), bias [cout] f32 -> out [n, h/2, w/2, cout] in the
-// store type (0 float32, 1 bf16, 2 float16). Kernel K9.
+// store type (0 float32, 1 bf16, 2 float16). Kernel K9. At "default" the
+// tensor-core kernel with the weights in fragment order in `scratch`
+// (millieye_stem_stage_scratch_bytes; written here by a first launch),
+// each block on a slice of output channels: the widest of cout, 64, 32,
+// 16 and 8 that lets two blocks share an SM, else the widest that fits
+// one (timed on an H100 at stage 6, 64 -> 128: slices of 32 and 128
+// about even at batch 32, 32 the faster at batch 1); where
+// not even 8 channels fit, and at "highest", the CUDA-core kernel, which
+// leaves `scratch` alone.
+size_t millieye_stem_stage_scratch_bytes(int cin, int cout) {
+  return frag_bytes(cin, cout);
+}
+
 int millieye_stem_stage(const void* x, const void* wgt, const void* bias,
-                        void* out, int n, int h, int w, int cin, int cout,
-                        int highest, int store, void* stream) {
+                        void* out, void* scratch, int n, int h, int w,
+                        int cin, int cout, int highest, int store,
+                        void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || h % 2 || w % 2 || cin <= 0 || cout <= 0
       || cout % kGroup || store < 0 || store > 2)
     return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float *xf = static_cast<const float*>(x),
+              *bf = static_cast<const float*>(bias);
+  int slice = 0;
+  if (!highest) {
+    // two blocks an SM: 228 KB less 1 KB reserved for each block
+    const size_t two = (233472 - 2 * 1024) / 2;
+    const int cands[] = {cout, 64, 32, 16, 8};
+    const size_t caps[] = {two, kMaxSmem};
+    for (size_t cap : caps) {
+      for (int c : cands)
+        if (c <= cout && stage_tc_smem_bytes(cin, c) <= cap) {
+          slice = c;
+          break;
+        }
+      if (slice) break;
+    }
+  }
+  if (!highest && slice > 0) {
+    const size_t smem = stage_tc_smem_bytes(cin, slice);
+    const int rc = launch_frag_weights(wgt, scratch, cin, cout, st);
+    if (rc != 0) return rc;
+    const int nsl = cdiv(cout / 8, slice / 8);
+    const long long items = static_cast<long long>(n) * cdiv(w / 2, kTile)
+                            * cdiv(h / 2, kTile) * nsl;
+    int grid = 0;
+    const cudaError_t err = persistent_grid(stem_stage_tc_kernel, smem, items,
+                                            nsl, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stem_stage_tc_kernel<<<grid, kThreads, smem, st>>>(
+        xf, static_cast<const uint2*>(scratch), bf, out, n, h, w, cin, cout,
+        slice, store);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int slices = (cout + kCo - 1) / kCo;
   const dim3 grid((w / 2 + kTile - 1) / kTile, (h / 2 + kTile - 1) / kTile,
                   n * slices);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (highest)
-    stem_stage_kernel<true><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wgt),
-        static_cast<const float*>(bias), out, h, w, cin, cout, store);
-  else
-    stem_stage_kernel<false><<<grid, kThreads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wgt),
-        static_cast<const float*>(bias), out, h, w, cin, cout, store);
+  auto kernel = highest ? stem_stage_kernel<true> : stem_stage_kernel<false>;
+  kernel<<<grid, kThreads, 0, st>>>(xf, static_cast<const float*>(wgt), bf,
+                                    out, h, w, cin, cout, store);
   return static_cast<int>(cudaGetLastError());
 }
 

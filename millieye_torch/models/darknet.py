@@ -325,11 +325,13 @@ class Darknet:
         return compute_dtype
 
     def apply(self, params, state, images, compute_dtype=torch.float32,
-              collect_act_stats=False):
+              collect_act_stats=False, collect_outputs=False):
         """images [N, H, W, 3] -> {"feature_map": [N, H/16, W/16, 256]
         NHWC in the compute dtype, "detections": [N, sum(A*G*G), 5+C]
         float32}; with ``collect_act_stats`` also "act_absmax" [n_blocks]
-        float32, each convolution's input absmax (0 elsewhere)."""
+        float32, each convolution's input absmax (0 elsewhere); with
+        ``collect_outputs`` also "outputs", each block's output (NCHW; the
+        blocks a fused pair or stage covers repeat its output)."""
         img_dim = images.shape[1]
         x_in = images.permute(0, 3, 1, 2)
         outputs, dets = [], []
@@ -456,6 +458,8 @@ class Darknet:
                               else outputs[-1].permute(0, 2, 3, 1))}
         if collect_act_stats:
             out["act_absmax"] = torch.stack(act_absmax)
+        if collect_outputs:
+            out["outputs"] = outputs
         return out
 
     def fold_batchnorm(self, params, state, dtype=None):

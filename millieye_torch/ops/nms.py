@@ -8,7 +8,8 @@ package's dispatch: for K <= 1024 kernel K1 (``ops/nms_kernel.py``, the
 blocked kernel) when K % 128 == 0 and ``use_blocked`` is not False, else
 kernel K5 (the whole-matrix kernel); above 1024 candidates the fixpoint
 iteration, as the JAX package ran its XLA fixpoint there. Outputs are
-padded to ``max_det`` rows with a validity mask.
+padded to ``max_det`` rows with a validity mask. The post-merge pass
+``nms_xyxy`` takes the same kernels for one image's rows.
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ import torch
 
 from millieye_torch.ops.boxes import iou_matrix, xywh_to_xyxy
 from millieye_torch.ops.nms_kernel import (MAX_K, nms_keep_mask_blocked,
-                                           nms_keep_mask_full)
+                                           nms_keep_mask_full,
+                                           nms_keep_mask_full_plain)
 
 
 def _class_offset(boxes, valid):
@@ -74,6 +76,24 @@ def _compact(rows, keep, max_out):
     return out[:max_out], valid_out[:max_out]
 
 
+def _keep_mask(boxes, valid, iou_thresh, plus_one=False, use_blocked=None):
+    """The greedy keep mask of score-sorted boxes [B, K, 4], with the JAX
+    package's dispatch: for 0 < K <= 1024, K1 where K % 128 == 0 and
+    ``use_blocked`` is not False, else K5 (a CPU tensor takes their plain
+    versions; all are bit-equal to ``nms_keep_mask_ref``). Neither kernel
+    takes ``plus_one``: with it, K5's plain version runs, on the card too
+    (K device steps, no host sync). Other K: the fixpoint."""
+    k = boxes.shape[-2]
+    if not 0 < k <= MAX_K:
+        return nms_keep_mask(boxes, valid, iou_thresh, plus_one)
+    if plus_one:
+        return nms_keep_mask_full_plain(boxes, valid, iou_thresh,
+                                        plus_one=True)
+    if k % 128 == 0 and use_blocked is not False:
+        return nms_keep_mask_blocked(boxes, valid, iou_thresh)
+    return nms_keep_mask_full(boxes, valid, iou_thresh)
+
+
 def nms_xyxy(boxes, scores, labels, valid, iou_thresh, max_out,
              plus_one=False):
     """Class-aware NMS on explicit boxes [K, 4] (the post-merge pass);
@@ -84,7 +104,8 @@ def nms_xyxy(boxes, scores, labels, valid, iou_thresh, max_out,
     valid = torch.isfinite(s)
     shifted = boxes + (labels.to(boxes.dtype)
                        * _class_offset(boxes, valid))[:, None]
-    keep = nms_keep_mask(shifted, valid, iou_thresh, plus_one)
+    keep = _keep_mask(shifted[None].contiguous(), valid[None], iou_thresh,
+                      plus_one)[0]
     rows = torch.cat([boxes, s[:, None], labels.to(boxes.dtype)[:, None]], -1)
     return _compact(rows, keep, max_out)
 
@@ -123,12 +144,7 @@ def batched_nms(pred, conf_thresh, iou_thresh=0.5, max_det=200,
     rows_k, bxyxy, shifted, v, class_pred = _candidates(pred, conf_thresh,
                                                         pre_top_k)
     k = shifted.shape[1]
-    if k > MAX_K:
-        keep = nms_keep_mask(shifted, v, iou_thresh, plus_one=False)
-    elif k % 128 == 0 and use_blocked is not False:
-        keep = nms_keep_mask_blocked(shifted, v, iou_thresh)
-    else:
-        keep = nms_keep_mask_full(shifted, v, iou_thresh)
+    keep = _keep_mask(shifted, v, iou_thresh, use_blocked=use_blocked)
 
     # late assembly: compact the kept candidate positions, then gather
     # only the max_det surviving rows

@@ -38,13 +38,15 @@ def nms_keep_mask_blocked_plain(boxes, valid, iou_thresh):
     return keep
 
 
-def nms_keep_mask_full_plain(boxes, valid, iou_thresh):
+def nms_keep_mask_full_plain(boxes, valid, iou_thresh, plus_one=False):
     """K5's arithmetic in PyTorch: the overlap matrix (IoU(i, j) > t for
     j > i, the [B, K, K] float32 IoU taken elementwise), then the greedy
-    scan that ORs row i into the removed set when row i is alive."""
+    scan that ORs row i into the removed set when row i is alive. The
+    kernel has no ``plus_one``; this version takes it (the reference's +1
+    pixel IoU) for ``nms.nms_xyxy``."""
     k = boxes.shape[1]
     idx = torch.arange(k, device=boxes.device)
-    overlap = ((iou_matrix(boxes, boxes, plus_one=False) > iou_thresh)
+    overlap = ((iou_matrix(boxes, boxes, plus_one=plus_one) > iou_thresh)
                & (idx[None, :] > idx[:, None]))
     removed = ~valid
     for i in range(k):

@@ -11,7 +11,10 @@ x [N, H, W, Cin] float32 NHWC -> [N, H/2, W/2, Cout] NHWC in
 ``out_dtype`` (float32, bfloat16 or float16), w [Cout, Cin, 3, 3] OIHW.
 ``precision="default"`` rounds x and w to bf16 and accumulates the
 products in float32; ``"highest"`` is float32 throughout; bias, leaky
-and the pool follow in float32, then one rounding to ``out_dtype``.
+and the pool follow in float32, then one rounding to ``out_dtype``. At
+"default" the kernel multiplies on the tensor cores and is held within
+``PAIR_DEFAULT_TOL`` of its plain version (see the pair below); at
+"highest" it sums on the CUDA cores in the plain version's order.
 
 K10 ``fused_stem`` (port of ``stem_pallas.py:fused_stem``, which the JAX
 package runs only from its tests): the same function with the JAX
@@ -61,11 +64,15 @@ each k-group of 16 in an order and with a rounding that no PyTorch
 spelling repeats: there the kernel is held to its plain version within
 2^-6 of the largest output (``PAIR_DEFAULT_TOL``), not bit for bit. At
 "highest" it sums on the CUDA cores in the plain version's order and is
-bit-equal. Where the weights do not fit (the deep pair), K12
-runs ``fused_stem_pair_deep``, a kernel that streams channels through
-shared memory in chunks. ``scratch_dtype`` and ``groups0`` are checked
-as the JAX package checks them (bf16 scratches only at "default";
-``groups0`` in {2, 4, 8}) and change nothing else.
+bit-equal. Where the tile does not fit (the deep pair of stages 4+6, or
+widths such as 16 -> 32 -> 64), each of the four wrappers runs
+``fused_stem_pair_deep`` instead (``pair_route``, the same on the CPU
+and the card; K8 with its select), which counts its own launches: at
+"default" a tensor-core kernel that streams the second layer's weights
+through shared memory, at "highest" a CUDA-core kernel that streams
+channels in chunks. ``scratch_dtype`` and ``groups0`` are checked as the
+JAX package checks them (bf16 scratches only at "default"; ``groups0``
+in {2, 4, 8}) and change nothing else.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
@@ -82,11 +89,11 @@ import torch.nn.functional as F
 from millieye_torch.ops import cuda_lib
 
 
-# the pair's wrappers (names as cuda_lib.KERNELS has them), which run on the
-# tensor cores at "default", and their bound there, as a share of the
+# the wrappers (names as cuda_lib.KERNELS has them) whose kernels run on
+# the tensor cores at "default", and their bound there, as a share of the
 # plain version's largest |output|
-TENSOR_CORE_PAIRS = ("stem_pair", "stem_pair_select", "stem_pair_packed",
-                     "stem_pair_s2d")
+TENSOR_CORE_KERNELS = ("stem_pair", "stem_pair_select", "stem_pair_packed",
+                       "stem_pair_s2d", "stem_pair_deep", "stem_stage")
 PAIR_DEFAULT_TOL = 2.0 ** -6
 
 
@@ -161,12 +168,18 @@ def fused_stem_pair_plain(x, w0, b0, w1, b1, precision="default",
 
 
 def fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision="default",
-                               out_dtype=torch.bfloat16):
-    """The deep pair kernel's arithmetic: two K9 stages, the float32
-    intermediate never stored in another type (at "default" stage 1
-    rounds it to bf16 as its operand, as the kernel does)."""
-    y = fused_stem_stage_plain(x, w0, b0, precision, torch.float32)
-    return fused_stem_stage_plain(y, w1, b1, precision, out_dtype)
+                               out_dtype=torch.bfloat16, select=False):
+    """The deep pair's function: two K9 stages, the float32 intermediate
+    never stored in another type (at "default" stage 1 rounds it to bf16
+    as its operand, as the kernels do), with K8's pool select after each
+    stage at "default" when ``select``. The CUDA-core kernel sums in this
+    order; the tensor-core kernel ("default") is held within
+    ``PAIR_DEFAULT_TOL``."""
+    sel = _pool_select if select and precision == "default" else (
+        lambda v: v)
+    y = sel(fused_stem_stage_plain(x, w0, b0, precision, torch.float32))
+    y = sel(fused_stem_stage_plain(y, w1, b1, precision, torch.float32))
+    return y.to(out_dtype)
 
 
 def _lib():
@@ -174,10 +187,10 @@ def _lib():
     lib.millieye_stem_pair.argtypes = ([ctypes.c_void_p] * 6
                                        + [ctypes.c_int] * 9
                                        + [ctypes.c_void_p])
-    lib.millieye_stem_pair_deep.argtypes = ([ctypes.c_void_p] * 6
-                                            + [ctypes.c_int] * 8
+    lib.millieye_stem_pair_deep.argtypes = ([ctypes.c_void_p] * 7
+                                            + [ctypes.c_int] * 9
                                             + [ctypes.c_void_p])
-    lib.millieye_stem_stage.argtypes = ([ctypes.c_void_p] * 4
+    lib.millieye_stem_stage.argtypes = ([ctypes.c_void_p] * 5
                                         + [ctypes.c_int] * 7
                                         + [ctypes.c_void_p])
     lib.millieye_stem_nhwc.argtypes = ([ctypes.c_void_p] * 4
@@ -186,6 +199,11 @@ def _lib():
     for fn in (lib.millieye_stem_pair, lib.millieye_stem_pair_deep,
                lib.millieye_stem_stage, lib.millieye_stem_nhwc):
         fn.restype = ctypes.c_int
+    lib.millieye_stem_pair_deep_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.millieye_stem_stage_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    for fn in (lib.millieye_stem_pair_deep_scratch_bytes,
+               lib.millieye_stem_stage_scratch_bytes):
+        fn.restype = ctypes.c_size_t
     return lib
 
 
@@ -222,16 +240,20 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
         raise ValueError(f"fused_stem_stage: need even H, W and Cout % 8 == "
                          f"0, got {tuple(x.shape)}, {cout}")
     # kernel layout: [cin, 3, 3, cout] float32; at "default" the kernel
-    # rounds x and w to bf16 as it loads them
+    # rounds x and w to bf16 as it loads them, the weights into
+    # ``scratch`` in the tensor cores' fragment order
     wk = w.float().permute(1, 2, 3, 0).contiguous()
     bk = b.float().contiguous()
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=out_dtype,
                       device=x.device)
     lib = _lib()
+    scratch = torch.empty(lib.millieye_stem_stage_scratch_bytes(cin, cout),
+                          dtype=torch.uint8, device=x.device)
     rc = lib.millieye_stem_stage(
         cuda_lib.ptr(x), cuda_lib.ptr(wk), cuda_lib.ptr(bk),
-        cuda_lib.ptr(out), n, h, wd, cin, cout, int(precision == "highest"),
-        _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device))
+        cuda_lib.ptr(out), cuda_lib.ptr(scratch), n, h, wd, cin, cout,
+        int(precision == "highest"), _STORE_CODES[out_dtype],
+        cuda_lib.stream_ptr(x.device))
     cuda_lib.check(lib, rc, "fused_stem_stage")
     fused_stem_stage.launches += 1
     return out
@@ -326,10 +348,20 @@ def _round4(v):
     return -(-v // 4) * 4
 
 
+def pair_route(cin, cmid, cout, precision):
+    """Which kernel a pair wrapper (K4, K8, K11, K12) runs for these
+    channel counts, on the card and, through its plain version, on the
+    CPU alike: "pair" where the stem pair kernel holds its tile in shared
+    memory (``_tile_fits``), else "deep", the deep pair, which streams
+    weights and takes every channel count, and counts its own
+    launches."""
+    return "pair" if _tile_fits(cin, cmid, cout, precision) else "deep"
+
+
 def _check_pair(name, x, w0, b0, w1, b1, precision, out_dtype,
                 scratch_dtype=None, h_multiple=4):
     """The pair wrappers' argument checks (the JAX kernels' asserts), made
-    for CPU and CUDA tensors alike."""
+    for CPU and CUDA tensors alike; returns ``pair_route``'s answer."""
     if precision not in ("default", "highest"):
         raise ValueError(f"{name}: unknown precision {precision!r}")
     if out_dtype not in _STORE_CODES:
@@ -351,21 +383,20 @@ def _check_pair(name, x, w0, b0, w1, b1, precision, out_dtype,
         raise ValueError(f"{name}: need H % {h_multiple} == 0, W % 4 == 0 "
                          f"and Cmid, Cout % 8 == 0, got {tuple(x.shape)}, "
                          f"{cmid}, {cout}")
+    return pair_route(cin, cmid, cout, precision)
 
 
 def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
                  select=False):
     """One launch of the stem pair kernel, or with ``deep`` of the deep
-    pair kernel; returns the output."""
+    pair; returns the output."""
     _check_cuda(name, x, w0, b0, w1, b1)
     n, h, w, cin = x.shape
     cmid, cout = w0.shape[0], w1.shape[0]
-    if not deep and not _tile_fits(cin, cmid, cout, precision):
-        raise ValueError(f"{name}: {cin} -> {cmid} -> {cout} channels do not "
-                         f"fit the pair kernel's shared memory")
     # float32 weights, OIHW for the pair kernel (read once per block) and
     # [I, 3, 3, O] for the deep one; at "default" the kernels round them
-    # to bf16 as they load
+    # to bf16 as they load (the deep pair into ``scratch``, in the tensor
+    # cores' fragment order)
     order = (1, 2, 3, 0) if deep else (0, 1, 2, 3)
     w0k = w0.float().permute(*order).contiguous()
     w1k = w1.float().permute(*order).contiguous()
@@ -374,92 +405,90 @@ def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
                       device=x.device)
     lib = _lib()
     args = [cuda_lib.ptr(t) for t in (x, w0k, b0k, w1k, b1k, out)]
-    args += [n, h, w, cin, cmid, cout, int(precision == "highest")]
+    flags = [int(precision == "highest"), int(select),
+             _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device)]
     if deep:
-        rc = lib.millieye_stem_pair_deep(*args, _STORE_CODES[out_dtype],
-                                         cuda_lib.stream_ptr(x.device))
+        scratch = torch.empty(
+            lib.millieye_stem_pair_deep_scratch_bytes(cin, cmid, cout),
+            dtype=torch.uint8, device=x.device)
+        rc = lib.millieye_stem_pair_deep(*args, cuda_lib.ptr(scratch), n, h,
+                                         w, cin, cmid, cout, *flags)
     else:
-        rc = lib.millieye_stem_pair(*args, int(select),
-                                    _STORE_CODES[out_dtype],
-                                    cuda_lib.stream_ptr(x.device))
+        rc = lib.millieye_stem_pair(*args, n, h, w, cin, cmid, cout, *flags)
     cuda_lib.check(lib, rc, name)
+    return out
+
+
+def _pair(name, fn, x, w0, b0, w1, b1, precision, out_dtype, route,
+          select=False):
+    """Run one pair wrapper: the deep pair where ``route`` says so (it
+    counts its own launch), else the plain version on a CPU tensor or the
+    stem pair kernel, counted on ``fn``."""
+    if route == "deep":
+        return fused_stem_pair_deep(x, w0, b0, w1, b1, precision, out_dtype,
+                                    select)
+    if cuda_lib.takes_plain(x, name):
+        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype,
+                                     select)
+    out = _launch_pair(fn.__name__, x, w0, b0, w1, b1, precision, out_dtype,
+                       select=select)
+    fn.launches += 1
     return out
 
 
 def fused_stem_pair(x, w0, b0, w1, b1, precision="default",
                     out_dtype=torch.float16, scratch_dtype=None):
     """K4: [N, H, W, Cin] float32 -> [N, H/4, W/4, Cout] (see module)."""
-    _check_pair("fused_stem_pair", x, w0, b0, w1, b1, precision, out_dtype,
-                scratch_dtype)
-    if cuda_lib.takes_plain(x, "stem_pair"):
-        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
-    out = _launch_pair("fused_stem_pair", x, w0, b0, w1, b1, precision,
-                       out_dtype)
-    fused_stem_pair.launches += 1
-    return out
+    route = _check_pair("fused_stem_pair", x, w0, b0, w1, b1, precision,
+                        out_dtype, scratch_dtype)
+    return _pair("stem_pair", fused_stem_pair, x, w0, b0, w1, b1, precision,
+                 out_dtype, route)
 
 
 def fused_stem_pair_select(x, w0, b0, w1, b1, precision="default",
                            out_dtype=torch.float16):
     """K8: the pair with the hi/lo pool select at "default" (see
     module); H % 32 == 0."""
-    _check_pair("fused_stem_pair_select", x, w0, b0, w1, b1, precision,
-                out_dtype, h_multiple=32)
-    select = precision == "default"
-    if cuda_lib.takes_plain(x, "stem_pair_select"):
-        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype,
-                                     select)
-    out = _launch_pair("fused_stem_pair_select", x, w0, b0, w1, b1,
-                       precision, out_dtype, select=select)
-    fused_stem_pair_select.launches += 1
-    return out
+    route = _check_pair("fused_stem_pair_select", x, w0, b0, w1, b1,
+                        precision, out_dtype, h_multiple=32)
+    return _pair("stem_pair_select", fused_stem_pair_select, x, w0, b0, w1,
+                 b1, precision, out_dtype, route, precision == "default")
 
 
 def fused_stem_pair_packed(x, w0, b0, w1, b1, precision="default",
                            out_dtype=torch.float16, scratch_dtype=None):
     """K11: K4's function (see module); H % 32 == 0."""
-    _check_pair("fused_stem_pair_packed", x, w0, b0, w1, b1, precision,
-                out_dtype, scratch_dtype, h_multiple=32)
-    if cuda_lib.takes_plain(x, "stem_pair_packed"):
-        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
-    out = _launch_pair("fused_stem_pair_packed", x, w0, b0, w1, b1,
-                       precision, out_dtype)
-    fused_stem_pair_packed.launches += 1
-    return out
+    route = _check_pair("fused_stem_pair_packed", x, w0, b0, w1, b1,
+                        precision, out_dtype, scratch_dtype, h_multiple=32)
+    return _pair("stem_pair_packed", fused_stem_pair_packed, x, w0, b0, w1,
+                 b1, precision, out_dtype, route)
 
 
 def fused_stem_pair_s2d(x, w0, b0, w1, b1, precision="default",
                         out_dtype=torch.float16, scratch_dtype=None,
                         groups0=4):
-    """K12: K4's function (see module). Channel counts whose weights do
-    not fit the pair kernel (the deep pair) go to ``fused_stem_pair_deep``,
-    which counts its own launches."""
-    _check_pair("fused_stem_pair_s2d", x, w0, b0, w1, b1, precision,
-                out_dtype, scratch_dtype)
+    """K12: K4's function (see module)."""
+    route = _check_pair("fused_stem_pair_s2d", x, w0, b0, w1, b1, precision,
+                        out_dtype, scratch_dtype)
     if groups0 not in (2, 4, 8):
         raise ValueError(f"fused_stem_pair_s2d: groups0 {groups0!r} not in "
                          f"(2, 4, 8)")
-    if not _tile_fits(x.shape[3], w0.shape[0], w1.shape[0], precision):
-        return fused_stem_pair_deep(x, w0, b0, w1, b1, precision, out_dtype)
-    if cuda_lib.takes_plain(x, "stem_pair_s2d"):
-        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype)
-    out = _launch_pair("fused_stem_pair_s2d", x, w0, b0, w1, b1, precision,
-                       out_dtype)
-    fused_stem_pair_s2d.launches += 1
-    return out
+    return _pair("stem_pair_s2d", fused_stem_pair_s2d, x, w0, b0, w1, b1,
+                 precision, out_dtype, route)
 
 
 def fused_stem_pair_deep(x, w0, b0, w1, b1, precision="default",
-                         out_dtype=torch.bfloat16):
-    """K12's deep pair: the pair's function with channels streamed through
-    shared memory (see module), for any channel counts."""
+                         out_dtype=torch.bfloat16, select=False):
+    """K12's deep pair: the pair's function for any channel counts (see
+    module), with K8's pool select at "default" when ``select``."""
     _check_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
                 out_dtype)
+    select = select and precision == "default"
     if cuda_lib.takes_plain(x, "stem_pair_deep"):
         return fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision,
-                                          out_dtype)
+                                          out_dtype, select)
     out = _launch_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
-                       out_dtype, deep=True)
+                       out_dtype, deep=True, select=select)
     fused_stem_pair_deep.launches += 1
     return out
 

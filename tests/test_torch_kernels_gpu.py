@@ -10,12 +10,13 @@ Every kernel is bit-equal to its plain version: each plain version
 repeats its kernel's operations in the kernel's order (products of bf16
 operands are exact in float32, so the kernels' FMAs round like the plain
 versions' adds; where operands are float32, at "highest", the kernels
-round each product before its add, as eager PyTorch does). One
-exception: the stem pair at precision "default" (K4, K8, K11, K12 at the
-stem shape) runs on the tensor cores, which sum each k-group in an order
-and with a rounding no PyTorch spelling repeats; it is held within
-``PAIR_DEFAULT_TOL`` (2^-6) of its plain version's largest output, with a
-floor on the share of outputs that are bit-equal (``_PAIR_EXACT_FLOOR``).
+round each product before its add, as eager PyTorch does). The
+exception: at precision "default" the stem pair (K4, K8, K11, K12), the
+deep pair and the single stage K9 run on the tensor cores, which sum
+each k-group in an order and with a rounding no PyTorch spelling
+repeats; they are held within ``PAIR_DEFAULT_TOL`` (2^-6) of their plain
+versions' largest output, with a floor on the share of outputs that are
+bit-equal (``_PAIR_EXACT_FLOOR``).
 """
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
                                            roi_align_f32_plain,
                                            roi_align_kernel, roi_align_plain)
 from millieye_torch.ops import quantize as tq
+from millieye_torch.ops import stem
 from millieye_torch.ops.stem import (PAIR_DEFAULT_TOL, fused_stem,
                                      fused_stem_plain,
                                      fused_stem_pair, fused_stem_pair_deep,
@@ -108,6 +110,73 @@ def test_batched_nms_takes_a_kernel_at_any_k(cuda):
                          use_blocked=blocked)
         assert (nms_keep_mask_blocked.launches - n1,
                 nms_keep_mask_full.launches - n5) == want
+
+
+def _knife_edge_rows(rng, k, t):
+    """k score-sorted boxes: clusters, exact duplicates and adjacent pairs
+    whose float32 IoU (the reference's expression order) lies on the
+    other side of t than the exact IoU (tests/test_torch_nms.py's
+    knife-edge cases)."""
+    m = 20000
+    xy = rng.uniform(0, 5000, (m, 2))
+    a = np.concatenate([xy, xy + rng.uniform(5, 30, (m, 2))], -1).astype(
+        np.float32)
+    d = (a[:, 2] - a[:, 0]) * (1 - 2 * t / (1 + t)) * (
+        1 + rng.normal(0, 3e-7, m))
+    bb = (a + np.stack([d, 0 * d, d, 0 * d], -1)).astype(np.float32)
+
+    def iou(p, q, dt):
+        p, q = p.astype(dt), q.astype(dt)
+        inter = (np.maximum(np.minimum(p[:, 2], q[:, 2])
+                            - np.maximum(p[:, 0], q[:, 0]), dt(0))
+                 * np.maximum(np.minimum(p[:, 3], q[:, 3])
+                              - np.maximum(p[:, 1], q[:, 1]), dt(0)))
+        ua = (p[:, 2] - p[:, 0]) * (p[:, 3] - p[:, 1])
+        ub = (q[:, 2] - q[:, 0]) * (q[:, 3] - q[:, 1])
+        return inter / (ua + ub - inter + dt(1e-16))
+
+    edge = (iou(a, bb, np.float32) > t) != (iou(a, bb, np.float64) > t)
+    c = rng.uniform(0, 80, (k, 2))
+    wh = rng.uniform(10, 60, (k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    n = k // 8
+    boxes[0:2 * n:2], boxes[1:2 * n:2] = a[edge][:n], bb[edge][:n]
+    dup = rng.choice(np.arange(k // 2 + 1, k), k // 8, replace=False)
+    boxes[dup] = boxes[dup - 1]
+    return boxes
+
+
+@pytest.mark.parametrize("k,plus_one", [(96, False), (232, False),
+                                        (128, False), (96, True)])
+def test_nms_xyxy_takes_a_kernel(cuda, k, plus_one):
+    """The post-merge NMS on the card: K5 at the engine's K (64 + 32 and
+    200 + 32 rows), K1 at K % 128 == 0, neither with plus_one (K5's plain
+    version, no launch); the keep set bit-equal to the sequential golden
+    on knife-edge IoUs, at thresholds 0.5 and 0.3."""
+    rng = np.random.default_rng(k)
+    for t in (0.5, 0.3):
+        boxes = torch.tensor(_knife_edge_rows(rng, k, t), device=cuda)
+        scores = torch.tensor(np.round(rng.uniform(0, 1, k) * 20) / 20,
+                              dtype=torch.float32, device=cuda)
+        labels = torch.tensor(rng.integers(0, 3, k), dtype=torch.int32,
+                              device=cuda)
+        valid = torch.tensor(rng.random(k) < 0.85, device=cuda)
+        n1, n5 = nms_keep_mask_blocked.launches, nms_keep_mask_full.launches
+        rows, rvalid = tnms.nms_xyxy(boxes, scores, labels, valid, t, k,
+                                     plus_one)
+        want = (0, 0) if plus_one else (1, 0) if k % 128 == 0 else (0, 1)
+        assert (nms_keep_mask_blocked.launches - n1,
+                nms_keep_mask_full.launches - n5) == want
+        # the golden: the same sort and class offset, the sequential keep
+        s = torch.where(valid, scores, torch.full_like(scores, -np.inf))
+        order = torch.argsort(-s, stable=True)
+        ob, os_, ol = boxes[order], s[order], labels[order]
+        ov = torch.isfinite(os_)
+        shifted = ob + (ol.float() * tnms._class_offset(ob, ov))[:, None]
+        keep = tnms.nms_keep_mask_ref(shifted, ov, t, plus_one)
+        n_keep = int(keep.sum())
+        assert int(rvalid.sum()) == n_keep and bool(rvalid[:n_keep].all())
+        assert torch.equal(rows[rvalid][:, :4], ob[keep])
 
 
 def _roi_inputs(cuda, rng, b, n, hw, c_feat, ps, dtype=torch.bfloat16):
@@ -205,27 +274,50 @@ def test_roi_f32_kernels_match_plain(cuda, precision, b, n, hw):
         assert torch.equal(roi_align_kernel(f, by, bx, precision), want)
 
 
+def _stage_inputs(cuda, n, h, w, cin, cout):
+    g = torch.Generator(device="cpu").manual_seed(h + cin)
+    x = torch.randn((n, h, w, cin), generator=g).to(cuda)
+    wt = (0.2 * torch.randn((cout, cin, 3, 3), generator=g)).to(cuda)
+    bs = (0.1 * torch.randn(cout, generator=g)).to(cuda)
+    return x, wt, bs
+
+
 @pytest.mark.parametrize("precision", ["default", "highest"])
 @pytest.mark.parametrize("shape,out_dtype", [
     ((1, 416, 416, 3, 16), torch.float16),
     ((2, 208, 208, 16, 32), torch.float16),
     ((2, 104, 104, 32, 64), torch.bfloat16),
     ((1, 52, 52, 64, 128), torch.float32),
-    ((2, 20, 36, 5, 40), torch.float32)])
+    ((2, 20, 36, 5, 40), torch.float32),
+    ((1, 20, 36, 24, 40), torch.float16),
+    ((3, 52, 52, 64, 128), torch.bfloat16),
+    ((1, 26, 26, 200, 16), torch.bfloat16)])
 def test_stem_stage_kernel_matches_plain(cuda, precision, shape, out_dtype):
-    """K9 at the four stage shapes of the 416 px network (52 rows is a
-    ragged tile) and an odd one (40 output channels: a partial slice)."""
-    n, h, w, cin, cout = shape
-    g = torch.Generator(device="cpu").manual_seed(h + cin)
-    x = torch.randn((n, h, w, cin), generator=g).to(cuda)
-    wt = (0.2 * torch.randn((cout, cin, 3, 3), generator=g)).to(cuda)
-    bs = (0.1 * torch.randn(cout, generator=g)).to(cuda)
+    """K9 at the four stage shapes of the 416 px network (52 px is a 26 px
+    map: 8x8 tiles ragged by 6 rows and columns), 20x36 frames (partial
+    tiles) with Cin 5 and 24 (not multiples of 16: zero-padded slices)
+    and 40 outputs (a partial slice), and Cin 200 (13 slices), in every
+    store type: bit-equal at "highest", within PAIR_DEFAULT_TOL at
+    "default" (the tensor cores)."""
+    x, wt, bs = _stage_inputs(cuda, *shape)
     before = fused_stem_stage.launches
     got = fused_stem_stage(x, wt, bs, precision, out_dtype)
     assert fused_stem_stage.launches == before + 1
-    assert got.dtype == out_dtype
-    assert torch.equal(got, fused_stem_stage_plain(x, wt, bs, precision,
-                                                   out_dtype))
+    _held_to_pair_plain(got, fused_stem_stage_plain(x, wt, bs, precision,
+                                                    out_dtype), precision)
+
+
+@pytest.mark.parametrize("shape", [(5, 104, 104, 32, 64),
+                                   (5, 52, 52, 64, 128)])
+def test_stem_stage_is_batch_independent(cuda, shape):
+    """K9 at "default" walks (tile, channel slice) items on a persistent
+    grid in an order that depends on the batch: each image's output must
+    not."""
+    x, wt, bs = _stage_inputs(cuda, *shape)
+    got = fused_stem_stage(x, wt, bs, "default", torch.bfloat16)
+    for i in range(x.shape[0]):
+        assert torch.equal(got[i:i + 1], fused_stem_stage(
+            x[i:i + 1], wt, bs, "default", torch.bfloat16))
 
 
 # the share of outputs of the tensor-core pair ("default") that must be
@@ -323,23 +415,110 @@ def test_stem_pair_is_batch_independent(cuda):
 @pytest.mark.parametrize("precision", ["default", "highest"])
 @pytest.mark.parametrize("shape,out_dtype", [
     ((2, 104, 104, 32, 64, 128), torch.bfloat16),
-    ((1, 20, 36, 8, 24, 40), torch.float32)])
+    ((1, 20, 36, 8, 24, 40), torch.float32),
+    ((1, 64, 64, 16, 32, 64), torch.float16),
+    ((1, 24, 24, 72, 16, 24), torch.bfloat16)])
 def test_deep_pair_kernel_matches_plain(cuda, precision, shape, out_dtype):
-    """The deep pair kernel at stages 4+6 of the 416 px network (26 output
-    rows: a ragged 4x4 tile) and at odd widths (channel chunks of 8 with a
-    40-channel output), through K12's wrapper where the pair kernel's
-    shared memory does not hold the weights."""
+    """The deep pair at stages 4+6 of the 416 px network (26 output rows:
+    a ragged 8x8 tile), at odd widths (Cin 8 and Cmid 24: zero-padded
+    16-channel slices; a 40-channel output), at 16 -> 32 -> 64, and at
+    Cin 72, whose input halo does not fit the tensor-core kernel's shared
+    memory (the CUDA-core kernel takes it at "default" too), through
+    K12's wrapper where the pair kernel's shared memory does not hold the
+    weights: bit-equal at "highest", within PAIR_DEFAULT_TOL at
+    "default"."""
     args = _pair_weights(cuda, *shape)
     want = fused_stem_pair_deep_plain(*args, precision, out_dtype)
     before = fused_stem_pair_deep.launches
-    assert torch.equal(fused_stem_pair_deep(*args, precision, out_dtype),
-                       want)
+    got = fused_stem_pair_deep(*args, precision, out_dtype)
+    _held_to_pair_plain(got, want, precision)
     if shape[3] == 32:
         n_s2d = fused_stem_pair_s2d.launches
         assert torch.equal(fused_stem_pair_s2d(*args, precision, out_dtype,
-                                               groups0=2), want)
+                                               groups0=2), got)
         assert fused_stem_pair_s2d.launches == n_s2d
         assert fused_stem_pair_deep.launches == before + 2
+    if precision == "default":          # K8's select epilogue
+        _held_to_pair_plain(
+            fused_stem_pair_deep(*args, precision, out_dtype, select=True),
+            fused_stem_pair_deep_plain(*args, precision, out_dtype, True),
+            precision)
+
+
+def test_deep_pair_is_batch_independent(cuda):
+    """The deep pair walks its tiles on a persistent grid (5 frames at
+    104 px: 80 tiles; 33 frames: more tiles than blocks): each image's
+    output must not depend on the batch."""
+    for n in (5, 33):
+        x, w0, b0, w1, b1 = _pair_weights(cuda, n, 104, 104, 32, 64, 128)
+        got = fused_stem_pair_deep(x, w0, b0, w1, b1)
+        for i in (0, n // 2, n - 1):
+            assert torch.equal(got[i:i + 1], fused_stem_pair_deep(
+                x[i:i + 1], w0, b0, w1, b1))
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_window_batch_dependence_lies_outside_the_kernels(cuda,
+                                                         deterministic):
+    """The served network of ``pallas_max4`` on 8 letterboxed frames, each
+    alone and as one batch, compared block by block: every block the
+    port's stem kernels compute (the pair and K9) is bit-identical alone
+    and batched, with cuDNN as set and with
+    ``torch.backends.cudnn.deterministic``; the blocks that depend on the
+    batch (cuDNN's) are printed, the first one named."""
+    from pathlib import Path
+
+    from millieye_torch.cli._common import build_fusion
+    from millieye_torch.models.fusion import _DTYPES
+    from millieye_torch.ops.letterbox import letterbox_image
+    from millieye_torch.runtime.engine import fold_for_serving
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts/stage3_final.npz"
+    model, params, state = build_fusion(str(ckpt), "pallas_max4",
+                                        device=cuda)
+    params, state = fold_for_serving(model, params, state)
+    dn = model.darknet
+    rng = np.random.default_rng(0)
+    imgs = torch.stack([letterbox_image(torch.tensor(
+        rng.integers(0, 256, (480, 640, 3)), dtype=torch.uint8,
+        device=cuda), dn.img_size)[0] for _ in range(8)])
+
+    def blocks(x):
+        with torch.no_grad():
+            return dn.apply(params["darknet"], state["darknet"], x,
+                            compute_dtype=_DTYPES[model.cfg.compute_dtype],
+                            collect_outputs=True)["outputs"]
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        batch = blocks(imgs)
+        alone = [blocks(imgs[i:i + 1]) for i in range(len(imgs))]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    differ = [b for b in range(len(batch))
+              if any(not torch.equal(a[b], batch[b][i:i + 1])
+                     for i, a in enumerate(alone))]
+    kernel_blocks = {j for s in dn.stem_stages for j in (s, s + 1)}
+    assert kernel_blocks and not kernel_blocks & set(differ)
+    print(f"cudnn.deterministic={deterministic}: {len(differ)} of "
+          f"{len(batch)} blocks depend on the batch, first "
+          f"{differ[:1]} ({dn._plan[differ[0]]['type'] if differ else '-'})")
+
+
+def test_pair_wrappers_take_the_deep_pair_at_wide_widths(cuda):
+    """K4, K8 and K11 (and K12) at 16 -> 32 -> 64, where the stem pair's
+    tile does not fit shared memory at "default", run the deep pair (K8
+    with its select), which counts the launch, within PAIR_DEFAULT_TOL of
+    the plain version the CPU runs for the same call."""
+    assert stem.pair_route(16, 32, 64, "default") == "deep"
+    args = _pair_weights(cuda, 2, 64, 64, 16, 32, 64)
+    for fn in (fused_stem_pair, fused_stem_pair_select,
+               fused_stem_pair_packed, fused_stem_pair_s2d):
+        deep, own = fused_stem_pair_deep.launches, fn.launches
+        got = fn(*args)
+        assert (fused_stem_pair_deep.launches, fn.launches) == (deep + 1, own)
+        _held_to_pair_plain(got, fn(*(t.cpu() for t in args)).to(cuda),
+                            "default")
 
 
 @pytest.mark.parametrize("variant", ["vconcat", "vroll", "im2col"])
@@ -427,8 +606,6 @@ def test_wrappers_refuse_wrong_inputs(cuda):
                                     device=cuda),
                         *(torch.zeros(s, device=cuda) for s in
                           ((8, 3, 3, 3), (8,), (8, 8, 3, 3), (8,))))
-    with pytest.raises(ValueError):            # deep widths: no fit
-        fused_stem_pair(*_pair_weights(cuda, 1, 32, 32, 32, 64, 128))
     with pytest.raises(ValueError):            # H % 32 for K8
         fused_stem_pair_select(*_pair_weights(cuda, 1, 20, 32, 3, 8, 16))
     with pytest.raises(ValueError):            # too wide for shared memory

@@ -221,3 +221,34 @@ def test_nms_xyxy_matches_jax(rng):
         jnp.asarray(valid), 0.3, k)
     np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("k,plus_one,route", [
+    (96, False, "nms_keep_mask_full"),
+    (135, False, "nms_keep_mask_full"),
+    (128, False, "nms_keep_mask_blocked"),
+    (96, True, "nms_keep_mask_full_plain"),
+    (1100, False, "nms_keep_mask")])
+def test_nms_xyxy_keep_mask_route(rng, monkeypatch, k, plus_one, route):
+    """The post-merge NMS takes the batched path's kernels for one image:
+    K5 (any K <= 1024) or K1 (K % 128 == 0), which run their plain
+    versions on a CPU tensor; with plus_one K5's plain version, which
+    takes it; the fixpoint only above 1024 rows. Every route gives the
+    sequential golden's keep set on knife-edge IoUs."""
+    calls = []
+    for name in ("nms_keep_mask_blocked", "nms_keep_mask_full",
+                 "nms_keep_mask_full_plain", "nms_keep_mask"):
+        fn = getattr(tnms, name)
+        monkeypatch.setattr(tnms, name, lambda *a, _n=name, _f=fn, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    b = k if k <= 256 else 128
+    boxes = np.concatenate([_hard_boxes(rng, 1, b)[0]]
+                           * -(-k // b))[:k]        # rows repeat past 256
+    boxes = torch.from_numpy(np.ascontiguousarray(boxes))
+    valid = torch.from_numpy(rng.random(k) < 0.85)
+    for t in (0.5, 0.3):
+        calls.clear()
+        keep = tnms._keep_mask(boxes[None], valid[None], t, plus_one)[0]
+        assert calls == [route]
+        assert torch.equal(keep, tnms.nms_keep_mask_ref(boxes, valid, t,
+                                                        plus_one))

@@ -301,3 +301,61 @@ def test_pair_options_validation():
     for fn in (fused_stem_pair_select, fused_stem_pair_packed):
         with pytest.raises(ValueError, match="H % 32"):
             fn(*short)
+
+
+@pytest.mark.parametrize("widths,precision,route", [
+    ((3, 16, 32), "default", "pair"),
+    ((3, 16, 32), "highest", "pair"),
+    ((16, 32, 64), "default", "deep"),
+    ((16, 32, 64), "highest", "pair"),
+    ((32, 64, 128), "default", "deep"),
+    ((32, 64, 128), "highest", "deep")])
+def test_pair_route(widths, precision, route):
+    """One routing decision for the pair wrappers on the CPU and the card:
+    the stem pair kernel where its tile fits shared memory (at "default"
+    two float32 halos: 16 -> 32 -> 64 does not fit, though it does at
+    "highest"), else the deep pair."""
+    assert stem.pair_route(*widths, precision) == route
+
+
+@pytest.mark.parametrize("name", ["fused_stem_pair", "fused_stem_pair_select",
+                                  "fused_stem_pair_packed",
+                                  "fused_stem_pair_s2d"])
+def test_pair_wrappers_route_wide_widths_to_deep(name):
+    """K4, K8, K11 and K12 at 16 -> 32 -> 64 ("default") run the deep
+    pair's plain version on the CPU, as the card runs the deep pair (K8
+    with its pool select), and stay within 2^-7 of the JAX package's two
+    float32 XLA stages (the port rounds the intermediate to bf16 as stage
+    1's operand); at 3 -> 16 -> 32 they run the stem pair's."""
+    fn = getattr(stem, name)
+    select = name == "fused_stem_pair_select"
+    arrs = _pair_inputs(9, 1, 32, 32, 16, 32, 64, True)
+    args = _torch_pair_args(arrs)
+    before = stem.fused_stem_pair_deep.launches
+    got = fn(*args, "default", torch.float32)
+    assert stem.fused_stem_pair_deep.launches == before   # CPU: plain
+    assert torch.equal(got, stem.fused_stem_pair_deep_plain(
+        *args, "default", torch.float32, select))
+    x, w0, b0, w1, b1 = map(jnp.asarray, arrs)
+    want = np.asarray(_xla_stage(_xla_stage(x, w0, b0), w1, b1))
+    err = np.abs(got.numpy() - want)
+    assert err.max() <= 2.0 ** -7 * np.abs(want).max(), err.max()
+    small = _torch_pair_args(_pair_inputs(9, 1, 32, 32, 3, 16, 32, True))
+    assert torch.equal(fn(*small, "default", torch.float32),
+                       fused_stem_pair_plain(*small, "default",
+                                             torch.float32, select))
+
+
+def test_deep_pair_select_only_at_default():
+    """The deep pair's K8 select moves values at "default" (hi + bf16(v -
+    hi) after each stage) and is exact, so absent, at "highest"."""
+    args = _torch_pair_args(_pair_inputs(3, 1, 16, 16, 8, 16, 24, False))
+    deep = stem.fused_stem_pair_deep_plain
+    for precision in ("default", "highest"):
+        plain = deep(*args, precision, torch.float32)
+        sel = deep(*args, precision, torch.float32, select=True)
+        if precision == "highest":
+            assert torch.equal(sel, plain)
+        else:
+            assert not torch.equal(sel, plain)
+            assert torch.allclose(sel, plain, rtol=2.0 ** -7, atol=1e-6)
