@@ -18,8 +18,9 @@ printed only when every phase passed:
      the unpadded float32 map, K7 padded PS-RoIAlign on float32 operands,
      K9 single stem stage, K10 (the NHWC stage, "vconcat" and "im2col"
      tap orders) at stages 0 and 2, K13 (stochastic int8) on block 12's
-     weight and on the (8, 128) carrier; K2 also with every RoI the whole
-     frame; the pairs at "default" and "highest": bit-equal (each plain
+     weight and on the (8, 128) carrier; K2, K6 ("upq", "default") and
+     K7 ("highest") also with every RoI the whole frame; the pairs at
+     "default" and "highest": bit-equal (each plain
      version repeats its kernel's operations in the kernel's order),
      except the stem pair, the deep pair and K9 at "default", which run
      on the tensor cores and are held within 2^-6 of their plain
@@ -43,9 +44,9 @@ printed only when every phase passed:
      distance to them reported; the direct ops K10 (on each letterboxed
      frame, held to cuDNN's float32 stage) and K13 (the carrier, seeds 0
      and 1), as their only JAX callers run them; and one
-     ``batched_step_fn`` window of the 8 frames at ``pallas_max4``. The
-     launch counts are set to 0 before each path and read after it;
-     every kernel the path (or direct op) names must have
+     ``batched_step_fn`` window of the 8 frames at ``pallas_max4`` and
+     one at ``f32``. The launch counts are set to 0 before each path and
+     read after it; every kernel the path (or direct op) names must have
      launched on every request; the answers, the window's too, must be
      finite, of the right shape and bit-identical to the same path inside
      ``cuda_lib.plain_versions()``, or, for a path that runs a
@@ -57,12 +58,15 @@ printed only when every phase passed:
      answers (held the same way) must also equal the per-frame answers
      (matched by box within a stated tolerance, with at most one row of
      a frame on one side only, where the batch-8 convolutions sum in
-     another order); p50 latency per path; then one
-     request at each alias row (buffering-only or same-function twins of
-     the rows above), its launches checked and its answer bit-identical
-     to its twin's; a ``torch.profiler`` pass over 4 more requests at
-     ``pallas_max_s01``, ``pallas_max4``, ``pallas_pair2`` and
-     ``pallas_deep``, and over 2 windows;
+     another order); the ``f32`` window to the reference's contract
+     (tests/test_runtime.py:147-150: ``valid`` equal, rows within rtol
+     1e-4 and atol 1e-4 of the per-frame answers); p50 latency per path;
+     then one request at each alias row (buffering-only or
+     same-function twins of the rows above), its launches checked and its
+     answer bit-identical to its twin's; a ``torch.profiler`` pass over
+     4 more requests at ``pallas_max_s01``, ``pallas_max4``,
+     ``pallas_pair2``, ``pallas_deep``, ``pallas_max4`` with
+     ``roi_precision="highest"`` and the refine path, and over 2 windows;
   5. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
@@ -131,6 +135,25 @@ def bound_ms(nbytes, flops, flop_rate):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def crop_flops(by, bx, t_lanes, out_lanes, precision="highest"):
+    """Operations a separable RoI crop needs on this run's weights, and
+    the rate they run at: the products on the nonzero support (per
+    (image, RoI, bin row) the span of nonzero by[p, :], per (image, RoI)
+    the span of columns where some bx[q, :] is nonzero; the terms outside
+    are exact zeros), ``t_lanes`` lanes of t and ``out_lanes`` outputs per
+    bin row. "highest" counts its products at the float32 rate; "default"
+    one bf16 product, "split" three for t and two for the w-sum, at the
+    bf16 tensor-core rate."""
+    from millieye_torch.ops.roi_kernel import _span_mask
+    ny = _span_mask(by != 0).sum(-1).double()                # [B, N, P]
+    nx = _span_mask((bx != 0).any(2)).sum(-1, keepdim=True).double()
+    s1 = 2 * float((ny * nx).sum()) * t_lanes
+    s2 = 2 * float(nx.sum()) * by.shape[2] * out_lanes
+    if precision == "split":
+        return 3 * s1 + 2 * s2, BF16_FLOP_S
+    return s1 + s2, F32_FLOP_S if precision == "highest" else BF16_FLOP_S
 
 
 def nms_inputs(rng, b, k):
@@ -307,11 +330,7 @@ class KernelChecks:
         torch, bf = self.torch, self.torch.bfloat16
         hw, ph, pw, c_out = 26, 7, 7, 10
         for n, whole in ((96, False), (232, False), (96, True)):
-            rois = self._rois(b, n)
-            if whole:      # every RoI the whole 416 px frame: K2's worst case
-                rois = rois.new_tensor(np.concatenate(
-                    [self.rng.uniform(-2, 2, (b, n, 2)),
-                     416 + self.rng.uniform(-2, 2, (b, n, 2))], -1))
+            rois = self._whole_frame(b, n) if whole else self._rois(b, n)
             label = f"N={n}" + (" whole frame" if whole else "")
             feats = torch.tensor(
                 self.rng.standard_normal((b, hw, hw, ph * 128)), dtype=bf,
@@ -331,7 +350,7 @@ class KernelChecks:
                                                              c_out),
                 (used + by.numel() + bx.numel()) * 2
                 + b * n * ph * pw * c_out * 4,
-                2 * b * n * ph * (hw * hw + hw) * c_out * pw, BF16_FLOP_S,
+                *crop_flops(by, bx, c_out * pw, c_out * pw, "default"),
                 lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu", by, live,
                                      bx),
                 "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
@@ -343,7 +362,7 @@ class KernelChecks:
                                                              c_out),
                 (used + by.numel() + bx.numel()) * 2
                 + b * n * ph * pw * c_out * 4,
-                2 * b * n * ph * (hw * hw + hw) * c_out * pw, BF16_FLOP_S,
+                *crop_flops(by, bx, c_out * pw, c_out * pw, "default"),
                 lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu", by, live,
                                      bx),
                 "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
@@ -360,34 +379,34 @@ class KernelChecks:
                 lambda: roi_kernel.roi_align_plain(rfeats, ry, rx),
                 (rfeats.numel() + ry.numel() + rx.numel()) * 2
                 + b * n * ph * pw * c_out * 4,
-                2 * b * n * ph * (hw * hw + pw * hw) * c_out, BF16_FLOP_S,
+                *crop_flops(ry, rx, c_out, c_out * pw, "default"),
                 lambda: torch.einsum("bnph,bhwc,bnqw->bnpqc", ry, rfeats,
                                      rx),
                 "one torch.einsum by.F.bx, bf16", BF16_TOL)
 
+    def _whole_frame(self, b, n):
+        """Every RoI the whole 416 px frame: the support's worst case."""
+        return self.torch.tensor(np.concatenate(
+            [self.rng.uniform(-2, 2, (b, n, 2)),
+             416 + self.rng.uniform(-2, 2, (b, n, 2))], -1),
+            dtype=self.torch.float32, device=self.dev)
+
     def roi_f32(self, b):
-        """K6 (N = 200, both channel orders, "default" and "highest"), K7
-        (N = 232, "split" and "highest"), K3 on float32 operands (N = 232,
-        "highest") and the same crop through K6 (layout "c", what
-        ``roi_align(pack_p=False)`` runs), held bit-equal to K3's.
-        Library: one einsum by.F.bx, float32 with
-        TF32 off, or on bf16 operands at "default" (4% as above). Bound:
-        "highest" counts its products at the float32 rate; "default" one
-        bf16 product, "split" three for t and two for the w-sum, at the
-        bf16 tensor-core rate."""
+        """K6 (N = 200, both channel orders, "default" and "highest"; and
+        "upq" "default" with every RoI the whole frame), K7 (N = 232,
+        "split" and "highest"; and "highest" on whole-frame RoIs), K3 on
+        float32 operands (N = 232, "highest") and the same crop through
+        K6 (layout "c", what ``roi_align(pack_p=False)`` runs), held
+        bit-equal to K3's. Library: one einsum by.F.bx, float32 with TF32
+        off, or on bf16 operands at "default" (4% as above). Bound: the
+        products on the nonzero support (``crop_flops``) against the
+        bytes."""
         from millieye_torch.ops import roi_kernel
         torch, bf = self.torch, self.torch.bfloat16
         hw, ph, pw, c_out = 26, 7, 7, 10
+        ol = c_out * pw
         lib_tol = {"default": BF16_TOL, "split": 2.0 ** -14,
                    "highest": 1e-5}
-
-        def ps_flops(n, precision):
-            s1, s2 = 2 * b * n * ph * hw * hw * c_out * pw, \
-                2 * b * n * ph * hw * c_out * pw
-            if precision == "split":
-                return 3 * s1 + 2 * s2, BF16_FLOP_S
-            return s1 + s2, (F32_FLOP_S if precision == "highest"
-                             else BF16_FLOP_S)
 
         def einsum_for(spec, by, f, bx, precision):
             if precision == "default":
@@ -397,66 +416,75 @@ class KernelChecks:
                     + ("bf16" if precision == "default"
                        else "float32, TF32 off"))
 
+        def weights(rois):
+            return tuple(t.contiguous() for t in self._prep(rois, hw, True))
+
         n = 200
-        rois = self._rois(b, n)
-        by, bx = (t.contiguous() for t in self._prep(rois, hw, True))
+        rnd = weights(self._rois(b, n))
         feats = torch.tensor(self.rng.standard_normal((b, hw, hw, 490)),
                              dtype=torch.float32, device=self.dev)
-        nbytes = (feats.numel() + by.numel() + bx.numel()
+        whole = weights(self._whole_frame(b, n))
+        nbytes = (feats.numel() + b * n * (ph + pw) * hw
                   + b * n * ph * pw * c_out) * 4
-        for order, view, spec in (
-                ("upq", feats.view(b, hw, hw, c_out, ph, pw),
-                 "bnph,bhwupq,bnqw->bnpqu"),
-                ("puq", feats.view(b, hw, hw, ph, c_out, pw),
-                 "bnph,bhwpuq,bnqw->bnpqu")):
-            for precision in ("default", "highest"):
-                lib, note = einsum_for(spec, by, view, bx, precision)
-                self.case(
-                    "ps_roi_align_f32", f"N={n} {order} {precision}", b,
-                    lambda: roi_kernel.ps_roi_align_f32_kernel(
-                        feats, by, bx, c_out, precision, order),
-                    lambda: roi_kernel.ps_roi_align_f32_plain(
-                        feats, by, bx, c_out, precision, order),
-                    nbytes, *ps_flops(n, precision), lib, note,
-                    lib_tol[precision])
+        views = {"upq": (feats.view(b, hw, hw, c_out, ph, pw),
+                         "bnph,bhwupq,bnqw->bnpqu"),
+                 "puq": (feats.view(b, hw, hw, ph, c_out, pw),
+                         "bnph,bhwpuq,bnqw->bnpqu")}
+        for order, precision, (by, bx), label in (
+                ("upq", "default", rnd, ""), ("upq", "highest", rnd, ""),
+                ("puq", "default", rnd, ""), ("puq", "highest", rnd, ""),
+                ("upq", "default", whole, " whole frame")):
+            lib, note = einsum_for(views[order][1], by, views[order][0], bx,
+                                   precision)
+            self.case(
+                "ps_roi_align_f32", f"N={n} {order} {precision}{label}", b,
+                lambda: roi_kernel.ps_roi_align_f32_kernel(
+                    feats, by, bx, c_out, precision, order),
+                lambda: roi_kernel.ps_roi_align_f32_plain(
+                    feats, by, bx, c_out, precision, order),
+                nbytes, *crop_flops(by, bx, ol, ol, precision), lib,
+                note, lib_tol[precision])
 
         n = 232
         rois = self._rois(b, n)
-        by, bx = (t.contiguous() for t in self._prep(rois, hw, True))
+        rnd = weights(rois)
         fpad = torch.zeros((b, hw, hw, ph * 128), device=self.dev)
         fpad[..., torch.as_tensor(roi_kernel.ps_channel_perm_pad(
             c_out, ph, pw), device=self.dev)] = torch.tensor(
                 self.rng.standard_normal((b, hw, hw, 490)),
                 dtype=torch.float32, device=self.dev)
+        whole = weights(self._whole_frame(b, n))
         live = fpad.view(b, hw, hw, ph, 128)[..., :c_out * pw] \
             .unflatten(-1, (c_out, pw))
-        nbytes = (b * hw * hw * 490 + by.numel() + bx.numel()
+        nbytes = (b * hw * hw * 490 + b * n * (ph + pw) * hw
                   + b * n * ph * pw * c_out) * 4
-        for precision in ("split", "highest"):
+        for precision, (by, bx), label in (
+                ("split", rnd, ""), ("highest", rnd, ""),
+                ("highest", whole, " whole frame")):
             lib, note = einsum_for("bnph,bhwpuq,bnqw->bnpqu", by, live, bx,
                                    precision)
             self.case(
-                "ps_roi_align_padded_f32", f"N={n} {precision}", b,
+                "ps_roi_align_padded_f32", f"N={n} {precision}{label}", b,
                 lambda: roi_kernel.ps_roi_align_padded_f32_kernel(
                     fpad, by, bx, c_out, precision),
                 lambda: roi_kernel.ps_roi_align_f32_plain(
                     fpad, by, bx, c_out, precision, "padded"),
-                nbytes, *ps_flops(n, precision), lib, note,
-                lib_tol[precision])
+                nbytes, *crop_flops(by, bx, ol, ol, precision), lib,
+                note, lib_tol[precision])
 
         by, bx = (t.contiguous() for t in self._prep(rois, hw, False))
         feats = torch.tensor(self.rng.standard_normal((b, hw, hw, c_out)),
                              dtype=torch.float32, device=self.dev)
         lib, note = einsum_for("bnph,bhwc,bnqw->bnpqc", by, feats, bx,
                                "highest")
+        nbytes = (feats.numel() + by.numel() + bx.numel()
+                  + b * n * ph * pw * c_out) * 4
         self.case(
             "roi_align", f"N={n} float32 highest", b,
             lambda: roi_kernel.roi_align_kernel(feats, by, bx, "highest"),
             lambda: roi_kernel.roi_align_f32_plain(feats, by, bx, "highest"),
-            (feats.numel() + by.numel() + bx.numel()
-             + b * n * ph * pw * c_out) * 4,
-            2 * b * n * ph * (hw * hw + pw * hw) * c_out, F32_FLOP_S,
-            lib, note, lib_tol["highest"])
+            nbytes, *crop_flops(by, bx, c_out, ol), lib, note,
+            lib_tol["highest"])
         if not torch.equal(
                 roi_kernel.ps_roi_align_f32_kernel(feats, by, bx, c_out,
                                                    "highest", "c"),
@@ -468,10 +496,8 @@ class KernelChecks:
             lambda: roi_kernel.ps_roi_align_f32_kernel(feats, by, bx, c_out,
                                                        "highest", "c"),
             lambda: roi_kernel.roi_align_f32_plain(feats, by, bx, "highest"),
-            (feats.numel() + by.numel() + bx.numel()
-             + b * n * ph * pw * c_out) * 4,
-            2 * b * n * ph * (hw * hw + pw * hw) * c_out, F32_FLOP_S,
-            lib, note, lib_tol["highest"])
+            nbytes, *crop_flops(by, bx, c_out, ol), lib, note,
+            lib_tol["highest"])
 
     # ------------------------------------------------------------ stems
     def stems(self, b, darknet_params):
@@ -727,13 +753,16 @@ def profile_calls(torch, label, calls):
         f"({100 * dev / wall:.1f}%), {n_launch:.0f} device activities per "
         f"request (profiled wall includes the profiler's overhead)")
     own = [e for e in kern if "(anonymous namespace)::" in e.key
-           and "at::" not in e.key
-           and e not in top]             # the port's kernels below the top
-    for e in top + own:
+           and "at::" not in e.key]      # the port's kernels
+    for e in top + [e for e in own if e not in top]:
         log(f"  {e.self_device_time_total / 1e3 / len(calls):8.4f} ms/request"
             f"  x{e.count / len(calls):g}  {e.key[:90]}")
     return {"device_ms_per_request": dev, "wall_ms_per_request": wall,
-            "device_activities_per_request": n_launch}
+            "device_activities_per_request": n_launch,
+            "port_kernels_ms_per_request": {
+                e.key.split("::", 1)[1].split("(", 1)[0]:
+                    e.self_device_time_total / 1e3 / len(calls)
+                for e in own}}
 
 
 def _pairs(got, want, box_tol):
@@ -1377,12 +1406,16 @@ def main():
     drive("refine", [lambda im=im: refine_call(im) for im in images],
           (1, 200, 7), {"ps_roi_align_f32": 1, "nms": 1})
 
+    def window_tensors(engine):
+        """The 8 requests as one window's tensors on the card."""
+        packed = [engine.pack_radar(pts, props) for _, pts, props in reqs]
+        return [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to("cuda")
+                for a in [[f for f, _, _ in reqs]] + [list(c)
+                                                      for c in zip(*packed)]]
+
     # one batched window of the 8 frames at pallas_max4
     eng = engines["pallas_max4"]
-    packed = [eng.pack_radar(pts, props) for _, pts, props in reqs]
-    tens = [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to("cuda")
-            for a in [[f for f, _, _ in reqs]] + [list(c)
-                                                  for c in zip(*packed)]]
+    tens = window_tensors(eng)
     step = eng.batched_step_fn(0)
     step(*tens)                                   # warm-up at batch 8
     for wfn, *_ in kernels.values():
@@ -1478,6 +1511,48 @@ def main():
         "bit_identical": exact, "max_box_diff": d_box,
         "max_score_diff": d_score, "rows_on_one_side": flipped}
 
+    # the reference's window contract at its float32 default
+    # (tests/test_runtime.py:147-150): one window of the 8 frames at f32,
+    # each frame against its own per-frame answer: valid equal, rows within
+    # rtol 1e-4 and atol 1e-4
+    eng = engines["f32"]
+    ftens = window_tensors(eng)
+    fstep = eng.batched_step_fn(0)
+    fstep(*ftens)                                 # warm-up at batch 8
+    for wfn, *_ in kernels.values():
+        wfn.launches = 0
+    frows, fvalid = (a.cpu().numpy() for a in fstep(*ftens))
+    launches = {name: wfn.launches for name, (wfn, *_) in kernels.items()}
+    launches_by_path["window8@f32"] = launches
+    if launches["nms"] < 1 or launches["nms_full"] < N_REQUESTS:
+        raise AssertionError(f"f32 window: kernels not launched: {launches}")
+    if frows.shape != (N_REQUESTS,) + rows(eng) \
+            or not np.isfinite(frows).all():
+        raise AssertionError(f"f32 window: bad answer {frows.shape}")
+    with cuda_lib.plain_versions():
+        prows, pvalid = (a.cpu().numpy() for a in fstep(*ftens))
+    if not (np.array_equal(frows, prows) and np.array_equal(fvalid, pvalid)):
+        raise AssertionError("f32 window: differs from the same window "
+                             "inside cuda_lib.plain_versions()")
+    f32_err, f32_exact = 0.0, 0
+    for i, (want, want_valid) in enumerate(answers_by_path["f32"]):
+        if not (np.array_equal(fvalid[i], want_valid)
+                and np.allclose(frows[i], want, rtol=1e-4, atol=1e-4)):
+            raise AssertionError(
+                f"f32 window, frame {i}: differs from the per-frame answer "
+                f"beyond the reference's contract (valid equal, rtol 1e-4, "
+                f"atol 1e-4)\n{frows[i][fvalid[i]]}\n{want[want_valid]}")
+        f32_err = max(f32_err, float(np.abs(frows[i] - want).max()))
+        f32_exact += int(np.array_equal(frows[i], want))
+    log(f"batched window of {N_REQUESTS} frames at f32: launches "
+        f"{ {k: v for k, v in launches.items() if v} }; bit-identical to "
+        f"the same window inside cuda_lib.plain_versions(); against the "
+        f"per-frame answers valid equal, {f32_exact} of {N_REQUESTS} rows "
+        f"arrays bit-identical, the largest row difference {f32_err:.3g} "
+        f"(the reference's rtol 1e-4, atol 1e-4)")
+    summary["window8@f32"] = {"bit_identical": f32_exact,
+                              "max_row_diff": f32_err}
+
     # the alias rows: one request each; their launches, and their answer
     # bit-identical to the row they repeat (the JAX package's comments: a
     # bf16-scratch or VMEM-input spelling is bit-identical to its f32-DMA
@@ -1520,7 +1595,9 @@ def main():
 
     profiles = {p: profile_calls(torch, p, infer_calls(engines[p])[:4])
                 for p in ("pallas_max_s01", "pallas_max4", "pallas_pair2",
-                          "pallas_deep")}
+                          "pallas_deep", "pallas_max4+highest")}
+    profiles["refine"] = profile_calls(
+        torch, "refine", [lambda im=im: refine_call(im) for im in images[:4]])
     profiles["window8@pallas_max4"] = profile_calls(
         torch, "the window of 8 frames at pallas_max4 (a request: one "
         "window)", [lambda: step(*tens)] * 2)

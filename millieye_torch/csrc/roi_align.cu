@@ -217,18 +217,42 @@ roi_align_kernel(const __nv_bfloat16* __restrict__ feat,
 // (__fmul_rn, then __fadd_rn). The plain versions repeat these
 // operations in this order and are bit-equal.
 //
-// Bound on an H100: bytes, as K2 (the map in float32 is twice K2's: at
-// B = 1, N = 232 the 490 live channels are 1.3 MB, by and bx 0.34 MB,
-// the output 0.45 MB: 0.6 us at 3.35 TB/s, against 0.16 GFLOP: 2.4 us at
-// the 67 TFLOP/s float32 rate for "highest"). Launch latency and the L2
-// reads of the map dominate.
+// Bound on an H100: bytes. At b32 the function must move the 490 live
+// channels of the float32 map (42 MB), by, bx and the output: 0.019 ms
+// for K6 (N = 200) and 0.020 ms for K7 (N = 232) at 3.35 TB/s. Its
+// products on the nonzero support take less at the float32 rate. What
+// the card pays in practice is the L2 traffic of the map windows: every
+// (RoI, bin row) reads its own window of the map again.
 //
-// Design: as K2, one thread block per (image, RoI), t for one bin row in
-// shared memory. The feature channel of lane (u, q) in bin row p is
-// p*sp + u*su + q*sq: "upq" (u*ph + p)*pw + q, "puq" (p*c_out + u)*pw + q,
-// the padded map p*block + u*pw + q, and a map without bin channels
-// (RoIAlign) u, where sq = 0 and t is formed once per channel, not once
-// per (channel, q).
+// K6 and K7's design (K2's, above): one thread block per (image, RoI,
+// bin row p). The block finds the span [y_lo, y_hi] of nonzero by[p, :]
+// and the span [x_lo, x_hi] of the union of nonzero bx[q, :] over q, on
+// the float32 values as given, then sums only there, in ascending order:
+//   t[x, j]  = sum_{y in span} by[p, y] * F[y, x, chan(p, j)]
+//   out[q,u] = sum_{x in span} g(t[x, j] * bx[q, x])
+// with t for the x span in shared memory. The skipped terms are exact
+// zeros, and each sum starts at +0 and never holds -0 (x + -x is +0 in
+// round-to-nearest), so on a finite map the span sum is the full sum bit
+// for bit at every rung: "default" fmaf(0, f, acc) == acc; "highest"
+// acc + (0 * v) adds +-0; "split" a zero by has zero hi and lo parts, and
+// a zero bx makes prod, hi(prod) and lo(prod) +-0. A rounded operand is
+// zero where the given one is, so the spans cover every nonzero rounded
+// term. The channel of lane j = u*pw + q in bin row p is p*sp + u*su +
+// q*sq: "upq" (u*ph + p)*pw + q, "puq" (p*c_out + u)*pw + q, the padded
+// map p*block + u*pw + q, and a map without bin channels (RoIAlign) u,
+// where sq = 0 and t is formed once per channel, not per (channel, q).
+// One thread per (column, group of kVec lanes) loads each map element of
+// the span once and forms its hi/lo pair there; neighbouring threads
+// read neighbouring lanes. Where a bin row's lanes are contiguous and
+// aligned ("puq", the padded map, "c") a group is a float2 or float4
+// load (K7 reads 72 lanes from p*128 as 18 float4 and drops lanes
+// 70-71); "upq"'s bin row is 10 runs of 7 lanes 49 apart, read one float
+// a thread, a run by neighbouring threads. The output sum runs one thread
+// per output element, in the output's order, so the stores coalesce.
+// Blocks of 64 threads: a bin row's t has 5-70 lane groups a column and
+// its output 70 elements, so wider blocks idle, while an SM's 32
+// resident 64-thread blocks still fill its 2,048 threads (picked on an
+// H100 among 32, 64, 96 and 128).
 enum Precision { kDefault = 0, kSplit = 1, kHighest = 2 };
 
 template <int kMode>
@@ -246,31 +270,40 @@ __device__ __forceinline__ void load_by(const float* __restrict__ src,
   }
 }
 
+// One term of t under the ladder: a1 (and a2, a3 under "split") +=
+// by * v, by's parts wh (hi) and wl (lo).
+template <int kMode>
+__device__ __forceinline__ void add_h(float wh, float wl, float v,
+                                      float& a1, float& a2, float& a3) {
+  if (kMode == kHighest) {
+    a1 = __fadd_rn(a1, __fmul_rn(wh, v));
+  } else if (kMode == kDefault) {
+    a1 = fmaf(wh, bf16_round(v), a1);
+  } else {
+    const float fh = bf16_round(v);
+    const float fl = bf16_round(__fsub_rn(v, fh));
+    a1 = fmaf(wh, fh, a1);
+    a2 = fmaf(wl, fh, a2);
+    a3 = fmaf(wh, fl, a3);
+  }
+}
+
+template <int kMode>
+__device__ __forceinline__ float end_h(float a1, float a2, float a3) {
+  return kMode == kSplit ? __fadd_rn(__fadd_rn(a1, a2), a3) : a1;
+}
+
 // t = sum_y by[y] * f[y * stride] under the ladder.
 template <int kMode>
 __device__ __forceinline__ float sum_h(const float* by_hi,
                                        const float* by_lo,
                                        const float* __restrict__ f,
                                        size_t stride, int h) {
-  if (kMode == kSplit) {
-    float a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-    for (int y = 0; y < h; ++y) {
-      const float v = f[y * stride];
-      const float fh = bf16_round(v);
-      const float fl = bf16_round(__fsub_rn(v, fh));
-      a1 = fmaf(by_hi[y], fh, a1);
-      a2 = fmaf(by_lo[y], fh, a2);
-      a3 = fmaf(by_hi[y], fl, a3);
-    }
-    return __fadd_rn(__fadd_rn(a1, a2), a3);
-  }
-  float acc = 0.0f;
-  for (int y = 0; y < h; ++y) {
-    const float v = f[y * stride];
-    acc = kMode == kHighest ? __fadd_rn(acc, __fmul_rn(by_hi[y], v))
-                            : fmaf(by_hi[y], bf16_round(v), acc);
-  }
-  return acc;
+  float a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  for (int y = 0; y < h; ++y)
+    add_h<kMode>(by_hi[y], kMode == kSplit ? by_lo[y] : 0.0f, f[y * stride],
+                 a1, a2, a3);
+  return end_h<kMode>(a1, a2, a3);
 }
 
 // out = sum_x g(t[x * stride] * bx[x]) under the ladder.
@@ -291,48 +324,131 @@ __device__ __forceinline__ float sum_w(const float* t, int stride,
   return kMode == kSplit ? __fadd_rn(a1, a2) : a1;
 }
 
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-ps_roi_align_f32_kernel(const float* __restrict__ feat,
-                        const float* __restrict__ by,
-                        const float* __restrict__ bx,
-                        float* __restrict__ out, int n_roi, int h, int w,
-                        int c_feat, int ph, int pw, int c_out, int sp, int su,
-                        int sq) {
-  extern __shared__ float smem[];
-  const int ol = c_out * pw;
-  const int tl = sq ? ol : c_out;  // distinct lanes of t
-  float* s_by = smem;              // [ph, h] (hi part under "split")
-  float* s_byl = s_by + ph * h;    // [ph, h] lo part, "split" only
-  float* s_bx = s_byl + (kMode == kSplit ? ph * h : 0);  // [pw, w]
-  float* s_t = s_bx + pw * w;      // [w, tl] for the current bin row
+// kVec consecutive floats, one load of 4 * kVec bytes.
+template <int kVec>
+__device__ __forceinline__ void load_lanes(const float* __restrict__ src,
+                                           float* v) {
+  if constexpr (kVec == 4) {
+    const float4 r = *reinterpret_cast<const float4*>(src);
+    v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
+  } else if constexpr (kVec == 2) {
+    const float2 r = *reinterpret_cast<const float2*>(src);
+    v[0] = r.x, v[1] = r.y;
+  } else {
+    v[0] = *src;
+  }
+}
 
-  const int roi = blockIdx.x;      // b * n_roi + n
-  const int b = roi / n_roi;
-  load_by<kMode>(by + static_cast<size_t>(roi) * ph * h, s_by, s_byl, ph * h);
-  const float* bx_r = bx + static_cast<size_t>(roi) * pw * w;
-  for (int i = threadIdx.x; i < pw * w; i += blockDim.x) s_bx[i] = bx_r[i];
+template <int kVec>
+__device__ __forceinline__ void store_lanes(float* dst, const float* v) {
+  if constexpr (kVec == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  else if constexpr (kVec == 2)
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  else
+    *dst = v[0];
+}
+
+struct PsArgs {
+  const float* feat;   // [B, H, W, c_feat]
+  const float* by;     // [B, N, ph, H]
+  const float* bx;     // [B, N, pw, W]
+  float* out;          // [B, N, ph, pw, c_out]
+  int n_roi, h, w, c_feat, ph, pw, c_out, sp, su, sq;
+};
+
+constexpr int kPsThreads = 64;
+
+// Shared memory: by's row (hi and lo), bx, then t [x span, pitch] from a
+// 16-byte boundary; pitch is the lanes of t rounded up to kVec.
+__host__ __device__ inline int ps_t_offset(int h, int pw, int w) {
+  return (2 * h + pw * w + 3) & ~3;
+}
+
+template <int kMode, int kVec>
+__global__ void __launch_bounds__(kPsThreads)
+ps_roi_align_f32_kernel(const PsArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_span[4];        // y_lo, y_hi, x_lo, x_hi
+  const int h = a.h, w = a.w, pw = a.pw, c_out = a.c_out;
+  const int ol = c_out * pw;
+  const int tl = a.sq ? ol : c_out;          // distinct lanes of t
+  const int groups = (tl + kVec - 1) / kVec;
+  const int pitch = groups * kVec;
+  float* s_by = smem;              // [h] bin row p (hi part under "split")
+  float* s_byl = s_by + h;         // [h] lo part, "split" only
+  float* s_bx = s_byl + h;         // [pw, w]
+  float* s_t = smem + ps_t_offset(h, pw, w);
+
+  const int p = blockIdx.x % a.ph;
+  const int roi = blockIdx.x / a.ph;  // b * n_roi + n
+  const int b = roi / a.n_roi;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    s_span[0] = h;
+    s_span[1] = -1;
+    s_span[2] = w;
+    s_span[3] = -1;
+  }
+  __syncthreads();
+  const float* by_r = a.by + (static_cast<size_t>(roi) * a.ph + p) * h;
+  const float* bx_r = a.bx + static_cast<size_t>(roi) * pw * w;
+  for (int i = tid; i < h; i += blockDim.x) {
+    const float v = by_r[i];
+    if (kMode == kHighest) {
+      s_by[i] = v;
+    } else {
+      const float hv = bf16_round(v);
+      s_by[i] = hv;
+      if (kMode == kSplit) s_byl[i] = bf16_round(__fsub_rn(v, hv));
+    }
+    if (v != 0.0f) {
+      atomicMin(&s_span[0], i);
+      atomicMax(&s_span[1], i);
+    }
+  }
+  for (int i = tid; i < pw * w; i += blockDim.x) {
+    const float v = bx_r[i];
+    s_bx[i] = v;
+    if (v != 0.0f) {
+      atomicMin(&s_span[2], i % w);
+      atomicMax(&s_span[3], i % w);
+    }
+  }
+  __syncthreads();
+  const int y_lo = s_span[0], y_hi = s_span[1], x_lo = s_span[2];
+  const int nx = s_span[3] - x_lo + 1;   // <= 0 for an empty span
+
+  // t[x, j] over the y span; lanes j0 .. j0 + kVec - 1 of one column
+  const float* f_b = a.feat + static_cast<size_t>(b) * h * w * a.c_feat;
+  const size_t row_stride = static_cast<size_t>(w) * a.c_feat;
+  for (int e = tid; e < nx * groups; e += blockDim.x) {
+    const int xi = e / groups, j0 = (e % groups) * kVec;
+    const int chan = a.sq ? p * a.sp + (j0 / pw) * a.su + (j0 % pw) * a.sq
+                          : p * a.sp + j0 * a.su;
+    const float* f = f_b + static_cast<size_t>(x_lo + xi) * a.c_feat + chan;
+    float a1[kVec] = {}, a2[kVec] = {}, a3[kVec] = {};
+    for (int y = y_lo; y <= y_hi; ++y) {
+      float v[kVec];
+      load_lanes<kVec>(f + y * row_stride, v);
+      const float wh = s_by[y], wl = kMode == kSplit ? s_byl[y] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) add_h<kMode>(wh, wl, v[k], a1[k], a2[k],
+                                                  a3[k]);
+    }
+    float r[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) r[k] = end_h<kMode>(a1[k], a2[k], a3[k]);
+    store_lanes<kVec>(s_t + xi * pitch + j0, r);
+  }
   __syncthreads();
 
-  const float* f_b = feat + static_cast<size_t>(b) * h * w * c_feat;
-  float* out_r = out + static_cast<size_t>(roi) * ph * pw * c_out;
-  const size_t row_stride = static_cast<size_t>(w) * c_feat;
-  for (int p = 0; p < ph; ++p) {
-    for (int e = threadIdx.x; e < w * tl; e += blockDim.x) {
-      const int x = e / tl, j = e % tl;
-      const int chan = sq ? p * sp + (j / pw) * su + (j % pw) * sq
-                          : p * sp + j * su;
-      s_t[e] = sum_h<kMode>(s_by + p * h, s_byl + p * h,
-                            f_b + static_cast<size_t>(x) * c_feat + chan,
-                            row_stride, h);
-    }
-    __syncthreads();
-    for (int j = threadIdx.x; j < ol; j += blockDim.x) {
-      const int u = j / pw, q = j % pw;
-      out_r[(p * pw + q) * c_out + u] =
-          sum_w<kMode>(s_t + (sq ? j : u), tl, s_bx + q * w, w);
-    }
-    __syncthreads();
+  // out[q, u] over the x span, element k = q*c_out + u of the bin row
+  float* out_r = a.out + (static_cast<size_t>(roi) * a.ph + p) * ol;
+  for (int k = tid; k < ol; k += blockDim.x) {
+    const int q = k / c_out, u = k % c_out;
+    out_r[k] = sum_w<kMode>(s_t + (a.sq ? u * pw + q : u), pitch,
+                            s_bx + q * w + x_lo, nx);
   }
 }
 
@@ -372,7 +488,29 @@ roi_align_f32_kernel(const float* __restrict__ feat,
   }
 }
 
-constexpr size_t kMaxSmem = 48 * 1024;  // no opt-in above the default
+constexpr size_t kMaxSmem = 48 * 1024;       // without an opt-in
+constexpr size_t kMaxSmemOptIn = 232448;     // 227 KB, an H100 block's most
+
+template <int kMode, int kVec>
+int launch_ps_as(const PsArgs& a, int grid, size_t smem, cudaStream_t st) {
+  const auto kernel = ps_roi_align_f32_kernel<kMode, kVec>;
+  if (smem > kMaxSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kPsThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kMode>
+int launch_ps_mode(const PsArgs& a, int vec, int grid, size_t smem,
+                   cudaStream_t st) {
+  if (vec == 4) return launch_ps_as<kMode, 4>(a, grid, smem, st);
+  if (vec == 2) return launch_ps_as<kMode, 2>(a, grid, smem, st);
+  return launch_ps_as<kMode, 1>(a, grid, smem, st);
+}
 
 int launch_ps_f32(const void* feat, const void* by, const void* bx, void* out,
                   int batch, int n_roi, int h, int w, int c_feat, int ph,
@@ -380,28 +518,33 @@ int launch_ps_f32(const void* feat, const void* by, const void* bx, void* out,
                   void* stream) {
   if (batch <= 0 || n_roi <= 0 || ph <= 0 || pw <= 0 || c_out <= 0
       || mode < kDefault || mode > kHighest
-      || (ph - 1) * sp + (c_out - 1) * su + (pw - 1) * sq >= c_feat)
+      || (ph - 1) * sp + (c_out - 1) * su + (pw - 1) * sq >= c_feat
+      || static_cast<long long>(batch) * n_roi * ph > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  const int tl = sq ? c_out * pw : c_out;
+  // the widest load a lane group can take: its lanes contiguous from a
+  // 4 * vec byte boundary, the last group's extra lanes inside the pixel
+  const bool contiguous = (sq == 1 && su == pw) || (sq == 0 && su == 1);
+  int vec = 1;
+  for (int v = 4; v > 1 && vec == 1; v /= 2)
+    if (contiguous && sp % v == 0 && c_feat % v == 0
+        && reinterpret_cast<uintptr_t>(feat) % (4 * v) == 0
+        && (ph - 1) * sp + (tl + v - 1) / v * v <= c_feat)
+      vec = v;
+  const int pitch = (tl + vec - 1) / vec * vec;
   const size_t smem = sizeof(float)
-      * ((mode == kSplit ? 2 : 1) * ph * h + pw * w
-         + w * (sq ? c_out * pw : c_out));
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+      * (ps_t_offset(h, pw, w) + static_cast<size_t>(w) * pitch);
+  if (smem > kMaxSmemOptIn) return cudaErrorInvalidValue;
+  const PsArgs a{static_cast<const float*>(feat),
+                 static_cast<const float*>(by),
+                 static_cast<const float*>(bx), static_cast<float*>(out),
+                 n_roi, h, w, c_feat, ph, pw, c_out, sp, su, sq};
+  const int grid = batch * n_roi * ph;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(feat);
-  const float* y = static_cast<const float*>(by);
-  const float* x = static_cast<const float*>(bx);
-  float* o = static_cast<float*>(out);
-  const int grid = batch * n_roi;
   if (mode == kDefault)
-    ps_roi_align_f32_kernel<kDefault><<<grid, kThreads, smem, st>>>(
-        f, y, x, o, n_roi, h, w, c_feat, ph, pw, c_out, sp, su, sq);
-  else if (mode == kSplit)
-    ps_roi_align_f32_kernel<kSplit><<<grid, kThreads, smem, st>>>(
-        f, y, x, o, n_roi, h, w, c_feat, ph, pw, c_out, sp, su, sq);
-  else
-    ps_roi_align_f32_kernel<kHighest><<<grid, kThreads, smem, st>>>(
-        f, y, x, o, n_roi, h, w, c_feat, ph, pw, c_out, sp, su, sq);
-  return static_cast<int>(cudaGetLastError());
+    return launch_ps_mode<kDefault>(a, vec, grid, smem, st);
+  if (mode == kSplit) return launch_ps_mode<kSplit>(a, vec, grid, smem, st);
+  return launch_ps_mode<kHighest>(a, vec, grid, smem, st);
 }
 
 }  // namespace

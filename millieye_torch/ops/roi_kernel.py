@@ -71,14 +71,14 @@ def _bf16_round(x):
 
 # ------------------------------------------------------------------ plain
 # The plain versions repeat the kernels' arithmetic operation for
-# operation: t sums h and the output sums w in ascending order (K2 only
-# over the nonzero spans), one add at a time from 0, so kernel and plain
-# version are bit-equal. (by and
+# operation: t sums h and the output sums w in ascending order (K2, K6
+# and K7 only over the nonzero spans), one add at a time from 0, so
+# kernel and plain version are bit-equal. (by and
 # the features hold bf16 values, so each by*F product is exact in float32
 # and the kernels' FMA rounds like the add here.)
 def _span_mask(nonzero):
     """True from the first to the last True along the last axis: the
-    span K2 sums over (all False where there is no True)."""
+    span K2, K6 and K7 sum over (all False where there is no True)."""
     idx = torch.arange(nonzero.shape[-1], device=nonzero.device)
     lo = torch.where(nonzero, idx, nonzero.shape[-1]).amin(-1, keepdim=True)
     hi = torch.where(nonzero, idx, -1).amax(-1, keepdim=True)
@@ -137,17 +137,24 @@ def _crop_plain(f, by, t_of, bxe, precision):
     """The float32-operand kernels' arithmetic, operation for operation.
     f [B, H, P or 1, W, L] float32 (the map's lanes for each bin row), by
     [B, N, P, H]; ``t_of`` reshapes t [B, N, P, W, L] so that it
-    broadcasts against bxe [..., W, L'] with W second to last. Sums run
-    over h = 0..H-1 and w = 0..W-1, one add at a time from 0; at
+    broadcasts against bxe [B, N, ..., W, L'] with W second to last. As
+    K6 and K7, t of bin row p sums only the span of nonzero by[p, :] and
+    the output only the span of columns where some bx[q, :] is nonzero
+    (``_span_mask``, on the values as given), in ascending order, one add
+    at a time from 0; the terms left out are exact zeros, so on a finite
+    map this equals the sum over every row and column bit for bit. At
     "highest" every product is rounded before its add, elsewhere the
     products of two bf16 values are exact."""
     hi = _bf16_round
     h, w = f.shape[1], f.shape[3]
+    rows = _span_mask(by != 0)                             # [B, N, P, H]
+    cols = _span_mask((bxe != 0).transpose(-1, -2).flatten(2, -2).any(2))
 
     def sum_h(a, m):
         t = 0.0
         for y in range(h):
-            t = t + a[:, :, :, y, None, None] * m[:, None, y]
+            t = torch.where(rows[:, :, :, y, None, None],
+                            t + a[:, :, :, y, None, None] * m[:, None, y], t)
         return t
 
     if precision == "highest":
@@ -162,12 +169,13 @@ def _crop_plain(f, by, t_of, bxe, precision):
     o1, o2 = 0.0, 0.0
     for x in range(w):
         prod = t[..., x, :] * bxe[..., x, :]
+        col = cols[:, :, x].reshape(cols.shape[:2] + (1,) * (prod.dim() - 2))
         if precision == "highest":
-            o1 = o1 + prod
+            o1 = torch.where(col, o1 + prod, o1)
         else:
-            o1 = o1 + hi(prod)
+            o1 = torch.where(col, o1 + hi(prod), o1)
             if precision == "split":
-                o2 = o2 + hi(prod - hi(prod))
+                o2 = torch.where(col, o2 + hi(prod - hi(prod)), o2)
     return o1 + o2 if precision == "split" else o1
 
 
@@ -200,7 +208,9 @@ def ps_roi_align_f32_plain(features, by, bx, c_out, precision="default",
 
 def roi_align_f32_plain(features, by, bx, precision="highest"):
     """K3 on float32 operands, and ``roi_align(pack_p=False)`` through
-    K6: features [B, H, W, C] -> [B, N, ph, pw, C] float32."""
+    K6: features [B, H, W, C] -> [B, N, ph, pw, C] float32. K3's kernel
+    sums every row and column; the spans leave out exact zeros only, so
+    it equals this bit for bit on a finite map."""
     return _crop_plain(features[:, :, None], by, lambda t: t[:, :, :, None],
                        bx[:, :, None, :, :, None], precision)
 

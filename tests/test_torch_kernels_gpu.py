@@ -205,17 +205,14 @@ def test_roi_kernels_match_plain(cuda, b, n, hw):
                        roi_align_plain(f, by, bx))
 
 
-@pytest.mark.parametrize("case", ["whole_frame", "sub_cell",
-                                  "partly_outside", "wholly_outside",
-                                  "negative_map", "non_square"])
-def test_k2_bit_equal_on_support_edge_cases(cuda, case):
-    """K2 ("dot" and "vpu") sums only the nonzero spans of by and bx: on
-    RoIs that span the whole frame, fall below one cell, or lie partly or
-    wholly outside the map, on a negative map and on a 13x21 map (its
-    shared-memory t buffer off the square maps' alignment), it stays
-    bit-equal to its plain version."""
-    rng = np.random.default_rng(len(case))
-    b, n = 2, 96
+_SUPPORT_CASES = ["whole_frame", "sub_cell", "partly_outside",
+                  "wholly_outside", "negative_map", "non_square"]
+
+
+def _support_case(cuda, case, rng, b, n):
+    """RoIs of one kind, [B, N, 4] xyxy on the card, and the map's size:
+    every RoI the whole frame, below one cell, across an edge, wholly
+    outside; random RoIs on "negative_map" and on a 13x21 map."""
     hh, ww = (13, 21) if case == "non_square" else (26, 26)
     xy = rng.uniform(-20, 380, (b, n, 2))
     wh = rng.uniform(4, 300, (b, n, 2))
@@ -231,8 +228,20 @@ def test_k2_bit_equal_on_support_edge_cases(cuda, case):
     elif case == "wholly_outside":
         xy = rng.choice([-1.0, 1.0], (b, n, 2)) * 500 + 208
         wh = rng.uniform(10, 60, (b, n, 2))
-    boxes = torch.tensor(np.concatenate([xy, xy + wh], -1),
-                         dtype=torch.float32, device=cuda)
+    return torch.tensor(np.concatenate([xy, xy + wh], -1),
+                        dtype=torch.float32, device=cuda), (hh, ww)
+
+
+@pytest.mark.parametrize("case", _SUPPORT_CASES)
+def test_k2_bit_equal_on_support_edge_cases(cuda, case):
+    """K2 ("dot" and "vpu") sums only the nonzero spans of by and bx: on
+    RoIs that span the whole frame, fall below one cell, or lie partly or
+    wholly outside the map, on a negative map and on a 13x21 map (its
+    shared-memory t buffer off the square maps' alignment), it stays
+    bit-equal to its plain version."""
+    rng = np.random.default_rng(len(case))
+    b, n = 2, 96
+    boxes, (hh, ww) = _support_case(cuda, case, rng, b, n)
     by, bx = _batched_prep(boxes, hh, ww, (7, 7), 1 / 16, -0.5, 0.1, -1, 4)
     by, bx = by.to(torch.bfloat16), bx.to(torch.bfloat16)
     f = rng.standard_normal((b, hh, ww, 7 * 128))
@@ -250,28 +259,80 @@ def test_roi_f32_kernels_match_plain(cuda, precision, b, n, hw):
     """K6 (both channel orders and the bin-free layout), K7 and K3's
     float32 mode, at each rung of the precision ladder."""
     rng = np.random.default_rng(n)
-    f32 = torch.float32
-    f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 490, True, f32)
+    f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 490, True, torch.float32)
+    fc, ry, rx = _roi_inputs(cuda, rng, b, n, hw, 10, False, torch.float32)
+    _roi_f32_layouts(cuda, f, by, bx, ry, rx, fc, precision)
+
+
+def _roi_f32_layouts(cuda, f, by, bx, ry, rx, fc, precision):
+    """K6 at "upq" and "puq" and K7 on the padded copy of ``f`` (490
+    channels; by, bx from the PS prep), and K6 at layout "c" on ``fc``
+    (10 channels; ry, rx from the RoIAlign prep): each held bit-equal to
+    its plain version, its launch counted; at "split" and "highest" K6's
+    "c" also bit-equal to K3's float32 mode. Returns the four outputs."""
+    outs = []
     for layout in ("upq", "puq"):
         before = ps_roi_align_f32_kernel.launches
         got = ps_roi_align_f32_kernel(f, by, bx, 10, precision, layout)
         assert ps_roi_align_f32_kernel.launches == before + 1
         assert torch.equal(got, ps_roi_align_f32_plain(f, by, bx, 10,
                                                        precision, layout))
-    fpad = torch.zeros((b, hw, hw, 7 * 128), device=cuda)
+        outs.append(got)
+    b, hh, ww = f.shape[:3]
+    fpad = torch.zeros((b, hh, ww, 7 * 128), device=cuda)
     fpad[..., torch.as_tensor(ps_channel_perm_pad(10, 7, 7), device=cuda)] = f
+    before = ps_roi_align_padded_f32_kernel.launches
     got = ps_roi_align_padded_f32_kernel(fpad, by, bx, 10, precision)
+    assert ps_roi_align_padded_f32_kernel.launches == before + 1
     assert torch.equal(got, ps_roi_align_f32_plain(fpad, by, bx, 10,
                                                    precision, "padded"))
-    # the padded map holds the same numbers as the "upq" one
-    assert torch.equal(got, ps_roi_align_f32_kernel(f, by, bx, 10, precision,
-                                                    "upq"))
-    f, by, bx = _roi_inputs(cuda, rng, b, n, hw, 10, False, f32)
-    want = roi_align_f32_plain(f, by, bx, precision)
-    assert torch.equal(ps_roi_align_f32_kernel(f, by, bx, 10, precision, "c"),
-                       want)
+    assert torch.equal(got, outs[0])      # the same numbers as "upq"
+    outs.append(got)
+    got = ps_roi_align_f32_kernel(fc, ry, rx, 10, precision, "c")
+    assert torch.equal(got, roi_align_f32_plain(fc, ry, rx, precision))
     if precision != "default":
-        assert torch.equal(roi_align_kernel(f, by, bx, precision), want)
+        assert torch.equal(got, roi_align_kernel(fc, ry, rx, precision))
+    outs.append(got)
+    return outs
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+@pytest.mark.parametrize("case", _SUPPORT_CASES)
+def test_roi_f32_bit_equal_on_support_edge_cases(cuda, case, precision):
+    """K6 ("upq", "puq", "c") and K7 sum only the nonzero spans of by and
+    bx: on K2's edge cases (whole-frame, sub-cell, partly and wholly
+    outside RoIs, a negative map, a 13x21 map) and at every rung of the
+    ladder they stay bit-equal to their plain versions, and K6 at layout
+    "c" to K3's float32 mode."""
+    rng = np.random.default_rng(len(case))
+    b, n = 2, 96
+    boxes, (hh, ww) = _support_case(cuda, case, rng, b, n)
+    by, bx = _batched_prep(boxes, hh, ww, (7, 7), 1 / 16, -0.5, 0.1, -1, 4)
+    ry, rx = _batched_prep(boxes, hh, ww, (7, 7), 1 / 16, 0.0, 1.0, -1, 4)
+    f = rng.standard_normal((b, hh, ww, 490))
+    fc = rng.standard_normal((b, hh, ww, 10))
+    if case == "negative_map":
+        f, fc = -np.abs(f), -np.abs(fc)
+    outs = _roi_f32_layouts(
+        cuda, torch.tensor(f, dtype=torch.float32, device=cuda), by, bx, ry,
+        rx, torch.tensor(fc, dtype=torch.float32, device=cuda), precision)
+    if case == "wholly_outside":
+        assert all(float(o.abs().max()) == 0.0 for o in outs)
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+def test_roi_f32_kernels_are_batch_independent(cuda, precision):
+    """K6 (each layout) and K7 on a batch of 3 images: each image's crops
+    equal those of the same image alone."""
+    rng = np.random.default_rng(3)
+    f, by, bx = _roi_inputs(cuda, rng, 3, 40, 26, 490, True, torch.float32)
+    fc, ry, rx = _roi_inputs(cuda, rng, 3, 40, 26, 10, False, torch.float32)
+    whole = _roi_f32_layouts(cuda, f, by, bx, ry, rx, fc, precision)
+    for i in range(3):
+        one = _roi_f32_layouts(
+            cuda, *(t[i:i + 1].contiguous() for t in (f, by, bx, ry, rx, fc)),
+            precision)
+        assert all(torch.equal(w[i:i + 1], o) for w, o in zip(whole, one))
 
 
 def _stage_inputs(cuda, n, h, w, cin, cout):
@@ -503,6 +564,34 @@ def test_window_batch_dependence_lies_outside_the_kernels(cuda,
     print(f"cudnn.deterministic={deterministic}: {len(differ)} of "
           f"{len(batch)} blocks depend on the batch, first "
           f"{differ[:1]} ({dn._plan[differ[0]]['type'] if differ else '-'})")
+
+
+def test_f32_window_equals_per_frame(cuda):
+    """The reference's window contract at its float32 default
+    (tests/test_runtime.py:147-150): the ``f32`` preset's
+    ``batched_step_fn`` on ``chip_smoke.py``'s 8 requests
+    (``default_rng(1)``), each frame's answer against ``step_fn`` on that
+    frame alone: ``valid`` equal, rows within rtol 1e-4 and atol 1e-4."""
+    from pathlib import Path
+
+    import chip_smoke as cs
+    from millieye_torch.cli._common import build_fusion
+    from millieye_torch.runtime.engine import FusionEngine
+    ckpt = Path(__file__).resolve().parents[1] / cs.CKPT
+    model, params, state = build_fusion(str(ckpt), "f32", device=cuda)
+    eng = FusionEngine(model, params, state, frame_size=cs.FRAME,
+                       device=cuda)
+    reqs = cs.requests(np.random.default_rng(1), cs.N_REQUESTS)
+    packed = [eng.pack_radar(pts, props) for _, pts, props in reqs]
+    tens = [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(cuda)
+            for a in [[f for f, _, _ in reqs]] + [list(c)
+                                                  for c in zip(*packed)]]
+    rows, valid = (a.cpu().numpy() for a in eng.batched_step_fn(0)(*tens))
+    step = eng.step_fn(0)
+    for i in range(len(reqs)):
+        r, v = (a.cpu().numpy() for a in step(*(t[i] for t in tens)))
+        np.testing.assert_array_equal(valid[i], v)
+        np.testing.assert_allclose(rows[i], r, rtol=1e-4, atol=1e-4)
 
 
 def test_pair_wrappers_take_the_deep_pair_at_wide_widths(cuda):

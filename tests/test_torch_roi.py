@@ -290,15 +290,14 @@ def _ps_roi_full_sum(features, by, bx, c_out):
     return out.reshape(b, n, ph, c_out, pw).transpose(3, 4)
 
 
-@pytest.mark.parametrize("case", ["random", "whole_frame", "sub_cell",
-                                  "partly_outside", "wholly_outside",
-                                  "negative_map"])
-def test_k2_support_spans_equal_full_sum(case):
-    """K2's plain version sums only the nonzero span of by's rows and of
-    bx's columns, as the kernel does; the terms it leaves out are exact
-    zeros, so it equals the full sum bit for bit on every kind of RoI."""
-    rng = np.random.default_rng(len(case))
-    b, n, hw, c_out = 2, 12, 26, 10
+_SUPPORT_CASES = ["random", "whole_frame", "sub_cell", "partly_outside",
+                  "wholly_outside", "negative_map"]
+
+
+def _support_boxes(case, rng, b, n):
+    """[B, N, 4] xyxy RoIs of one kind on a 416 px frame (26 x 26 map at
+    stride 16): random, every RoI the whole frame, below one cell, across
+    an edge, wholly outside; "negative_map" draws random RoIs."""
     xy = rng.uniform(-20, 380, (b, n, 2))
     wh = {"random": rng.uniform(4, 300, (b, n, 2)),
           "whole_frame": np.full((b, n, 2), 416.0),
@@ -314,8 +313,18 @@ def test_k2_support_spans_equal_full_sum(case):
                       rng.uniform(330, 400, (b, n, 2)))
     elif case == "wholly_outside":
         xy = rng.choice([-1.0, 1.0], (b, n, 2)) * 500 + 208
-    boxes = torch.tensor(np.concatenate([xy, xy + wh], -1),
-                         dtype=torch.float32)
+    return torch.tensor(np.concatenate([xy, xy + wh], -1),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("case", _SUPPORT_CASES)
+def test_k2_support_spans_equal_full_sum(case):
+    """K2's plain version sums only the nonzero span of by's rows and of
+    bx's columns, as the kernel does; the terms it leaves out are exact
+    zeros, so it equals the full sum bit for bit on every kind of RoI."""
+    rng = np.random.default_rng(len(case))
+    b, n, hw, c_out = 2, 12, 26, 10
+    boxes = _support_boxes(case, rng, b, n)
     by, bx = tra._batched_prep(boxes, hw, hw, (7, 7), 1 / 16, -0.5, 0.1, -1,
                                4)
     by, bx = by.to(torch.bfloat16), bx.to(torch.bfloat16)
@@ -333,3 +342,50 @@ def test_k2_support_spans_equal_full_sum(case):
         assert float(want.abs().max()) > 0.0
     if case != "wholly_outside":       # the spans really leave rows out
         assert int(rows.max()) < hw
+
+
+@pytest.mark.parametrize("case", _SUPPORT_CASES)
+@pytest.mark.parametrize("layout", ["upq", "puq", "padded", "c"])
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+def test_f32_support_spans_equal_full_sum(monkeypatch, precision, layout,
+                                          case):
+    """K6 ("upq", "puq", "c") and K7 ("padded"): the float32-operand plain
+    versions sum only the nonzero span of by's rows and of bx's columns,
+    as the kernels do. At every rung of the ladder the terms left out are
+    exact zeros (a zero by or bx has zero hi and lo parts), so the span
+    sum equals the full sum, the same code with every span the whole
+    axis, bit for bit on every kind of RoI. Layout "c" is RoIAlign, whose
+    plain version K3's float32 kernel shares."""
+    rng = np.random.default_rng(len(case))
+    b, n, hw, c_out = 2, 12, 26, 10
+    boxes = _support_boxes(case, rng, b, n)
+    ps = layout != "c"
+    by, bx = tra._batched_prep(boxes, hw, hw, (7, 7), 1 / 16,
+                               -0.5 if ps else 0.0, 0.1 if ps else 1.0, -1, 4)
+    c = {"padded": 7 * 128, "c": c_out}.get(layout, c_out * 49)
+    feats = rng.standard_normal((b, hw, hw, c))
+    if case == "negative_map":
+        feats = -np.abs(feats)
+    feats = torch.tensor(feats, dtype=torch.float32)
+
+    def crop():
+        if layout == "c":
+            return trk.roi_align_f32_plain(feats, by, bx, precision)
+        return trk.ps_roi_align_f32_plain(feats, by, bx, c_out, precision,
+                                          layout)
+
+    got = crop()
+    with monkeypatch.context() as m:
+        m.setattr(trk, "_span_mask", torch.ones_like)
+        want = crop()
+    assert got.shape == (b, n, 7, 7, c_out)
+    assert torch.equal(got, want)
+    if case == "wholly_outside":
+        assert float(want.abs().max()) == 0.0
+    else:
+        assert float(want.abs().max()) > 0.0
+        # the spans really leave rows (and, but for whole-frame RoIs,
+        # columns) out
+        assert int(trk._span_mask(by != 0).sum(-1).max()) < hw
+        cols = trk._span_mask((bx != 0).any(2)).sum(-1)
+        assert int(cols.min()) < hw or case == "whole_frame"
