@@ -27,7 +27,9 @@ printed only when every phase passed:
      versions' largest output, the exact share reported; kernel,
      plain and library times
      (the median of 5 repeats of the timing loop, with the spread), and
-     the bound; how many outputs K8 moves against K4 on the same inputs;
+     the bound; the deep pair at "highest" also against a float64
+     evaluation of its function (its error at most twice the plain
+     version's); how many outputs K8 moves against K4 on the same inputs;
      K13's statistics (benchmarks/quantize_tpu_check.py's checks); block
      12's int8 x int8 -> int32 convolution bit-equal on the card and the
      CPU, timed against cuDNN float32;
@@ -234,10 +236,13 @@ class KernelChecks:
         self.k8_vs_k4 = []     # (batch, outputs that differ, outputs)
 
     def case(self, name, label, batch, kern, plain, nbytes, flops, rate,
-             library=None, lib_note=None, lib_tol=None, iters=20, tol=None):
+             library=None, lib_note=None, lib_tol=None, iters=20, tol=None,
+             f64=None):
         """Hold ``kern()`` bit-equal to ``plain()`` or, with ``tol``, within
         ``tol`` of the plain version's largest magnitude (the share of
-        outputs that are bit-equal is recorded); time both and the library
+        outputs that are bit-equal is recorded); with ``f64``, a float64
+        evaluation of the function, the kernel's largest error against it
+        at most twice the plain version's; time both and the library
         call, and record the bound."""
         torch = self.torch
         got, want = kern(), plain()
@@ -255,6 +260,16 @@ class KernelChecks:
             raise AssertionError(f"{name} {label} b{batch}: off the plain "
                                  f"version by {err}, beyond {tol:.3g} of its "
                                  f"largest magnitude")
+        err64 = None
+        if f64 is not None:
+            ref = f64()
+            err64 = (float((got.double() - ref).abs().max()),
+                     float((want.double() - ref).abs().max()))
+            if not err64[0] <= 2 * err64[1]:
+                raise AssertionError(f"{name} {label} b{batch}: off the "
+                                     f"float64 function by {err64[0]}, more "
+                                     f"than twice the plain version's "
+                                     f"{err64[1]}")
         lib_ms = lib_err = scale = None
         if library is not None:
             lib_err = float((library().float() - want.float()).abs().max())
@@ -265,6 +280,7 @@ class KernelChecks:
                                      f"(largest value {scale})")
             lib_ms = cuda_ms(torch, library, iters)
         rec = dict(case=label, batch=batch, err=err, tol=tol, exact=exact,
+                   err64=err64,
                    scale=float(want.float().abs().max()),
                    ms=cuda_ms(torch, kern, iters),
                    plain_ms=cuda_ms(torch, plain, 1, 3),
@@ -507,7 +523,9 @@ class KernelChecks:
         with the served (folded) weights. At "default" the pair, the deep
         pair and K9 run on the tensor cores and are held within
         ``stem.PAIR_DEFAULT_TOL`` of their plain versions' largest output
-        (the exact share recorded); every "highest" case bit-equal.
+        (the exact share recorded); every "highest" case bit-equal, the
+        deep pair's also held to the float64 function (``case``'s
+        ``f64``).
         Library: cuDNN conv2d + bias + leaky_relu + max_pool2d on channels_last
         operands, bf16 where the kernel's products are bf16 and float32
         (TF32 off) at "highest"; held within 4% (bf16) or 0.2% (float32;
@@ -586,7 +604,9 @@ class KernelChecks:
                 # float32 against the plain version's bf16 store at
                 # "highest": half a bf16 ulp, 2^-9 of the value, and order
                 2.0 ** -8 if hi else BF16_TOL,
-                tol=None if hi else stem.PAIR_DEFAULT_TOL)
+                tol=None if hi else stem.PAIR_DEFAULT_TOL,
+                f64=(lambda: stem.fused_stem_pair_f64(x, w4, b4, w6, b6))
+                if hi else None)
 
         for i, hw, precision, store in ((0, 416, "highest", torch.float16),
                                         (2, 208, "highest", torch.float16),
@@ -1099,6 +1119,13 @@ def main():
         f"{max(np.log2(max(r['err'], 1e-30) / r['scale']) for r in bounded):.2f}"
         f" of it, at least {min(r['exact'] for r in bounded):.5f} of the "
         f"outputs bit-equal; {time.time() - t:.1f} s")
+    for r in checks.records["stem_pair_deep"]:
+        if r["err64"] is not None:
+            log(f"deep pair {r['case']} b{r['batch']}: exact share "
+                f"{r['exact']:.5f}; against the float64 function the kernel "
+                f"is off by {r['err64'][0]:.4g}, the plain version by "
+                f"{r['err64'][1]:.4g} (ratio "
+                f"{r['err64'][0] / max(r['err64'][1], 1e-300):.4f}, at most 2)")
     for seed, mean, p39 in checks.k13_stats:
         log(f"K13 carrier, seed {seed}: values 38 and 39, dequantized mean "
             f"{mean:.5f} (0.3 within 0.003), P(39) {p39:.3f} (expect ~0.10); "
@@ -1624,7 +1651,8 @@ def main():
         def flat(r):
             return {"case": r["case"], "batch": r["batch"],
                     "max_abs_err": r["err"], "tol": r["tol"],
-                    "exact_share": r["exact"], "ms": r["ms"][0],
+                    "exact_share": r["exact"], "f64_err": r["err64"],
+                    "ms": r["ms"][0],
                     "ms_min": r["ms"][1], "ms_max": r["ms"][2],
                     "plain_ms": r["plain_ms"][0], "bound_ms": r["bound"][0],
                     "bound_by": r["bound"][1],

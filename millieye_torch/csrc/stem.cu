@@ -67,12 +67,38 @@
 // kept in VMEM. 64 KB of shared memory and at most 80 registers a thread
 // at the stem widths, so three blocks share an SM.
 //
-// Design at "highest" (stem_pair_kernel): one block per 8x8 tile; the
-// 38x38xCin halo, both float32 weight sets and the float32 18x18xCmid
-// intermediate in shared memory; each thread owns 8 channels of one
-// pixel at all four pool positions, summing on the CUDA cores in the
-// plain version's order. Shapes whose weights and halo do not fit take
-// the deep pair below (the wrappers' ops/stem.py:pair_route).
+// Design at "highest" (stem_pair_kernel): mul-then-add on the CUDA cores,
+// two issue slots a product. At 416 px a tile's stage 0 covers its 18x18
+// intermediate (one halo pixel each side), so an image takes 294 M
+// products (199 M of them stage 1's), 588 M float32 instructions: at
+// 132 SMs x 128 lanes x 1.755-1.98 GHz the ceiling is 17.6-19.9 us an
+// image, 0.56-0.63 ms at batch 32, half the 67 TFLOP/s that FMAs would
+// reach. The layout is built so that this ceiling, not shared memory,
+// bounds it:
+//  - a persistent grid of 256-thread blocks walks 8x8 output tiles with
+//    a stride of the grid; both weight sets arrive once per block, in
+//    the [ci, 3, 3, co] order the wrapper gives them, by 16-byte
+//    cp.async;
+//  - the 38x38xCin input halo lands planar ([c][row][col]) by 4-byte
+//    cp.async (zero fill outside the frame), into a second buffer while
+//    the previous tile computes where two fit shared memory (the stem
+//    widths: 75,744 bytes, three blocks an SM), else into one;
+//  - each thread owns 4 output channels of 2 horizontally adjacent
+//    pixels at all four pool positions (32 sums); the lanes of a warp
+//    run 4-channel groups fastest, so a weight load is one float4 that
+//    neighbouring lanes read side by side, and the operands are the same
+//    word for all lanes of a group (a broadcast) and, across the groups
+//    of a warp, words of one row a stride of 4 apart (distinct banks at
+//    the stem widths). Per (u, v, c) a thread loads 8 operands and one
+//    float4 for 32 products;
+//  - stage 0 writes the float32 intermediate planar into shared memory,
+//    zero outside the H/2 x W/2 map (stage 1's padding); stage 1 reads it
+//    the same way and stores each pixel's 4 channels as one 16- or 8-byte
+//    store.
+// Each sum runs over (u, v, c), c fastest, one __fmul_rn and one
+// __fadd_rn a product, so the plain version repeats it bit for bit.
+// Shapes whose weights and halo do not fit one buffer take the deep pair
+// below (the wrappers' ops/stem.py:pair_route).
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -99,14 +125,6 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// one product into the float32 sum: with bf16 operands the product is
-// exact, so the FMA rounds like multiply-then-add; float32 operands round
-// the product first, as the plain version's eager multiply does
-template <bool kHighest>
-__device__ __forceinline__ float mac(float a, float b, float acc) {
-  return kHighest ? __fadd_rn(acc, __fmul_rn(a, b)) : fmaf(a, b, acc);
-}
-
 // the TPU's one-hot column select as two bf16 passes: hi + bf16(v - hi)
 // (both the difference and the sum are exact in float32)
 __device__ __forceinline__ float pool_select(float v) {
@@ -122,124 +140,6 @@ __device__ __forceinline__ void store_value(void* out, size_t i, float v,
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
   else
     static_cast<__half*>(out)[i] = __float2half_rn(v);
-}
-
-__host__ __device__ inline size_t pair_smem_bytes(int cin, int cmid,
-                                                  int cout) {
-  return sizeof(float) * (cmid + cout + 9 * cin * cmid + 9 * cmid * cout
-                          + kIn * kIn * cin + kMid * kMid * cmid);
-}
-
-// The pair at precision "highest": float32 products on the CUDA cores.
-__global__ void __launch_bounds__(kThreads)
-stem_pair_kernel(const float* __restrict__ x,
-                 const float* __restrict__ w0,   // [cmid, cin, 3, 3]
-                 const float* __restrict__ b0,
-                 const float* __restrict__ w1,   // [cout, cmid, 3, 3]
-                 const float* __restrict__ b1, void* __restrict__ out,
-                 int h, int w, int cin, int cmid, int cout, int store) {
-  extern __shared__ float smem[];
-  float* s_b0 = smem;
-  float* s_b1 = s_b0 + cmid;
-  float* s_w0 = s_b1 + cout;
-  float* s_w1 = s_w0 + 9 * cin * cmid;
-  float* s_in = s_w1 + 9 * cmid * cout;  // [kIn, kIn, cin]
-  float* s_mid = s_in + kIn * kIn * cin; // [kMid, kMid, cmid]
-
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
-  const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
-
-  for (int i = tid; i < cmid; i += kThreads) s_b0[i] = b0[i];
-  for (int i = tid; i < cout; i += kThreads) s_b1[i] = b1[i];
-  // [3, 3, ci, co] in shared memory from the OIHW weights
-  for (int i = tid; i < 9 * cin * cmid; i += kThreads)
-    s_w0[i] = w0[((i % cmid) * cin + (i / cmid) % cin) * 9 + i / cmid / cin];
-  for (int i = tid; i < 9 * cmid * cout; i += kThreads)
-    s_w1[i] = w1[((i % cout) * cmid + (i / cout) % cmid) * 9
-                 + i / cout / cmid];
-
-  // input halo: local (ly, lx) <-> global (4*kTile*ty - 3 + ly, ...)
-  const int iy0 = 4 * kTile * ty - 3, ix0 = 4 * kTile * tx - 3;
-  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
-  for (int e = tid; e < kIn * kIn * cin; e += kThreads) {
-    const int c = e % cin, pix = e / cin;
-    const int gy = iy0 + pix / kIn, gx = ix0 + pix % kIn;
-    float v = 0.0f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-      v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c];
-    s_in[e] = v;
-  }
-  __syncthreads();
-
-  // stage 0: intermediate local (ly, lx) <-> global (2*kTile*ty - 1 + ly,
-  // ...); its conv outputs (2*gy + dy, ...) read input local rows
-  // 2*ly + dy + u and columns 2*lx + dx + v
-  const int my0 = 2 * kTile * ty - 1, mx0 = 2 * kTile * tx - 1;
-  const int groups0 = cmid / kGroup;
-  for (int e = tid; e < kMid * kMid * groups0; e += kThreads) {
-    const int pix = e % (kMid * kMid), g = e / (kMid * kMid);
-    const int ly = pix / kMid, lx = pix % kMid;
-    const int gy = my0 + ly, gx = mx0 + lx;
-    float* dst = s_mid + pix * cmid + g * kGroup;
-    if (gy < 0 || gy >= hm || gx < 0 || gx >= wm) {
-      for (int k = 0; k < kGroup; ++k) dst[k] = 0.0f;
-      continue;
-    }
-    float acc[4][kGroup] = {};
-    for (int u = 0; u < 3; ++u)
-      for (int v = 0; v < 3; ++v)
-        for (int c = 0; c < cin; ++c) {
-          const float* wr = s_w0 + ((u * 3 + v) * cin + c) * cmid
-                            + g * kGroup;
-          for (int d = 0; d < 4; ++d) {
-            const int r = 2 * ly + (d >> 1) + u, s = 2 * lx + (d & 1) + v;
-            const float xv = s_in[(r * kIn + s) * cin + c];
-            for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = mac<true>(xv, wr[k], acc[d][k]);
-          }
-        }
-    for (int k = 0; k < kGroup; ++k) {
-      const float bias = s_b0[g * kGroup + k];
-      float m = leaky(__fadd_rn(acc[0][k], bias));
-      for (int d = 1; d < 4; ++d)
-        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      dst[k] = m;
-    }
-  }
-  __syncthreads();
-
-  // stage 1: output local (py, px) <-> global (kTile*ty + py, ...); its
-  // conv outputs read intermediate local rows 2*py + dy + u
-  const int groups1 = cout / kGroup;
-  for (int e = tid; e < kTile * kTile * groups1; e += kThreads) {
-    const int pix = e % (kTile * kTile), g = e / (kTile * kTile);
-    const int py = pix / kTile, px = pix % kTile;
-    const int oy = kTile * ty + py, ox = kTile * tx + px;
-    if (oy >= ho || ox >= wo) continue;
-    float acc[4][kGroup] = {};
-    for (int u = 0; u < 3; ++u)
-      for (int v = 0; v < 3; ++v)
-        for (int c = 0; c < cmid; ++c) {
-          const float* wr = s_w1 + ((u * 3 + v) * cmid + c) * cout
-                            + g * kGroup;
-          for (int d = 0; d < 4; ++d) {
-            const int r = 2 * py + (d >> 1) + u, s = 2 * px + (d & 1) + v;
-            const float mv = s_mid[(r * kMid + s) * cmid + c];
-            for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = mac<true>(mv, wr[k], acc[d][k]);
-          }
-        }
-    const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
-                     + g * kGroup;
-    for (int k = 0; k < kGroup; ++k) {
-      const float bias = s_b1[g * kGroup + k];
-      float m = leaky(__fadd_rn(acc[0][k], bias));
-      for (int d = 1; d < 4; ++d)
-        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      store_value(out, o + k, m, store);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -283,6 +183,17 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// 16-byte asynchronous copy into shared memory
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait0() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // two floats rounded to bf16, lo in the low half (the fragments' order)
@@ -354,6 +265,199 @@ __device__ __forceinline__ void store8(void* out, size_t o, const float* v,
   q.z = bf ? pack_bf16(v[4], v[5]) : pack_f16(v[4], v[5]);
   q.w = bf ? pack_bf16(v[6], v[7]) : pack_f16(v[6], v[7]);
   *reinterpret_cast<uint4*>(static_cast<__half*>(out) + o) = q;
+}
+
+// four channels to the output as one 16-byte (float32) or 8-byte store
+__device__ __forceinline__ void store4(void* out, size_t o, const float* v,
+                                       int store) {
+  if (store == kStoreF32) {
+    *reinterpret_cast<float4*>(static_cast<float*>(out) + o) =
+        make_float4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+  const bool bf = store == kStoreBf16;
+  *reinterpret_cast<uint2*>(static_cast<__half*>(out) + o) = make_uint2(
+      bf ? pack_bf16(v[0], v[1]) : pack_f16(v[0], v[1]),
+      bf ? pack_bf16(v[2], v[3]) : pack_f16(v[2], v[3]));
+}
+
+// ---------------------------------------------------------------------
+// The pair at precision "highest" (see the note at the top of the file).
+
+// bytes of shared memory: the biases, both weight sets, the intermediate
+// and `bufs` input halos (ops/stem.py:_tile_fits mirrors it at bufs = 1)
+__host__ __device__ inline size_t pair_smem_bytes(int cin, int cmid,
+                                                  int cout, int bufs) {
+  return sizeof(float) * (align4(cmid) + align4(cout) + 9 * cin * cmid
+                          + 9 * cmid * cout + kMid * kMid * cmid
+                          + bufs * align4(kIn * kIn * cin));
+}
+
+// The 2x2-pooled conv of two horizontally adjacent pooled pixels x 4
+// channels, summed as the plain version sums: over (u, v, c), c fastest,
+// each product rounded before its add. src: planar [nc][rows][pitch]
+// (plane floats a channel), the pixels' conv windows starting at local
+// row r0 and columns c0 and c0 + 2; sw: [nc][3][3][nco] with the 4
+// channels at co. acc[q][d][k]: pixel q, pool position d = 2 dy + dx.
+__device__ __forceinline__ void conv_pair_hi(float (&acc)[2][4][4],
+                                             const float* src, int pitch,
+                                             int plane, int nc,
+                                             const float* sw, int nco, int co,
+                                             int r0, int c0) {
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float* p = src + (r0 + u) * pitch + c0 + v;
+      const float* wr = sw + (u * 3 + v) * nco + co;
+      for (int c = 0; c < nc; ++c, p += plane, wr += 9 * nco) {
+        const float4 wv = *reinterpret_cast<const float4*>(wr);
+        const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
+        float a[2][4];
+#pragma unroll
+        for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) a[dy][t] = p[dy * pitch + t];
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int d = 0; d < 4; ++d)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              acc[q][d][k] = __fadd_rn(
+                  acc[q][d][k], __fmul_rn(a[d >> 1][2 * q + (d & 1)], wk[k]));
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+stem_pair_kernel(const float* __restrict__ x,
+                 const float* __restrict__ w0,   // [cin, 3, 3, cmid]
+                 const float* __restrict__ b0,
+                 const float* __restrict__ w1,   // [cmid, 3, 3, cout]
+                 const float* __restrict__ b1, void* __restrict__ out,
+                 int n, int h, int w, int cin, int cmid, int cout, int store,
+                 int bufs) {
+  extern __shared__ __align__(16) float smem[];
+  float* s_b0 = smem;
+  float* s_b1 = s_b0 + align4(cmid);
+  float* s_w0 = s_b1 + align4(cout);          // [cin][3][3][cmid]
+  float* s_w1 = s_w0 + 9 * cin * cmid;        // [cmid][3][3][cout]
+  float* s_mid = s_w1 + 9 * cmid * cout;      // [cmid][kMid][kMid]
+  float* s_in = s_mid + kMid * kMid * cmid;   // [bufs][cin][kIn][kIn]
+  const int halo = align4(kIn * kIn * cin);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
+  const int tiles_x = cdiv(wo, kTile), per_img = tiles_x * cdiv(ho, kTile);
+  const int n_tiles = n * per_img;
+
+  // a tile's input halo, planar, zero outside the frame: a warp copies
+  // whole frame rows, a contiguous run of kIn * cin floats, and tracks
+  // each float's (column, channel) by adding 32 = 32/cin columns and
+  // 32 % cin channels a step
+  const int run = kIn * cin, col_step = 32 / cin, c_step = 32 % cin;
+  auto load_halo = [&](int tile, float* dst) {
+    const int img = tile / per_img, r = tile % per_img;
+    const int iy0 = 4 * kTile * (r / tiles_x) - 3;
+    const int ix0 = 4 * kTile * (r % tiles_x) - 3;
+    for (int row = warp; row < kIn; row += kWarps) {
+      const int gy = iy0 + row;
+      const float* src = x + (static_cast<ptrdiff_t>(img) * h + gy) * w * cin;
+      int c = lane % cin, col = lane / cin;
+      for (int k = lane; k < run; k += 32) {
+        const int gk = ix0 * cin + k;   // float index within the frame row
+        const bool ok = gy >= 0 && gy < h && gk >= 0 && gk < w * cin;
+        cp_async4(dst + (c * kIn + row) * kIn + col, ok ? src + gk : x, ok);
+        c += c_step;
+        col += col_step;
+        if (c >= cin) {
+          c -= cin;
+          ++col;
+        }
+      }
+    }
+  };
+
+  // once per block: both weight sets and the biases
+  for (int i = tid; i < 9 * cin * cmid / 4; i += kThreads)
+    cp_async16(s_w0 + 4 * i, w0 + 4 * i);
+  for (int i = tid; i < 9 * cmid * cout / 4; i += kThreads)
+    cp_async16(s_w1 + 4 * i, w1 + 4 * i);
+  for (int i = tid; i < cmid; i += kThreads) s_b0[i] = b0[i];
+  for (int i = tid; i < cout; i += kThreads) s_b1[i] = b1[i];
+  int tile = blockIdx.x;
+  if (bufs == 2 && tile < n_tiles) load_halo(tile, s_in);
+  cp_async_commit();
+
+  const int groups0 = cmid / 4, groups1 = cout / 4;
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const float* cur = s_in + (bufs == 2 ? (it & 1) * halo : 0);
+    if (bufs == 2) {   // the next tile's halo loads while this one computes
+      if (tile + gridDim.x < n_tiles)
+        load_halo(tile + gridDim.x, s_in + ((it + 1) & 1) * halo);
+      cp_async_commit();
+      cp_async_wait1();
+    } else {
+      load_halo(tile, s_in);
+      cp_async_commit();
+      cp_async_wait0();
+    }
+    __syncthreads();
+    const int img = tile / per_img, r = tile % per_img;
+    const int ty = r / tiles_x, tx = r % tiles_x;
+    // intermediate local (ly, lx) <-> global (2*kTile*ty - 1 + ly, ...);
+    // its conv outputs read input local rows 2*ly + dy + u
+    const int my0 = 2 * kTile * ty - 1, mx0 = 2 * kTile * tx - 1;
+
+    // stage 0: item = (pair of intermediate pixels, 4-channel group)
+    for (int e = tid; e < kMid * kMidHalf * groups0; e += kThreads) {
+      const int g = e % groups0, p = e / groups0;
+      const int ly = p / kMidHalf, lx = 2 * (p % kMidHalf);
+      const int gy = my0 + ly, gx = mx0 + lx;
+      const bool row_in = gy >= 0 && gy < hm;
+      const bool in[2] = {row_in && gx >= 0 && gx < wm,
+                          row_in && gx + 1 >= 0 && gx + 1 < wm};
+      float acc[2][4][4] = {};
+      if (in[0] || in[1])
+        conv_pair_hi(acc, cur, kIn, kIn * kIn, cin, s_w0, cmid, 4 * g,
+                     2 * ly, 2 * lx);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)   // zero outside the map: stage 1's pad
+          s_mid[((4 * g + k) * kMid + ly) * kMid + lx + q] =
+              in[q] ? pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
+                                   acc[q][3][k], s_b0[4 * g + k])
+                    : 0.0f;
+    }
+    __syncthreads();
+
+    // stage 1: item = (pair of output pixels, 4-channel group); output
+    // local (py, px) <-> global (kTile*ty + py, ...), its conv outputs
+    // read intermediate local rows 2*py + dy + u
+    for (int e = tid; e < kTile * (kTile / 2) * groups1; e += kThreads) {
+      const int g = e % groups1, p = e / groups1;
+      const int py = p / (kTile / 2), px = 2 * (p % (kTile / 2));
+      const int oy = kTile * ty + py, ox = kTile * tx + px;
+      if (oy >= ho || ox >= wo) continue;
+      float acc[2][4][4] = {};
+      conv_pair_hi(acc, s_mid, kMid, kMid * kMid, cmid, s_w1, cout, 4 * g,
+                   2 * py, 2 * px);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (ox + q >= wo) continue;
+        float m[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          m[k] = pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
+                              acc[q][3][k], s_b1[4 * g + k]);
+        store4(out, ((static_cast<size_t>(img) * ho + oy) * wo + ox + q)
+                        * cout + 4 * g, m, store);
+      }
+    }
+    __syncthreads();            // every buffer is free for the next tile
+  }
 }
 
 template <bool kSelect>
@@ -608,17 +712,6 @@ int launch_frag_weights(const void* w, void* frag, int cin, int cout,
   frag_weights_kernel<<<cdiv(total, kThreads), kThreads, 0, st>>>(
       static_cast<const float*>(w), static_cast<uint2*>(frag), cin, cout);
   return static_cast<int>(cudaGetLastError());
-}
-
-// 16-byte asynchronous copy into shared memory
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Byte offset of 16-byte chunk `chunk` of pixel (row, col) in a bf16
@@ -1007,34 +1100,181 @@ stem_pair_deep_tc_kernel(const float* __restrict__ x,
 // pallas_stem_pairs="all" (the pallas_pair2 preset), and the pair wrappers
 // (K4, K8, K11, K12) at channel counts whose weights and halos do not fit
 // the stem pair's shared memory. Numerics as the stem pair above, at
-// either precision, K8's select included.
+// either precision, K8's select included; the sums run over (c, u, v), c
+// slowest, as in K9, so the CUDA-core kernels are bit-equal to the plain
+// version.
 //
 // Bound on an H100, per image: 0.80 GFLOP of products (2 x 398.7 MFLOP;
 // 0.81 us at the bf16 989 TFLOP/s, 11.9 us on the 67 TFLOP/s float32
 // cores) against 1.38 MB of float32 input and 0.17 MB of bf16 output
 // (0.46 us at 3.35 TB/s): operations. At "default" the tensor-core kernel
-// above runs it (stem_pair_deep_tc_kernel); the CUDA-core kernel below
-// takes "highest", and "default" where the tensor-core kernel's halos and
-// weights do not fit shared memory (Cin above 32 at Cmid 64).
+// above runs it (stem_pair_deep_tc_kernel), and where its halos and
+// weights do not fit shared memory (Cin above 32 at Cmid 64) the
+// CUDA-core kernel stem_pair_deep_kernel below.
 //
-// Design of the CUDA-core kernel. The stem pair's layout does not fit:
-// w0 and w1 hold 92,160 weights (184 KB in bf16, 368 KB in float32), and
-// the 38x38x32 input halo of an 8x8 output tile is another 92 KB in
-// bf16, against 227 KB a block may have. So, as kernel K9 does, channels
+// At "highest", two launches of deep_stage_kernel: stage 0 writes its
+// pooled float32 intermediate [n, h/2, w/2, cmid] to device scratch (0.69
+// MB an image at 104 px, 22 MB at batch 32: it stays in the 50 MB L2),
+// stage 1 reads it. Nothing is recomputed, and each launch has enough
+// blocks to cover the 132 SMs at batch 1 (182 and 112). Each product is
+// rounded before its add (__fmul_rn, __fadd_rn: two issue slots), so the
+// ceiling is 797 M float32 instructions an image, 0.76-0.86 ms at batch
+// 32 (132 SMs x 128 lanes x 1.755-1.98 GHz). FMAs would halve it, but
+// would leave the plain version's order of roundings: 16-bit outputs
+// would then differ by an ulp in a few per thousand, more near zero.
+//
+// deep_stage_kernel: out = maxpool2(leaky(conv3x3(x, w) + b)), NHWC
+// float32 x, [cin, 3, 3, cout] w. A 128-thread block takes a tile of 4x8
+// pooled pixels and a slice of 32 output channels; input channels go
+// through shared memory in chunks of 16 (the 10x18 halo of the chunk,
+// planar with an even row pitch, and the slice's weights [c][u][v][co]:
+// 30 KB, several blocks an SM). A thread owns 4 channels of 2
+// horizontally adjacent pixels at all four pool positions (32 sums);
+// lanes run the 4-channel groups fastest, so a weight load is one float4
+// read side by side by 8 lanes, and the 4 pixel pairs of a warp read one
+// halo row. Per input channel a thread loads its 4x6 patch (12 float2
+// loads) once for the 9 taps and 9 float4 weight loads: 288 products.
+constexpr int kFRows = 4;                 // pooled pixels per tile: rows
+constexpr int kFCols = 8;                 //   and columns
+constexpr int kFInRows = 2 * kFRows + 2;  // 10 input rows
+constexpr int kFInCols = 2 * kFCols + 2;  // 18 input columns
+constexpr int kFCo = 32;                  // output channels per block
+constexpr int kFCk = 16;                  // input channels per chunk
+constexpr int kFThreads = 128;
+
+__global__ void __launch_bounds__(kFThreads)
+deep_stage_kernel(const float* __restrict__ x,
+                  const float* __restrict__ wgt,   // [cin, 3, 3, cout]
+                  const float* __restrict__ bias, void* __restrict__ out,
+                  int h, int w, int cin, int cout, int store) {
+  __shared__ __align__(16) float s_in[kFCk * kFInRows * kFInCols];
+  __shared__ __align__(16) float s_w[kFCk * 9 * kFCo];
+
+  const int tid = threadIdx.x;
+  const int slices = cdiv(cout, kFCo);
+  const int n = blockIdx.z / slices, co0 = (blockIdx.z % slices) * kFCo;
+  const int co_n = min(kFCo, cout - co0);       // a multiple of 8
+  const int g = tid % (kFCo / 4), pp = tid / (kFCo / 4);
+  const int py = pp / (kFCols / 2), px = 2 * (pp % (kFCols / 2));
+  const int ho = h / 2, wo = w / 2;
+  const int oy = kFRows * blockIdx.y + py, ox = kFCols * blockIdx.x + px;
+  const bool active = 4 * g < co_n;
+  // input halo: local (ly, lx) <-> global (2*kFRows*ty - 1 + ly, ...)
+  const int iy0 = 2 * kFRows * blockIdx.y - 1;
+  const int ix0 = 2 * kFCols * blockIdx.x - 1;
+  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+  const bool vec = (cin & 3) == 0;
+
+  float acc[2][4][4] = {};
+  for (int c0 = 0; c0 < cin; c0 += kFCk) {
+    const int cn = min(kFCk, cin - c0);
+    __syncthreads();                     // the previous chunk is consumed
+    // the halo: 4 channels an item, a float4 where cin allows
+    for (int e = tid; e < kFInRows * kFInCols * (kFCk / 4); e += kFThreads) {
+      const int q = e % (kFCk / 4), p = e / (kFCk / 4);
+      const int ly = p / kFInCols, lx = p % kFInCols;
+      const int gy = iy0 + ly, gx = ix0 + lx, c = 4 * q;
+      if (c >= cn) continue;
+      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+        const float* src = xn + (static_cast<size_t>(gy) * w + gx) * cin + c0
+                           + c;
+        if (vec) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) v[k] = c + k < cn ? src[k] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        s_in[((c + k) * kFInRows + ly) * kFInCols + lx] = v[k];
+    }
+    // the slice's weights, zero past co_n
+    for (int e = tid; e < cn * 9 * (kFCo / 4); e += kFThreads) {
+      const int q = e % (kFCo / 4), row = e / (kFCo / 4);   // row = c*9 + tap
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (4 * q < co_n)
+        v = __ldg(reinterpret_cast<const float4*>(
+            wgt + (static_cast<size_t>(c0) * 9 + row) * cout + co0 + 4 * q));
+      *reinterpret_cast<float4*>(s_w + row * kFCo + 4 * q) = v;
+    }
+    __syncthreads();
+    if (!active) continue;
+    for (int c = 0; c < cn; ++c) {
+      // the pair's 4x6 patch: rows 2 py + (0..3), columns 2 px + (0..5)
+      float patch[4][6];
+      const float* ps = s_in + (c * kFInRows + 2 * py) * kFInCols + 2 * px;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          const float2 a =
+              *reinterpret_cast<const float2*>(ps + r * kFInCols + 2 * t);
+          patch[r][2 * t] = a.x;
+          patch[r][2 * t + 1] = a.y;
+        }
+#pragma unroll
+      for (int u = 0; u < 3; ++u)
+#pragma unroll
+        for (int v = 0; v < 3; ++v) {
+          const float4 wv = *reinterpret_cast<const float4*>(
+              s_w + (c * 9 + u * 3 + v) * kFCo + 4 * g);
+          const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int d = 0; d < 4; ++d) {
+              const float xv = patch[(d >> 1) + u][2 * q + (d & 1) + v];
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+                acc[q][d][k] = __fadd_rn(acc[q][d][k], __fmul_rn(xv, wk[k]));
+            }
+        }
+    }
+  }
+  if (!active || oy >= ho) return;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (ox + q >= wo) continue;
+    float m[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      m[k] = pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
+                          acc[q][3][k], bias[co0 + 4 * g + k]);
+    store4(out, ((static_cast<size_t>(n) * ho + oy) * wo + ox + q) * cout
+                    + co0 + 4 * g, m, store);
+  }
+}
+
+int launch_deep_stage(const float* x, const float* wgt, const float* bias,
+                      void* out, int n, int h, int w, int cin, int cout,
+                      int store, cudaStream_t st) {
+  const long long z = static_cast<long long>(n) * cdiv(cout, kFCo);
+  if (z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(cdiv(w / 2, kFCols), cdiv(h / 2, kFRows),
+                  static_cast<unsigned>(z));
+  deep_stage_kernel<<<grid, kFThreads, 0, st>>>(x, wgt, bias, out, h, w, cin,
+                                                cout, store);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The CUDA-core kernel at "default", for the widths the tensor-core
+// kernel's shared memory does not hold. The stem pair's layout does not
+// fit them: w0 and w1 hold 92,160 weights at 32 -> 64 -> 128 (184 KB in
+// bf16), and the 38x38x32 input halo of an 8x8 output tile is another
+// 92 KB, against 227 KB a block may have. So, as kernel K9 does, channels
 // go through shared memory in chunks of 8: the 22x22 input halo of the
 // chunk (planar, a padded row pitch) with its w0 slice, then, for stage
-// 1, the w1 slice.
-// Only the stage-0 intermediate of the tile stays whole (10x10xCmid
-// float32, 28 KB at Cmid 64): 64 KB of dynamic shared memory in all.
-// The output tile is 4x4 pooled pixels: the 26x26 map at 104 px is then
-// 7x7 = 49 blocks at batch 1 (8x8 tiles would give 16 blocks for 132
-// SMs), at the cost of recomputing the stage-0 halo (a 10x10
-// intermediate for 8x8 stage-1 positions, 1.56x the stage-0 work; 2x2
-// tiles would cost 2.25x and leave stage 1 with 64 of 256 threads). The
-// output channels are not split across blocks, since each slice would
-// recompute the whole stage 0. A thread owns 8 channels of one pixel at
-// all four pool positions (32 accumulators); the sums run over (c, u, v),
-// c slowest, as in K9.
+// 1, the w1 slice. Only the stage-0 intermediate of the tile stays whole
+// (10x10xCmid float32, 28 KB at Cmid 64). The output tile is 4x4 pooled
+// pixels, at the cost of recomputing the stage-0 halo (a 10x10
+// intermediate for 8x8 stage-1 positions, 1.56x the stage-0 work). A
+// thread owns 8 channels of one pixel at all four pool positions (32
+// accumulators); the sums run over (c, u, v), c slowest, as in K9, on
+// bf16 operands (each product exact in float32, so the FMA rounds like
+// the plain version's add).
 constexpr int kDTile = 4;                 // output pixels per tile side
 constexpr int kDMid = 2 * kDTile + 2;     // 10 intermediate pixels
 constexpr int kDIn = 4 * kDTile + 6;      // 22 input pixels
@@ -1049,7 +1289,6 @@ __host__ __device__ inline size_t deep_smem_floats(int cmid, int cout) {
          + (chunk0 > chunk1 ? chunk0 : chunk1);
 }
 
-template <bool kHighest>
 __global__ void __launch_bounds__(kThreads)
 stem_pair_deep_kernel(const float* __restrict__ x,
                       const float* __restrict__ w0,   // [cin, 3, 3, cmid]
@@ -1091,12 +1330,12 @@ stem_pair_deep_kernel(const float* __restrict__ x,
         float v = 0.0f;
         if (gy >= 0 && gy < h && gx >= 0 && gx < w)
           v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c0 + c];
-        if (!kHighest) v = bf16_round(v);
+        v = bf16_round(v);
         s_in[(c * kDIn + p / kDIn) * kDInPitch + p % kDIn] = v;
       }
       const float* wsrc = w0 + static_cast<size_t>(c0) * 9 * cmid;
       for (int i = tid; i < cn * 9 * cmid; i += kThreads)
-        s_w0[i] = kHighest ? wsrc[i] : bf16_round(wsrc[i]);
+        s_w0[i] = bf16_round(wsrc[i]);
       __syncthreads();
       if (!active) continue;
       for (int c = 0; c < cn; ++c) {
@@ -1115,7 +1354,7 @@ stem_pair_deep_kernel(const float* __restrict__ x,
             for (int d = 0; d < 4; ++d) {
               const float xv = patch[(d >> 1) + u][(d & 1) + v];
               for (int k = 0; k < kGroup; ++k)
-                acc[d][k] = mac<kHighest>(xv, wv[k], acc[d][k]);
+                acc[d][k] = fmaf(xv, wv[k], acc[d][k]);
             }
           }
       }
@@ -1131,7 +1370,7 @@ stem_pair_deep_kernel(const float* __restrict__ x,
       if (select) m = pool_select(m);
       // stage 1's operand; zero outside the map (stage 1's padding)
       s_mid[((g * kGroup + k) * kDMid + ly) * kDMidPitch + lx] =
-          inside ? (kHighest ? m : bf16_round(m)) : 0.0f;
+          inside ? bf16_round(m) : 0.0f;
     }
   }
 
@@ -1149,7 +1388,7 @@ stem_pair_deep_kernel(const float* __restrict__ x,
       __syncthreads();    // s_mid is written, the previous chunk consumed
       const float* wsrc = w1 + static_cast<size_t>(c0) * 9 * cout;
       for (int i = tid; i < cn * 9 * cout; i += kThreads)
-        s_w1[i] = kHighest ? wsrc[i] : bf16_round(wsrc[i]);
+        s_w1[i] = bf16_round(wsrc[i]);
       __syncthreads();
       if (!active) continue;
       for (int c = 0; c < cn; ++c) {
@@ -1168,7 +1407,7 @@ stem_pair_deep_kernel(const float* __restrict__ x,
             for (int d = 0; d < 4; ++d) {
               const float mv = patch[(d >> 1) + u][(d & 1) + v];
               for (int k = 0; k < kGroup; ++k)
-                acc[d][k] = mac<kHighest>(mv, wv[k], acc[d][k]);
+                acc[d][k] = fmaf(mv, wv[k], acc[d][k]);
             }
           }
       }
@@ -1456,9 +1695,11 @@ const char* millieye_cuda_error_name(int code) {
   return cudaGetErrorName(static_cast<cudaError_t>(code));
 }
 
-// x [n, h, w, cin] f32, w0 [cmid, cin, 3, 3] f32, b0 [cmid] f32,
-// w1 [cout, cmid, 3, 3] f32, b1 [cout] f32 -> out [n, h/4, w/4, cout] in
-// the store type (0 float32, 1 bf16, 2 float16). highest: float32
+// x [n, h, w, cin] f32, b0 [cmid] f32, b1 [cout] f32, w0 and w1 f32:
+// OIHW ([cmid, cin, 3, 3], [cout, cmid, 3, 3]) at highest == 0, read once
+// per block; [cin, 3, 3, cmid] and [cmid, 3, 3, cout] at highest, copied
+// as they are -> out [n, h/4, w/4, cout] in the store type (0 float32,
+// 1 bf16, 2 float16). highest: float32
 // products on the CUDA cores, else bf16 operands (rounded in the kernel)
 // on the tensor cores; select: K8's hi/lo pool (only with highest == 0).
 int millieye_stem_pair(const void* x, const void* w0, const void* b0,
@@ -1468,23 +1709,27 @@ int millieye_stem_pair(const void* x, const void* w0, const void* b0,
   if (bad_pair_shape(n, h, w, cin, cmid, cout, store) || (highest && select))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long tiles = static_cast<long long>(n)
+      * cdiv(w / 4, kTile) * cdiv(h / 4, kTile);
+  int grid = 0;
   if (highest) {
-    const size_t smem = pair_smem_bytes(cin, cmid, cout);
+    // two halo buffers where they fit, else one
+    const int bufs = pair_smem_bytes(cin, cmid, cout, 2) <= kMaxSmem ? 2 : 1;
+    const size_t smem = pair_smem_bytes(cin, cmid, cout, bufs);
     if (smem > kMaxSmem) return cudaErrorInvalidValue;
-    const dim3 grid((w / 4 + kTile - 1) / kTile,
-                    (h / 4 + kTile - 1) / kTile, n);
-    return launch(stem_pair_kernel, grid, smem, st,
-                  static_cast<const float*>(x), static_cast<const float*>(w0),
-                  static_cast<const float*>(b0), static_cast<const float*>(w1),
-                  static_cast<const float*>(b1), out, h, w, cin, cmid, cout,
-                  store);
+    const cudaError_t err = persistent_grid(stem_pair_kernel, smem, tiles, 1,
+                                            &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stem_pair_kernel<<<grid, kThreads, smem, st>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w0),
+        static_cast<const float*>(b0), static_cast<const float*>(w1),
+        static_cast<const float*>(b1), out, n, h, w, cin, cmid, cout, store,
+        bufs);
+    return static_cast<int>(cudaGetLastError());
   }
   const size_t smem = pair_tc_smem_bytes(cin, cmid, cout);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto kernel = select ? stem_pair_tc_kernel<true> : stem_pair_tc_kernel<false>;
-  const long long tiles = static_cast<long long>(n)
-      * ((w / 4 + kTile - 1) / kTile) * ((h / 4 + kTile - 1) / kTile);
-  int grid = 0;
   const cudaError_t err = persistent_grid(kernel, smem, tiles, 1, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kThreads, smem, st>>>(
@@ -1496,13 +1741,19 @@ int millieye_stem_pair(const void* x, const void* w0, const void* b0,
 
 // The deep pair: x [n, h, w, cin] f32, w0 [cin, 3, 3, cmid] f32, b0,
 // w1 [cmid, 3, 3, cout] f32, b1 -> out [n, h/4, w/4, cout] in the store
-// type; select: K8's hi/lo pool (only with highest == 0). At "default"
-// the tensor-core kernel, where its tile fits shared memory, with both
-// weight sets in fragment order in `scratch` (millieye_stem_pair_deep_
-// scratch_bytes; written here by a first launch); else, and at "highest",
-// the CUDA-core kernel, which rounds the weights to bf16 itself at
-// "default" and leaves `scratch` alone.
-size_t millieye_stem_pair_deep_scratch_bytes(int cin, int cmid, int cout) {
+// type; select: K8's hi/lo pool (only with highest == 0). At "highest"
+// two launches of deep_stage_kernel through the float32 intermediate
+// [n, h/2, w/2, cmid] in `scratch`. At "default" the tensor-core kernel,
+// where its tile fits shared memory, with both weight sets in fragment
+// order in `scratch` (written here by a first launch); else the CUDA-core
+// kernel, which rounds the weights to bf16 itself and leaves `scratch`
+// alone. millieye_stem_pair_deep_scratch_bytes gives the bytes of
+// `scratch` a call with the same arguments needs.
+size_t millieye_stem_pair_deep_scratch_bytes(int n, int h, int w, int cin,
+                                             int cmid, int cout,
+                                             int highest) {
+  if (highest)
+    return sizeof(float) * static_cast<size_t>(n) * (h / 2) * (w / 2) * cmid;
   return frag_bytes(cin, cmid) + frag_bytes(cmid, cout);
 }
 
@@ -1517,8 +1768,16 @@ int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
   const float *xf = static_cast<const float*>(x),
               *b0f = static_cast<const float*>(b0),
               *b1f = static_cast<const float*>(b1);
+  if (highest) {
+    float* mid = static_cast<float*>(scratch);
+    const int rc = launch_deep_stage(xf, static_cast<const float*>(w0), b0f,
+                                     mid, n, h, w, cin, cmid, kStoreF32, st);
+    if (rc != 0) return rc;
+    return launch_deep_stage(mid, static_cast<const float*>(w1), b1f, out, n,
+                             h / 2, w / 2, cmid, cout, store, st);
+  }
   const size_t tc_smem = deep_tc_smem_bytes(cin, cmid, cout);
-  if (!highest && tc_smem <= kMaxSmem) {
+  if (tc_smem <= kMaxSmem) {
     uint2* wf0 = static_cast<uint2*>(scratch);
     uint2* wf1 = reinterpret_cast<uint2*>(
         static_cast<unsigned char*>(scratch) + frag_bytes(cin, cmid));
@@ -1542,9 +1801,7 @@ int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   const dim3 grid((w / 4 + kDTile - 1) / kDTile,
                   (h / 4 + kDTile - 1) / kDTile, n);
-  auto kernel = highest ? stem_pair_deep_kernel<true>
-                        : stem_pair_deep_kernel<false>;
-  return launch(kernel, grid, smem, st, xf, static_cast<const float*>(w0),
+  return launch(stem_pair_deep_kernel, grid, smem, st, xf, static_cast<const float*>(w0),
                 b0f, static_cast<const float*>(w1), b1f, out, h, w, cin, cmid,
                 cout, store, select);
 }

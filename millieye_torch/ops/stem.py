@@ -69,10 +69,11 @@ widths such as 16 -> 32 -> 64), each of the four wrappers runs
 ``fused_stem_pair_deep`` instead (``pair_route``, the same on the CPU
 and the card; K8 with its select), which counts its own launches: at
 "default" a tensor-core kernel that streams the second layer's weights
-through shared memory, at "highest" a CUDA-core kernel that streams
-channels in chunks. ``scratch_dtype`` and ``groups0`` are checked as the
-JAX package checks them (bf16 scratches only at "default"; ``groups0``
-in {2, 4, 8}) and change nothing else.
+through shared memory, at "highest" two CUDA-core launches, one per
+stage, through a float32 intermediate in device scratch (bit-equal).
+``scratch_dtype`` and ``groups0`` are checked as the JAX package checks
+them (bf16 scratches only at "default"; ``groups0`` in {2, 4, 8}) and
+change nothing else.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
@@ -182,6 +183,17 @@ def fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision="default",
     return y.to(out_dtype)
 
 
+def fused_stem_pair_f64(x, w0, b0, w1, b1):
+    """The pair's function evaluated in float64: [N, H/4, W/4, Cout]
+    float64, the yardstick for the rounding of the float32 sums at
+    "highest" (the deep pair's too)."""
+    y = x.permute(0, 3, 1, 2).double()
+    for w, b in ((w0, b0), (w1, b1)):
+        y = F.max_pool2d(_leaky(F.conv2d(y, w.double(), b.double(),
+                                         padding=1)), 2)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 def _lib():
     lib = cuda_lib.library("stem")
     lib.millieye_stem_pair.argtypes = ([ctypes.c_void_p] * 6
@@ -199,7 +211,7 @@ def _lib():
     for fn in (lib.millieye_stem_pair, lib.millieye_stem_pair_deep,
                lib.millieye_stem_stage, lib.millieye_stem_nhwc):
         fn.restype = ctypes.c_int
-    lib.millieye_stem_pair_deep_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.millieye_stem_pair_deep_scratch_bytes.argtypes = [ctypes.c_int] * 7
     lib.millieye_stem_stage_scratch_bytes.argtypes = [ctypes.c_int] * 2
     for fn in (lib.millieye_stem_pair_deep_scratch_bytes,
                lib.millieye_stem_stage_scratch_bytes):
@@ -330,13 +342,13 @@ _SMEM_LIMIT = 232448          # bytes of shared memory a block may opt into
 def _tile_fits(cin, cmid, cout, precision):
     """Whether the stem pair kernel holds its 8x8 output tile in shared
     memory (``pair_smem_bytes`` and ``pair_tc_smem_bytes`` in
-    csrc/stem.cu): at "highest" both float32 weight sets, a 38x38 input
-    halo and the 18x18 intermediate; at "default" both bf16 weight sets in
+    csrc/stem.cu): at "highest" the biases, both float32 weight sets, the
+    18x18 intermediate and one 38x38 input halo (the kernel takes a second
+    halo buffer where that fits too); at "default" both bf16 weight sets in
     fragment order, two float32 input halos, the bf16 intermediate and the
     store staging."""
     if precision == "highest":
-        return 4 * (cmid + cout + 9 * cin * cmid + 9 * cmid * cout
-                    + 38 * 38 * cin + 18 * 18 * cmid) <= _SMEM_LIMIT
+        return _pair_highest_bytes(cin, cmid, cout) <= _SMEM_LIMIT
     ks0, cs = -(-9 * cin // 16), -(-cmid // 16)
     floats = (_round4(cmid) + _round4(cout) + 16 * ks0
               + 2 * _round4(38 * 38 * cin))
@@ -346,6 +358,12 @@ def _tile_fits(cin, cmid, cout, precision):
 
 def _round4(v):
     return -(-v // 4) * 4
+
+
+def _pair_highest_bytes(cin, cmid, cout):
+    """``pair_smem_bytes(cin, cmid, cout, 1)`` of csrc/stem.cu."""
+    return 4 * (_round4(cmid) + _round4(cout) + 9 * cin * cmid
+                + 9 * cmid * cout + 18 * 18 * cmid + _round4(38 * 38 * cin))
 
 
 def pair_route(cin, cmid, cout, precision):
@@ -393,11 +411,12 @@ def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
     _check_cuda(name, x, w0, b0, w1, b1)
     n, h, w, cin = x.shape
     cmid, cout = w0.shape[0], w1.shape[0]
-    # float32 weights, OIHW for the pair kernel (read once per block) and
-    # [I, 3, 3, O] for the deep one; at "default" the kernels round them
-    # to bf16 as they load (the deep pair into ``scratch``, in the tensor
-    # cores' fragment order)
-    order = (1, 2, 3, 0) if deep else (0, 1, 2, 3)
+    # float32 weights, [I, 3, 3, O] for the deep pair and for the pair at
+    # "highest" (a fresh, 16-byte aligned copy: that kernel copies them 16
+    # bytes at a time), OIHW for the pair at "default" (no copy: its
+    # blocks round them to bf16 in fragment order as they load them; the
+    # deep pair's first launch does so into ``scratch``)
+    order = (1, 2, 3, 0) if deep or precision == "highest" else (0, 1, 2, 3)
     w0k = w0.float().permute(*order).contiguous()
     w1k = w1.float().permute(*order).contiguous()
     b0k, b1k = b0.float().contiguous(), b1.float().contiguous()
@@ -409,7 +428,8 @@ def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
              _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device)]
     if deep:
         scratch = torch.empty(
-            lib.millieye_stem_pair_deep_scratch_bytes(cin, cmid, cout),
+            lib.millieye_stem_pair_deep_scratch_bytes(
+                n, h, w, cin, cmid, cout, int(precision == "highest")),
             dtype=torch.uint8, device=x.device)
         rc = lib.millieye_stem_pair_deep(*args, cuda_lib.ptr(scratch), n, h,
                                          w, cin, cmid, cout, *flags)

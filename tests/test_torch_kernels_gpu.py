@@ -44,6 +44,7 @@ from millieye_torch.ops.stem import (PAIR_DEFAULT_TOL, fused_stem,
                                      fused_stem_plain,
                                      fused_stem_pair, fused_stem_pair_deep,
                                      fused_stem_pair_deep_plain,
+                                     fused_stem_pair_f64,
                                      fused_stem_pair_packed,
                                      fused_stem_pair_plain,
                                      fused_stem_pair_s2d,
@@ -462,15 +463,43 @@ def test_stem_pair_wrappers_match_plain(cuda, precision, shape, out_dtype):
             assert torch.equal(got, k4)
 
 
-def test_stem_pair_is_batch_independent(cuda):
-    """The tensor-core pair walks its tiles on a persistent grid, in an
+@pytest.mark.parametrize("precision,batches", [("default", (4,)),
+                                               ("highest", (5, 33))])
+def test_stem_pair_is_batch_independent(cuda, precision, batches):
+    """Both pair kernels walk their tiles on a persistent grid, in an
     order that depends on the batch (4 frames of 416 px: 676 tiles, more
-    than the card holds blocks at once): each image's output must not."""
-    x, w0, b0, w1, b1 = _pair_weights(cuda, 4, 416, 416, 3, 16, 32)
-    got = fused_stem_pair(x, w0, b0, w1, b1)
-    for i in range(x.shape[0]):
-        assert torch.equal(got[i:i + 1],
-                           fused_stem_pair(x[i:i + 1], w0, b0, w1, b1))
+    than the card holds blocks at once; at "highest" 5 and 33 frames, 845
+    and 5577 tiles): each image's output must not."""
+    for n in batches:
+        x, w0, b0, w1, b1 = _pair_weights(cuda, n, 416, 416, 3, 16, 32)
+        got = fused_stem_pair(x, w0, b0, w1, b1, precision)
+        for i in range(n) if n <= 5 else (0, n // 2, n - 1):
+            assert torch.equal(got[i:i + 1], fused_stem_pair(
+                x[i:i + 1], w0, b0, w1, b1, precision))
+
+
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((1, 64, 64, 16, 32, 64), torch.float32),
+    ((2, 20, 36, 3, 16, 32), torch.float16)])
+def test_stem_pair_highest_wide_and_ragged(cuda, shape, out_dtype):
+    """The stem pair at "highest" at 16 -> 32 -> 64 (226,432 bytes of
+    shared memory: one halo buffer, one block an SM) and on a 20x36 frame
+    (5x9 outputs: one ragged tile, an odd last column): K4, K12 (and K8
+    and K11 where H % 32 == 0) each launch it and are bit-equal to the
+    plain version."""
+    assert stem.pair_route(*shape[3:], "highest") == "pair"
+    args = _pair_weights(cuda, *shape)
+    want = fused_stem_pair_plain(*args, "highest", out_dtype)
+    for fn in (fused_stem_pair, fused_stem_pair_select,
+               fused_stem_pair_packed, fused_stem_pair_s2d):
+        if fn in (fused_stem_pair_select, fused_stem_pair_packed) \
+                and shape[1] % 32:
+            continue
+        before, deep = fn.launches, fused_stem_pair_deep.launches
+        got = fn(*args, "highest", out_dtype)
+        assert (fn.launches, fused_stem_pair_deep.launches) == (before + 1,
+                                                                deep)
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("precision", ["default", "highest"])
@@ -493,6 +522,14 @@ def test_deep_pair_kernel_matches_plain(cuda, precision, shape, out_dtype):
     before = fused_stem_pair_deep.launches
     got = fused_stem_pair_deep(*args, precision, out_dtype)
     _held_to_pair_plain(got, want, precision)
+    if precision == "highest" and out_dtype == torch.float32:
+        # against the function in float64: no worse than the plain version
+        ref = fused_stem_pair_f64(*args)
+        err = float((got.double() - ref).abs().max())
+        err_plain = float((want.double() - ref).abs().max())
+        print(f"deep pair {shape}: float64 error {err:.3g}, plain "
+              f"{err_plain:.3g}")
+        assert err <= 2 * err_plain, (err, err_plain)
     if shape[3] == 32:
         n_s2d = fused_stem_pair_s2d.launches
         assert torch.equal(fused_stem_pair_s2d(*args, precision, out_dtype,
@@ -506,16 +543,18 @@ def test_deep_pair_kernel_matches_plain(cuda, precision, shape, out_dtype):
             precision)
 
 
-def test_deep_pair_is_batch_independent(cuda):
-    """The deep pair walks its tiles on a persistent grid (5 frames at
-    104 px: 80 tiles; 33 frames: more tiles than blocks): each image's
-    output must not depend on the batch."""
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_deep_pair_is_batch_independent(cuda, precision):
+    """At "default" the deep pair walks its tiles on a persistent grid (5
+    frames at 104 px: 80 tiles; 33 frames: more tiles than blocks); at
+    "highest" its grid and its scratch intermediate grow with the batch:
+    each image's output must not depend on the batch."""
     for n in (5, 33):
         x, w0, b0, w1, b1 = _pair_weights(cuda, n, 104, 104, 32, 64, 128)
-        got = fused_stem_pair_deep(x, w0, b0, w1, b1)
+        got = fused_stem_pair_deep(x, w0, b0, w1, b1, precision)
         for i in (0, n // 2, n - 1):
             assert torch.equal(got[i:i + 1], fused_stem_pair_deep(
-                x[i:i + 1], w0, b0, w1, b1))
+                x[i:i + 1], w0, b0, w1, b1, precision))
 
 
 @pytest.mark.parametrize("deterministic", [False, True])

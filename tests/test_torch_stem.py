@@ -359,3 +359,41 @@ def test_deep_pair_select_only_at_default():
         else:
             assert not torch.equal(sel, plain)
             assert torch.allclose(sel, plain, rtol=2.0 ** -7, atol=1e-6)
+
+
+@pytest.mark.parametrize("widths,smem,route", [
+    ((3, 16, 32), 58416, "pair"),
+    ((5, 24, 40), 99120, "pair"),
+    ((16, 32, 64), 226432, "pair"),
+    ((16, 32, 72), 235680, "deep"),
+    ((32, 64, 128), 637184, "deep")])
+def test_highest_tile_footprint(widths, smem, route):
+    """At "highest" ``_tile_fits`` mirrors csrc/stem.cu:pair_smem_bytes
+    with one halo buffer (biases, both float32 weight sets, the 18x18
+    intermediate, a 38x38 halo; the bytes here worked out from that
+    formula): the pair where they fit the 232,448 bytes a block may have,
+    else the deep pair."""
+    assert stem._pair_highest_bytes(*widths) == smem
+    assert stem._tile_fits(*widths, "highest") == (smem <= 232448)
+    assert stem.pair_route(*widths, "highest") == route
+
+
+@pytest.mark.parametrize("widths,h", [((3, 16, 32), 32),
+                                      ((32, 64, 128), 24)])
+def test_pair_f64_reference(widths, h):
+    """``fused_stem_pair_f64``, the float64 yardstick the card holds the
+    pairs' "highest" rounding to, agrees with the JAX package's two
+    float32 XLA stages within 1e-5 of the largest output, and so do both
+    plain versions at "highest" (the stem pair's and the deep pair's)."""
+    arrs = _pair_inputs(11, 2, h, h, *widths, False)
+    x, w0, b0, w1, b1 = map(jnp.asarray, arrs)
+    want = np.asarray(_xla_stage(_xla_stage(x, w0, b0), w1, b1))
+    args = _torch_pair_args(arrs)
+    ref = stem.fused_stem_pair_f64(*args)
+    assert ref.dtype == torch.float64 and ref.shape == want.shape
+    scale = np.abs(want).max()
+    for got in (ref, fused_stem_pair_plain(*args, "highest", torch.float32),
+                stem.fused_stem_pair_deep_plain(*args, "highest",
+                                                torch.float32)):
+        err = np.abs(got.numpy() - want).max()
+        assert err <= 1e-5 * scale, err
