@@ -10,65 +10,65 @@ printed only when every phase passed:
   1. the card's name and power limit; TF32 off;
   2. build the CUDA kernels from ``millieye_torch/csrc`` (one nvcc each,
      all at once);
-  3. each kernel wrapper against its plain version on the card, at the
-     shapes the serving paths give it, at batch 1 and 32: K1 blocked NMS,
-     K2 padded PS-RoIAlign (and its ``reduce="vpu"`` wrapper), K3
-     RoIAlign, the stem pair as K4, K8 (hi/lo pool select), K11 and K12,
-     K12's deep pair (stages 4+6), K5 whole-matrix NMS, K6 PS-RoIAlign on
-     the unpadded float32 map, K7 padded PS-RoIAlign on float32 operands,
-     K9 single stem stage, K10 (the NHWC stage, "vconcat" and "im2col"
-     tap orders) at stages 0 and 2, K13 (stochastic int8) on block 12's
-     weight and on the (8, 128) carrier; K2, K6 ("upq", "default") and
-     K7 ("highest") also with every RoI the whole frame; the pairs at
-     "default" and "highest": bit-equal (each plain
-     version repeats its kernel's operations in the kernel's order),
-     except the stem pair, the deep pair and K9 at "default", which run
-     on the tensor cores and are held within 2^-6 of their plain
-     versions' largest output, the exact share reported; kernel,
-     plain and library times
-     (the median of 5 repeats of the timing loop, with the spread), and
-     the bound; the deep pair at "highest" also against a float64
-     evaluation of its function (its error at most twice the plain
-     version's); how many outputs K8 moves against K4 on the same inputs;
-     K13's statistics (benchmarks/quantize_tpu_check.py's checks); block
-     12's int8 x int8 -> int32 convolution bit-equal on the card and the
-     CPU, timed against cuDNN float32;
-  4. the serving paths on ``artifacts/stage3_final.npz``, 8 requests or
-     calls each at batch 1 (640x480 uint8 frames, radar points and
-     proposals from a fixed seed): ``FusionEngine.infer`` at
-     ``pallas_max_s01``, ``pallas_max4``, ``pallas_stem`` and
-     ``pallas_max4`` with ``roi_precision="highest"``; ``entry()``;
-     ``build_refine`` + ``RefineNetwork.apply``; ``FusionEngine.infer`` at
-     ``pallas_stem2``, ``pallas_max_pk``, ``pallas_pair2``, ``pallas_deep``
-     and ``pallas_lat``; ``f32``, ``s2d``, ``bf16_s2d``, ``int8`` and
-     ``int8_acts`` (calibrated with ``cli/demo.py:calibrate`` on the 8
-     frames), ``s2d``'s answers held to ``f32``'s by box, the int8 rows'
-     distance to them reported; the direct ops K10 (on each letterboxed
-     frame, held to cuDNN's float32 stage) and K13 (the carrier, seeds 0
-     and 1), as their only JAX callers run them; and one
-     ``batched_step_fn`` window of the 8 frames at ``pallas_max4`` and
-     one at ``f32``. The launch counts are set to 0 before each path and
-     read after it; every kernel the path (or direct op) names must have
-     launched on every request; the answers, the window's too, must be
-     finite, of the right shape and bit-identical to the same path inside
-     ``cuda_lib.plain_versions()``, or, for a path that runs a
-     tensor-core kernel, bit-identical to the same path inside
-     ``cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS)`` (every
-     other kernel's plain version) and within ``PAIR_PATH_TOL`` of the
-     fully plain path, or beyond it by NMS decisions alone, proven on
-     the recorded inputs of both NMS passes (``nms_flips``); the window's
-     answers (held the same way) must also equal the per-frame answers
-     (matched by box within a stated tolerance, with at most one row of
-     a frame on one side only, where the batch-8 convolutions sum in
-     another order); the ``f32`` window to the reference's contract
-     (tests/test_runtime.py:147-150: ``valid`` equal, rows within rtol
-     1e-4 and atol 1e-4 of the per-frame answers); p50 latency per path;
-     then one request at each alias row (buffering-only or
-     same-function twins of the rows above), its launches checked and its
-     answer bit-identical to its twin's; a ``torch.profiler`` pass over
-     4 more requests at ``pallas_max_s01``, ``pallas_max4``,
-     ``pallas_pair2``, ``pallas_deep``, ``pallas_max4`` with
-     ``roi_precision="highest"`` and the refine path, and over 2 windows;
+  3. each kernel wrapper against its plain version on the card, at the shapes
+     the serving paths give it, at batch 1 and 32: K1 blocked NMS, K2 padded
+     PS-RoIAlign (and its ``reduce="vpu"`` wrapper), K3 RoIAlign, the stem pair
+     as K4, K8 (hi/lo pool select), K11 and K12, K12's deep pair (stages 4+6),
+     K5 whole-matrix NMS (K1 and K5 on knife-edge inputs, each case also with
+     its device time per call from the profiler and the cluster size its launch
+     takes), K6 PS-RoIAlign on the unpadded float32 map, K7 padded PS-RoIAlign
+     on float32 operands, K9 single stem stage, K10 (the NHWC stage, "vconcat"
+     and "im2col" tap orders) at stages 0 and 2, K13 (stochastic int8) on block
+     12's weight and on the (8, 128) carrier; K2, K6 ("upq", "default") and K7
+     ("highest") also with every RoI the whole frame; the pairs at "default"
+     and "highest": bit-equal (each plain version repeats its kernel's
+     operations in the kernel's order), except the stem pair, the deep pair and
+     K9 at "default", which run on the tensor cores and are held within 2^-6 of
+     their plain versions' largest output, the exact share reported; kernel,
+     plain and library times (the median of 5 repeats of the timing loop, with
+     the spread), and the bound; the deep pair at "highest" also against a
+     float64 evaluation of its function (its error at most twice the plain
+     version's); how many outputs K8 moves against K4 on the same inputs; K13's
+     statistics (benchmarks/quantize_tpu_check.py's checks); block 12's int8 x
+     int8 -> int32 convolution bit-equal on the card and the CPU, timed against
+     cuDNN float32;
+  4. the serving paths on ``artifacts/stage3_final.npz``, 8 requests or calls
+     each at batch 1 (640x480 uint8 frames, radar points and proposals from a
+     fixed seed): ``FusionEngine.infer`` at ``pallas_max_s01``,
+     ``pallas_max4``, ``pallas_stem`` and ``pallas_max4`` with
+     ``roi_precision="highest"``; ``entry()``; ``build_refine`` +
+     ``RefineNetwork.apply``; ``FusionEngine.infer`` at ``pallas_stem2``,
+     ``pallas_max_pk``, ``pallas_pair2``, ``pallas_deep`` and ``pallas_lat``;
+     ``f32``, ``s2d``, ``bf16_s2d``, ``int8`` and ``int8_acts`` (calibrated
+     with ``cli/demo.py:calibrate`` on the 8 frames), ``s2d``'s answers held to
+     ``f32``'s by box, the int8 rows' distance to them reported; the direct ops
+     K10 (on each letterboxed frame, held to cuDNN's float32 stage) and K13
+     (the carrier, seeds 0 and 1), as their only JAX callers run them; and one
+     ``batched_step_fn`` window of the 8 frames at ``pallas_max4`` and one at
+     ``f32``, each with its post-merge NMS one K5 launch, bit-identical to the
+     same NMS frame by frame on its recorded inputs; then K1 and K5 again on
+     the serving shape: valid a prefix of the live rows that P1, P2 and the
+     window fed them (recorded through both NMS passes), at batch 1 and 32. The
+     launch counts are set to 0 before each path and read after it; every
+     kernel the path (or direct op) names must have launched on every request;
+     the answers, the window's too, must be finite, of the right shape and
+     bit-identical to the same path inside ``cuda_lib.plain_versions()``, or,
+     for a path that runs a tensor-core kernel, bit-identical to the same path
+     inside ``cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS)`` (every
+     other kernel's plain version) and within ``PAIR_PATH_TOL`` of the fully
+     plain path, or beyond it by NMS decisions alone, proven on the recorded
+     inputs of both NMS passes (``nms_flips``); the window's answers (held the
+     same way) must also equal the per-frame answers (matched by box within a
+     stated tolerance, with at most one row of a frame on one side only, where
+     the batch-8 convolutions sum in another order); the ``f32`` window to the
+     reference's contract (tests/test_runtime.py:147-150: ``valid`` equal, rows
+     within rtol 1e-4 and atol 1e-4 of the per-frame answers); p50 latency per
+     path; then one request at each alias row (buffering-only or same-function
+     twins of the rows above), its launches checked and its answer
+     bit-identical to its twin's; a ``torch.profiler`` pass over 4 more
+     requests at ``pallas_max_s01``, ``pallas_max4``, ``pallas_pair2``,
+     ``pallas_deep``, ``pallas_max4`` with ``roi_precision="highest"`` and the
+     refine path, and over 2 windows;
   5. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
@@ -131,6 +131,61 @@ def cuda_ms(torch, fn, iters, repeats=N_REPEATS):
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(end) / iters)
     return float(np.median(runs)), min(runs), max(runs)
+
+
+def host_ms(torch, fn, calls=50):
+    """Host time per call of ``fn``: ``calls`` calls enqueued without a
+    synchronisation between them (the device queue does not fill), on the
+    host's clock; what floors the loop time of a kernel that is faster
+    than its launch."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t) * 1e3 / calls
+    torch.cuda.synchronize()
+    return host
+
+
+def device_ms(torch, fn, calls=20):
+    """Device time per call of ``fn``, which launches one kernel a call:
+    the mean time of the kernel records in a ``torch.profiler`` trace of
+    ``calls`` calls (after a warm-up call), over the records the profiler
+    kept. Late in a long process it drops some or all of a short trace's
+    device records (on an H100, 3 or 4 of 20, or all 20, in this script's
+    last NMS phase), which a sum divided by ``calls`` would read as a
+    faster kernel. A trace that kept none is taken again; after three,
+    the time comes from CUDA events around ``calls`` calls queued behind
+    a spin kernel: the host enqueues them while the card spins, so the
+    events time the card alone, the gaps between kernels included.
+    Returns (ms, records kept; 0 for the events' time). The loop of
+    ``cuda_ms`` also times the host's launch, which floors a small
+    kernel's time at batch 1."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        kept = sum(e.count for e in kern)
+        if kept:
+            return (sum(e.self_device_time_total for e in kern) / 1e3
+                    / kept, kept)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms, far longer than the enqueue
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls, 0
 
 
 def bound_ms(nbytes, flops, flop_rate):
@@ -237,13 +292,15 @@ class KernelChecks:
 
     def case(self, name, label, batch, kern, plain, nbytes, flops, rate,
              library=None, lib_note=None, lib_tol=None, iters=20, tol=None,
-             f64=None):
+             f64=None, device=False, note=None):
         """Hold ``kern()`` bit-equal to ``plain()`` or, with ``tol``, within
         ``tol`` of the plain version's largest magnitude (the share of
         outputs that are bit-equal is recorded); with ``f64``, a float64
         evaluation of the function, the kernel's largest error against it
         at most twice the plain version's; time both and the library
-        call, and record the bound."""
+        call, and record the bound; with ``device``, also the kernel's
+        device time per call from the profiler and the host's time to
+        launch it."""
         torch = self.torch
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -285,16 +342,26 @@ class KernelChecks:
                    ms=cuda_ms(torch, kern, iters),
                    plain_ms=cuda_ms(torch, plain, 1, 3),
                    bound=bound_ms(nbytes, flops, rate), library_ms=lib_ms,
+                   device_ms=(device_ms(torch, kern) if device
+                              else (None, None)),
+                   host_ms=host_ms(torch, kern) if device else None,
+                   note=note,
                    library=None if library is None else
                    f"{lib_note} (max error {lib_err:.3g} against the plain "
                    f"version, largest value {scale:.3g})")
         self.records.setdefault(name, []).append(rec)
 
     # ------------------------------------------------------------- NMS
-    def nms(self, b):
+    def nms(self, b, live=None):
         """K1 at 128, 256 and 512 candidates, K5 at 512, 135, 96 and 232
         (the post-merge NMS of 64 + 32 and 200 + 32 rows), on knife-edge
-        inputs; the plain versions also against the sequential golden."""
+        inputs (90% of the rows valid, the last ones too: the worst case);
+        with ``live``, {(name, K): [rows]} the live counts a serving path
+        gave that kernel at that K, the same boxes with valid a prefix of
+        those counts instead (image i takes count i mod their number;
+        labelled "serving"; at batch 1 the median count). The plain
+        versions also against the sequential golden; each case's device
+        time from the profiler and the cluster size its launch takes."""
         from millieye_torch.ops import nms_kernel
         from millieye_torch.ops.nms import nms_keep_mask_ref
         torch = self.torch
@@ -304,25 +371,48 @@ class KernelChecks:
                 ("nms_full", nms_kernel.nms_keep_mask_full,
                  nms_kernel.nms_keep_mask_full_plain, (512, 135, 96, 232))):
             for k in ks:
+                if live is not None and (name, k) not in live:
+                    continue
                 boxes, valid = nms_inputs(self.rng, b, k)
+                label = f"K={k}"
+                if live is not None:
+                    n = sorted(live[name, k])
+                    n = [n[len(n) // 2]] if b == 1 else n      # the median
+                    valid = np.arange(k)[None] < np.array(
+                        [n[i % len(n)] for i in range(b)])[:, None]
+                    label += (f" serving, live rows {n[0]}" if b == 1 else
+                              f" serving, live rows {min(n)}-{max(n)}")
                 tb = torch.tensor(boxes, device=self.dev)
                 tv = torch.tensor(valid, device=self.dev)
                 want = plain(tb, tv, 0.5)
                 for i in range(min(b, 4)):   # the sequential golden
                     if not torch.equal(want[i], nms_keep_mask_ref(
                             tb[i], tv[i], 0.5)):
-                        raise AssertionError(f"{name} K={k} b{b}: the plain "
-                                             f"version differs from the "
-                                             f"golden on image {i}")
-                # IoUs the greedy answer needs: each kept row against the
-                # live rows after it; ~14 float32 operations each
+                        raise AssertionError(f"{name} {label} b{b}: the "
+                                             f"plain version differs from "
+                                             f"the golden on image {i}")
+                # the rows each image needs: those up to its last valid one
+                n_live = [int(np.flatnonzero(v)[-1]) + 1 if v.any() else 0
+                          for v in valid]
+                # bytes: valid read and keep written for all K rows, the
+                # boxes of the live rows only; IoUs the greedy answer
+                # needs: each kept row against the live rows after it,
+                # ~14 float32 operations each
                 keep = want.cpu().numpy()
                 pairs = sum(int(valid[i, j + 1:].sum()) for i in range(b)
                             for j in np.flatnonzero(keep[i]))
-                self.case(name, f"K={k}", b,
+                self.case(name, label, b,
                           lambda: kern(tb, tv, 0.5),
                           lambda: plain(tb, tv, 0.5),
-                          b * k * (16 + 2), 14 * pairs, F32_FLOP_S, iters=50)
+                          2 * b * k + 16 * sum(n_live), 14 * pairs,
+                          F32_FLOP_S, iters=50, device=True,
+                          note=f"cluster {nms_kernel.cluster_size(b, k)}")
+                # the greedy chain's floor, a model and not a bound: one
+                # dependent integer step for each row up to the last valid
+                # one, at the card's 1.98 GHz boost clock and at 1.755 GHz
+                # (printed, not in the kernels line)
+                self.records[name][-1]["scan_floor_ms"] = (
+                    max(n_live) / 1.98e6, max(n_live) / 1.755e6)
 
     # ------------------------------------------------------------- RoI
     def _rois(self, b, n):
@@ -818,13 +908,14 @@ def rows_match(got, want, tol):
 
 @contextlib.contextmanager
 def post_merge_inputs(eng):
-    """Record what each call of ``eng``'s post-merge NMS
-    (``FusionEngine._post``) is given, rows [K, 7] and valid [K], in
-    order."""
+    """Record what ``eng``'s post-merge NMS (``FusionEngine._post``) is
+    given for each frame, rows [K, 7] and valid [K], in order (a
+    window's call gives one record a frame)."""
     seen, post = [], eng._post
 
     def record(boxes, valid):
-        seen.append((boxes.clone(), valid.clone()))
+        seen.extend(zip(boxes.reshape(-1, *boxes.shape[-2:]).clone(),
+                        valid.reshape(-1, valid.shape[-1]).clone()))
         return post(boxes, valid)
 
     eng._post = record
@@ -832,6 +923,50 @@ def post_merge_inputs(eng):
         yield seen
     finally:
         del eng._post
+
+
+def window_nms_per_frame(torch, eng, step, tens, got):
+    """The window's post-merge NMS is one call for its frames: run the
+    window again with its NMS inputs recorded, and hold its answer
+    ``got`` (rows, valid as numpy), bit for bit, to the same post-merge
+    NMS frame by frame on those inputs (the loop the port ran before the
+    batched call)."""
+    with post_merge_inputs(eng) as seen:
+        again = [a.cpu().numpy() for a in step(*tens)]
+    per = [eng._post(b, v) for b, v in seen]
+    loop = [torch.stack(c).cpu().numpy() for c in zip(*per)]
+    for name, a, b in (("repeat", again, got), ("per-frame loop", loop, got)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"window: the batched post-merge NMS "
+                                 f"differs from its {name}")
+
+
+def nms_live_rows(torch, runs):
+    """{(kernel name, K): [live rows, one an image]} that the serving
+    paths feed the NMS kernels: ``runs`` is [(engine, calls)], run with
+    both NMS passes recorded (``pre_merge_nms``, ``post_merge_inputs``).
+    The pre-merge pass feeds its candidates passing the confidence
+    threshold, the post-merge pass its valid rows: each a prefix of the
+    score-sorted rows."""
+    from millieye_torch.ops.nms import _candidates
+    live = {}
+    for eng, calls in runs:
+        with pre_merge_nms(torch) as pre, post_merge_inputs(eng) as post:
+            for call in calls:
+                call()
+        for r in pre:
+            k = min(r["kw"]["pre_top_k"], r["pred"].shape[1])
+            blocked = k % 128 == 0 and r["kw"]["use_blocked"] is not False
+            v = _candidates(r["pred"], r["args"][0], r["kw"]["pre_top_k"])[3]
+            live.setdefault(("nms" if blocked else "nms_full", k), []).extend(
+                v.sum(-1).tolist())
+        for boxes, valid in post:
+            k = boxes.shape[0]
+            n = torch.isfinite(torch.where(valid, boxes[:, 4],
+                                           float("-inf"))).sum()
+            live.setdefault(("nms" if k % 128 == 0 else "nms_full", k),
+                            []).append(int(n))
+    return live
 
 
 def nms_flip_proof(torch, cuda_lib, eng, got, want, got_in, want_in, tol):
@@ -1009,6 +1144,51 @@ def nms_flips(torch, cuda_lib, eng, call, first, tol):
     return anchors, moved
 
 
+def log_case(name, r):
+    """One line for a kernel case of phase 3."""
+    lib = ("none (no single PyTorch call computes it)"
+           if r["library_ms"] is None else
+           f"{r['library_ms'][0]:.4f} ms [{r['library_ms'][1]:.4f}, "
+           f"{r['library_ms'][2]:.4f}] ({r['library']})")
+    held = ("bit-equal" if r["tol"] is None else
+            f"bound {r['tol']:.3g} x {r['scale']:.3g}, exact share "
+            f"{r['exact']:.5f}")
+    dev = ("" if r["device_ms"][0] is None else
+           f", device {r['device_ms'][0]:.4f} ms a call ("
+           + (f"profiler, {r['device_ms'][1]} records" if r["device_ms"][1]
+              else "CUDA events behind a spin: the profiler kept no record")
+           + f"), host {r['host_ms']:.4f} ms a launch")
+    extra = ("" if r.get("scan_floor_ms") is None else
+             f", scan floor {r['scan_floor_ms'][0]:.6f}-"
+             f"{r['scan_floor_ms'][1]:.6f} ms")
+    extra += "" if r["note"] is None else f", {r['note']}"
+    log(f"kernel {name} {r['case']} b{r['batch']}: max_abs_err "
+        f"{r['err']:.3g} ({held}), {r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}, "
+        f"{r['ms'][2]:.4f}]{dev}, plain {r['plain_ms'][0]:.4f} ms, bound "
+        f"{r['bound'][0]:.3g} ms ({r['bound'][1]}){extra}, library {lib}")
+
+
+def flat(r):
+    """A kernel case of phase 3 as the ``kernels`` line gives it."""
+    return {"case": r["case"], "batch": r["batch"],
+            "max_abs_err": r["err"], "tol": r["tol"],
+            "exact_share": r["exact"], "f64_err": r["err64"],
+            "ms": r["ms"][0], "ms_min": r["ms"][1], "ms_max": r["ms"][2],
+            "plain_ms": r["plain_ms"][0], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": (None if r["library_ms"] is None
+                           else r["library_ms"][0]),
+            "device_ms": r["device_ms"][0], "host_ms": r["host_ms"]}
+
+
+def window_tensors(torch, engine, reqs):
+    """The requests as one window's tensors on the card."""
+    packed = [engine.pack_radar(pts, props) for _, pts, props in reqs]
+    return [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to("cuda")
+            for a in [[f for f, _, _ in reqs]] + [list(c)
+                                                  for c in zip(*packed)]]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1087,6 +1267,11 @@ def main():
     def engine_at(preset, **cfg):
         model, params, state = build_fusion(CKPT, preset, **cfg)
         return FusionEngine(model, params, state, frame_size=FRAME)
+
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
 
     engines = {"pallas_max_s01": engine_at("pallas_max_s01"),
                "pallas_max4": engine_at("pallas_max4"),
@@ -1433,16 +1618,9 @@ def main():
     drive("refine", [lambda im=im: refine_call(im) for im in images],
           (1, 200, 7), {"ps_roi_align_f32": 1, "nms": 1})
 
-    def window_tensors(engine):
-        """The 8 requests as one window's tensors on the card."""
-        packed = [engine.pack_radar(pts, props) for _, pts, props in reqs]
-        return [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to("cuda")
-                for a in [[f for f, _, _ in reqs]] + [list(c)
-                                                      for c in zip(*packed)]]
-
     # one batched window of the 8 frames at pallas_max4
     eng = engines["pallas_max4"]
-    tens = window_tensors(eng)
+    tens = window_tensors(torch, eng, reqs)
     step = eng.batched_step_fn(0)
     step(*tens)                                   # warm-up at batch 8
     for wfn, *_ in kernels.values():
@@ -1456,10 +1634,12 @@ def main():
     launches_by_path["window8@pallas_max4"] = launches
     short = [k for k in ("stem_stage", "stem_pair", "nms", "ps_roi_align",
                          "roi_align") if launches[k] < 1]
-    if launches["nms_full"] < N_REQUESTS:      # a post-merge NMS per frame
-        short.append("nms_full")
     if short:
         raise AssertionError(f"batched window: kernels not launched: {short}")
+    if launches["nms_full"] != 1:       # one post-merge NMS for the window
+        raise AssertionError(f"batched window: K5 launched "
+                             f"{launches['nms_full']} times, want once")
+    window_nms_per_frame(torch, eng, step, tens, (wrows, wvalid))
     if wrows.shape != (N_REQUESTS,) + rows(eng) \
             or not np.isfinite(wrows).all():
         raise AssertionError(f"batched window: bad answer {wrows.shape}")
@@ -1520,7 +1700,8 @@ def main():
         f"{wp_flips} rows on one side only; NMS decisions proven by "
         f"nms_flips: {wp_moved[0]} anchors kept by the pre-merge NMS and "
         f"{wp_moved[1]} inputs kept by the post-merge NMS in one run only); "
-        f"{exact} of "
+        f"the post-merge NMS one K5 launch, bit-identical to it frame by "
+        f"frame; {exact} of "
         f"{N_REQUESTS} answers bit-identical to the per-frame answers, the "
         f"rest paired by box within {d_box:.3g} px and {d_score:.3g} on "
         f"scores, {flipped} of {n_rows} rows on one side only (tolerance "
@@ -1543,7 +1724,7 @@ def main():
     # each frame against its own per-frame answer: valid equal, rows within
     # rtol 1e-4 and atol 1e-4
     eng = engines["f32"]
-    ftens = window_tensors(eng)
+    ftens = window_tensors(torch, eng, reqs)
     fstep = eng.batched_step_fn(0)
     fstep(*ftens)                                 # warm-up at batch 8
     for wfn, *_ in kernels.values():
@@ -1551,8 +1732,9 @@ def main():
     frows, fvalid = (a.cpu().numpy() for a in fstep(*ftens))
     launches = {name: wfn.launches for name, (wfn, *_) in kernels.items()}
     launches_by_path["window8@f32"] = launches
-    if launches["nms"] < 1 or launches["nms_full"] < N_REQUESTS:
-        raise AssertionError(f"f32 window: kernels not launched: {launches}")
+    if launches["nms"] < 1 or launches["nms_full"] != 1:
+        raise AssertionError(f"f32 window: want K1 launched and K5 once: "
+                             f"{launches}")
     if frows.shape != (N_REQUESTS,) + rows(eng) \
             or not np.isfinite(frows).all():
         raise AssertionError(f"f32 window: bad answer {frows.shape}")
@@ -1561,6 +1743,7 @@ def main():
     if not (np.array_equal(frows, prows) and np.array_equal(fvalid, pvalid)):
         raise AssertionError("f32 window: differs from the same window "
                              "inside cuda_lib.plain_versions()")
+    window_nms_per_frame(torch, eng, fstep, ftens, (frows, fvalid))
     f32_err, f32_exact = 0.0, 0
     for i, (want, want_valid) in enumerate(answers_by_path["f32"]):
         if not (np.array_equal(fvalid[i], want_valid)
@@ -1573,12 +1756,25 @@ def main():
         f32_exact += int(np.array_equal(frows[i], want))
     log(f"batched window of {N_REQUESTS} frames at f32: launches "
         f"{ {k: v for k, v in launches.items() if v} }; bit-identical to "
-        f"the same window inside cuda_lib.plain_versions(); against the "
+        f"the same window inside cuda_lib.plain_versions(), its post-merge "
+        f"NMS one K5 launch, bit-identical to it frame by frame; against the "
         f"per-frame answers valid equal, {f32_exact} of {N_REQUESTS} rows "
         f"arrays bit-identical, the largest row difference {f32_err:.3g} "
         f"(the reference's rtol 1e-4, atol 1e-4)")
     summary["window8@f32"] = {"bit_identical": f32_exact,
                               "max_row_diff": f32_err}
+
+    # the NMS kernels on the serving shape: valid a prefix of the live
+    # rows that P1, P2 and the pallas_max4 window feed them
+    live = nms_live_rows(torch, [
+        (engines["pallas_max_s01"], infer_calls(engines["pallas_max_s01"])),
+        (engines["pallas_max4"], infer_calls(engines["pallas_max4"])
+         + [lambda: step(*tens)])])
+    log("live rows fed to the NMS kernels by P1, P2 and the pallas_max4 "
+        "window: " + "; ".join(f"{n} K={k}: {sorted(c)}"
+                               for (n, k), c in sorted(live.items())))
+    for b in (1, 32):
+        checks.nms(b, live)
 
     # the alias rows: one request each; their launches, and their answer
     # bit-identical to the row they repeat (the JAX package's comments: a
@@ -1634,30 +1830,8 @@ def main():
         per_path = {p: l[name] for p, l in launches_by_path.items()
                     if l[name]}
         for r in checks.records[name]:
-            lib = ("none (no single PyTorch call computes it)"
-                   if r["library_ms"] is None else
-                   f"{r['library_ms'][0]:.4f} ms [{r['library_ms'][1]:.4f}, "
-                   f"{r['library_ms'][2]:.4f}] ({r['library']})")
-            held = ("bit-equal" if r["tol"] is None else
-                    f"bound {r['tol']:.3g} x {r['scale']:.3g}, exact share "
-                    f"{r['exact']:.5f}")
-            log(f"kernel {name} {r['case']} b{r['batch']}: max_abs_err "
-                f"{r['err']:.3g} ({held}), {r['ms'][0]:.4f} ms "
-                f"[{r['ms'][1]:.4f}, "
-                f"{r['ms'][2]:.4f}], plain {r['plain_ms'][0]:.4f} ms, bound "
-                f"{r['bound'][0]:.6f} ms ({r['bound'][1]}), library {lib}")
+            log_case(name, r)
         log(f"kernel {name}: launches by path {per_path}")
-
-        def flat(r):
-            return {"case": r["case"], "batch": r["batch"],
-                    "max_abs_err": r["err"], "tol": r["tol"],
-                    "exact_share": r["exact"], "f64_err": r["err64"],
-                    "ms": r["ms"][0],
-                    "ms_min": r["ms"][1], "ms_max": r["ms"][2],
-                    "plain_ms": r["plain_ms"][0], "bound_ms": r["bound"][0],
-                    "bound_by": r["bound"][1],
-                    "library_ms": (None if r["library_ms"] is None
-                                   else r["library_ms"][0])}
 
         first = flat(checks.records[name][0])     # its first case, batch 1
         line.append({

@@ -9,7 +9,7 @@ blocked kernel) when K % 128 == 0 and ``use_blocked`` is not False, else
 kernel K5 (the whole-matrix kernel); above 1024 candidates the fixpoint
 iteration, as the JAX package ran its XLA fixpoint there. Outputs are
 padded to ``max_det`` rows with a validity mask. The post-merge pass
-``nms_xyxy`` takes the same kernels for one image's rows.
+``nms_xyxy`` takes the same kernels, one launch for a batch of images.
 """
 from __future__ import annotations
 
@@ -64,16 +64,19 @@ def nms_keep_mask(boxes_xyxy, valid, iou_thresh, plus_one=False):
 
 
 def _compact(rows, keep, max_out):
-    """Kept rows (in order) to the front of a [max_out, ...] buffer."""
-    rank = torch.cumsum(keep.long(), 0) - 1
+    """Kept rows (in order) to the front of a [..., max_out, C] buffer;
+    rows [..., K, C], keep [..., K]."""
+    rank = torch.cumsum(keep.long(), -1) - 1
     ok = keep & (rank < max_out)
     dst = torch.where(ok, rank, torch.full_like(rank, max_out))
-    out = rows.new_zeros((max_out + 1,) + rows.shape[1:])
-    out[dst] = rows                      # rows past max_out land in the
-    valid_out = torch.zeros(max_out + 1, dtype=torch.bool,   # spare slot
+    # rows past max_out land in the spare slot
+    lead = rows.shape[:-2]
+    out = rows.new_zeros(lead + (max_out + 1, rows.shape[-1]))
+    out.scatter_(-2, dst[..., None].expand_as(rows), rows)
+    valid_out = torch.zeros(lead + (max_out + 1,), dtype=torch.bool,
                             device=rows.device)
-    valid_out[dst] = ok
-    return out[:max_out], valid_out[:max_out]
+    valid_out.scatter_(-1, dst, ok)
+    return out[..., :max_out, :], valid_out[..., :max_out]
 
 
 def _keep_mask(boxes, valid, iou_thresh, plus_one=False, use_blocked=None):
@@ -96,17 +99,23 @@ def _keep_mask(boxes, valid, iou_thresh, plus_one=False, use_blocked=None):
 
 def nms_xyxy(boxes, scores, labels, valid, iou_thresh, max_out,
              plus_one=False):
-    """Class-aware NMS on explicit boxes [K, 4] (the post-merge pass);
-    returns (rows [max_out, 6] of (x1, y1, x2, y2, score, label), valid)."""
+    """Class-aware NMS on explicit boxes [..., K, 4] (the post-merge pass);
+    returns (rows [..., max_out, 6] of (x1, y1, x2, y2, score, label),
+    valid). A leading batch axis holds independent images (the JAX
+    package's ``jax.vmap`` of it): one keep-mask launch for all of them,
+    each image's answer bit-identical to its own call."""
     s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
-    order = torch.argsort(-s, stable=True)
-    boxes, s, labels = boxes[order], s[order], labels[order]
+    order = torch.argsort(-s, dim=-1, stable=True)
+    boxes = torch.gather(boxes, -2, order[..., None].expand_as(boxes))
+    s, labels = torch.gather(s, -1, order), torch.gather(labels, -1, order)
     valid = torch.isfinite(s)
     shifted = boxes + (labels.to(boxes.dtype)
-                       * _class_offset(boxes, valid))[:, None]
-    keep = _keep_mask(shifted[None].contiguous(), valid[None], iou_thresh,
-                      plus_one)[0]
-    rows = torch.cat([boxes, s[:, None], labels.to(boxes.dtype)[:, None]], -1)
+                       * _class_offset(boxes, valid)[..., None])[..., None]
+    keep = _keep_mask(shifted.reshape(-1, *shifted.shape[-2:]).contiguous(),
+                      valid.reshape(-1, valid.shape[-1]), iou_thresh,
+                      plus_one).reshape(valid.shape)
+    rows = torch.cat([boxes, s[..., None], labels.to(boxes.dtype)[..., None]],
+                     -1)
     return _compact(rows, keep, max_out)
 
 

@@ -8,7 +8,10 @@ whole-matrix ``nms_keep_mask_pallas`` and takes any K. Source:
 ``millieye_torch/csrc/nms.cu``. Contract of both: boxes [B, K, 4] float32
 sorted by descending score (class-offset for class-aware NMS), valid
 [B, K] bool -> keep [B, K] bool, bit-equal to the sequential greedy
-reference ``ops/nms.py:nms_keep_mask_ref``; K <= 1024.
+reference ``ops/nms.py:nms_keep_mask_ref``; K <= 1024. On the card both
+launch one routine (the rows up to the last valid one only, the overlap
+bits over a thread block cluster, the greedy scan in 32-row tiles); the
+plain versions keep the whole-matrix form, which gives the same bits.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
@@ -17,6 +20,7 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -54,13 +58,22 @@ def nms_keep_mask_full_plain(boxes, valid, iou_thresh, plus_one=False):
     return ~removed
 
 
+@functools.cache
 def _lib():
     lib = cuda_lib.library("nms")
     for fn in (lib.millieye_nms_keep_mask, lib.millieye_nms_keep_mask_full):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
                                                ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.millieye_nms_cluster_size.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.millieye_nms_cluster_size.restype = ctypes.c_int
     return lib
+
+
+def cluster_size(batch, k):
+    """The CTAs an image that K1's or K5's launch at (batch, K) takes on
+    the current card (8 while batch x 8 fits the SM count, down to 1)."""
+    return _lib().millieye_nms_cluster_size(batch, k)
 
 
 def _launch(name, symbol, boxes, valid, iou_thresh, multiple):

@@ -97,6 +97,61 @@ def test_nms_full_kernel_bit_equal(cuda, b, k):
                                                           t))
 
 
+def _nms_pattern_inputs(rng, b, k, pattern, device):
+    """Clustered score-sorted boxes [b, k, 4] with exact duplicates and
+    zero-area rows (a zero width, a zero height, a point), and valid
+    [b, k] as the pattern says: a prefix of random length per image (the
+    serving shape), random at 85%, all false, only the last row, only the
+    first row."""
+    c = rng.uniform(0, 100, (b, k, 2))
+    wh = rng.uniform(5, 60, (b, k, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    boxes[:, 5] = boxes[:, 4]
+    boxes[:, 7, 2] = boxes[:, 7, 0]
+    boxes[:, 9, 3] = boxes[:, 9, 1]
+    boxes[:, 11, 2:] = boxes[:, 11, :2]
+    boxes[:, 12] = boxes[:, 11]
+    if pattern == "prefix":
+        valid = np.arange(k)[None] < rng.integers(0, k + 1, (b, 1))
+    elif pattern == "random":
+        valid = rng.random((b, k)) < 0.85
+    else:
+        valid = np.zeros((b, k), bool)
+        if pattern != "all_false":
+            valid[:, -1 if pattern == "last" else 0] = True
+    return (torch.tensor(boxes, device=device),
+            torch.tensor(valid, device=device))
+
+
+@pytest.mark.parametrize("k", [96, 128, 135, 232, 512, 1024])
+@pytest.mark.parametrize("b", [1, 8, 32, 200])
+def test_nms_kernels_valid_patterns(cuda, b, k):
+    """K5 at every K, and K1 where K % 128 == 0, against their plain
+    versions on every valid pattern, at thresholds 0.5, 0.3 and -0.2
+    (below every IoU: the kernels' inter == 0 shortcut must not apply),
+    one launch a call, at batch 1 and 8 (8 CTAs an image), 32 (4) and 200
+    (more images than the SMs: one CTA an image); the first and last
+    images also against the sequential golden."""
+    rng = np.random.default_rng(1000 * b + k)
+    kernels = [(nms_keep_mask_full, nms_keep_mask_full_plain)]
+    if k % 128 == 0:
+        kernels.append((nms_keep_mask_blocked, nms_keep_mask_blocked_plain))
+    for pattern in ("prefix", "random", "all_false", "last", "first"):
+        boxes, valid = _nms_pattern_inputs(rng, b, k, pattern, cuda)
+        for t in (0.5, 0.3, -0.2):
+            want = nms_keep_mask_full_plain(boxes, valid, t)
+            for i in {0, b - 1}:
+                assert torch.equal(want[i], tnms.nms_keep_mask_ref(
+                    boxes[i], valid[i], t)), (pattern, t, i)
+            for kern, plain in kernels:
+                before = kern.launches
+                got = kern(boxes, valid, t)
+                assert kern.launches == before + 1
+                assert torch.equal(got, plain(boxes, valid, t)), (
+                    kern.__name__, pattern, t)
+                assert torch.equal(got, want), (kern.__name__, pattern, t)
+
+
 def test_batched_nms_takes_a_kernel_at_any_k(cuda):
     """On the card no K <= 1024 reaches the Python fixpoint loop: K % 128
     == 0 launches K1 (K5 when use_blocked is False), any other K K5."""

@@ -59,7 +59,7 @@ def _hard_boxes(rng, b, k, knife_edges=True):
         c = rng.uniform(0, 80, (k, 2))
         wh = rng.uniform(10, 60, (k, 2))
         bx = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-        n = k // 8
+        n = min(k // 8, 64)
         for off, t in ((0, 0.5), (k // 4, 0.3)) if knife_edges else ():
             pa, pb = _knife_edge_pairs(rng, n, t)
             bx[off:off + 2 * n:2], bx[off + 1:off + 2 * n:2] = pa, pb
@@ -69,21 +69,71 @@ def _hard_boxes(rng, b, k, knife_edges=True):
     return out
 
 
-@pytest.mark.parametrize("k", [128, 256])
-def test_keep_mask_bit_equal_golden(rng, k):
+def _edge_boxes(rng, b, k, knife_edges=True):
+    """``_hard_boxes`` with zero-area rows among them: a zero width, a
+    zero height, a point, and a zero-area duplicate of a zero-area row."""
+    out = _hard_boxes(rng, b, k, knife_edges)
+    z = k // 2 + rng.choice(k // 2 - 4, 4, replace=False)
+    out[:, z[0], 2] = out[:, z[0], 0]
+    out[:, z[1], 3] = out[:, z[1], 1]
+    out[:, z[2], 2:] = out[:, z[2], :2]
+    out[:, z[3] + 1] = out[:, z[3]] = out[:, z[2]]
+    return out
+
+
+def _valid(rng, b, k, pattern):
+    """valid [b, k]: a prefix of random length per image (what the serving
+    paths give: candidates sorted by score, -inf below the threshold),
+    random at 85%, all false, only the last row, only the first row."""
+    if pattern == "prefix":
+        return np.arange(k)[None] < rng.integers(0, k + 1, (b, 1))
+    if pattern == "random":
+        return rng.random((b, k)) < 0.85
+    v = np.zeros((b, k), bool)
+    if pattern == "last":
+        v[:, -1] = True
+    elif pattern == "first":
+        v[:, 0] = True
+    return v
+
+
+PATTERNS = ("prefix", "random", "all_false", "last", "first")
+
+
+def _cases(ks, first):
+    """(k, pattern) cases; the ``first`` Ks' random-valid cases keep the
+    ids these tests had before they took patterns."""
+    return [pytest.param(k, p, id=str(k) if k in first and p == "random"
+                         else f"{k}-{p}") for k in ks for p in PATTERNS]
+
+
+def _golden(boxes, valid, thr):
+    # eager on purpose: under jit XLA:CPU fuses the IoU arithmetic and
+    # contracts it into FMAs, which flips knife-edge keep bits
+    return np.stack([np.asarray(jnms.nms_keep_mask_ref(
+        jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr))
+        for i in range(len(boxes))])
+
+
+# 0.5 and 0.3: the knife edges; -0.2: every pair is above it, so the
+# kernels' inter == 0 shortcut (taken only for a non-negative threshold)
+# must not apply
+THRESHOLDS = (0.5, 0.3, -0.2)
+
+
+@pytest.mark.parametrize("k,pattern",
+                         _cases((128, 256, 512, 1024), (128, 256)))
+def test_keep_mask_bit_equal_golden(rng, k, pattern):
     """Kernel K1's plain version (what the CPU takes) against the
-    sequential golden, knife-edge pairs included."""
-    b = 3
-    boxes = _hard_boxes(rng, b, k)
-    valid = rng.random((b, k)) < 0.85
+    sequential golden, on knife-edge pairs, duplicates and zero-area
+    boxes, for each valid pattern."""
+    b = 3 if k <= 256 else 2
+    boxes = _edge_boxes(rng, b, k)
+    valid = _valid(rng, b, k, pattern)
     tbx, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
-    for thr in (0.5, 0.3):
+    for thr in THRESHOLDS:
         got = nms_keep_mask_blocked(tbx, tv, thr).numpy()
-        # eager on purpose: under jit XLA:CPU fuses the IoU arithmetic and
-        # contracts it into FMAs, which flips knife-edge keep bits
-        want = np.stack([np.asarray(jnms.nms_keep_mask_ref(
-            jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr))
-            for i in range(b)])
+        want = _golden(boxes, valid, thr)
         np.testing.assert_array_equal(got, want)
         # the port's other spellings agree too
         np.testing.assert_array_equal(
@@ -93,17 +143,18 @@ def test_keep_mask_bit_equal_golden(rng, k):
                 tnms.nms_keep_mask_ref(tbx[i], tv[i], thr).numpy(), want[i])
 
 
-@pytest.mark.parametrize("k", [128, 256])
-def test_keep_mask_bit_equal_pallas_interpret(rng, k):
+@pytest.mark.parametrize("k,pattern",
+                         _cases((128, 256, 512, 1024), (128, 256)))
+def test_keep_mask_bit_equal_pallas_interpret(rng, k, pattern):
     """Against the blocked Pallas kernel in interpret mode, on clusters,
-    duplicates and ties. Knife-edge pairs are left out: there XLA:CPU's
-    fused build of the interpret kernel disagrees with the eager golden
-    itself (its decisions match an FMA-contracted area_a + area_b), while
-    the port matches the golden."""
-    b = 3
-    boxes = _hard_boxes(rng, b, k, knife_edges=False)
-    valid = rng.random((b, k)) < 0.85
-    for thr in (0.5, 0.3):
+    duplicates, zero-area boxes and ties. Knife-edge pairs are left out:
+    there XLA:CPU's fused build of the interpret kernel disagrees with the
+    eager golden itself (its decisions match an FMA-contracted area_a +
+    area_b), while the port matches the golden."""
+    b = 3 if k <= 256 else 2
+    boxes = _edge_boxes(rng, b, k, knife_edges=False)
+    valid = _valid(rng, b, k, pattern)
+    for thr in THRESHOLDS:
         got = nms_keep_mask_blocked(torch.from_numpy(boxes),
                                     torch.from_numpy(valid), thr).numpy()
         pallas = np.asarray(nms_keep_mask_pallas_blocked(
@@ -111,32 +162,32 @@ def test_keep_mask_bit_equal_pallas_interpret(rng, k):
         np.testing.assert_array_equal(got, pallas)
 
 
-@pytest.mark.parametrize("k", [135, 512])
-def test_full_keep_mask_bit_equal_golden(rng, k):
-    """Kernel K5's plain version against the sequential golden at a K that
-    is no multiple of 32 and at the flagship's 512, knife-edge pairs
-    included."""
+@pytest.mark.parametrize("k,pattern",
+                         _cases((96, 128, 135, 232, 512, 1024), (135, 512)))
+def test_full_keep_mask_bit_equal_golden(rng, k, pattern):
+    """Kernel K5's plain version against the sequential golden, at Ks
+    that are no multiple of 32 (135), the post-merge NMS's (96, 232), the
+    flagship's 512 and the largest, on knife-edge pairs, duplicates and
+    zero-area boxes, for each valid pattern."""
     b = 2
-    boxes = _hard_boxes(rng, b, k)
-    valid = rng.random((b, k)) < 0.85
+    boxes = _edge_boxes(rng, b, k)
+    valid = _valid(rng, b, k, pattern)
     tbx, tv = torch.from_numpy(boxes), torch.from_numpy(valid)
-    for thr in (0.5, 0.3):
+    for thr in THRESHOLDS:
         got = nms_keep_mask_full(tbx, tv, thr).numpy()
-        want = np.stack([np.asarray(jnms.nms_keep_mask_ref(
-            jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr))
-            for i in range(b)])
-        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got, _golden(boxes, valid, thr))
 
 
-@pytest.mark.parametrize("k", [135, 512])
-def test_full_keep_mask_bit_equal_pallas_interpret(rng, k):
+@pytest.mark.parametrize("k,pattern",
+                         _cases((96, 128, 135, 232, 512, 1024), (135, 512)))
+def test_full_keep_mask_bit_equal_pallas_interpret(rng, k, pattern):
     """K5's plain version against the whole-matrix Pallas kernel it
     replaces, in interpret mode, off the knife edges (where XLA:CPU's
     fused build of the kernel leaves the eager golden)."""
     b = 2
-    boxes = _hard_boxes(rng, b, k, knife_edges=False)
-    valid = rng.random((b, k)) < 0.85
-    for thr in (0.5, 0.3):
+    boxes = _edge_boxes(rng, b, k, knife_edges=False)
+    valid = _valid(rng, b, k, pattern)
+    for thr in THRESHOLDS:
         got = nms_keep_mask_full(torch.from_numpy(boxes),
                                  torch.from_numpy(valid), thr).numpy()
         pallas = np.asarray(nms_keep_mask_pallas(
@@ -252,3 +303,40 @@ def test_nms_xyxy_keep_mask_route(rng, monkeypatch, k, plus_one, route):
         assert calls == [route]
         assert torch.equal(keep, tnms.nms_keep_mask_ref(boxes, valid, t,
                                                         plus_one))
+
+
+@pytest.mark.parametrize("k", [96, 232])
+def test_nms_xyxy_batched_matches_vmap_and_per_frame(rng, k):
+    """A window's post-merge NMS in one call (the engine's
+    ``batched_step_fn``, one keep-mask launch): rows and validity equal
+    the JAX package's ``jax.vmap`` of ``nms_xyxy`` (eager, so that XLA
+    contracts no IoU into an FMA) and, bit for bit, the port's per-frame
+    calls, on knife-edge IoUs, tied scores and three classes, at the
+    engine's K (64 + 32 and 200 + 32 rows)."""
+    w = 4
+    boxes = _hard_boxes(rng, w, k)
+    scores = np.round(rng.uniform(0, 1, (w, k)) * 20).astype(np.float32) / 20
+    labels = rng.integers(0, 3, (w, k)).astype(np.int32)
+    valid = rng.random((w, k)) < 0.8
+    valid[1] = False                           # a frame with no row
+    for t in (0.5, 0.3):
+        args = [torch.from_numpy(a) for a in (boxes, scores, labels, valid)]
+        got, gv = tnms.nms_xyxy(*args, t, k)
+        assert got.shape == (w, k, 6) and gv.shape == (w, k)
+        want, wv = jax.vmap(lambda b, s, lab, v: jnms.nms_xyxy(
+            b, s, lab, v, t, k))(*(jnp.asarray(a) for a in (boxes, scores,
+                                                            labels, valid)))
+        np.testing.assert_array_equal(gv.numpy(), np.asarray(wv))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        for i in range(w):
+            fr, fv = tnms.nms_xyxy(*(a[i] for a in args), t, k)
+            assert torch.equal(fr, got[i]) and torch.equal(fv, gv[i])
+
+
+def test_nms_times_needs_a_card(monkeypatch):
+    """The NMS timing tool stops with its message where there is no card,
+    before it builds or times anything."""
+    from millieye_torch.cli import nms_times
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA card"):
+        nms_times.main()

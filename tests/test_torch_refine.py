@@ -27,6 +27,8 @@ from millieye_torch.cli._common import (SERVING_PRESETS, build_fusion,
                                         build_refine, serving_overrides)
 from millieye_torch.cli.demo import calibrate
 from millieye_torch.entry import entry
+from millieye_torch.ops.nms import nms_xyxy
+from millieye_torch.runtime import engine as engine_mod
 from millieye_torch.runtime.engine import FusionEngine
 from millieye_tpu.cli._common import SERVING_PRESETS as JAX_PRESETS
 from millieye_tpu.cli._common import serving_overrides as jax_overrides
@@ -160,10 +162,12 @@ def _window(rng, n):
 
 @pytest.mark.parametrize("preset,mode", [("f32", 0), ("f32", 1),
                                          ("pallas_max4", 0)])
-def test_batched_step_equals_per_frame(preset, mode):
+def test_batched_step_equals_per_frame(preset, mode, monkeypatch):
     """One window through batched_step_fn gives each frame's step_fn
     answer: same validity, rows within float32 summation order (a
-    convolution at batch 3 may sum in another order than at batch 1)."""
+    convolution at batch 3 may sum in another order than at batch 1).
+    Its post-merge NMS is one call for the window, bit-identical to the
+    same NMS frame by frame on the same inputs."""
     rng = np.random.default_rng(21)
     frames, pts, props = _window(rng, 3)
     model, params, state = build_fusion(CKPT, preset, img_size=S,
@@ -174,8 +178,18 @@ def test_batched_step_equals_per_frame(preset, mode):
     cols = [np.stack(c) for c in zip(*packed)]
     tens = [torch.from_numpy(np.ascontiguousarray(a))
             for a in [frames] + cols]
+    calls, seen, post = [], [], eng._post
+    monkeypatch.setattr(engine_mod, "nms_xyxy", lambda boxes, *a: (
+        calls.append(tuple(boxes.shape)), nms_xyxy(boxes, *a))[1])
+    monkeypatch.setattr(eng, "_post", lambda b, v: (
+        seen.append((b, v)), post(b, v))[1])
     rows, valid = eng.batched_step_fn(mode)(*tens)
     assert rows.shape[0] == 3 and rows.shape[2] == 6
+    assert len(calls) == 1 and calls[0][:1] == (3,)
+    frames = [post(b, v) for b, v in zip(*seen[0])]
+    assert torch.equal(rows, torch.stack([r for r, _ in frames]))
+    assert torch.equal(valid, torch.stack([v for _, v in frames]))
+    monkeypatch.undo()
     step = eng.step_fn(mode)
     for i in range(3):
         r1, v1 = step(*(t[i] for t in tens))
