@@ -19,8 +19,10 @@ printed only when every phase passed:
      takes), K6 PS-RoIAlign on the unpadded float32 map, K7 padded PS-RoIAlign
      on float32 operands, K9 single stem stage, K10 (the NHWC stage, "vconcat"
      and "im2col" tap orders) at stages 0 and 2, K13 (stochastic int8) on block
-     12's weight and on the (8, 128) carrier; K2, K6 ("upq", "default") and K7
-     ("highest") also with every RoI the whole frame; the pairs at "default"
+     12's weight and on the (8, 128) carrier; K2, K3 (bf16 and float32
+     "highest"), K6 ("upq", "default") and K7 ("highest") also with every RoI
+     the whole frame, K3 also at "split"; K9's "highest" lines with its
+     mul-then-add ceiling; the pairs at "default"
      and "highest": bit-equal (each plain version repeats its kernel's
      operations in the kernel's order), except the stem pair, the deep pair and
      K9 at "default", which run on the tensor cores and are held within 2^-6 of
@@ -67,8 +69,8 @@ printed only when every phase passed:
      twins of the rows above), its launches checked and its answer
      bit-identical to its twin's; a ``torch.profiler`` pass over 4 more
      requests at ``pallas_max_s01``, ``pallas_max4``, ``pallas_pair2``,
-     ``pallas_deep``, ``pallas_max4`` with ``roi_precision="highest"`` and the
-     refine path, and over 2 windows;
+     ``pallas_deep``, ``pallas_max4`` with ``roi_precision="highest"``,
+     ``pallas_stem`` and the refine path, and over 2 windows;
   5. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
@@ -428,7 +430,9 @@ class KernelChecks:
 
     def roi_bf16(self, b):
         """K2 and K3 on bf16 operands, N = 96 (64 NMS + 32 radar rows) and
-        N = 232 (200 + 32). The library yardstick is one einsum by.F.bx
+        N = 232 (200 + 32), and N = 96 with every RoI the whole frame (the
+        support's worst case); K3's line notes the RoIs a block takes
+        (its group). The library yardstick is one einsum by.F.bx
         on the same bf16 operands (cuBLAS, float32 accumulation); it
         rounds t and its output to bf16, so it is held to the plain
         version within 4% of the output's largest magnitude."""
@@ -472,15 +476,14 @@ class KernelChecks:
                 lambda: torch.einsum("bnph,bhwpuq,bnqw->bnpqu", by, live,
                                      bx),
                 "one torch.einsum by.F.bx on the live lanes, bf16", BF16_TOL)
-            if whole:
-                continue
             rfeats = torch.tensor(
                 self.rng.standard_normal((b, hw, hw, c_out)), dtype=bf,
                 device=self.dev)
             ry, rx = (t.to(bf).contiguous() for t in self._prep(rois, hw,
                                                                 False))
             self.case(
-                "roi_align", f"N={n} bf16", b,
+                "roi_align", f"N={n} bf16" + (" whole frame" if whole else ""),
+                b,
                 lambda: roi_kernel.roi_align_kernel(rfeats, ry, rx),
                 lambda: roi_kernel.roi_align_plain(rfeats, ry, rx),
                 (rfeats.numel() + ry.numel() + rx.numel()) * 2
@@ -488,7 +491,8 @@ class KernelChecks:
                 *crop_flops(ry, rx, c_out, c_out * pw, "default"),
                 lambda: torch.einsum("bnph,bhwc,bnqw->bnpqc", ry, rfeats,
                                      rx),
-                "one torch.einsum by.F.bx, bf16", BF16_TOL)
+                "one torch.einsum by.F.bx, bf16", BF16_TOL,
+                note=f"group {roi_kernel.roi_align_group(b, n)}")
 
     def _whole_frame(self, b, n):
         """Every RoI the whole 416 px frame: the support's worst case."""
@@ -501,10 +505,11 @@ class KernelChecks:
         """K6 (N = 200, both channel orders, "default" and "highest"; and
         "upq" "default" with every RoI the whole frame), K7 (N = 232,
         "split" and "highest"; and "highest" on whole-frame RoIs), K3 on
-        float32 operands (N = 232, "highest") and the same crop through
-        K6 (layout "c", what ``roi_align(pack_p=False)`` runs), held
-        bit-equal to K3's. Library: one einsum by.F.bx, float32 with TF32
-        off, or on bf16 operands at "default" (4% as above). Bound: the
+        float32 operands (N = 232, "split" and "highest"; and "highest" on
+        whole-frame RoIs) and the same crop through K6 (layout "c", what
+        ``roi_align(pack_p=False)`` runs), held bit-equal to K3's.
+        Library: one einsum by.F.bx, float32 with TF32 off, or on bf16
+        operands at "default" (4% as above). Bound: the
         products on the nonzero support (``crop_flops``) against the
         bytes."""
         from millieye_torch.ops import roi_kernel
@@ -554,6 +559,7 @@ class KernelChecks:
         n = 232
         rois = self._rois(b, n)
         rnd = weights(rois)
+        rnd_k3 = tuple(t.contiguous() for t in self._prep(rois, hw, False))
         fpad = torch.zeros((b, hw, hw, ph * 128), device=self.dev)
         fpad[..., torch.as_tensor(roi_kernel.ps_channel_perm_pad(
             c_out, ph, pw), device=self.dev)] = torch.tensor(
@@ -578,25 +584,41 @@ class KernelChecks:
                 nbytes, *crop_flops(by, bx, ol, ol, precision), lib,
                 note, lib_tol[precision])
 
-        by, bx = (t.contiguous() for t in self._prep(rois, hw, False))
         feats = torch.tensor(self.rng.standard_normal((b, hw, hw, c_out)),
                              dtype=torch.float32, device=self.dev)
+        nbytes = (feats.numel() + b * n * (ph + pw) * hw
+                  + b * n * ph * pw * c_out) * 4
+        group = f"group {roi_kernel.roi_align_group(b, n)}"
+        whole = tuple(t.contiguous() for t in self._prep(
+            self._whole_frame(b, n), hw, False))
+        by, bx = rnd_k3
         lib, note = einsum_for("bnph,bhwc,bnqw->bnpqc", by, feats, bx,
                                "highest")
-        nbytes = (feats.numel() + by.numel() + bx.numel()
-                  + b * n * ph * pw * c_out) * 4
         self.case(
             "roi_align", f"N={n} float32 highest", b,
             lambda: roi_kernel.roi_align_kernel(feats, by, bx, "highest"),
             lambda: roi_kernel.roi_align_f32_plain(feats, by, bx, "highest"),
             nbytes, *crop_flops(by, bx, c_out, ol), lib, note,
-            lib_tol["highest"])
+            lib_tol["highest"], note=group)
+        for precision, (wy, wx), label in (
+                ("split", rnd_k3, ""), ("highest", whole, " whole frame")):
+            lib, note = einsum_for("bnph,bhwc,bnqw->bnpqc", wy, feats, wx,
+                                   precision)
+            self.case(
+                "roi_align", f"N={n} float32 {precision}{label}", b,
+                lambda: roi_kernel.roi_align_kernel(feats, wy, wx, precision),
+                lambda: roi_kernel.roi_align_f32_plain(feats, wy, wx,
+                                                       precision),
+                nbytes, *crop_flops(wy, wx, c_out, ol, precision), lib, note,
+                lib_tol[precision], note=group)
         if not torch.equal(
                 roi_kernel.ps_roi_align_f32_kernel(feats, by, bx, c_out,
                                                    "highest", "c"),
                 roi_kernel.roi_align_kernel(feats, by, bx, "highest")):
             raise AssertionError(f"b{b}: K6 at layout 'c' differs from K3 "
                                  f"on float32 operands")
+        lib, note = einsum_for("bnph,bhwc,bnqw->bnpqc", by, feats, bx,
+                               "highest")
         self.case(
             "ps_roi_align_f32", f"N={n} c highest", b,
             lambda: roi_kernel.ps_roi_align_f32_kernel(feats, by, bx, c_out,
@@ -722,7 +744,13 @@ class KernelChecks:
                 + ("float32, TF32 off" if hi else "bf16"),
                 2e-3 if hi else BF16_TOL,
                 tol=None if hi else stem.PAIR_DEFAULT_TOL)
-
+            if hi:
+                # mul-then-add takes two issue slots a product on the 132
+                # SMs' 128 float32 lanes, at 1.98 and 1.755 GHz (printed,
+                # not in the kernels line)
+                slots = 2 * b * hw * hw * cout * 9 * cin
+                self.records["stem_stage"][-1]["ceiling_ms"] = (
+                    slots / (132 * 128 * 1.98e6), slots / (132 * 128 * 1.755e6))
 
     # ------------------------------------------------------------- K10
     def fused_stem_nhwc(self, b, darknet_params):
@@ -1161,6 +1189,9 @@ def log_case(name, r):
     extra = ("" if r.get("scan_floor_ms") is None else
              f", scan floor {r['scan_floor_ms'][0]:.6f}-"
              f"{r['scan_floor_ms'][1]:.6f} ms")
+    if r.get("ceiling_ms") is not None:
+        extra += (f", mul-then-add ceiling {r['ceiling_ms'][0]:.4f}-"
+                  f"{r['ceiling_ms'][1]:.4f} ms")
     extra += "" if r["note"] is None else f", {r['note']}"
     log(f"kernel {name} {r['case']} b{r['batch']}: max_abs_err "
         f"{r['err']:.3g} ({held}), {r['ms'][0]:.4f} ms [{r['ms'][1]:.4f}, "
@@ -1818,7 +1849,8 @@ def main():
 
     profiles = {p: profile_calls(torch, p, infer_calls(engines[p])[:4])
                 for p in ("pallas_max_s01", "pallas_max4", "pallas_pair2",
-                          "pallas_deep", "pallas_max4+highest")}
+                          "pallas_deep", "pallas_max4+highest",
+                          "pallas_stem")}
     profiles["refine"] = profile_calls(
         torch, "refine", [lambda im=im: refine_call(im) for im in images[:4]])
     profiles["window8@pallas_max4"] = profile_calls(

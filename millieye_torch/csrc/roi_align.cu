@@ -1,12 +1,13 @@
 // RoI crops of the fusion networks: PS-RoIAlign over the padded score map
-// (kernel K2) and RoIAlign over the radar score map (kernel K3) with bf16
-// operands, and, in the second half of this file, the float32-operand
-// kernels with the precision ladder: PS-RoIAlign over the unpadded map
-// (K6), over the padded map (K7), and K3's float32-operand mode.
+// (kernel K2) with bf16 operands, and, in the second half of this file,
+// the float32-operand kernels with the precision ladder: PS-RoIAlign over
+// the unpadded map (K6) and over the padded map (K7); then RoIAlign over
+// the radar score map (kernel K3) on bf16 or float32 operands.
 //
 // Replaces: millieye_tpu/ops/roi_pallas.py:ps_roi_align_pallas_padded_g1
 // (K2, reduce="dot", precision="default") and
-// millieye_tpu/ops/roi_pallas.py:roi_align_pallas with pack_p=True (K3).
+// millieye_tpu/ops/roi_pallas.py:roi_align_pallas with pack_p=True (K3,
+// at every precision).
 //
 // Both crops are separable (ops/roi_align.py): for RoI n of image b,
 //   t[p, w, c]      = sum_h by[b, n, p, h] * F[b, h, w, c(p, ...)]
@@ -41,16 +42,13 @@
 // to registers; staging them in shared memory would add a copy and no
 // reuse. A whole-frame RoI reads about 5 rows x 26 columns x 144 B =
 // 19 KB per bin row, where the first design read the whole 26x26 map.
-// K3 keeps the first design: one block per (image, RoI), t for all bin
-// rows in shared memory.
+// K3's design (both operand types) comes after the precision ladder.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -146,60 +144,14 @@ ps_roi_align_kernel(const __nv_bfloat16* __restrict__ feat,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-roi_align_kernel(const __nv_bfloat16* __restrict__ feat,
-                 const __nv_bfloat16* __restrict__ by,
-                 const __nv_bfloat16* __restrict__ bx,
-                 float* __restrict__ out, int n_roi, int h, int w, int c,
-                 int ph, int pw) {
-  extern __shared__ float smem[];
-  float* s_by = smem;              // [ph, h]
-  float* s_bx = s_by + ph * h;     // [pw, w]
-  float* s_t = s_bx + pw * w;      // [ph, w, c]
-
-  const int roi = blockIdx.x;
-  const int b = roi / n_roi;
-  const __nv_bfloat16* by_r = by + static_cast<size_t>(roi) * ph * h;
-  const __nv_bfloat16* bx_r = bx + static_cast<size_t>(roi) * pw * w;
-  for (int i = threadIdx.x; i < ph * h; i += blockDim.x)
-    s_by[i] = __bfloat162float(by_r[i]);
-  for (int i = threadIdx.x; i < pw * w; i += blockDim.x)
-    s_bx[i] = __bfloat162float(bx_r[i]);
-  __syncthreads();
-
-  const __nv_bfloat16* f_b = feat + static_cast<size_t>(b) * h * w * c;
-  const size_t row_stride = static_cast<size_t>(w) * c;
-  for (int e = threadIdx.x; e < ph * w * c; e += blockDim.x) {
-    const int p = e / (w * c), r = e % (w * c);
-    float acc = 0.0f;
-    for (int y = 0; y < h; ++y)
-      acc = fmaf(s_by[p * h + y], __bfloat162float(f_b[y * row_stride + r]),
-                 acc);
-    s_t[e] = acc;
-  }
-  __syncthreads();
-
-  float* out_r = out + static_cast<size_t>(roi) * ph * pw * c;
-  for (int e = threadIdx.x; e < ph * pw * c; e += blockDim.x) {
-    const int ch = e % c, pq = e / c;
-    const int p = pq / pw, q = pq % pw;
-    float acc = 0.0f;
-    for (int x = 0; x < w; ++x)
-      acc += bf16_round(__fmul_rn(s_t[(p * w + x) * c + ch],
-                                  s_bx[q * w + x]));
-    out_r[e] = acc;
-  }
-}
-
 // ---------------------------------------------------------------------
-// Float32-operand crops with the precision ladder (kernels K6, K7 and
-// K3's float32 mode).
+// Float32-operand crops with the precision ladder (kernels K6 and K7;
+// K3, below, sums under the same ladder).
 //
 // Replaces: millieye_tpu/ops/roi_pallas.py:_launch as reached from
 // ps_roi_align_pallas (channel orders "upq" and "puq") and from
 // roi_align_pallas(pack_p=False) (K6); ps_roi_align_pallas_padded, the
-// padded map on a (batch, bin-row) grid (K7); and roi_align_pallas with
-// float32 operands, precision "split" or "highest" (K3).
+// padded map on a (batch, bin-row) grid (K7).
 //
 // The same separable crop as above on float32 features, by and bx, with
 // the meaning the TPU gives each precision:
@@ -255,11 +207,17 @@ roi_align_kernel(const __nv_bfloat16* __restrict__ feat,
 // H100 among 32, 64, 96 and 128).
 enum Precision { kDefault = 0, kSplit = 1, kHighest = 2 };
 
-template <int kMode>
-__device__ __forceinline__ void load_by(const float* __restrict__ src,
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// by's values under the ladder: hi (and lo under "split") parts
+template <int kMode, typename T>
+__device__ __forceinline__ void load_by(const T* __restrict__ src,
                                         float* hi, float* lo, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = src[i];
+    const float v = to_f32(src[i]);
     if (kMode == kHighest) {
       hi[i] = v;
     } else {
@@ -293,19 +251,6 @@ __device__ __forceinline__ float end_h(float a1, float a2, float a3) {
   return kMode == kSplit ? __fadd_rn(__fadd_rn(a1, a2), a3) : a1;
 }
 
-// t = sum_y by[y] * f[y * stride] under the ladder.
-template <int kMode>
-__device__ __forceinline__ float sum_h(const float* by_hi,
-                                       const float* by_lo,
-                                       const float* __restrict__ f,
-                                       size_t stride, int h) {
-  float a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-  for (int y = 0; y < h; ++y)
-    add_h<kMode>(by_hi[y], kMode == kSplit ? by_lo[y] : 0.0f, f[y * stride],
-                 a1, a2, a3);
-  return end_h<kMode>(a1, a2, a3);
-}
-
 // out = sum_x g(t[x * stride] * bx[x]) under the ladder.
 template <int kMode>
 __device__ __forceinline__ float sum_w(const float* t, int stride,
@@ -322,6 +267,53 @@ __device__ __forceinline__ float sum_w(const float* t, int stride,
     }
   }
   return kMode == kSplit ? __fadd_rn(a1, a2) : a1;
+}
+
+// kRoiChains outputs of the w-sum at once, one thread: out[q * ostride]
+// for the rows q = q0, q0 + dq, ... (below nq) of bx [nq][w], each
+// summed as sum_w sums it, over the span [span[2q], span[2q + 1]] of
+// its row's nonzero entries (t holds the columns from x_lo on).
+constexpr int kRoiChains = 3;
+
+template <int kMode>
+__device__ __forceinline__ void sum_w_chains(const float* t, int stride,
+                                             const float* bx, int w,
+                                             const int* span, int x_lo,
+                                             int q0, int dq, int nq,
+                                             float* out, int ostride) {
+  float a1[kRoiChains] = {}, a2[kRoiChains] = {};
+  const float* tq[kRoiChains];
+  const float* bq[kRoiChains];
+  int len[kRoiChains], n = 0;
+#pragma unroll
+  for (int j = 0; j < kRoiChains; ++j) {
+    const int q = q0 + j * dq, qq = q < nq ? q : 0;
+    const int lo = span[2 * qq], hi = span[2 * qq + 1];
+    len[j] = q < nq && hi >= lo ? hi - lo + 1 : 0;
+    tq[j] = t + (lo - x_lo) * stride;
+    bq[j] = bx + qq * w + lo;
+    n = max(n, len[j]);
+  }
+  for (int i = 0; i < n; ++i) {
+#pragma unroll
+    for (int j = 0; j < kRoiChains; ++j) {
+      if (i >= len[j]) continue;
+      const float prod = __fmul_rn(tq[j][i * stride], bq[j][i]);
+      if (kMode == kHighest) {
+        a1[j] = __fadd_rn(a1[j], prod);
+      } else {
+        const float hv = bf16_round(prod);
+        a1[j] = __fadd_rn(a1[j], hv);
+        if (kMode == kSplit)
+          a2[j] = __fadd_rn(a2[j], bf16_round(__fsub_rn(prod, hv)));
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRoiChains; ++j)
+    if (q0 + j * dq < nq)
+      out[(q0 + j * dq) * ostride] =
+          kMode == kSplit ? __fadd_rn(a1[j], a2[j]) : a1[j];
 }
 
 // kVec consecutive floats, one load of 4 * kVec bytes.
@@ -452,39 +444,220 @@ ps_roi_align_f32_kernel(const PsArgs a) {
   }
 }
 
-// K3 with float32 operands: all bin rows of t in shared memory at once.
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-roi_align_f32_kernel(const float* __restrict__ feat,
-                     const float* __restrict__ by,
-                     const float* __restrict__ bx, float* __restrict__ out,
-                     int n_roi, int h, int w, int c, int ph, int pw) {
-  extern __shared__ float smem[];
-  float* s_by = smem;              // [ph, h]
-  float* s_byl = s_by + ph * h;    // [ph, h], "split" only
-  float* s_bx = s_byl + (kMode == kSplit ? ph * h : 0);  // [pw, w]
-  float* s_t = s_bx + pw * w;      // [ph, w, c]
+// ---------------------------------------------------------------------
+// Kernel K3: RoIAlign of the radar score map,
+//   out[b, n, p, q, c] = sum_x g(t[p, x, c] * bx[b, n, q, x]),
+//   t[p, x, c]         = sum_y by[b, n, p, y] * F[b, y, x, c],
+// features [B, H, W, C] -> [B, N, ph, pw, C] float32, on bf16 operands
+// (millieye_roi_align: the ladder's "default" rung on values that are
+// bf16 already, so its roundings of F and by are exact) or float32 ones
+// at "split" and "highest" (millieye_roi_align_f32).
+//
+// Replaces: millieye_tpu/ops/roi_pallas.py:roi_align_pallas with
+// pack_p=True (_roi_kernel_radar_packed), all bin rows in one pass.
+//
+// Bound on an H100: bytes. At the serving shape (26 x 26 x 10 map, 7x7
+// bins) an image's map is 13.5 KB in bf16, by and bx 728 B a RoI and the
+// output 1,960 B a RoI: at b32, N = 232 the function must move 20.4 MB
+// (0.0061 ms at 3.35 TB/s) against some 0.1 GFLOP of products on the
+// nonzero support.
+//
+// Design. The map is small enough for shared memory (13.5 KB in bf16,
+// 27 KB in float32), so a block serves a group of RoIs of one image and
+// copies that image's map once, by 16-byte cp.async, with the group's by
+// and bx. A warp a row then finds the span of nonzero entries of every
+// row of by and bx (one ballot per 32 entries) into shared memory. A
+// warp takes one (RoI, bin row p) at a time and sums only over the
+// spans, in ascending order, as K2, K6 and K7 do:
+//  - t over the span of nonzero by[p, :], for the columns of the union
+//    of the bin columns' spans: lane e of t is (column x_lo + e / C,
+//    channel e % C), whose map reads are consecutive in shared memory,
+//    kRoiChains lanes a thread at once; t goes to the warp's own slice
+//    of shared memory;
+//  - output (q, c) over the span of nonzero bx[q, :] alone, not the
+//    union the other crop kernels take: a bin column's bilinear taps
+//    cover 2-5 map columns, a whole-frame RoI's union all 26. A lane is
+//    (channel, group of bin columns) and sums kRoiChains bin columns at
+//    once (10 channels x 3 groups: 30 of 32 lanes at 7x7 bins); its
+//    stores of a bin row are one contiguous run with the other lanes'.
+// The terms left out are exact zeros, so the result is the full sum bit
+// for bit (see K6's note); the bf16 plain version takes the same spans,
+// the float32 one the union of the bin columns' spans. A block has
+// kRoiWarpsPerRow warps per bin row (14 at 7x7 bins, at most 32), so a
+// group's items split evenly, and the group makes the grid about
+// kRoiBlocksPerSm blocks an SM (at least one RoI, at most kRoiMaxGroup):
+// at b1 a RoI a block, at b32 29 RoIs (N = 232) or 12 (N = 96); a map
+// too large for that block's shared memory gets one RoI and one warp a
+// block. Picked on an H100 among (warps a bin row, blocks an SM) = (1,
+// 16), (4, 1), (2, 2) and (4, 2): all within 6% of each other at b32
+// (bf16, N = 232: 0.046-0.049 ms of device time), (2, 2) the fastest
+// there and within 5% of the best at N = 96; at b1 all take 0.004-0.005
+// ms. So the map copy a block is not what bounds K3: without its two
+// sums the kernel took 0.015 ms, the w-sum 0.020 and t 0.010 of the rest
+// (random RoIs, b32, N = 232, one warp a bin row).
+constexpr int kRoiBlocksPerSm = 2;
+constexpr int kRoiMaxGroup = 64;
+constexpr int kRoiWarpsPerRow = 2;
 
-  const int roi = blockIdx.x;
-  const int b = roi / n_roi;
-  load_by<kMode>(by + static_cast<size_t>(roi) * ph * h, s_by, s_byl, ph * h);
-  const float* bx_r = bx + static_cast<size_t>(roi) * pw * w;
-  for (int i = threadIdx.x; i < pw * w; i += blockDim.x) s_bx[i] = bx_r[i];
+__host__ __device__ inline size_t align16(size_t n) {
+  return (n + 15) & ~static_cast<size_t>(15);
+}
+
+// Shared memory of K3's block: the map, then by (hi, and lo under
+// "split") and bx of the group, then t, one slice of w * c a warp, then
+// the nonzero span of each row of by and bx.
+__host__ __device__ inline size_t k3_smem_bytes(int h, int w, int c, int ph,
+                                                int pw, int group, int warps,
+                                                int mode, int elem) {
+  return align16(static_cast<size_t>(h) * w * c * elem)
+         + sizeof(float) * static_cast<size_t>(group)
+               * ((mode == kSplit ? 2 : 1) * ph * h + pw * w)
+         + sizeof(float) * static_cast<size_t>(warps) * w * c
+         + 2 * sizeof(int) * static_cast<size_t>(group) * (ph + pw);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy into shared memory
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+                   "memory");
+}
+
+// The span [lo, hi] of the indices i < n where v[i] is nonzero (lo = n,
+// hi = -1 where none is), one ballot per 32 entries; every lane of the
+// warp calls it and gets the answer.
+__device__ __forceinline__ void warp_span(const float* v, int n, int& lo,
+                                          int& hi) {
+  const int lane = threadIdx.x & 31;
+  lo = n;
+  hi = -1;
+  for (int i0 = 0; i0 < n; i0 += 32) {
+    const unsigned m = __ballot_sync(0xffffffffu,
+                                     i0 + lane < n && v[i0 + lane] != 0.0f);
+    if (m) {
+      lo = min(lo, i0 + __ffs(m) - 1);
+      hi = i0 + 31 - __clz(m);
+    }
+  }
+}
+
+template <int kMode, typename T>
+__global__ void __launch_bounds__(1024)
+roi_align_kernel(const T* __restrict__ feat, const T* __restrict__ by,
+                 const T* __restrict__ bx, float* __restrict__ out,
+                 int n_roi, int h, int w, int c, int ph, int pw, int group,
+                 int vec) {
+  extern __shared__ __align__(16) unsigned char rsmem[];
+  const int hwc = h * w * c;
+  const T* s_map = reinterpret_cast<const T*>(rsmem);       // [h][w][c]
+  float* s_by = reinterpret_cast<float*>(
+      rsmem + align16(static_cast<size_t>(hwc) * sizeof(T)));  // [g][ph][h]
+  float* s_byl = s_by + group * ph * h;         // lo parts, "split" only
+  float* s_bx = s_byl + (kMode == kSplit ? group * ph * h : 0);  // [g][pw][w]
+  float* s_t = s_bx + group * pw * w;           // [warps][w * c]
+  int* s_span = reinterpret_cast<int*>(
+      s_t + (blockDim.x >> 5) * w * c);         // [g][ph + pw][2]
+
+  const int per_img = (n_roi + group - 1) / group;
+  const int b = blockIdx.x / per_img;
+  const int r0 = (blockIdx.x % per_img) * group;
+  const int nr = min(group, n_roi - r0);
+  const size_t roi0 = static_cast<size_t>(b) * n_roi + r0;
+  const T* f_b = feat + static_cast<size_t>(b) * hwc;
+  if (vec) {
+    const int chunks = static_cast<int>(hwc * sizeof(T) / 16);
+    for (int i = threadIdx.x; i < chunks; i += blockDim.x)
+      cp_async16(rsmem + 16 * i,
+                 reinterpret_cast<const unsigned char*>(f_b) + 16 * i);
+  } else {
+    T* dst = reinterpret_cast<T*>(rsmem);
+    for (int i = threadIdx.x; i < hwc; i += blockDim.x) dst[i] = f_b[i];
+  }
+  load_by<kMode>(by + roi0 * ph * h, s_by, s_byl, nr * ph * h);
+  const T* bx_g = bx + roi0 * pw * w;
+  for (int i = threadIdx.x; i < nr * pw * w; i += blockDim.x)
+    s_bx[i] = to_f32(bx_g[i]);
+  cp_async_wait_all();
   __syncthreads();
 
-  const float* f_b = feat + static_cast<size_t>(b) * h * w * c;
-  const size_t row_stride = static_cast<size_t>(w) * c;
-  for (int e = threadIdx.x; e < ph * w * c; e += blockDim.x) {
-    const int p = e / (w * c), r = e % (w * c);
-    s_t[e] = sum_h<kMode>(s_by + p * h, s_byl + p * h, f_b + r, row_stride, h);
+  // the nonzero span of each row: by rows (r, p) first, then bx rows
+  // (r, q), a warp a row
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5, rows_y = nr * ph;
+  for (int row = warp; row < rows_y + nr * pw; row += warps) {
+    int lo, hi;
+    if (row < rows_y)
+      warp_span(s_by + row * h, h, lo, hi);
+    else
+      warp_span(s_bx + (row - rows_y) * w, w, lo, hi);
+    if (lane == 0) {
+      s_span[2 * row] = lo;
+      s_span[2 * row + 1] = hi;
+    }
   }
   __syncthreads();
 
-  float* out_r = out + static_cast<size_t>(roi) * ph * pw * c;
-  for (int e = threadIdx.x; e < ph * pw * c; e += blockDim.x) {
-    const int ch = e % c, pq = e / c;
-    const int p = pq / pw, q = pq % pw;
-    out_r[e] = sum_w<kMode>(s_t + p * w * c + ch, c, s_bx + q * w, w);
+  float* t = s_t + warp * w * c;
+  // the output's lanes: (channel ch, bin-column group qg), each summing
+  // the bin columns qg, qg + nqg, ... kRoiChains at a time
+  const int lc = c < 32 ? c : 32, nqg = 32 / lc;
+  const int ch0 = lane % lc, qg = lane / lc;
+  for (int item = warp; item < rows_y; item += warps) {
+    const int r = item / ph, p = item % ph;
+    const float* byh = s_by + item * h;
+    const float* byl = s_byl + item * h;
+    const float* bxr = s_bx + r * pw * w;
+    const int* qspan = s_span + 2 * (rows_y + r * pw);
+    const int y_lo = s_span[2 * item], y_hi = s_span[2 * item + 1];
+    // t's columns: the union of the bin columns' spans
+    int x_lo = w, x_hi = -1;
+    for (int q = lane; q < pw; q += 32) {
+      x_lo = min(x_lo, qspan[2 * q]);
+      x_hi = max(x_hi, qspan[2 * q + 1]);
+    }
+    x_lo = __reduce_min_sync(0xffffffffu, x_lo);
+    x_hi = __reduce_max_sync(0xffffffffu, x_hi);
+    const int nx = x_hi - x_lo + 1;         // <= 0 for an empty span
+    // t[x_lo + e / c, e % c] over the y span, kRoiChains lanes of t a
+    // thread at once, each from +0 in ascending y
+    const T* m0 = s_map + x_lo * c;
+    for (int e0 = lane; e0 < nx * c; e0 += 32 * kRoiChains) {
+      float a1[kRoiChains] = {}, a2[kRoiChains] = {}, a3[kRoiChains] = {};
+      for (int y = y_lo; y <= y_hi; ++y) {
+        const float wh = byh[y], wl = kMode == kSplit ? byl[y] : 0.0f;
+        const T* my = m0 + y * w * c;
+#pragma unroll
+        for (int j = 0; j < kRoiChains; ++j) {
+          const float v = to_f32(my[min(e0 + 32 * j, nx * c - 1)]);
+          if (kMode == kDefault && sizeof(T) == 2)
+            a1[j] = fmaf(wh, v, a1[j]);     // bf16 already: no rounding
+          else
+            add_h<kMode>(wh, wl, v, a1[j], a2[j], a3[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kRoiChains; ++j)
+        if (e0 + 32 * j < nx * c)
+          t[e0 + 32 * j] = end_h<kMode>(a1[j], a2[j], a3[j]);
+    }
+    __syncwarp();
+    // out[q, ch] over the span of bx[q, :], at element q * c + ch
+    float* o = out + ((roi0 + r) * ph + p) * pw * c;
+    if (qg < nqg)
+      for (int ch = ch0; ch < c; ch += lc)
+        for (int q0 = qg; q0 < pw; q0 += kRoiChains * nqg)
+          sum_w_chains<kMode>(t + ch, c, bxr, w, qspan, x_lo, q0, nqg, pw,
+                              o + ch, c);
+    __syncwarp();                           // t is free for the next item
   }
 }
 
@@ -547,6 +720,59 @@ int launch_ps_f32(const void* feat, const void* by, const void* bx, void* out,
   return launch_ps_mode<kHighest>(a, vec, grid, smem, st);
 }
 
+// K3's RoIs a block: about kRoiBlocksPerSm blocks an SM over the card's
+// SMs, at least 1 and at most kRoiMaxGroup (and n_roi); 0 on an error.
+int k3_group(int batch, int n_roi) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess
+      || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)
+             != cudaSuccess || sms <= 0)
+    return 0;
+  const long long rois = static_cast<long long>(batch) * n_roi;
+  const long long want = static_cast<long long>(kRoiBlocksPerSm) * sms;
+  long long g = (rois + want - 1) / want;
+  g = g < 1 ? 1 : (g > kRoiMaxGroup ? kRoiMaxGroup : g);
+  return static_cast<int>(g < n_roi ? g : n_roi);
+}
+
+template <int kMode, typename T>
+int launch_k3(const void* feat, const void* by, const void* bx, void* out,
+              int batch, int n_roi, int h, int w, int c, int ph, int pw,
+              void* stream) {
+  if (batch <= 0 || n_roi <= 0 || h <= 0 || w <= 0 || c <= 0 || ph <= 0
+      || pw <= 0)
+    return cudaErrorInvalidValue;
+  int group = k3_group(batch, n_roi);
+  if (group == 0) return cudaErrorInvalidDevice;
+  int warps = ph * kRoiWarpsPerRow < 32 ? ph * kRoiWarpsPerRow : 32;
+  size_t smem = k3_smem_bytes(h, w, c, ph, pw, group, warps, kMode,
+                              sizeof(T));
+  if (smem > kMaxSmemOptIn) {   // a map too large for that: the least block
+    group = warps = 1;
+    smem = k3_smem_bytes(h, w, c, ph, pw, 1, 1, kMode, sizeof(T));
+  }
+  const long long grid = static_cast<long long>(batch)
+                         * ((n_roi + group - 1) / group);
+  if (smem > kMaxSmemOptIn || grid > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const auto kernel = roi_align_kernel<kMode, T>;
+  if (smem > kMaxSmem) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // the map in 16-byte copies where each image's map is 16-byte aligned
+  const int vec = reinterpret_cast<uintptr_t>(feat) % 16 == 0
+                  && (static_cast<size_t>(h) * w * c * sizeof(T)) % 16 == 0;
+  kernel<<<static_cast<int>(grid), 32 * warps, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(feat), static_cast<const T*>(by),
+      static_cast<const T*>(bx), static_cast<float*>(out), n_roi, h, w, c,
+      ph, pw, group, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -578,21 +804,19 @@ int millieye_ps_roi_align(const void* feat, const void* by, const void* bx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// feat [B, H, W, C] bf16, by [B, N, ph, H] bf16, bx [B, N, pw, W] bf16
-// -> out [B, N, ph, pw, C] f32.
+// Kernel K3. feat [B, H, W, C] bf16, by [B, N, ph, H] bf16, bx
+// [B, N, pw, W] bf16 -> out [B, N, ph, pw, C] f32.
 int millieye_roi_align(const void* feat, const void* by, const void* bx,
                        void* out, int batch, int n_roi, int h, int w, int c,
                        int ph, int pw, void* stream) {
-  if (batch <= 0 || n_roi <= 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (ph * h + pw * w + ph * w * c);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  roi_align_kernel<<<batch * n_roi, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(feat),
-      static_cast<const __nv_bfloat16*>(by),
-      static_cast<const __nv_bfloat16*>(bx), static_cast<float*>(out), n_roi,
-      h, w, c, ph, pw);
-  return static_cast<int>(cudaGetLastError());
+  return launch_k3<kDefault, __nv_bfloat16>(feat, by, bx, out, batch, n_roi,
+                                            h, w, c, ph, pw, stream);
+}
+
+// The RoIs one block of K3 takes at this batch and RoI count on the
+// current card; 0 on an error.
+int millieye_roi_align_group(int batch, int n_roi) {
+  return batch > 0 && n_roi > 0 ? k3_group(batch, n_roi) : 0;
 }
 
 // Kernel K6. feat [B, H, W, c_feat] f32, by [B, N, ph, H] f32, bx
@@ -625,24 +849,13 @@ int millieye_ps_roi_align_padded_f32(const void* feat, const void* by,
 int millieye_roi_align_f32(const void* feat, const void* by, const void* bx,
                            void* out, int batch, int n_roi, int h, int w,
                            int c, int ph, int pw, int mode, void* stream) {
-  if (batch <= 0 || n_roi <= 0 || (mode != kSplit && mode != kHighest))
-    return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float)
-      * ((mode == kSplit ? 2 : 1) * ph * h + pw * w + ph * w * c);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(feat);
-  const float* y = static_cast<const float*>(by);
-  const float* x = static_cast<const float*>(bx);
-  float* o = static_cast<float*>(out);
-  const int grid = batch * n_roi;
   if (mode == kSplit)
-    roi_align_f32_kernel<kSplit><<<grid, kThreads, smem, st>>>(
-        f, y, x, o, n_roi, h, w, c, ph, pw);
-  else
-    roi_align_f32_kernel<kHighest><<<grid, kThreads, smem, st>>>(
-        f, y, x, o, n_roi, h, w, c, ph, pw);
-  return static_cast<int>(cudaGetLastError());
+    return launch_k3<kSplit, float>(feat, by, bx, out, batch, n_roi, h, w, c,
+                                    ph, pw, stream);
+  if (mode == kHighest)
+    return launch_k3<kHighest, float>(feat, by, bx, out, batch, n_roi, h, w,
+                                      c, ph, pw, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -103,6 +103,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kTile = 8;               // output pixels per tile side
@@ -284,6 +286,38 @@ __device__ __forceinline__ void store4(void* out, size_t o, const float* v,
 // ---------------------------------------------------------------------
 // The pair at precision "highest" (see the note at the top of the file).
 
+// The input halo of a tile, rows x cols pixels from frame pixel (iy0,
+// ix0) of image img, planar [cin][rows][cols], zero outside the frame,
+// by 4-byte cp.async (the caller commits and waits): a warp copies whole
+// frame rows, a contiguous run of cols * cin floats, and tracks each
+// float's (column, channel) by adding 32 / cin columns and 32 % cin
+// channels a step.
+__device__ __forceinline__ void load_halo_planar(float* dst,
+                                                 const float* __restrict__ x,
+                                                 int img, int h, int w,
+                                                 int cin, int iy0, int ix0,
+                                                 int rows, int cols) {
+  const int lane = threadIdx.x & 31;
+  const int run = cols * cin, col_step = 32 / cin, c_step = 32 % cin;
+  for (int row = threadIdx.x >> 5; row < rows; row += blockDim.x >> 5) {
+    const int gy = iy0 + row;
+    const float* src = x + (static_cast<ptrdiff_t>(img) * h + gy) * w * cin;
+    int c = lane % cin, col = lane / cin;
+    for (int k = lane; k < run; k += 32) {
+      const int gk = ix0 * cin + k;   // float index within the frame row
+      const bool ok = gy >= 0 && gy < h && gk >= 0 && gk < w * cin;
+      cp_async4(dst + (c * rows + row) * cols + col, ok ? src + gk : x, ok);
+      c += c_step;
+      col += col_step;
+      if (c >= cin) {
+        c -= cin;
+        ++col;
+      }
+    }
+  }
+}
+
+
 // bytes of shared memory: the biases, both weight sets, the intermediate
 // and `bufs` input halos (ops/stem.py:_tile_fits mirrors it at bufs = 1)
 __host__ __device__ inline size_t pair_smem_bytes(int cin, int cmid,
@@ -347,36 +381,15 @@ stem_pair_kernel(const float* __restrict__ x,
   float* s_in = s_mid + kMid * kMid * cmid;   // [bufs][cin][kIn][kIn]
   const int halo = align4(kIn * kIn * cin);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
   const int tiles_x = cdiv(wo, kTile), per_img = tiles_x * cdiv(ho, kTile);
   const int n_tiles = n * per_img;
 
-  // a tile's input halo, planar, zero outside the frame: a warp copies
-  // whole frame rows, a contiguous run of kIn * cin floats, and tracks
-  // each float's (column, channel) by adding 32 = 32/cin columns and
-  // 32 % cin channels a step
-  const int run = kIn * cin, col_step = 32 / cin, c_step = 32 % cin;
   auto load_halo = [&](int tile, float* dst) {
     const int img = tile / per_img, r = tile % per_img;
-    const int iy0 = 4 * kTile * (r / tiles_x) - 3;
-    const int ix0 = 4 * kTile * (r % tiles_x) - 3;
-    for (int row = warp; row < kIn; row += kWarps) {
-      const int gy = iy0 + row;
-      const float* src = x + (static_cast<ptrdiff_t>(img) * h + gy) * w * cin;
-      int c = lane % cin, col = lane / cin;
-      for (int k = lane; k < run; k += 32) {
-        const int gk = ix0 * cin + k;   // float index within the frame row
-        const bool ok = gy >= 0 && gy < h && gk >= 0 && gk < w * cin;
-        cp_async4(dst + (c * kIn + row) * kIn + col, ok ? src + gk : x, ok);
-        c += c_step;
-        col += col_step;
-        if (c >= cin) {
-          c -= cin;
-          ++col;
-        }
-      }
-    }
+    load_halo_planar(dst, x, img, h, w, cin, 4 * kTile * (r / tiles_x) - 3,
+                     4 * kTile * (r % tiles_x) - 3, kIn, kIn);
   };
 
   // once per block: both weight sets and the biases
@@ -1134,6 +1147,13 @@ stem_pair_deep_tc_kernel(const float* __restrict__ x,
 // read side by side by 8 lanes, and the 4 pixel pairs of a warp read one
 // halo row. Per input channel a thread loads its 4x6 patch (12 float2
 // loads) once for the 9 taps and 9 float4 weight loads: 288 products.
+//
+// The same kernel takes K9 where K9's persistent kernel below does not
+// hold its weights and halo in shared memory, at "highest" and, where
+// not even the tensor-core kernel's narrowest weight slice fits (Cin
+// above 256), at "default": there x and w are rounded to bf16 as they
+// land in shared memory and each product is exact, so an FMA rounds like
+// the plain version's multiply-then-add.
 constexpr int kFRows = 4;                 // pooled pixels per tile: rows
 constexpr int kFCols = 8;                 //   and columns
 constexpr int kFInRows = 2 * kFRows + 2;  // 10 input rows
@@ -1142,6 +1162,49 @@ constexpr int kFCo = 32;                  // output channels per block
 constexpr int kFCk = 16;                  // input channels per chunk
 constexpr int kFThreads = 128;
 
+// One input channel's share of two horizontally adjacent pooled pixels x
+// 4 output channels at the four pool positions (acc[q][d][k]: pixel q,
+// pool position d = 2 dy + dx, channel k): the pair's 4x6 patch at ps
+// (planar, row pitch `pitch`, 8-byte aligned) read once as 12 float2,
+// then per tap (u, v), u slowest, a float4 of weights at sw + (u * 3 + v)
+// * nco and 32 products. At "highest" each product is rounded before its
+// add; else the operands are bf16 values and an FMA rounds alike.
+template <bool kHighest>
+__device__ __forceinline__ void conv_chan_cuv(float (&acc)[2][4][4],
+                                              const float* ps, int pitch,
+                                              const float* sw, int nco) {
+  float patch[4][6];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int t = 0; t < 3; ++t) {
+      const float2 a =
+          *reinterpret_cast<const float2*>(ps + r * pitch + 2 * t);
+      patch[r][2 * t] = a.x;
+      patch[r][2 * t + 1] = a.y;
+    }
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int v = 0; v < 3; ++v) {
+      const float4 wv =
+          *reinterpret_cast<const float4*>(sw + (u * 3 + v) * nco);
+      const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int d = 0; d < 4; ++d) {
+          const float xv = patch[(d >> 1) + u][2 * q + (d & 1) + v];
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            acc[q][d][k] = kHighest
+                ? __fadd_rn(acc[q][d][k], __fmul_rn(xv, wk[k]))
+                : fmaf(xv, wk[k], acc[q][d][k]);
+        }
+    }
+}
+
+template <bool kHighest>
 __global__ void __launch_bounds__(kFThreads)
 deep_stage_kernel(const float* __restrict__ x,
                   const float* __restrict__ wgt,   // [cin, 3, 3, cout]
@@ -1189,7 +1252,8 @@ deep_stage_kernel(const float* __restrict__ x,
       }
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        s_in[((c + k) * kFInRows + ly) * kFInCols + lx] = v[k];
+        s_in[((c + k) * kFInRows + ly) * kFInCols + lx] =
+            kHighest ? v[k] : bf16_round(v[k]);
     }
     // the slice's weights, zero past co_n
     for (int e = tid; e < cn * 9 * (kFCo / 4); e += kFThreads) {
@@ -1198,41 +1262,18 @@ deep_stage_kernel(const float* __restrict__ x,
       if (4 * q < co_n)
         v = __ldg(reinterpret_cast<const float4*>(
             wgt + (static_cast<size_t>(c0) * 9 + row) * cout + co0 + 4 * q));
+      if (!kHighest)
+        v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                        bf16_round(v.w));
       *reinterpret_cast<float4*>(s_w + row * kFCo + 4 * q) = v;
     }
     __syncthreads();
     if (!active) continue;
-    for (int c = 0; c < cn; ++c) {
-      // the pair's 4x6 patch: rows 2 py + (0..3), columns 2 px + (0..5)
-      float patch[4][6];
-      const float* ps = s_in + (c * kFInRows + 2 * py) * kFInCols + 2 * px;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          const float2 a =
-              *reinterpret_cast<const float2*>(ps + r * kFInCols + 2 * t);
-          patch[r][2 * t] = a.x;
-          patch[r][2 * t + 1] = a.y;
-        }
-#pragma unroll
-      for (int u = 0; u < 3; ++u)
-#pragma unroll
-        for (int v = 0; v < 3; ++v) {
-          const float4 wv = *reinterpret_cast<const float4*>(
-              s_w + (c * 9 + u * 3 + v) * kFCo + 4 * g);
-          const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
-#pragma unroll
-          for (int q = 0; q < 2; ++q)
-#pragma unroll
-            for (int d = 0; d < 4; ++d) {
-              const float xv = patch[(d >> 1) + u][2 * q + (d & 1) + v];
-#pragma unroll
-              for (int k = 0; k < 4; ++k)
-                acc[q][d][k] = __fadd_rn(acc[q][d][k], __fmul_rn(xv, wk[k]));
-            }
-        }
-    }
+    // the pair's 4x6 patch: rows 2 py + (0..3), columns 2 px + (0..5)
+    for (int c = 0; c < cn; ++c)
+      conv_chan_cuv<kHighest>(
+          acc, s_in + (c * kFInRows + 2 * py) * kFInCols + 2 * px, kFInCols,
+          s_w + c * 9 * kFCo + 4 * g, kFCo);
   }
   if (!active || oy >= ho) return;
 #pragma unroll
@@ -1250,13 +1291,14 @@ deep_stage_kernel(const float* __restrict__ x,
 
 int launch_deep_stage(const float* x, const float* wgt, const float* bias,
                       void* out, int n, int h, int w, int cin, int cout,
-                      int store, cudaStream_t st) {
+                      int highest, int store, cudaStream_t st) {
   const long long z = static_cast<long long>(n) * cdiv(cout, kFCo);
   if (z > 65535) return cudaErrorInvalidValue;
   const dim3 grid(cdiv(w / 2, kFCols), cdiv(h / 2, kFRows),
                   static_cast<unsigned>(z));
-  deep_stage_kernel<<<grid, kFThreads, 0, st>>>(x, wgt, bias, out, h, w, cin,
-                                                cout, store);
+  auto kernel = highest ? deep_stage_kernel<true> : deep_stage_kernel<false>;
+  kernel<<<grid, kFThreads, 0, st>>>(x, wgt, bias, out, h, w, cin, cout,
+                                     store);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1264,12 +1306,12 @@ int launch_deep_stage(const float* x, const float* wgt, const float* bias,
 // kernel's shared memory does not hold. The stem pair's layout does not
 // fit them: w0 and w1 hold 92,160 weights at 32 -> 64 -> 128 (184 KB in
 // bf16), and the 38x38x32 input halo of an 8x8 output tile is another
-// 92 KB, against 227 KB a block may have. So, as kernel K9 does, channels
-// go through shared memory in chunks of 8: the 22x22 input halo of the
-// chunk (planar, a padded row pitch) with its w0 slice, then, for stage
-// 1, the w1 slice. Only the stage-0 intermediate of the tile stays whole
-// (10x10xCmid float32, 28 KB at Cmid 64). The output tile is 4x4 pooled
-// pixels, at the cost of recomputing the stage-0 halo (a 10x10
+// 92 KB, against 227 KB a block may have. So, as deep_stage_kernel does,
+// channels go through shared memory in chunks, here of 8: the 22x22
+// input halo of the chunk (planar, a padded row pitch) with its w0 slice,
+// then, for stage 1, the w1 slice. Only the stage-0 intermediate of the tile
+// stays whole (10x10xCmid float32, 28 KB at Cmid 64). The output tile is
+// 4x4 pooled pixels, at the cost of recomputing the stage-0 halo (a 10x10
 // intermediate for 8x8 stage-1 positions, 1.56x the stage-0 work). A
 // thread owns 8 channels of one pixel at all four pool positions (32
 // accumulators); the sums run over (c, u, v), c slowest, as in K9, on
@@ -1444,108 +1486,157 @@ stem_pair_deep_kernel(const float* __restrict__ x,
 // cores run (104 px, 32 -> 64: 0.40 GFLOP per image, 6 us at 67 TFLOP/s;
 // 0.4 us at the bf16 tensor-core rate "default" allows). At "default"
 // the tensor-core kernel above runs it (stem_stage_tc_kernel); the
-// CUDA-core kernel below takes "highest", and "default" where not even
-// 8 output channels' weights and the halo fit shared memory (Cin above
+// kernel below takes "highest"; deep_stage_kernel takes "highest" where
+// this one's weights and halo do not fit shared memory, and "default"
+// where not even 8 output channels' tensor-core weights do (Cin above
 // 256).
 //
-// Design of the CUDA-core kernel: one thread block per 8x8 tile of
-// pooled pixels and per slice of up to 32 output channels. Input
-// channels go through shared memory in chunks of 16: the 18x18 input
-// halo of the chunk, planar [c][row][col] (so the pixels of a warp read
-// different banks), and the chunk's weights [c][u][v][co]. That keeps
-// shared memory at 40 KB for any Cin and Cout (stage 6's full weights
-// alone are 288 KB). A thread owns one pooled pixel and 8 output
-// channels at all four pool positions: per input channel it loads its
-// 4x4 input patch once and the 9 x 8 weights as broadcast float4 reads,
-// for 288 multiply-adds.
-// The sum runs over (c, u, v), c slowest, one add at a time: with bf16
-// operands each product is exact in float32, so the FMA rounds like
-// multiply-then-add; at "highest" the product is rounded first
-// (__fmul_rn, __fadd_rn), so the plain version can repeat it bit for bit.
-constexpr int kCk = 16;                 // input channels per chunk
-constexpr int kCo = 32;                 // output channels per block
-constexpr int kHalo = 2 * kTile + 2;    // 18 input pixels per tile side
-constexpr int kPitch = kHalo + 1;       // row pitch of the planar halo
+// At "highest" each product is rounded before its add (__fmul_rn, then
+// __fadd_rn: two issue slots a product), summed over (c, u, v), c
+// slowest, as ops/stem.py:fused_stem_stage_plain sums, so the kernel is
+// bit-equal to it. That caps it at half the FMA rate: 132 SMs x 128
+// lanes x 1.755-1.98 GHz give 0.143-0.161 ms at b32 for stage 0 (416 px,
+// 3 -> 16: 74.8 M products an image) and 0.381-0.430 ms for stage 2
+// (208 px, 16 -> 32: 199 M). The design keeps loads and idle threads off
+// that path (stem_pair_kernel's design, fitted to one stage):
+//  - a persistent grid of 256-thread blocks walks tiles of tr x tc pooled
+//    pixels (below) with a stride of the grid; the whole weight set
+//    [cin, 3, 3, cout] and the biases arrive once a block, the weights by
+//    16-byte cp.async;
+//  - the tile's (2tr+2 x 2tc+2) x Cin input halo lands planar ([c][row]
+//    [col], zero outside the frame: the conv's padding) by 4-byte
+//    cp.async, into a second buffer while the previous tile computes
+//    where two fit shared memory (both P3 stages: 56 KB at stage 0, 60 KB
+//    at stage 2), else into one;
+//  - each thread owns 4 output channels of 2 horizontally adjacent pooled
+//    pixels at all four pool positions (32 sums), lanes over the
+//    4-channel groups fastest, and per input channel loads the pair's 4x6
+//    patch once (12 float2) and 9 float4 weights for 288 products
+//    (conv_chan_cuv, shared with deep_stage_kernel);
+//  - the tile grows from 8 x 8 pooled pixels, columns first, until its
+//    (pixel pair, channel group) items cover the 256 threads four times
+//    where Cin < 8 and once elsewhere, as long as the batch keeps
+//    kSMinTilesPerSm tiles an SM (stage 0: 16 x 32 at b32, four items a
+//    thread, and 8 x 16 at b1; stage 2: 8 x 8), so that no thread idles
+//    (the first K9 kernel left half of them idle at Cout = 16) and a thin
+//    input's tile has work enough between its two barriers. Timed on an
+//    H100: stage 0 at b32 took 0.30 ms at 16 x 16 and 0.28 at 16 x 32,
+//    though 208 pooled columns leave the last 16 x 32 tile half empty; at
+//    b1 its device time was 0.0139 ms at 16 x 32 (91 tiles for 132 SMs),
+//    0.0151 at 16 x 16, 0.0123 at 8 x 16 and 0.0129 at 8 x 8;
+//  - three blocks an SM (80 registers, 8 bytes of spill; 112 registers
+//    and two blocks without the bound: 2-3% slower at stage 0);
+//  - each pixel's 4 channels go out as one 16-byte (float32) or 8-byte
+//    store.
+constexpr int kSMaxPixels = 1024;      // pooled pixels per tile, at most
+constexpr int kSMinTilesPerSm = 2;     // tiles an SM the tile leaves, at least
 
-template <bool kHighest>
-__global__ void __launch_bounds__(kThreads)
+// K9's tile at "highest": tr rows x tc columns of pooled pixels, for n
+// images of ho x wo pooled pixels on a card of sms SMs
+__host__ __device__ inline void stage_hi_tile(int cin, int cout, int n,
+                                              int ho, int wo, int sms,
+                                              int* tr, int* tc) {
+  const int want = kThreads * (cin < 8 ? 4 : 1);
+  *tr = *tc = kTile;
+  while (*tr * *tc / 2 * (cout / 4) < want && *tr * *tc < kSMaxPixels) {
+    const int r = *tc <= *tr ? *tr : 2 * *tr, c = *tc <= *tr ? 2 * *tc : *tc;
+    if (static_cast<long long>(n) * cdiv(ho, r) * cdiv(wo, c)
+        < static_cast<long long>(kSMinTilesPerSm) * sms)
+      break;
+    *tr = r;
+    *tc = c;
+  }
+}
+
+// bytes of shared memory: the weights, the biases and `bufs` input halos
+__host__ __device__ inline size_t stage_hi_smem_bytes(int cin, int cout,
+                                                      int tr, int tc,
+                                                      int bufs) {
+  return sizeof(float)
+         * (9 * static_cast<size_t>(cin) * cout + align4(cout)
+            + bufs * static_cast<size_t>(align4((2 * tr + 2) * (2 * tc + 2)
+                                                * cin)));
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
 stem_stage_kernel(const float* __restrict__ x,
                   const float* __restrict__ wgt,   // [cin, 3, 3, cout]
                   const float* __restrict__ bias, void* __restrict__ out,
-                  int h, int w, int cin, int cout, int store) {
-  __shared__ float s_in[kCk * kHalo * kPitch];
-  __shared__ __align__(16) float s_w[kCk * 9 * kCo];
+                  int n, int h, int w, int cin, int cout, int tr, int tc,
+                  int store, int bufs) {
+  extern __shared__ __align__(16) float smem[];
+  const int hr = 2 * tr + 2, hc = 2 * tc + 2;       // halo rows, columns
+  const int halo = align4(hr * hc * cin);
+  float* s_w = smem;                                // [cin][3][3][cout]
+  float* s_b = s_w + 9 * cin * cout;
+  float* s_in = s_b + align4(cout);                 // [bufs][cin][hr][hc]
 
   const int tid = threadIdx.x;
-  const int slices = (cout + kCo - 1) / kCo;
-  const int n = blockIdx.z / slices, slice = blockIdx.z % slices;
-  const int co0 = slice * kCo;
-  const int co_n = min(kCo, cout - co0);       // a multiple of kGroup
   const int ho = h / 2, wo = w / 2;
-  const int pix = tid % (kTile * kTile), g = tid / (kTile * kTile);
-  const int py = pix / kTile, px = pix % kTile;
-  const int oy = kTile * blockIdx.y + py, ox = kTile * blockIdx.x + px;
-  const bool active = g * kGroup < co_n;
-  // input halo: local (ly, lx) <-> global (2*kTile*ty - 1 + ly, ...)
-  const int iy0 = 2 * kTile * blockIdx.y - 1, ix0 = 2 * kTile * blockIdx.x - 1;
-  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+  const int tiles_x = cdiv(wo, tc), per_img = tiles_x * cdiv(ho, tr);
+  const int n_tiles = n * per_img;
 
-  float acc[4][kGroup] = {};
-  for (int c0 = 0; c0 < cin; c0 += kCk) {
-    const int cn = min(kCk, cin - c0);
-    __syncthreads();                     // the previous chunk is consumed
-    for (int e = tid; e < kHalo * kHalo * cn; e += kThreads) {
-      const int c = e % cn, p = e / cn;
-      const int ly = p / kHalo, lx = p % kHalo;
-      const int gy = iy0 + ly, gx = ix0 + lx;
-      float v = 0.0f;
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-        v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c0 + c];
-      if (!kHighest) v = __bfloat162float(__float2bfloat16_rn(v));
-      s_in[(c * kHalo + ly) * kPitch + lx] = v;
-    }
-    for (int e = tid; e < cn * 9 * kCo; e += kThreads) {
-      const int co = e % kCo, ct = e / kCo;     // ct = c * 9 + u * 3 + v
-      float v = 0.0f;
-      if (co < co_n)
-        v = wgt[(static_cast<size_t>(c0) * 9 + ct) * cout + co0 + co];
-      if (!kHighest) v = __bfloat162float(__float2bfloat16_rn(v));
-      s_w[e] = v;
+  auto load_halo = [&](int tile, float* dst) {
+    const int img = tile / per_img, r = tile % per_img;
+    load_halo_planar(dst, x, img, h, w, cin, 2 * tr * (r / tiles_x) - 1,
+                     2 * tc * (r % tiles_x) - 1, hr, hc);
+  };
+
+  // once per block: the weights and the biases
+  for (int i = tid; i < 9 * cin * cout / 4; i += kThreads)
+    cp_async16(s_w + 4 * i, wgt + 4 * i);
+  for (int i = tid; i < cout; i += kThreads) s_b[i] = bias[i];
+  int tile = blockIdx.x;
+  if (bufs == 2 && tile < n_tiles) load_halo(tile, s_in);
+  cp_async_commit();
+
+  const int groups = cout / 4, items = tr * (tc / 2) * groups;
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const float* cur = s_in + (bufs == 2 ? (it & 1) * halo : 0);
+    if (bufs == 2) {   // the next tile's halo loads while this one computes
+      if (tile + gridDim.x < n_tiles)
+        load_halo(tile + gridDim.x, s_in + ((it + 1) & 1) * halo);
+      cp_async_commit();
+      cp_async_wait1();
+    } else {
+      load_halo(tile, s_in);
+      cp_async_commit();
+      cp_async_wait0();
     }
     __syncthreads();
-    if (!active) continue;
-    for (int c = 0; c < cn; ++c) {
-      float patch[4][4];
-      for (int r = 0; r < 4; ++r)
-        for (int q = 0; q < 4; ++q)
-          patch[r][q] = s_in[(c * kHalo + 2 * py + r) * kPitch + 2 * px + q];
-      for (int u = 0; u < 3; ++u)
-        for (int v = 0; v < 3; ++v) {
-          const float4* wr = reinterpret_cast<const float4*>(
-              s_w + (c * 9 + u * 3 + v) * kCo + g * kGroup);
-          const float4 wa = wr[0], wb = wr[1];
-          const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
-                                    wb.x, wb.y, wb.z, wb.w};
-          for (int d = 0; d < 4; ++d) {
-            const float xv = patch[(d >> 1) + u][(d & 1) + v];
-            for (int k = 0; k < kGroup; ++k)
-              acc[d][k] = kHighest
-                  ? __fadd_rn(acc[d][k], __fmul_rn(xv, wv[k]))
-                  : fmaf(xv, wv[k], acc[d][k]);
-          }
-        }
+    const int img = tile / per_img, r = tile % per_img;
+    const int oy0 = tr * (r / tiles_x), ox0 = tc * (r % tiles_x);
+    // item = (pair of pooled pixels, 4-channel group); the pair's conv
+    // outputs read halo rows 2 py + dy + u and columns 2 px + dx + v
+    for (int e = tid; e < items; e += kThreads) {
+      const int g = e % groups, p = e / groups;
+      const int py = p / (tc / 2), px = 2 * (p % (tc / 2));
+      const int oy = oy0 + py, ox = ox0 + px;
+      if (oy >= ho || ox >= wo) continue;
+      float acc[2][4][4] = {};
+      for (int c = 0; c < cin; ++c)
+        conv_chan_cuv<true>(acc, cur + (c * hr + 2 * py) * hc + 2 * px, hc,
+                            s_w + c * 9 * cout + 4 * g, cout);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if (ox + q >= wo) continue;
+        float m[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          m[k] = pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
+                              acc[q][3][k], s_b[4 * g + k]);
+        store4(out, ((static_cast<size_t>(img) * ho + oy) * wo + ox + q)
+                        * cout + 4 * g, m, store);
+      }
     }
-  }
-  if (!active || oy >= ho || ox >= wo) return;
-  const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
-                   + co0 + g * kGroup;
-  for (int k = 0; k < kGroup; ++k) {
-    const float bv = bias[co0 + g * kGroup + k];
-    float m = leaky(__fadd_rn(acc[0][k], bv));
-    for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bv)));
-    store_value(out, o + k, m, store);
+    __syncthreads();            // every buffer is free for the next tile
   }
 }
+
+// K10's tiling constants (K10 kept the first K9 design's tile)
+constexpr int kCo = 32;                 // output channels per block
+constexpr int kHalo = 2 * kTile + 2;    // 18 input pixels per tile side
+constexpr int kPitch = kHalo + 1;       // row pitch of the planar halo
 
 // ---------------------------------------------------------------------
 // Kernel K10: K9's function in NHWC with HWIO weights and float32
@@ -1566,9 +1657,10 @@ stem_stage_kernel(const float* __restrict__ x,
 // of float32 input and float16 output, 1.0 us at 3.35 TB/s), and at
 // 208 px, 16 -> 32 (0.40 GFLOP, 6.0 us, against 1.0 us of bytes).
 //
-// Design: K9's tiling (an 8x8 tile of pooled pixels and a slice of 32
-// output channels per block; a thread owns one pooled pixel and 8
-// channels at the four pool positions), but the sum runs over the taps
+// Design: the first K9 kernel's tiling (an 8x8 tile of pooled pixels
+// and a slice of 32 output channels per block; a thread owns one pooled
+// pixel and 8 channels at the four pool positions), but the sum runs
+// over the taps
 // first and the channels last, so every input channel of the 18x18 halo
 // stays in shared memory (planar, padded rows) with the slice's weights:
 // 40 KB at cin 16, through the dynamic opt-in above 48 KB, up to cin 92.
@@ -1656,25 +1748,42 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t st,
 
 // A persistent grid for `kernel` at `smem` bytes: as many blocks as fit on
 // the card at once (a multiple of `multiple`), at most `items`; each
-// block walks the items with a stride of the grid.
+// block walks the items with a stride of the grid. The attribute and
+// occupancy calls cost microseconds of host time, which a call at batch 1
+// feels, so each host thread keeps the last answer for its kernel, device
+// and shared memory.
 template <typename Kernel>
 cudaError_t persistent_grid(Kernel kernel, size_t smem, long long items,
                             int multiple, int* grid,
                             int threads = kThreads) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
+  thread_local Kernel c_kernel = nullptr;
+  thread_local int c_dev = -1, c_threads = 0, c_blocks = 0;
+  thread_local size_t c_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (kernel != c_kernel || dev != c_dev || smem != c_smem
+      || threads != c_threads) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    c_kernel = kernel;
+    c_dev = dev;
+    c_smem = smem;
+    c_threads = threads;
+    c_blocks = per_sm * sms;
+  }
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
-  long long cap = static_cast<long long>(per_sm) * sms;
+  long long cap = c_blocks;
   cap = cap < multiple ? multiple : cap - cap % multiple;
   *grid = static_cast<int>(items < cap ? items : cap);
   return cudaSuccess;
@@ -1771,10 +1880,11 @@ int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
   if (highest) {
     float* mid = static_cast<float*>(scratch);
     const int rc = launch_deep_stage(xf, static_cast<const float*>(w0), b0f,
-                                     mid, n, h, w, cin, cmid, kStoreF32, st);
+                                     mid, n, h, w, cin, cmid, 1, kStoreF32,
+                                     st);
     if (rc != 0) return rc;
     return launch_deep_stage(mid, static_cast<const float*>(w1), b1f, out, n,
-                             h / 2, w / 2, cmid, cout, store, st);
+                             h / 2, w / 2, cmid, cout, 1, store, st);
   }
   const size_t tc_smem = deep_tc_smem_bytes(cin, cmid, cout);
   if (tc_smem <= kMaxSmem) {
@@ -1814,9 +1924,10 @@ int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
 // each block on a slice of output channels: the widest of cout, 64, 32,
 // 16 and 8 that lets two blocks share an SM, else the widest that fits
 // one (timed on an H100 at stage 6, 64 -> 128: slices of 32 and 128
-// about even at batch 32, 32 the faster at batch 1); where
-// not even 8 channels fit, and at "highest", the CUDA-core kernel, which
-// leaves `scratch` alone.
+// about even at batch 32, 32 the faster at batch 1). At "highest" the
+// persistent CUDA-core kernel where its weights and halo fit shared
+// memory; there and where not even 8 channels of tensor-core weights fit,
+// deep_stage_kernel. Neither touches `scratch`.
 size_t millieye_stem_stage_scratch_bytes(int cin, int cout) {
   return frag_bytes(cin, cout);
 }
@@ -1862,13 +1973,32 @@ int millieye_stem_stage(const void* x, const void* wgt, const void* bias,
         slice, store);
     return static_cast<int>(cudaGetLastError());
   }
-  const int slices = (cout + kCo - 1) / kCo;
-  const dim3 grid((w / 2 + kTile - 1) / kTile, (h / 2 + kTile - 1) / kTile,
-                  n * slices);
-  auto kernel = highest ? stem_stage_kernel<true> : stem_stage_kernel<false>;
-  kernel<<<grid, kThreads, 0, st>>>(xf, static_cast<const float*>(wgt), bf,
-                                    out, h, w, cin, cout, store);
-  return static_cast<int>(cudaGetLastError());
+  if (highest) {
+    // the persistent kernel, two halo buffers where they fit, else one
+    int dev = 0, sms = 0, tr = 0, tc = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    stage_hi_tile(cin, cout, n, h / 2, w / 2, sms, &tr, &tc);
+    const int bufs =
+        stage_hi_smem_bytes(cin, cout, tr, tc, 2) <= kMaxSmem ? 2 : 1;
+    const size_t smem = stage_hi_smem_bytes(cin, cout, tr, tc, bufs);
+    if (smem <= kMaxSmem && reinterpret_cast<uintptr_t>(wgt) % 16 == 0) {
+      const long long tiles = static_cast<long long>(n) * cdiv(w / 2, tc)
+                              * cdiv(h / 2, tr);
+      int grid = 0;
+      err = persistent_grid(stem_stage_kernel, smem, tiles, 1, &grid);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      stem_stage_kernel<<<grid, kThreads, smem, st>>>(
+          xf, static_cast<const float*>(wgt), bf, out, n, h, w, cin, cout, tr,
+          tc, store, bufs);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  return launch_deep_stage(xf, static_cast<const float*>(wgt), bf, out, n, h,
+                           w, cin, cout, highest, store, st);
 }
 
 // Kernel K10: x [n, h, w, cin] f32, wm [9 * cin, cout] f32 (row tap * cin

@@ -71,14 +71,14 @@ def _bf16_round(x):
 
 # ------------------------------------------------------------------ plain
 # The plain versions repeat the kernels' arithmetic operation for
-# operation: t sums h and the output sums w in ascending order (K2, K6
-# and K7 only over the nonzero spans), one add at a time from 0, so
-# kernel and plain version are bit-equal. (by and
+# operation: t sums h and the output sums w in ascending order, only over
+# the nonzero spans, one add at a time from 0, so kernel and plain
+# version are bit-equal. (by and
 # the features hold bf16 values, so each by*F product is exact in float32
 # and the kernels' FMA rounds like the add here.)
 def _span_mask(nonzero):
     """True from the first to the last True along the last axis: the
-    span K2, K6 and K7 sum over (all False where there is no True)."""
+    span the crop kernels sum over (all False where there is no True)."""
     idx = torch.arange(nonzero.shape[-1], device=nonzero.device)
     lo = torch.where(nonzero, idx, nonzero.shape[-1]).amin(-1, keepdim=True)
     hi = torch.where(nonzero, idx, -1).amax(-1, keepdim=True)
@@ -116,17 +116,27 @@ def ps_roi_align_padded_plain(features, by, bx, c_out):
 
 def roi_align_plain(features, by, bx):
     """K3: features [B, H, W, C] bf16, by [B, N, ph, H], bx [B, N, pw, W]
-    bf16 -> [B, N, ph, pw, C] float32."""
+    bf16 -> [B, N, ph, pw, C] float32. As the kernel, t of bin row p
+    sums only the span of nonzero by[p, :], and output column q only the
+    span of nonzero bx[q, :]; the terms left out are exact zeros, so on a
+    finite map this equals the sum over every row and column bit for
+    bit."""
     b, h, w, c = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
     f, byf, bxf = features.float(), by.float(), bx.float()
+    rows = _span_mask(byf != 0)                            # [B, N, ph, H]
+    cols = _span_mask(bxf != 0)                            # [B, N, pw, W]
     t = f.new_zeros((b, n, ph, w, c))
     for y in range(h):
-        t = t + byf[:, :, :, y, None, None] * f[:, None, None, y]
+        t = torch.where(rows[:, :, :, y, None, None],
+                        t + byf[:, :, :, y, None, None] * f[:, None, None, y],
+                        t)
     out = f.new_zeros((b, n, ph, pw, c))
     for x in range(w):
-        out = out + _bf16_round(t[:, :, :, None, x]
-                                * bxf[:, :, None, :, x, None])
+        out = torch.where(cols[:, :, None, :, x, None],
+                          out + _bf16_round(t[:, :, :, None, x]
+                                            * bxf[:, :, None, :, x, None]),
+                          out)
     return out
 
 
@@ -209,8 +219,9 @@ def ps_roi_align_f32_plain(features, by, bx, c_out, precision="default",
 def roi_align_f32_plain(features, by, bx, precision="highest"):
     """K3 on float32 operands, and ``roi_align(pack_p=False)`` through
     K6: features [B, H, W, C] -> [B, N, ph, pw, C] float32. K3's kernel
-    sums every row and column; the spans leave out exact zeros only, so
-    it equals this bit for bit on a finite map."""
+    sums output column q over the span of nonzero bx[q, :] alone, inside
+    the union span this takes; the terms between are exact zeros, so it
+    equals this bit for bit on a finite map."""
     return _crop_plain(features[:, :, None], by, lambda t: t[:, :, :, None],
                        bx[:, :, None, :, :, None], precision)
 
@@ -243,6 +254,8 @@ def _lib():
                                        + [ctypes.c_int] * 7
                                        + [ctypes.c_void_p])
     lib.millieye_roi_align.restype = ctypes.c_int
+    lib.millieye_roi_align_group.argtypes = [ctypes.c_int] * 2
+    lib.millieye_roi_align_group.restype = ctypes.c_int
     for fn, n_int in ((lib.millieye_ps_roi_align_f32, 12),
                       (lib.millieye_ps_roi_align_padded_f32, 9),
                       (lib.millieye_roi_align_f32, 8)):
@@ -319,6 +332,16 @@ def roi_align_kernel(features, by, bx, precision="default"):
     cuda_lib.check(lib, rc, "roi_align")
     roi_align_kernel.launches += 1
     return out
+
+
+def roi_align_group(batch, n_roi):
+    """The RoIs one block of K3's kernel takes at this batch and RoI
+    count on the current card (its grid is ``batch * ceil(n_roi /
+    group)`` blocks)."""
+    group = _lib().millieye_roi_align_group(batch, n_roi)
+    if group <= 0:
+        raise RuntimeError("roi_align_group: no CUDA device")
+    return group
 
 
 _STRIDES = {  # channel of (p, u, q) = p*sp + u*su + q*sq, by layout

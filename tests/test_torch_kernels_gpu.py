@@ -37,6 +37,7 @@ from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
                                            ps_roi_align_padded_plain,
                                            ps_roi_align_padded_vpu_kernel,
                                            roi_align_f32_plain,
+                                           roi_align_group,
                                            roi_align_kernel, roi_align_plain)
 from millieye_torch.ops import quantize as tq
 from millieye_torch.ops import stem
@@ -391,6 +392,69 @@ def test_roi_f32_kernels_are_batch_independent(cuda, precision):
         assert all(torch.equal(w[i:i + 1], o) for w, o in zip(whole, one))
 
 
+def _k3_operands(cuda, f, by, bx, precision):
+    dt = torch.bfloat16 if precision == "default" else torch.float32
+    return (torch.as_tensor(f, dtype=dt, device=cuda).contiguous(),
+            by.to(dt).contiguous(), bx.to(dt).contiguous())
+
+
+def _k3_plain(f, by, bx, precision):
+    return (roi_align_plain(f, by, bx) if precision == "default"
+            else roi_align_f32_plain(f, by, bx, precision))
+
+
+# (batch, RoIs): one image, and a batch whose RoIs split into groups of
+# more than one RoI a block with a ragged last group (asserted below)
+_K3_BATCHES = [(1, 96), (16, 101)]
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+@pytest.mark.parametrize("b,n", _K3_BATCHES)
+@pytest.mark.parametrize("case", _SUPPORT_CASES + ["random"])
+def test_k3_bit_equal_on_support_edge_cases(cuda, case, b, n, precision):
+    """K3 stages each image's map in shared memory for a group of RoIs
+    and sums only the nonzero spans of by and bx: on random RoIs and on
+    K2's edge cases (whole-frame, sub-cell, partly and wholly outside
+    RoIs, a negative map, a 13x21 map whose map rows break the 16-byte
+    copies), at each rung, at batch 1 and across several RoI groups, it
+    stays bit-equal to its plain version, one launch a call."""
+    if b > 1:
+        group = roi_align_group(b, n)
+        assert group > 1 and n % group, group
+    rng = np.random.default_rng(len(case) + b)
+    # "negative_map" draws random RoIs
+    boxes, (hh, ww) = _support_case(
+        cuda, "negative_map" if case == "random" else case, rng, b, n)
+    f = rng.standard_normal((b, hh, ww, 10))
+    if case == "negative_map":
+        f = -np.abs(f)
+    by, bx = _batched_prep(boxes, hh, ww, (7, 7), 1 / 16, 0.0, 1.0, -1, 4)
+    f, by, bx = _k3_operands(cuda, f, by, bx, precision)
+    before = roi_align_kernel.launches
+    got = roi_align_kernel(f, by, bx, precision)
+    assert roi_align_kernel.launches == before + 1
+    want = _k3_plain(f, by, bx, precision)
+    assert torch.equal(got, want)
+    if case == "wholly_outside":
+        assert float(want.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("precision", ["default", "split", "highest"])
+def test_k3_is_batch_independent(cuda, precision):
+    """K3's blocks each take a group of one image's RoIs, sized by the
+    batch: each image's crops equal those of the same image alone."""
+    rng = np.random.default_rng(7)
+    b, n = _K3_BATCHES[1]
+    boxes, _ = _support_case(cuda, "negative_map", rng, b, n)
+    by, bx = _batched_prep(boxes, 26, 26, (7, 7), 1 / 16, 0.0, 1.0, -1, 4)
+    f, by, bx = _k3_operands(cuda, rng.standard_normal((b, 26, 26, 10)), by,
+                             bx, precision)
+    got = roi_align_kernel(f, by, bx, precision)
+    for i in range(b):
+        assert torch.equal(got[i:i + 1], roi_align_kernel(
+            *(t[i:i + 1].contiguous() for t in (f, by, bx)), precision))
+
+
 def _stage_inputs(cuda, n, h, w, cin, cout):
     g = torch.Generator(device="cpu").manual_seed(h + cin)
     x = torch.randn((n, h, w, cin), generator=g).to(cuda)
@@ -435,6 +499,37 @@ def test_stem_stage_is_batch_independent(cuda, shape):
     for i in range(x.shape[0]):
         assert torch.equal(got[i:i + 1], fused_stem_stage(
             x[i:i + 1], wt, bs, "default", torch.bfloat16))
+
+
+@pytest.mark.parametrize("shape", [(3, 416, 416, 3, 16),
+                                   (3, 208, 208, 16, 32)])
+def test_stem_stage_highest_is_batch_independent(cuda, shape):
+    """K9 at "highest" walks its tiles on a persistent grid sized by the
+    batch (stages 0 and 2 of the network): each image's output must equal
+    the same image alone, and the plain version."""
+    x, wt, bs = _stage_inputs(cuda, *shape)
+    got = fused_stem_stage(x, wt, bs, "highest", torch.float16)
+    assert torch.equal(got, fused_stem_stage_plain(x, wt, bs, "highest",
+                                                   torch.float16))
+    for i in range(x.shape[0]):
+        assert torch.equal(got[i:i + 1], fused_stem_stage(
+            x[i:i + 1], wt, bs, "highest", torch.float16))
+
+
+@pytest.mark.parametrize("shape,out_dtype", [
+    ((1, 20, 20, 264, 16), torch.bfloat16),
+    ((2, 14, 18, 300, 40), torch.float32)])
+def test_stem_stage_default_wide_cin_on_cuda_cores(cuda, shape, out_dtype):
+    """K9 at "default" where not even 8 channels of tensor-core weights fit
+    shared memory (Cin above 256) sums on the CUDA cores, bf16 operands
+    and float32 FMAs (each product exact): bit-equal to its plain
+    version."""
+    x, wt, bs = _stage_inputs(cuda, *shape)
+    before = fused_stem_stage.launches
+    got = fused_stem_stage(x, wt, bs, "default", out_dtype)
+    assert fused_stem_stage.launches == before + 1
+    assert torch.equal(got, fused_stem_stage_plain(x, wt, bs, "default",
+                                                   out_dtype))
 
 
 # the share of outputs of the tensor-core pair ("default") that must be

@@ -345,6 +345,40 @@ def test_k2_support_spans_equal_full_sum(case):
 
 
 @pytest.mark.parametrize("case", _SUPPORT_CASES)
+def test_k3_support_spans_equal_full_sum(monkeypatch, case):
+    """K3's bf16 plain version sums only the nonzero span of by's rows and
+    of bx's columns, as the kernel does; the terms it leaves out are exact
+    zeros, so it equals the full sum, the same code with every span the
+    whole axis, bit for bit on every kind of RoI. (K3's float32 modes
+    share their plain version with layout "c" below.)"""
+    rng = np.random.default_rng(len(case))
+    b, n, hw, c = 2, 12, 26, 10
+    boxes = _support_boxes(case, rng, b, n)
+    by, bx = tra._batched_prep(boxes, hw, hw, (7, 7), 1 / 16, 0.0, 1.0, -1,
+                               4)
+    by, bx = by.to(torch.bfloat16), bx.to(torch.bfloat16)
+    feats = rng.standard_normal((b, hw, hw, c))
+    if case == "negative_map":
+        feats = -np.abs(feats)
+    feats = torch.tensor(feats, dtype=torch.bfloat16)
+    got = trk.roi_align_plain(feats, by, bx)
+    with monkeypatch.context() as m:
+        m.setattr(trk, "_span_mask", torch.ones_like)
+        want = trk.roi_align_plain(feats, by, bx)
+    assert got.shape == (b, n, 7, 7, c)
+    assert torch.equal(got, want)
+    if case == "wholly_outside":
+        assert float(want.abs().max()) == 0.0
+    else:
+        assert float(want.abs().max()) > 0.0
+        # the spans really leave rows (and, but for whole-frame RoIs,
+        # columns) out
+        assert int(trk._span_mask(by != 0).sum(-1).max()) < hw
+        cols = trk._span_mask((bx != 0).any(2)).sum(-1)
+        assert int(cols.min()) < hw or case == "whole_frame"
+
+
+@pytest.mark.parametrize("case", _SUPPORT_CASES)
 @pytest.mark.parametrize("layout", ["upq", "puq", "padded", "c"])
 @pytest.mark.parametrize("precision", ["default", "split", "highest"])
 def test_f32_support_spans_equal_full_sum(monkeypatch, precision, layout,
