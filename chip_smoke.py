@@ -18,11 +18,13 @@ printed only when every phase passed:
      its device time per call from the profiler and the cluster size its launch
      takes), K6 PS-RoIAlign on the unpadded float32 map, K7 padded PS-RoIAlign
      on float32 operands, K9 single stem stage, K10 (the NHWC stage, "vconcat"
-     and "im2col" tap orders) at stages 0 and 2, K13 (stochastic int8) on block
-     12's weight and on the (8, 128) carrier; K2, K3 (bf16 and float32
-     "highest"), K6 ("upq", "default") and K7 ("highest") also with every RoI
-     the whole frame, K3 also at "split"; K9's "highest" lines with its
-     mul-then-add ceiling; the pairs at "default"
+     and "im2col" tap orders) at stages 0 and 2 and at block 8's shape (its
+     streamed route), K13 (stochastic int8) on block 12's weight and on the
+     (8, 128) carrier, each K10 and K13 case with its device time a call, and
+     K13 on ragged, 70000-tile, zero, -0.0, inf and NaN inputs; K2, K3 (bf16
+     and float32 "highest"), K6 ("upq", "default") and K7 ("highest") also
+     with every RoI the whole frame, K3 also at "split"; K9's "highest" and
+     K10's lines with their mul-then-add ceiling; the pairs at "default"
      and "highest": bit-equal (each plain version repeats its kernel's
      operations in the kernel's order), except the stem pair, the deep pair and
      K9 at "default", which run on the tensor cores and are held within 2^-6 of
@@ -44,7 +46,8 @@ printed only when every phase passed:
      ``f32``, ``s2d``, ``bf16_s2d``, ``int8`` and ``int8_acts`` (calibrated
      with ``cli/demo.py:calibrate`` on the 8 frames), ``s2d``'s answers held to
      ``f32``'s by box, the int8 rows' distance to them reported; the direct ops
-     K10 (on each letterboxed frame, held to cuDNN's float32 stage) and K13
+     K10 (on each letterboxed frame, held to cuDNN's float32 stage, and once at
+     block 8's served weights, 128 input channels) and K13
      (the carrier, seeds 0 and 1), as their only JAX callers run them; and one
      ``batched_step_fn`` window of the 8 frames at ``pallas_max4`` and one at
      ``f32``, each with its post-merge NMS one K5 launch, bit-identical to the
@@ -151,13 +154,16 @@ def host_ms(torch, fn, calls=50):
 
 
 def device_ms(torch, fn, calls=20):
-    """Device time per call of ``fn``, which launches one kernel a call:
-    the mean time of the kernel records in a ``torch.profiler`` trace of
-    ``calls`` calls (after a warm-up call), over the records the profiler
-    kept. Late in a long process it drops some or all of a short trace's
-    device records (on an H100, 3 or 4 of 20, or all 20, in this script's
-    last NMS phase), which a sum divided by ``calls`` would read as a
-    faster kernel. A trace that kept none is taken again; after three,
+    """Device time per call of ``fn``: in a ``torch.profiler`` trace of
+    ``calls`` calls (after a warm-up call), for each kernel the mean time
+    of its records times the records it has a call (at least one), summed
+    over the kernels, so a wrapper that launches two kernels (K13's two
+    passes; K9's weight copy before its kernel) counts both. The mean is
+    over the records the profiler kept: late in a long process it drops
+    some or all of a short trace's device records (on an H100, 3 or 4 of
+    20, or all 20, in this script's last NMS phase), which a sum divided
+    by ``calls`` would read as a faster kernel. A trace that kept none is
+    taken again; after three,
     the time comes from CUDA events around ``calls`` calls queued behind
     a spin kernel: the host enqueues them while the card spins, so the
     events time the card alone, the gaps between kernels included.
@@ -177,8 +183,9 @@ def device_ms(torch, fn, calls=20):
                 if e.device_type == DeviceType.CUDA]
         kept = sum(e.count for e in kern)
         if kept:
-            return (sum(e.self_device_time_total for e in kern) / 1e3
-                    / kept, kept)
+            return (sum(e.self_device_time_total / e.count
+                        * max(1, round(e.count / calls)) for e in kern)
+                    / 1e3, kept)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda._sleep(50_000_000)   # ~25 ms, far longer than the enqueue
@@ -756,22 +763,28 @@ class KernelChecks:
     def fused_stem_nhwc(self, b, darknet_params):
         """K10 at stage 0 (416 px, 3->16) and stage 2 (208 px, 16->32) with
         the served weights (HWIO), float32 in, float16 out, for the
-        "vconcat" and "im2col" tap orders. Library: cuDNN float32 (TF32
-        off), within 0.2% of the largest output (the float16 store may
-        round the other way). Bound: the products at the float32 rate."""
+        "vconcat" and "im2col" tap orders, and at block 8's shape (26 px,
+        128->256, its served weights: past the resident route's shared
+        memory, ``stem.nhwc_route``), each with its device time a call
+        and its mul-then-add ceiling. Library: cuDNN float32 (TF32 off),
+        within 0.2% of the largest output (the float16 store may round
+        the other way). Bound: the products at the float32 rate."""
         from millieye_torch.ops import stem
         torch = self.torch
-        for i, hw in ((0, 416), (2, 208)):
+        for i, hw, variants in ((0, 416, ("vconcat", "im2col")),
+                                (2, 208, ("vconcat", "im2col")),
+                                (8, 26, ("im2col",))):
             w = darknet_params[i]["w"].float()
             bs = darknet_params[i]["b"].float()
             cout, cin = w.shape[0], w.shape[1]
             w_hwio = w.permute(2, 3, 1, 0).contiguous()
             x = torch.tensor(self.rng.uniform(0, 1, (b, hw, hw, cin)),
                              dtype=torch.float32, device=self.dev)
-            for variant in ("vconcat", "im2col"):
+            for variant in variants:
                 self.case(
-                    "fused_stem", f"stage {i}: {hw} px {cin}->{cout} "
-                    f"{variant} f16", b,
+                    "fused_stem", f"{'stage' if i < 8 else 'block'} {i}: "
+                    f"{hw} px {cin}->{cout} {variant} f16, "
+                    f"{stem.nhwc_route(cin, cout)}", b,
                     lambda: stem.fused_stem(x, w_hwio, bs, 1, torch.float16,
                                             variant),
                     lambda: stem.fused_stem_plain(x, w_hwio, bs, 1,
@@ -781,7 +794,12 @@ class KernelChecks:
                     2 * b * hw * hw * cout * 9 * cin, F32_FLOP_S,
                     cudnn_stem(torch, x, [(w, bs)], torch.float32),
                     "cuDNN conv2d+bias+leaky+max_pool2d, float32, TF32 off",
-                    2e-3)
+                    2e-3, device=True)
+                # two issue slots a product, as K9's "highest" lines
+                slots = 2 * b * hw * hw * cout * 9 * cin
+                self.records["fused_stem"][-1]["ceiling_ms"] = (
+                    slots / (132 * 128 * 1.98e6),
+                    slots / (132 * 128 * 1.755e6))
 
     # ------------------------------------------------------------- K13
     def quantize(self, w12):
@@ -790,9 +808,13 @@ class KernelChecks:
         (8, 128) carrier of benchmarks/quantize_tpu_check.py, seeds 0 and
         1: bit-equal to the plain version (same Philox words); the
         carrier's statistics; every value floor or floor + 1 of w / scale.
-        Timed: the wrapper (the absmax pass and the kernel). Bound: bytes,
-        4 read by the absmax pass, 4 read and 1 written by the kernel per
-        element."""
+        Timed: the wrapper (the absmax pass and the rounding pass, both
+        hand-written), with its device time a call (both launches).
+        Bound: bytes, 4 read by the absmax pass, 4 read and 1 written by
+        the rounding pass per element. Then held to the plain version, not
+        timed: a ragged [37, 13] at row_tile 5, 70000 row tiles of one row
+        (more than a grid's y dimension holds), and all-zero, -0.0, inf,
+        -inf and NaN inputs (a NaN scale compares as NaN)."""
         from millieye_torch.ops import quantize
         torch = self.torch
         carrier = torch.full((8, 128), 0.3, device=self.dev)
@@ -821,7 +843,41 @@ class KernelChecks:
             self.case("quantize_stochastic", label, 1,
                       lambda: quantize.quantize_int8_stochastic(w, 0)[0],
                       lambda: quantize.quantize_int8_stochastic_plain(w, 0)[0],
-                      9 * w.numel(), 0, F32_FLOP_S, iters=50)
+                      9 * w.numel(), 0, F32_FLOP_S, iters=50, device=True)
+        gen = torch.Generator().manual_seed(11)
+
+        def special(fill, at):
+            w = torch.randn((9, 20), generator=gen)
+            if at is None:
+                w[:] = fill
+            else:
+                w[at] = fill
+            return w.to(self.dev)
+
+        self.k13_edges = []
+        for label, w, row_tile in (
+                ("ragged [37, 13]", torch.randn((37, 13), generator=gen),
+                 5),
+                ("70000 tiles [70000, 3]",
+                 torch.randn((70000, 3), generator=gen), 1),
+                ("all zero", special(0.0, None), 4),
+                ("-0.0", special(-0.0, None), 4),
+                ("inf", special(float("inf"), (3, 7)), 4),
+                ("-inf", special(-float("inf"), (8, 19)), 4),
+                ("NaN", special(float("nan"), (0, 5)), 4)):
+            w = w.to(self.dev)
+            for seed in (0, -3):
+                q, s = quantize.quantize_int8_stochastic(w, seed, row_tile)
+                wq, ws = quantize.quantize_int8_stochastic_plain(w, seed,
+                                                                 row_tile)
+                same = torch.equal(s, ws) or bool(s.isnan() & ws.isnan())
+                if not (same and torch.equal(q, wq)):
+                    raise AssertionError(f"K13 {label} seed {seed}: not "
+                                         f"bit-equal to the plain version "
+                                         f"(scale {float(s)!r} against "
+                                         f"{float(ws)!r})")
+            self.k13_edges.append(f"{label} (row_tile {row_tile}, scale "
+                                  f"{float(s):.6g})")
 
 
 def int8_conv_phase(torch, w12, rng):
@@ -1342,6 +1398,7 @@ def main():
                 f"is off by {r['err64'][0]:.4g}, the plain version by "
                 f"{r['err64'][1]:.4g} (ratio "
                 f"{r['err64'][0] / max(r['err64'][1], 1e-300):.4f}, at most 2)")
+    log(f"K13 bit-equal to its plain version on {'; '.join(checks.k13_edges)}")
     for seed, mean, p39 in checks.k13_stats:
         log(f"K13 carrier, seed {seed}: values 38 and 39, dequantized mean "
             f"{mean:.5f} (0.3 within 0.003), P(39) {p39:.3f} (expect ~0.10); "
@@ -1572,20 +1629,27 @@ def main():
 
     # K10 and K13 as their only JAX callers run them: K10 as the JAX tests
     # do, on each request's letterboxed frame with stage 0's served
-    # weights, held to cuDNN's float32 stage (atol 1e-4, their tolerance);
-    # K13 as benchmarks/quantize_tpu_check.py does, the carrier at seeds
-    # 0 and 1
+    # weights, held to cuDNN's float32 stage (atol 1e-4, their tolerance),
+    # and once at block 8's served weights (26 px, 128 -> 256: the
+    # streamed route, ``stem.nhwc_route``) on a seeded input, held within
+    # 1e-5 of the largest output of cuDNN's float32 block (as the CPU
+    # tests hold the plain version to the JAX function); K13 as
+    # benchmarks/quantize_tpu_check.py does, the carrier at seeds 0 and 1
     from millieye_torch.ops import letterbox
-    dn0 = engines["f32"].params["darknet"][0]
-    w0 = dn0["w"].permute(2, 3, 1, 0).contiguous()
-    imgs = [letterbox.letterbox_image(
-        torch.from_numpy(f).cuda(), 416)[0][None] for f, _, _ in reqs]
+    dn = engines["f32"].params["darknet"]
+    stem_inputs = [(letterbox.letterbox_image(torch.from_numpy(f).cuda(),
+                                              416)[0][None], dn[0], 26)
+                   for f, _, _ in reqs]
+    stem_inputs.append((torch.tensor(
+        np.random.default_rng(8).uniform(0, 1, (1, 26, 26, 128)),
+        dtype=torch.float32, device="cuda"), dn[8], 13))
     carrier = torch.full((8, 128), 0.3, device="cuda")
     carrier[0, 0] = 1.0
     for path, name, calls in (
             ("direct fused_stem", "fused_stem",
-             [lambda im=im: stem.fused_stem(im, w0, dn0["b"], 26)
-              for im in imgs]),
+             [lambda im=im, p=p, th=th: stem.fused_stem(
+                 im, p["w"].permute(2, 3, 1, 0).contiguous(), p["b"], th)
+              for im, p, th in stem_inputs]),
             ("direct quantize_stochastic", "quantize_stochastic",
              [lambda s=s: quantize.quantize_int8_stochastic(carrier, s)[0]
               for s in (0, 1)])):
@@ -1602,13 +1666,17 @@ def main():
                 raise AssertionError(f"{path}: kernel and plain version "
                                      f"disagree")
         if name == "fused_stem":
-            err = max(float((o - cudnn_stem(torch, im, [(dn0["w"], dn0["b"])],
-                                            torch.float32)()).abs().max())
-                      for o, im in zip(outs, imgs))
-            if not err <= 1e-4:
+            errs = [float((o - cudnn_stem(torch, im, [(p["w"], p["b"])],
+                                          torch.float32)()).abs().max())
+                    for o, (im, p, _) in zip(outs, stem_inputs)]
+            wide = float(outs[-1].abs().max())
+            if not (max(errs[:-1]) <= 1e-4 and errs[-1] <= 1e-5 * wide):
                 raise AssertionError(f"{path}: off cuDNN's float32 stage by "
-                                     f"{err}")
-            note = f"within {err:.3g} of cuDNN's float32 stage"
+                                     f"{errs}")
+            note = (f"within {max(errs[:-1]):.3g} of cuDNN's float32 stage; "
+                    f"block 8 (128 -> 256, route "
+                    f"{stem.nhwc_route(128, 256)}) within {errs[-1]:.3g} "
+                    f"of cuDNN's float32 block, largest value {wide:.4g}")
         else:
             stats = [stochastic_stats(q, 1.0 / 127) for q in outs]
             if torch.equal(outs[0], outs[1]):

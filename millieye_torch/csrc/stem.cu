@@ -296,7 +296,9 @@ __device__ __forceinline__ void load_halo_planar(float* dst,
                                                  const float* __restrict__ x,
                                                  int img, int h, int w,
                                                  int cin, int iy0, int ix0,
-                                                 int rows, int cols) {
+                                                 int rows, int cols,
+                                                 int pitch = 0) {
+  if (pitch == 0) pitch = cols;
   const int lane = threadIdx.x & 31;
   const int run = cols * cin, col_step = 32 / cin, c_step = 32 % cin;
   for (int row = threadIdx.x >> 5; row < rows; row += blockDim.x >> 5) {
@@ -306,7 +308,7 @@ __device__ __forceinline__ void load_halo_planar(float* dst,
     for (int k = lane; k < run; k += 32) {
       const int gk = ix0 * cin + k;   // float index within the frame row
       const bool ok = gy >= 0 && gy < h && gk >= 0 && gk < w * cin;
-      cp_async4(dst + (c * rows + row) * cols + col, ok ? src + gk : x, ok);
+      cp_async4(dst + (c * rows + row) * pitch + col, ok ? src + gk : x, ok);
       c += c_step;
       col += col_step;
       if (c >= cin) {
@@ -1633,11 +1635,6 @@ stem_stage_kernel(const float* __restrict__ x,
   }
 }
 
-// K10's tiling constants (K10 kept the first K9 design's tile)
-constexpr int kCo = 32;                 // output channels per block
-constexpr int kHalo = 2 * kTile + 2;    // 18 input pixels per tile side
-constexpr int kPitch = kHalo + 1;       // row pitch of the planar halo
-
 // ---------------------------------------------------------------------
 // Kernel K10: K9's function in NHWC with HWIO weights and float32
 // products, summed in the tap order of the TPU kernel's patch build,
@@ -1647,90 +1644,523 @@ constexpr int kPitch = kHalo + 1;       // row pitch of the planar halo
 // "vconcat" and "vroll" sum three K = 3*cin dots over v (taps (v, u, c))
 // and "im2col" one K = 9*cin dot (taps (u, v, c)), at HIGHEST precision
 // with float32 accumulation; its row band th changes nothing in the
-// result. The caller passes the JAX wrapper's [9*cin, cout] weight matrix
-// (row = tap * cin + c, taps in the variant's order); each product is
-// rounded before its add (__fmul_rn, __fadd_rn), so the plain version
-// (ops/stem.py:fused_stem_plain) repeats the sum bit for bit.
+// result. The caller passes the HWIO weights [3, 3, cin, cout] as they
+// are (the JAX wrapper's [9*cin, cout] matrix in the variant's tap order
+// is a reordering of them: the kernels take tap (u, v)'s block where the
+// order reaches it, and no copy is made); each product is rounded before
+// its add (__fmul_rn, __fadd_rn), tap by tap and, within
+// a tap, channel by channel in ascending order, so the plain version
+// (ops/stem.py:fused_stem_plain) repeats every sum bit for bit. Any cin,
+// any cout.
 //
-// Bound on an H100: operations at the stem shape (416 px, 3 -> 16: 0.15
-// GFLOP per image, 2.2 us at the 67 TFLOP/s float32 rate, against 3.5 MB
-// of float32 input and float16 output, 1.0 us at 3.35 TB/s), and at
-// 208 px, 16 -> 32 (0.40 GFLOP, 6.0 us, against 1.0 us of bytes).
+// Bound on an H100: operations (416 px, 3 -> 16: 74.8 M products an
+// image; 208 px, 16 -> 32: 199 M), two issue slots a product, so the
+// mul-then-add ceiling is K9's at "highest": 0.143-0.161 ms (stage 0)
+// and 0.381-0.430 ms (stage 2) at b32 on 132 SMs x 128 lanes at
+// 1.755-1.98 GHz.
 //
-// Design: the first K9 kernel's tiling (an 8x8 tile of pooled pixels
-// and a slice of 32 output channels per block; a thread owns one pooled
-// pixel and 8 channels at the four pool positions), but the sum runs
-// over the taps
-// first and the channels last, so every input channel of the 18x18 halo
-// stays in shared memory (planar, padded rows) with the slice's weights:
-// 40 KB at cin 16, through the dynamic opt-in above 48 KB, up to cin 92.
-template <bool kVMajor>
-__global__ void __launch_bounds__(kThreads)
-stem_nhwc_kernel(const float* __restrict__ x,
-                 const float* __restrict__ wm,   // [9 * cin, cout]
-                 const float* __restrict__ bias, void* __restrict__ out,
-                 int h, int w, int cin, int cout, int store) {
-  extern __shared__ __align__(16) float nsmem[];
-  float* s_in = nsmem;                                 // [cin][kHalo][kPitch]
-  float* s_w = s_in + align4(cin * kHalo * kPitch);    // [9 * cin][kCo]
+// Two routes, chosen by (cin, cout) alone (nhwc_resident; the wrapper's
+// ops/stem.py:nhwc_route mirrors it):
+//
+// stem_nhwc_kernel, where the whole weight set and one input halo of an
+// 8 x 8 tile of pooled pixels fit shared memory (the stem's stages; cin
+// 93 at cout 12; not cin 128 at cout 12): K9's persistent design
+// (stem_stage_kernel) in K10's order. A persistent grid walks tiles of
+// tr x tc pooled pixels (nhwc_tile: K9's rule, the tile also held to
+// shared memory); the weights [3][3][cin][cout4] (cout4 = cout rounded up to
+// 4, zero columns past cout) and the biases arrive once a block, by
+// 16-byte cp.async where cout % 4 == 0; the next tile's planar halo (row
+// pitch rounded up to 4 floats) loads by cp.async into a second buffer
+// while this one computes, where two fit. A thread owns kG output
+// channels of 2 horizontally adjacent pooled pixels at the four pool
+// positions (8 kG sums); lanes run the channel groups fastest, so a
+// weight load is a float4 read side by side by neighbouring lanes. kG is
+// 8 where 8 divides cout and cin > 4 (stage 2), with 128 threads a block
+// so that an 8 x 8 tile fills it at 32 outputs, else 4 with 256 threads.
+// Per (tap, channel) a thread reads the 2 x 4 window its 8 kG products
+// need (tap_chan: a float4 a row at v = 0, two at v = 1, two float2 at
+// v = 2; the pitch and 2 px are multiples of 4) and kG / 4 float4 of
+// weights. For cin <= 4 (stage 0) every channel's 4 x 6 patch is read
+// once into registers (12 float2 a channel, as K9 reads it) and the nine
+// taps run from there: the tap order constrains the sums, not the loads.
+// A ragged last channel group is masked at the store (its weights are
+// zero), and each pixel's channels go out as 16- or 8-byte stores where
+// cout allows. At stage 2 (b32, 104 x 104 pooled pixels) 8 channels a
+// thread on 256-thread blocks took 8 x 16 tiles, whose last column of
+// tiles is half empty, and gained nothing on 4; 128-thread blocks on
+// 8 x 8 tiles, then the float4 windows, each took a few percent off.
+//
+// stem_nhwc_wide_kernel, the rest (e.g. block 8, 26 px, 128 -> 256; cin
+// 1024): a persistent grid of 256-thread blocks walks items of (8 x 8
+// pooled pixels, 8 groups of kG output channels); each item's sum runs
+// in steps of (tap, chunk of kWCk input channels), in the order of the
+// sum, each step's weight chunk [kWCk][8 kG] (tap (u, v)'s rows of the
+// HWIO weights) arriving by cp.async while the step before computes.
+// Where the tile's halo of every input channel fits shared memory (cin up
+// to ~155) it is loaded once an item and stays for the nine taps; else
+// each step also loads its chunk of the halo (a second copy of both
+// loads while the step before computes), so each tap walks cin through
+// the halo in chunks. The halo's rows have a pitch of 20 floats, so the
+// windows are read as in stem_nhwc_kernel. kG is 8 where 8 divides cout,
+// cout > 32 and the items at 64 channels still fill the card (block 8 at
+// b32: 1.45 -> 1.09 ms on an H100, chip_smoke.py), else 4 (block 8 at
+// b1: its 32 items at 4 channels are too few for 132 SMs already).
+// Threads whose channel group lies past cout sit out the sums but not
+// the barriers.
+constexpr int kNRegC = 4;        // cin up to which the patch sits in registers
+constexpr int kNGroup = 8;       // channels a thread where they divide cout
+constexpr int kWCk = 16;         // wide route: input channels a step
+constexpr int kWHalo = 2 * kTile + 2;   // 18: its halo, a side,
+constexpr int kWPitch = (kWHalo + 3) & ~3;   // at a row pitch of 20
+constexpr int kWPlane = kWHalo * kWPitch;
 
-  const int tid = threadIdx.x;
-  const int slices = (cout + kCo - 1) / kCo;
-  const int n = blockIdx.z / slices, slice = blockIdx.z % slices;
-  const int co0 = slice * kCo;
-  const int co_n = min(kCo, cout - co0);
-  const int ho = h / 2, wo = w / 2;
-  const int pix = tid % (kTile * kTile), g = tid / (kTile * kTile);
-  const int py = pix / kTile, px = pix % kTile;
-  const int oy = kTile * blockIdx.y + py, ox = kTile * blockIdx.x + px;
-  // input halo: local (ly, lx) <-> global (2*kTile*ty - 1 + ly, ...)
-  const int iy0 = 2 * kTile * blockIdx.y - 1, ix0 = 2 * kTile * blockIdx.x - 1;
-  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+// How a 2 x 4 window of a planar halo row is read (tap_chan), on a row
+// pitch a multiple of 4 floats with 2 px a multiple of 4: kQuad0 one
+// float4 (v = 0: xs 16-byte aligned), kQuad1 two float4 around it
+// (v = 1), kPairs two float2 (v = 2: xs 8-byte aligned).
+enum WindowLoad { kQuad0, kQuad1, kPairs };
 
-  for (int e = tid; e < kHalo * kHalo * cin; e += kThreads) {
-    const int c = e % cin, p = e / cin;
-    const int ly = p / kHalo, lx = p % kHalo;
-    const int gy = iy0 + ly, gx = ix0 + lx;
-    float v = 0.0f;
-    if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-      v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c];
-    s_in[(c * kHalo + ly) * kPitch + lx] = v;
-  }
-  for (int e = tid; e < 9 * cin * kCo; e += kThreads) {
-    const int co = e % kCo, r = e / kCo;
-    s_w[e] = co < co_n ? wm[static_cast<size_t>(r) * cout + co0 + co] : 0.0f;
-  }
-  __syncthreads();
-  if (g * kGroup >= co_n) return;      // no barrier follows
-
-  float acc[4][kGroup] = {};
-  for (int t = 0; t < 9; ++t) {
-    const int u = kVMajor ? t % 3 : t / 3, v = kVMajor ? t / 3 : t % 3;
-    for (int c = 0; c < cin; ++c) {
-      const float* wr = s_w + (t * cin + c) * kCo + g * kGroup;
-      float wv[kGroup];
-      for (int k = 0; k < kGroup; ++k) wv[k] = wr[k];
-      for (int d = 0; d < 4; ++d) {
-        const float xv = s_in[(c * kHalo + 2 * py + (d >> 1) + u) * kPitch
-                              + 2 * px + (d & 1) + v];
-        for (int k = 0; k < kGroup; ++k)
-          acc[d][k] = __fadd_rn(acc[d][k], __fmul_rn(xv, wv[k]));
-      }
+// One (tap, channel) term of the sums of two horizontally adjacent pooled
+// pixels x kG output channels at the four pool positions (acc[q][d][k]:
+// pixel q, pool position d = 2 dy + dx, channel k): the 2 x 4 window at
+// xs (row pitch `pitch`; xs = plane + (2 py + u) * pitch + 2 px + v)
+// times the kG weights at ws (16-byte aligned), each product rounded
+// before its add.
+template <int kLoad, int kG>
+__device__ __forceinline__ void tap_chan(float (&acc)[2][4][kG],
+                                         const float* xs, int pitch,
+                                         const float* ws) {
+  float win[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float* p = xs + r * pitch;
+    if (kLoad == kQuad0) {
+      const float4 a = *reinterpret_cast<const float4*>(p);
+      win[r][0] = a.x; win[r][1] = a.y; win[r][2] = a.z; win[r][3] = a.w;
+    } else if (kLoad == kQuad1) {
+      const float4 a = *reinterpret_cast<const float4*>(p - 1);
+      const float4 b = *reinterpret_cast<const float4*>(p + 3);
+      win[r][0] = a.y; win[r][1] = a.z; win[r][2] = a.w; win[r][3] = b.x;
+    } else {
+      const float2 a = *reinterpret_cast<const float2*>(p);
+      const float2 b = *reinterpret_cast<const float2*>(p + 2);
+      win[r][0] = a.x; win[r][1] = a.y; win[r][2] = b.x; win[r][3] = b.y;
     }
   }
-  if (oy >= ho || ox >= wo) return;
-  const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
-                   + co0 + g * kGroup;
-  for (int k = 0; k < kGroup && g * kGroup + k < co_n; ++k) {
-    const float bv = bias[co0 + g * kGroup + k];
-    float m = leaky(__fadd_rn(acc[0][k], bv));
-    for (int d = 1; d < 4; ++d) m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bv)));
-    store_value(out, o + k, m, store);
+  float wk[kG];
+#pragma unroll
+  for (int j = 0; j < kG / 4; ++j) {
+    const float4 wv = *reinterpret_cast<const float4*>(ws + 4 * j);
+    wk[4 * j] = wv.x; wk[4 * j + 1] = wv.y;
+    wk[4 * j + 2] = wv.z; wk[4 * j + 3] = wv.w;
+  }
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      const float xv = win[d >> 1][2 * q + (d & 1)];
+#pragma unroll
+      for (int k = 0; k < kG; ++k)
+        acc[q][d][k] = __fadd_rn(acc[q][d][k], __fmul_rn(xv, wk[k]));
+    }
+}
+
+// tap t of the variant's order -> (u, v)
+template <bool kVMajor>
+__host__ __device__ constexpr int tap_u(int t) {
+  return kVMajor ? t % 3 : t / 3;
+}
+template <bool kVMajor>
+__host__ __device__ constexpr int tap_v(int t) {
+  return kVMajor ? t / 3 : t % 3;
+}
+
+// +bias, leaky and the 2x2 max of a pair's kG channels (co0 on), then
+// the store: 16-byte (or 8-byte) stores of 8 (or 4) channels where cout
+// allows, else a value at a time up to cout
+template <int kG>
+__device__ __forceinline__ void nhwc_epilogue(const float (&acc)[2][4][kG],
+                                              const float* bias, void* out,
+                                              size_t o0, int co0, int cout,
+                                              int wo, int ox, int store) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    if (ox + q >= wo) continue;
+    float m[kG];
+#pragma unroll
+    for (int k = 0; k < kG; ++k)
+      m[k] = pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
+                          acc[q][3][k], bias[k]);
+    const size_t o = o0 + static_cast<size_t>(q) * cout;
+    if (kG == 8 && (cout & 7) == 0) {
+      store8(out, o, m, store);
+    } else if ((cout & 3) == 0) {
+#pragma unroll
+      for (int j = 0; j < kG / 4; ++j)
+        if (co0 + 4 * j < cout) store4(out, o + 4 * j, m + 4 * j, store);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kG; ++k)
+        if (co0 + k < cout) store_value(out, o + k, m[k], store);
+    }
   }
 }
 
-__host__ __device__ inline size_t nhwc_smem_bytes(int cin) {
-  return sizeof(float) * (align4(cin * kHalo * kPitch) + 9 * cin * kCo);
+// K10's weights [3, 3, cin, cout] into shared memory as [9 * cin][cout4],
+// zero past cout: 16-byte cp.async where every row is 16-byte aligned,
+// else one value at a time (seen by the first barrier after it)
+__device__ __forceinline__ void load_nhwc_weights(float* s_w,
+                                                  const float* __restrict__ wm,
+                                                  int rows, int cout) {
+  const int cout4 = align4(cout);
+  if ((cout & 3) == 0 && reinterpret_cast<uintptr_t>(wm) % 16 == 0) {
+    for (int i = threadIdx.x; i < rows * cout / 4; i += blockDim.x)
+      cp_async16(s_w + 4 * i, wm + 4 * i);
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * cout4; i += blockDim.x) {
+    const int r = i / cout4, co = i % cout4;
+    s_w[i] = co < cout ? wm[static_cast<size_t>(r) * cout + co] : 0.0f;
+  }
+}
+
+// bytes of shared memory of stem_nhwc_kernel: the weights, the biases and
+// `bufs` input halos of tr x tc pooled pixels
+__host__ __device__ inline size_t nhwc_smem_bytes(int cin, int cout, int tr,
+                                                  int tc, int bufs) {
+  return sizeof(float)
+         * (9 * static_cast<size_t>(cin) * align4(cout) + align4(cout)
+            + bufs * static_cast<size_t>(align4((2 * tr + 2)
+                                                * align4(2 * tc + 2) * cin)));
+}
+
+// the route: stem_nhwc_kernel where its weights and one halo of the
+// smallest tile fit shared memory, else stem_nhwc_wide_kernel
+__host__ __device__ inline bool nhwc_resident(int cin, int cout) {
+  return nhwc_smem_bytes(cin, cout, kTile, kTile, 1) <= kMaxSmem;
+}
+
+// the channels a thread of stem_nhwc_kernel sums: 8 where they divide
+// cout and the patch is not in registers, else 4
+__host__ __device__ inline int nhwc_group(int cin, int cout) {
+  return cin > kNRegC && cout % kNGroup == 0 ? kNGroup : 4;
+}
+
+// its threads a block: 256 at 4 channels a thread, 128 at 8, so that an
+// 8 x 8 tile's items fill the block at 32 output channels
+__host__ __device__ constexpr int nhwc_threads(int group) {
+  return kThreads * 4 / group;
+}
+
+// stem_nhwc_kernel's tile: stage_hi_tile's rule over its channel groups,
+// growing only while one halo still fits beside the weights
+__host__ __device__ inline void nhwc_tile(int cin, int cout, int n, int ho,
+                                          int wo, int sms, int* tr,
+                                          int* tc) {
+  const int group = nhwc_group(cin, cout);
+  const int want = nhwc_threads(group) * (cin < 8 ? 4 : 1);
+  const int groups = align4(cout) / group;
+  *tr = *tc = kTile;
+  while (*tr * *tc / 2 * groups < want && *tr * *tc < kSMaxPixels) {
+    const int r = *tc <= *tr ? *tr : 2 * *tr, c = *tc <= *tr ? 2 * *tc : *tc;
+    if (static_cast<long long>(n) * cdiv(ho, r) * cdiv(wo, c)
+            < static_cast<long long>(kSMinTilesPerSm) * sms
+        || nhwc_smem_bytes(cin, cout, r, c, 1) > kMaxSmem)
+      break;
+    *tr = r;
+    *tc = c;
+  }
+}
+
+// kC > 0: cin == kC, each channel's 4 x 6 patch in registers; kG output
+// channels a thread
+template <bool kVMajor, int kC, int kG>
+__global__ void __launch_bounds__(nhwc_threads(kG),
+                                  kC > 0 ? 2 : kG > 4 ? 4 : 3)
+stem_nhwc_kernel(const float* __restrict__ x,
+                 const float* __restrict__ wm,   // [3, 3, cin, cout]
+                 const float* __restrict__ bias, void* __restrict__ out,
+                 int n, int h, int w, int cin, int cout, int tr, int tc,
+                 int store, int bufs) {
+  extern __shared__ __align__(16) float smem[];
+  const int cout4 = align4(cout);
+  const int hr = 2 * tr + 2, hc = align4(2 * tc + 2), plane = hr * hc;
+  const int halo = align4(plane * cin);
+  float* s_w = smem;                                // [3][3][cin][cout4]
+  float* s_b = s_w + 9 * cin * cout4;               // [cout4]
+  float* s_in = s_b + cout4;                        // [bufs][cin][hr][hc]
+
+  const int tid = threadIdx.x;
+  const int ho = h / 2, wo = w / 2;
+  const int tiles_x = cdiv(wo, tc), per_img = tiles_x * cdiv(ho, tr);
+  const int n_tiles = n * per_img;
+
+  auto load_halo = [&](int tile, float* dst) {
+    const int img = tile / per_img, r = tile % per_img;
+    load_halo_planar(dst, x, img, h, w, cin, 2 * tr * (r / tiles_x) - 1,
+                     2 * tc * (r % tiles_x) - 1, hr, 2 * tc + 2, hc);
+  };
+
+  // once per block: the weights and the biases
+  load_nhwc_weights(s_w, wm, 9 * cin, cout);
+  constexpr int threads = nhwc_threads(kG);
+  for (int i = tid; i < cout4; i += threads)
+    s_b[i] = i < cout ? bias[i] : 0.0f;
+  int tile = blockIdx.x;
+  if (bufs == 2 && tile < n_tiles) load_halo(tile, s_in);
+  cp_async_commit();
+
+  static_assert(kC == 0 || kG == 4, "a register patch takes 4 channels");
+  const int groups = cout4 / kG, items = tr * (tc / 2) * groups;
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    const float* cur = s_in + (bufs == 2 ? (it & 1) * halo : 0);
+    if (bufs == 2) {   // the next tile's halo loads while this one computes
+      if (tile + gridDim.x < n_tiles)
+        load_halo(tile + gridDim.x, s_in + ((it + 1) & 1) * halo);
+      cp_async_commit();
+      cp_async_wait1();
+    } else {
+      load_halo(tile, s_in);
+      cp_async_commit();
+      cp_async_wait0();
+    }
+    __syncthreads();
+    const int img = tile / per_img, r = tile % per_img;
+    const int oy0 = tr * (r / tiles_x), ox0 = tc * (r % tiles_x);
+    // item = (pair of pooled pixels, kG-channel group); the pair's conv
+    // outputs read halo rows 2 py + dy + u and columns 2 px + dx + v
+    for (int e = tid; e < items; e += threads) {
+      const int g = e % groups, p = e / groups;
+      const int py = p / (tc / 2), px = 2 * (p % (tc / 2));
+      const int oy = oy0 + py, ox = ox0 + px;
+      if (oy >= ho || ox >= wo) continue;
+      const float* xs = cur + 2 * py * hc + 2 * px;
+      const float* ws = s_w + kG * g;
+      float acc[2][4][kG] = {};
+      if constexpr (kC > 0) {
+        float patch[kC][4][6];
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+            for (int t = 0; t < 3; ++t) {
+              const float2 a = *reinterpret_cast<const float2*>(
+                  xs + c * plane + rr * hc + 2 * t);
+              patch[c][rr][2 * t] = a.x;
+              patch[c][rr][2 * t + 1] = a.y;
+            }
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int u = tap_u<kVMajor>(t), v = tap_v<kVMajor>(t);
+#pragma unroll
+          for (int c = 0; c < kC; ++c) {
+            const float4 wv = *reinterpret_cast<const float4*>(
+                ws + ((3 * u + v) * kC + c) * cout4);
+            const float wk[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+#pragma unroll
+              for (int d = 0; d < 4; ++d) {
+                const float xv = patch[c][(d >> 1) + u][2 * q + (d & 1) + v];
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                  acc[q][d][k] =
+                      __fadd_rn(acc[q][d][k], __fmul_rn(xv, wk[k]));
+              }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int u = tap_u<kVMajor>(t), v = tap_v<kVMajor>(t);
+          const float* xt = xs + u * hc + v;
+          const float* wt = ws + (3 * u + v) * cin * cout4;
+          for (int c = 0; c < cin; ++c) {
+            if (v == 0)
+              tap_chan<kQuad0, kG>(acc, xt + c * plane, hc, wt + c * cout4);
+            else if (v == 1)
+              tap_chan<kQuad1, kG>(acc, xt + c * plane, hc, wt + c * cout4);
+            else
+              tap_chan<kPairs, kG>(acc, xt + c * plane, hc, wt + c * cout4);
+          }
+        }
+      }
+      nhwc_epilogue<kG>(acc, s_b + kG * g, out,
+                        ((static_cast<size_t>(img) * ho + oy) * wo + ox)
+                                * cout + kG * g,
+                        kG * g, cout, wo, ox, store);
+    }
+    __syncthreads();            // every buffer is free for the next tile
+  }
+}
+
+// 16-byte asynchronous copy into shared memory; zero fill where !valid
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// the wide kernel's channels a thread (an item takes 8 such groups): 8
+// where they divide cout, cout > 32 and the items still number
+// kSMinTilesPerSm an SM, else 4 (items: n images of ho x wo pooled
+// pixels in 8 x 8 tiles, times the slices)
+__host__ __device__ inline int nhwc_wide_group(int n, int ho, int wo,
+                                               int cout, int sms) {
+  const long long items = static_cast<long long>(n) * cdiv(ho, kTile)
+                          * cdiv(wo, kTile) * cdiv(cout, 64);
+  return cout % 8 == 0 && cout > 32
+                 && items >= static_cast<long long>(kSMinTilesPerSm) * sms
+             ? 8 : 4;
+}
+
+// whether the wide kernel keeps every input channel of its tile's halo
+__host__ __device__ inline bool nhwc_wide_halo_resident(int cin, int group) {
+  return sizeof(float) * (static_cast<size_t>(kWPlane) * cin
+                          + 2 * kWCk * 8 * group) <= kMaxSmem;
+}
+
+__host__ __device__ inline size_t nhwc_wide_smem_bytes(int cin, int group) {
+  return nhwc_wide_halo_resident(cin, group)
+      ? sizeof(float) * (static_cast<size_t>(kWPlane) * cin
+                         + 2 * kWCk * 8 * group)
+      : sizeof(float) * 2 * kWCk * (kWPlane + 8 * group);
+}
+
+template <bool kVMajor, int kG>
+__global__ void __launch_bounds__(kThreads, 2)
+stem_nhwc_wide_kernel(const float* __restrict__ x,
+                      const float* __restrict__ wm,   // [3, 3, cin, cout]
+                      const float* __restrict__ bias, void* __restrict__ out,
+                      int n, int h, int w, int cin, int cout, int store,
+                      int resident) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int plane = kWPlane, kWCo = 8 * kG;
+  // the halo: [cin][18][20] (resident) or [2][kWCk][18][20]; then the
+  // weight chunks [2][kWCk][kWCo]
+  float* s_in = smem;
+  float* s_w = s_in + (resident ? cin * plane : 2 * kWCk * plane);
+
+  const int tid = threadIdx.x;
+  const int ho = h / 2, wo = w / 2;
+  const int tiles_x = cdiv(wo, kTile), per_img = tiles_x * cdiv(ho, kTile);
+  const int slices = cdiv(cout, kWCo);
+  const long long n_items = static_cast<long long>(n) * per_img * slices;
+  const int nck = cdiv(cin, kWCk), steps = 9 * nck;
+  const bool vec =
+      (cout & 3) == 0 && reinterpret_cast<uintptr_t>(wm) % 16 == 0;
+  // this thread's (pair, channel group): the slice's 8 groups fastest
+  const int g = tid % 8, p = tid / 8;
+  const int py = p / (kTile / 2), px = 2 * (p % (kTile / 2));
+
+  // the loads of step s of item `item`: the halo (all of it at a resident
+  // item's step 0, else the step's chunk) and the step's weights
+  auto issue = [&](long long item, int s, int buf) {
+    const int slice = static_cast<int>(item % slices);
+    const int tile = static_cast<int>(item / slices);
+    const int img = tile / per_img, r = tile % per_img;
+    const int iy0 = 2 * kTile * (r / tiles_x) - 1;
+    const int ix0 = 2 * kTile * (r % tiles_x) - 1;
+    const int t = s / nck, c0 = (s % nck) * kWCk;
+    const int cn = min(kWCk, cin - c0);
+    if (!resident || s == 0) {
+      const int hc0 = resident ? 0 : c0, hcn = resident ? cin : cn;
+      float* dst = s_in + (resident ? 0 : buf * kWCk * plane);
+      const float* xi = x + static_cast<size_t>(img) * h * w * cin + hc0;
+      for (int e = tid; e < kWHalo * kWHalo * hcn; e += kThreads) {
+        const int c = e % hcn, pix = e / hcn;
+        const int row = pix / kWHalo, col = pix % kWHalo;
+        const int gy = iy0 + row, gx = ix0 + col;
+        const bool ok = gy >= 0 && gy < h && gx >= 0 && gx < w;
+        cp_async4(dst + c * plane + row * kWPitch + col,
+                  ok ? xi + (static_cast<size_t>(gy) * w + gx) * cin + c : x,
+                  ok);
+      }
+    }
+    float* dw = s_w + buf * kWCk * kWCo;
+    const int co0 = slice * kWCo;
+    const float* src = wm
+        + (static_cast<size_t>(3 * tap_u<kVMajor>(t) + tap_v<kVMajor>(t))
+               * cin + c0) * cout;
+    for (int e = tid; e < cn * (kWCo / 4); e += kThreads) {
+      const int c = e / (kWCo / 4), q = e % (kWCo / 4), co = co0 + 4 * q;
+      if (vec) {
+        const bool ok = co < cout;
+        cp_async16z(dw + c * kWCo + 4 * q,
+                    ok ? src + static_cast<size_t>(c) * cout + co : wm, ok);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool ok = co + k < cout;
+          cp_async4(dw + c * kWCo + 4 * q + k,
+                    ok ? src + static_cast<size_t>(c) * cout + co + k : wm,
+                    ok);
+        }
+      }
+    }
+  };
+
+  long long item = blockIdx.x;
+  if (item < n_items) issue(item, 0, 0);
+  cp_async_commit();
+  int it = 0;                          // steps so far: the buffers' parity
+  for (; item < n_items; item += gridDim.x) {
+    const int slice = static_cast<int>(item % slices);
+    const int tile = static_cast<int>(item / slices);
+    const int img = tile / per_img, r = tile % per_img;
+    const int oy = kTile * (r / tiles_x) + py, ox = kTile * (r % tiles_x) + px;
+    const int co0 = slice * kWCo + kG * g;
+    const bool active = co0 < cout;
+    float acc[2][4][kG] = {};
+    for (int s = 0; s < steps; ++s, ++it) {
+      // a resident halo is loaded at an item's first step, once the item
+      // before is done with it (the first item's in the prologue)
+      if (resident && s == 0 && item != blockIdx.x) {
+        issue(item, 0, it & 1);
+        cp_async_commit();
+      }
+      const bool last = s + 1 == steps;
+      const long long next = last ? item + gridDim.x : item;
+      if (next < n_items && !(resident && last))
+        issue(next, last ? 0 : s + 1, (it + 1) & 1);
+      cp_async_commit();
+      cp_async_wait1();
+      __syncthreads();
+      const int t = s / nck, c0 = (s % nck) * kWCk;
+      const int cn = min(kWCk, cin - c0);
+      if (active) {
+        const int u = tap_u<kVMajor>(t), v = tap_v<kVMajor>(t);
+        const float* xs = s_in
+            + (resident ? c0 * plane : (it & 1) * kWCk * plane)
+            + (2 * py + u) * kWPitch + 2 * px + v;
+        const float* ws = s_w + (it & 1) * kWCk * kWCo + kG * g;
+        if (v == 0) {
+          for (int c = 0; c < cn; ++c)
+            tap_chan<kQuad0, kG>(acc, xs + c * plane, kWPitch,
+                                 ws + c * kWCo);
+        } else if (v == 1) {
+          for (int c = 0; c < cn; ++c)
+            tap_chan<kQuad1, kG>(acc, xs + c * plane, kWPitch,
+                                 ws + c * kWCo);
+        } else {
+          for (int c = 0; c < cn; ++c)
+            tap_chan<kPairs, kG>(acc, xs + c * plane, kWPitch,
+                                 ws + c * kWCo);
+        }
+      }
+      __syncthreads();               // both buffers free for the next loads
+    }
+    if (!active || oy >= ho || ox >= wo) continue;
+    float bk[kG];
+#pragma unroll
+    for (int k = 0; k < kG; ++k) bk[k] = co0 + k < cout ? bias[co0 + k] : 0.0f;
+    nhwc_epilogue<kG>(acc, bk, out,
+                      ((static_cast<size_t>(img) * ho + oy) * wo + ox)
+                              * cout + co0,
+                      co0, cout, wo, ox, store);
+  }
 }
 
 template <typename Kernel, typename... Args>
@@ -2001,31 +2431,71 @@ int millieye_stem_stage(const void* x, const void* wgt, const void* bias,
                            w, cin, cout, highest, store, st);
 }
 
-// Kernel K10: x [n, h, w, cin] f32, wm [9 * cin, cout] f32 (row tap * cin
-// + c, taps (v, u) when vmajor else (u, v)), bias [cout] f32 -> out
+// Kernel K10: x [n, h, w, cin] f32, wm [3, 3, cin, cout] f32 (HWIO), the
+// taps summed (v, u) when vmajor else (u, v), bias [cout] f32 -> out
 // [n, h/2, w/2, cout] in the store type (0 float32, 1 bf16, 2 float16).
+// Any cin and cout; millieye_stem_nhwc_route gives the kernel a shape
+// takes: 0 stem_nhwc_kernel (weights and halo resident), 1
+// stem_nhwc_wide_kernel (weights streamed a tap and a chunk at a time).
+int millieye_stem_nhwc_route(int cin, int cout) {
+  return nhwc_resident(cin, cout) ? 0 : 1;
+}
+
 int millieye_stem_nhwc(const void* x, const void* wm, const void* bias,
                        void* out, int n, int h, int w, int cin, int cout,
                        int vmajor, int store, void* stream) {
   if (n <= 0 || h <= 0 || w <= 0 || h % 2 || w % 2 || cin <= 0 || cout <= 0
       || store < 0 || store > 2)
     return cudaErrorInvalidValue;
-  const size_t smem = nhwc_smem_bytes(cin);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const int slices = (cout + kCo - 1) / kCo;
-  const dim3 grid((w / 2 + kTile - 1) / kTile, (h / 2 + kTile - 1) / kTile,
-                  n * slices);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = vmajor ? stem_nhwc_kernel<true> : stem_nhwc_kernel<false>;
-  if (smem > kDefaultSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+  const float *xf = static_cast<const float*>(x),
+              *wf = static_cast<const float*>(wm),
+              *bf = static_cast<const float*>(bias);
+  int grid = 0, dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!nhwc_resident(cin, cout)) {
+    const int group = nhwc_wide_group(n, h / 2, w / 2, cout, sms);
+    const bool resident = nhwc_wide_halo_resident(cin, group);
+    const size_t smem = nhwc_wide_smem_bytes(cin, group);
+    const long long items = static_cast<long long>(n)
+        * cdiv(w / 2, kTile) * cdiv(h / 2, kTile) * cdiv(cout, 8 * group);
+    auto kernel = group == 8
+        ? (vmajor ? stem_nhwc_wide_kernel<true, 8>
+                  : stem_nhwc_wide_kernel<false, 8>)
+        : (vmajor ? stem_nhwc_wide_kernel<true, 4>
+                  : stem_nhwc_wide_kernel<false, 4>);
+    err = persistent_grid(kernel, smem, items, 1, &grid);
     if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kThreads, smem, st>>>(xf, wf, bf, out, n, h, w, cin, cout,
+                                         store, resident ? 1 : 0);
+    return static_cast<int>(cudaGetLastError());
   }
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wm),
-      static_cast<const float*>(bias), out, h, w, cin, cout, store);
+  int tr = 0, tc = 0;
+  nhwc_tile(cin, cout, n, h / 2, w / 2, sms, &tr, &tc);
+  const int bufs = nhwc_smem_bytes(cin, cout, tr, tc, 2) <= kMaxSmem ? 2 : 1;
+  const size_t smem = nhwc_smem_bytes(cin, cout, tr, tc, bufs);
+  const long long tiles = static_cast<long long>(n) * cdiv(w / 2, tc)
+                          * cdiv(h / 2, tr);
+  // the instance for this cin (its patch in registers up to kNRegC; the
+  // last column: any cin, kNGroup channels a thread)
+  using Kernel = decltype(&stem_nhwc_kernel<true, 0, 4>);
+  static const Kernel kernels[2][kNRegC + 2] = {
+      {stem_nhwc_kernel<false, 0, 4>, stem_nhwc_kernel<false, 1, 4>,
+       stem_nhwc_kernel<false, 2, 4>, stem_nhwc_kernel<false, 3, 4>,
+       stem_nhwc_kernel<false, 4, 4>, stem_nhwc_kernel<false, 0, kNGroup>},
+      {stem_nhwc_kernel<true, 0, 4>, stem_nhwc_kernel<true, 1, 4>,
+       stem_nhwc_kernel<true, 2, 4>, stem_nhwc_kernel<true, 3, 4>,
+       stem_nhwc_kernel<true, 4, 4>, stem_nhwc_kernel<true, 0, kNGroup>}};
+  const int group = nhwc_group(cin, cout), threads = nhwc_threads(group);
+  const Kernel kernel = kernels[vmajor ? 1 : 0][
+      cin <= kNRegC ? cin : group == 4 ? 0 : kNRegC + 1];
+  err = persistent_grid(kernel, smem, tiles, 1, &grid, threads);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, threads, smem, st>>>(xf, wf, bf, out, n, h, w, cin, cout,
+                                       tr, tc, store, bufs);
   return static_cast<int>(cudaGetLastError());
 }
 

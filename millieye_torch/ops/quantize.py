@@ -22,8 +22,10 @@ scales, and the stochastic-rounding kernel K13.
   seeded ``seed + tile`` per row tile; the card cannot give those bits,
   so kernel and plain version draw them from Philox4x32-10 keyed by
   ``(seed + tile, 0)``, one counter per four consecutive elements of the
-  tile (``element index // 4``, word ``element index % 4``). Source:
-  ``millieye_torch/csrc/quantize.cu``.
+  tile (``element index // 4``, word ``element index % 4``). The scale
+  is the JAX wrapper's as XLA compiles it (``_INV_127``). On the card the
+  whole function is hand-written: an absmax pass, then the scale and the
+  rounding, two launches. Source: ``millieye_torch/csrc/quantize.cu``.
 
 A CPU tensor takes K13's plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``).
@@ -194,8 +196,14 @@ def stochastic_round(scaled, bits):
     return torch.floor(scaled + u).clamp(-127, 127).to(torch.int8)
 
 
+# the JAX wrapper's ``max(absmax, 1e-8) / 127.0`` as XLA compiles it: a
+# product with the float32 reciprocal of 127 (an IEEE division differs by
+# an ulp on about 4% of maxima, all-zero tensors among them)
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
 def _stochastic_scale(w2d):
-    return w2d.abs().amax().clamp_min(1e-8) / 127.0
+    return w2d.abs().amax().clamp_min(1e-8) * _INV_127
 
 
 def _check_stochastic(w2d, seed, row_tile):
@@ -225,28 +233,41 @@ def quantize_int8_stochastic_plain(w2d, seed, row_tile=512):
     return q[:m], scale
 
 
+_LIB = None
+
+
 def _lib():
-    lib = cuda_lib.library("quantize")
-    lib.millieye_quantize_stochastic.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.millieye_quantize_stochastic.restype = ctypes.c_int
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = cuda_lib.library("quantize")
+        lib.millieye_quantize_stochastic.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.millieye_quantize_stochastic.restype = ctypes.c_int
+        lib.millieye_quantize_parts.restype = ctypes.c_int
+        _LIB = lib, lib.millieye_quantize_parts()
+    return _LIB
 
 
 def quantize_int8_stochastic(w2d, seed, row_tile=512):
     """K13: w2d [M, N] float -> (int8 values [M, N], float32 scale []) with
-    a per-tensor scale and unbiased stochastic rounding (see module)."""
+    a per-tensor scale and unbiased stochastic rounding (see module). On
+    the card the scale and the rounding are two hand-written launches,
+    counted as one; no PyTorch operation runs but the allocations (and a
+    cast of a non-float32 or non-contiguous input)."""
     _check_stochastic(w2d, seed, row_tile)
     if cuda_lib.takes_plain(w2d, "quantize_stochastic"):
         return quantize_int8_stochastic_plain(w2d, seed, row_tile)
     w2d = w2d.float().contiguous()
     m, n = w2d.shape
-    scale = _stochastic_scale(w2d)
-    out = torch.empty((m, n), dtype=torch.int8, device=w2d.device)
-    lib = _lib()
+    lib, parts = _lib()
+    dev = w2d.device
+    out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    scale = torch.empty((), dtype=torch.float32, device=dev)
+    scratch = torch.empty(parts, dtype=torch.int32, device=dev)
     rc = lib.millieye_quantize_stochastic(
-        cuda_lib.ptr(w2d), cuda_lib.ptr(scale), cuda_lib.ptr(out), m, n,
-        min(row_tile, m), seed, cuda_lib.stream_ptr(w2d.device))
+        cuda_lib.ptr(w2d), cuda_lib.ptr(scale), cuda_lib.ptr(out),
+        cuda_lib.ptr(scratch), m, n, min(row_tile, m), seed,
+        cuda_lib.stream_ptr(dev))
     cuda_lib.check(lib, rc, "quantize_int8_stochastic")
     quantize_int8_stochastic.launches += 1
     return out, scale

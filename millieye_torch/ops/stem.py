@@ -22,7 +22,9 @@ package's arguments, x [N, H, W, Cin] of any float type, w [3, 3, Cin,
 Cout] HWIO, output in ``out_dtype`` (default x's type); float32 products
 and sums, the taps in the order of the TPU kernel's patch build: (v, u,
 c) for ``variant`` "vconcat" and "vroll", (u, v, c) for "im2col". The
-row band ``th`` is checked (H/2 % th == 0) and changes nothing else.
+row band ``th`` is checked (H/2 % th == 0) and changes nothing else. Any
+Cin and Cout: on the card ``nhwc_route`` names the kernel a shape takes,
+and both sum in that order.
 
 The stem pair, two such stages in one kernel with the half-size
 intermediate kept on chip:
@@ -208,6 +210,8 @@ def _lib():
     lib.millieye_stem_nhwc.argtypes = ([ctypes.c_void_p] * 4
                                        + [ctypes.c_int] * 7
                                        + [ctypes.c_void_p])
+    lib.millieye_stem_nhwc_route.argtypes = [ctypes.c_int] * 2
+    lib.millieye_stem_nhwc_route.restype = ctypes.c_int
     for fn in (lib.millieye_stem_pair, lib.millieye_stem_pair_deep,
                lib.millieye_stem_stage, lib.millieye_stem_nhwc):
         fn.restype = ctypes.c_int
@@ -273,7 +277,19 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
 
 # ------------------------------------------------------------------ K10
 _NHWC_VARIANTS = ("vconcat", "vroll", "im2col")
-_NHWC_MAX_CIN = 92     # the halo and weight slice in 227 KB of shared memory
+
+
+def nhwc_route(cin, cout):
+    """Which kernel K10 launches on the card for these channel counts
+    (``nhwc_resident`` in csrc/stem.cu; ``millieye_stem_nhwc_route`` asks
+    the library): "resident" where the whole [9, cin, cout] weight set
+    (cout rounded up to 4) and the input halo of an 8 x 8 tile of pooled
+    pixels (18 rows of 18 pixels at a pitch of 20, x cin) fit a block's
+    shared memory, else "streamed", which streams the weights a tap and a
+    chunk of input channels at a time and takes any width. Both sum in
+    the variant's tap order, so the plain version is the same for both."""
+    floats = 9 * cin * _round4(cout) + _round4(cout) + _round4(18 * 20 * cin)
+    return "resident" if 4 * floats <= _SMEM_LIMIT else "streamed"
 
 
 def _check_nhwc(x, w, b, th, out_dtype, variant):
@@ -316,18 +332,15 @@ def fused_stem(x, w, b, th=26, out_dtype=None, variant="vconcat"):
     _check_cuda("fused_stem", xk, w, b)
     n, h, wd, cin = x.shape
     cout = w.shape[3]
-    if cin > _NHWC_MAX_CIN:
-        raise ValueError(f"fused_stem: {cin} input channels do not fit the "
-                         f"kernel's shared memory (at most {_NHWC_MAX_CIN})")
-    # the JAX wrapper's [9 * cin, cout] matrix, rows in the tap order
-    wf = w.float()
-    wm = (wf if variant == "im2col" else wf.permute(1, 0, 2, 3)).reshape(
-        9 * cin, cout).contiguous()
+    # HWIO as given: the kernel reads each tap's [cin, cout] block in the
+    # variant's order
+    wk = w.float().contiguous()
+    bk = b.float().contiguous()
     out = torch.empty((n, h // 2, wd // 2, cout), dtype=out_dtype,
                       device=x.device)
     lib = _lib()
     rc = lib.millieye_stem_nhwc(
-        cuda_lib.ptr(xk), cuda_lib.ptr(wm), cuda_lib.ptr(b.float().contiguous()),
+        cuda_lib.ptr(xk), cuda_lib.ptr(wk), cuda_lib.ptr(bk),
         cuda_lib.ptr(out), n, h, wd, cin, cout, int(variant != "im2col"),
         _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device))
     cuda_lib.check(lib, rc, "fused_stem")

@@ -85,3 +85,31 @@ def test_fused_stem_rejects_what_jax_rejects():
         tstem.fused_stem(tx[:, :15], tw, tb, th=1)          # odd H
     with pytest.raises(TypeError, match="cannot store"):
         tstem.fused_stem(tx, tw, tb, th=8, out_dtype=torch.int8)
+
+
+@pytest.mark.parametrize("variant", ["vconcat", "vroll", "im2col"])
+@pytest.mark.parametrize("cin", [96, 130])
+def test_plain_fused_stem_matches_pallas_wide(variant, cin):
+    """Wide inputs, which the JAX function takes: the plain version, which
+    both of the card's routes repeat bit for bit, against it at 8 x 8 px,
+    12 outputs, th 2."""
+    x, w, b = _inputs(1, 8, 8, cin, 12, seed=cin)
+    want = np.asarray(jax_fused_stem(jnp.asarray(x), jnp.asarray(w),
+                                     jnp.asarray(b), th=2, interpret=True,
+                                     variant=variant))
+    got = tstem.fused_stem(torch.from_numpy(x), torch.from_numpy(w),
+                           torch.from_numpy(b), th=2, variant=variant)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("cin,cout,route", [
+    (3, 16, "resident"), (16, 32, "resident"), (93, 4, "resident"),
+    (120, 12, "resident"), (128, 12, "streamed"), (128, 33, "streamed"),
+    (128, 256, "streamed"), (256, 12, "streamed"), (1024, 4, "streamed")])
+def test_nhwc_route_by_shape(cin, cout, route):
+    """K10's kernel on the card, by channel counts: the stem's stages and
+    widths whose weights and 8 x 8 tile halo fit shared memory keep them
+    resident; the rest stream the weights (block 8: 128 -> 256)."""
+    assert tstem.nhwc_route(cin, cout) == route

@@ -807,8 +807,8 @@ def test_pair_wrappers_take_the_deep_pair_at_wide_widths(cuda):
     ((1, 20, 36, 70, 44), torch.float32)])
 def test_fused_stem_kernel_matches_plain(cuda, variant, shape, out_dtype):
     """K10 at the stem's two stage shapes, an odd one and a wide one (70
-    input channels: past the 48 KB shared-memory default; 44 outputs: a
-    partial slice and a partial channel group)."""
+    input channels: past the 48 KB shared-memory default; 44 outputs: not
+    a multiple of 8, so four channels a thread, 11 groups)."""
     n, h, w, cin, cout = shape
     g = torch.Generator(device="cpu").manual_seed(h + cin)
     x = torch.randn((n, h, w, cin), generator=g).to(cuda)
@@ -820,6 +820,148 @@ def test_fused_stem_kernel_matches_plain(cuda, variant, shape, out_dtype):
     assert got.dtype == out_dtype
     assert torch.equal(got, fused_stem_plain(x, wt, bs, 2, out_dtype,
                                              variant))
+
+
+def _k10_inputs(cuda, shape, seed):
+    n, h, w, cin, cout = shape
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return ((torch.randn((n, h, w, cin), generator=g)).to(cuda),
+            (0.2 * torch.randn((3, 3, cin, cout), generator=g)).to(cuda),
+            (0.1 * torch.randn(cout, generator=g)).to(cuda))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("variant", ["vconcat", "im2col"])
+@pytest.mark.parametrize("cout", [4, 12, 33])
+@pytest.mark.parametrize("cin,hw", [(93, (2, 16, 12)), (128, (2, 12, 20)),
+                                    (256, (1, 18, 10)), (1024, (1, 10, 14))])
+def test_fused_stem_wide_cin(cuda, cin, hw, cout, variant, out_dtype):
+    """K10 at wide inputs, as the JAX function takes them: both routes
+    (``nhwc_route``: the resident kernel up to its shared memory, then the
+    streamed one, whose halo stays for the nine taps up to 176 channels
+    and walks in chunks past it), ragged output groups, every store
+    type; one launch, bit-equal to the plain version."""
+    n, h, w = hw
+    x, wt, bs = _k10_inputs(cuda, (n, h, w, cin, cout), cin + cout)
+    route = stem._lib().millieye_stem_nhwc_route(cin, cout)
+    assert ("resident", "streamed")[route] == stem.nhwc_route(cin, cout)
+    before = fused_stem.launches
+    got = fused_stem(x, wt, bs, th=1, out_dtype=out_dtype, variant=variant)
+    assert fused_stem.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (n, h // 2, w // 2, cout)
+    assert torch.equal(got, fused_stem_plain(x, wt, bs, 1, out_dtype,
+                                             variant))
+
+
+@pytest.mark.parametrize("variant", ["vconcat", "im2col"])
+@pytest.mark.parametrize("shape", [(32, 26, 26, 128, 256),
+                                   (40, 32, 32, 200, 96)])
+def test_fused_stem_streamed_at_batch(cuda, shape, variant):
+    """The streamed route at batches whose items fill the card, where it
+    takes 8 channels a thread (block 8's shape at b32; a halo in chunks
+    and a ragged last slice of 64 channels): bit-equal."""
+    x, wt, bs = _k10_inputs(cuda, shape, 8)
+    assert stem.nhwc_route(shape[3], shape[4]) == "streamed"
+    assert torch.equal(fused_stem(x, wt, bs, 1, torch.float16, variant),
+                       fused_stem_plain(x, wt, bs, 1, torch.float16,
+                                        variant))
+
+
+@pytest.mark.parametrize("shape", [(5, 26, 30, 3, 16), (5, 26, 30, 16, 32),
+                                   (5, 14, 18, 24, 12), (3, 26, 26, 128, 256),
+                                   (3, 10, 12, 300, 8)])
+def test_fused_stem_is_batch_independent(cuda, shape):
+    """Each image of a batch gets the answer it gets alone, on every
+    route (tiles and blocks run the batch in another order)."""
+    x, wt, bs = _k10_inputs(cuda, shape, 7)
+    for variant in ("vconcat", "im2col"):
+        full = fused_stem(x, wt, bs, 1, torch.float32, variant)
+        for i in range(shape[0]):
+            one = fused_stem(x[i:i + 1].contiguous(), wt, bs, 1,
+                             torch.float32, variant)
+            assert torch.equal(one, full[i:i + 1])
+
+
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` launches, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+
+
+def test_k10_k13_run_no_pytorch_reduction(cuda):
+    """On a CUDA tensor K13 is its two hand-written launches and nothing
+    else (no abs, amax, clamp or division kernel for the scale); K10 is
+    its one kernel in either tap order (the HWIO weights as given)."""
+    w = torch.randn((300, 70), device=cuda)
+    names = _device_kernels(lambda: tq.quantize_int8_stochastic(w, 1, 64))
+    assert len(names) == 2, names
+    assert any("absmax_kernel(" in n for n in names), names
+    assert any("round_kernel(" in n for n in names), names
+    x, wt, bs = _k10_inputs(cuda, (2, 16, 16, 16, 32), 3)
+    for variant in ("im2col", "vconcat"):
+        names = _device_kernels(
+            lambda: fused_stem(x, wt, bs, 1, torch.float16, variant))
+        assert len(names) == 1 and "stem_nhwc" in names[0], names
+
+
+def _k13_special(kind):
+    g = torch.Generator(device="cpu").manual_seed(13)
+    w = torch.randn((9, 20), generator=g)
+    if kind == "zeros":
+        w[:] = 0.0
+    elif kind == "negative zeros":
+        w[:] = -0.0
+    elif kind == "inf":
+        w[3, 7] = float("inf")
+    elif kind == "-inf":
+        w[8, 19] = -float("inf")
+    elif kind == "nan":
+        w[0, 5] = float("nan")
+    elif kind == "-nan":
+        w[4, 4] = -float("nan")
+    return w
+
+
+@pytest.mark.parametrize("kind", ["zeros", "negative zeros", "inf", "-inf",
+                                  "nan", "-nan"])
+def test_quantize_stochastic_special_values(cuda, kind):
+    """K13 on all-zero, -0.0, inf and NaN inputs, bit-equal to its plain
+    version: the values (a NaN becomes what PyTorch's cast makes of it)
+    and the scale, NaN where the plain scale is NaN."""
+    w = _k13_special(kind).to(cuda)
+    for seed in (0, 9):
+        q, s = tq.quantize_int8_stochastic(w, seed, 4)
+        wq, ws = tq.quantize_int8_stochastic_plain(w, seed, 4)
+        assert torch.equal(q, wq)
+        if "nan" in kind:
+            assert bool(s.isnan()) and bool(ws.isnan())
+        else:
+            assert torch.equal(s, ws)
+
+
+@pytest.mark.parametrize("shape,row_tile", [((37, 13), 5), ((70000, 3), 1),
+                                            ((65536, 2), 1), ((999, 7), 33)])
+def test_quantize_stochastic_ragged_and_many_tiles(cuda, shape, row_tile):
+    """K13 on a ragged last tile whose start is not 16-byte aligned, more
+    than 65535 row tiles (more than a grid's y dimension holds), and an
+    input that is a view 4 bytes into its storage: one launch, bit-equal
+    to the plain version."""
+    g = torch.Generator(device="cpu").manual_seed(shape[0])
+    w = torch.randn((shape[0] * shape[1] + 1,), generator=g).to(cuda)
+    w = w[1:].view(shape)
+    before = tq.quantize_int8_stochastic.launches
+    q, s = tq.quantize_int8_stochastic(w, 4, row_tile)
+    assert tq.quantize_int8_stochastic.launches == before + 1
+    wq, ws = tq.quantize_int8_stochastic_plain(w, 4, row_tile)
+    assert torch.equal(s, ws) and torch.equal(q, wq)
 
 
 @pytest.mark.parametrize("shape,row_tile", [((8, 128), 512),
@@ -886,7 +1028,10 @@ def test_wrappers_refuse_wrong_inputs(cuda):
                           ((8, 3, 3, 3), (8,), (8, 8, 3, 3), (8,))))
     with pytest.raises(ValueError):            # H % 32 for K8
         fused_stem_pair_select(*_pair_weights(cuda, 1, 20, 32, 3, 8, 16))
-    with pytest.raises(ValueError):            # too wide for shared memory
-        fused_stem(torch.zeros((1, 8, 8, 93), device=cuda),
-                   torch.zeros((3, 3, 93, 8), device=cuda),
-                   torch.zeros(8, device=cuda), th=1)
+    # K10 takes any number of input channels (93 here), bit-equal
+    g = torch.Generator(device="cpu").manual_seed(93)
+    args = (torch.randn((1, 8, 8, 93), generator=g).to(cuda),
+            torch.randn((3, 3, 93, 8), generator=g).to(cuda),
+            torch.randn(8, generator=g).to(cuda))
+    assert torch.equal(fused_stem(*args, th=1),
+                       fused_stem_plain(*args, th=1))

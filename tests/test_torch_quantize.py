@@ -192,6 +192,60 @@ def test_stochastic_rounding_unbiased():
     assert float(err.mean(0).abs().mean()) < 0.25
 
 
+# an absmax whose IEEE quotient by 127 and product with the float32
+# reciprocal of 127 differ by an ulp (so does 1e-8, the all-zero floor)
+_ULP_CASE = np.float32(0.94474393)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "negative zeros", "inf",
+                                  "-inf", "ulp case"])
+def test_stochastic_scale_matches_jax_on_special_inputs(kind):
+    """The plain scale (the kernel's on the card) equals the JAX wrapper's
+    bit for bit: XLA compiles its ``/ 127.0`` into a product with the
+    float32 reciprocal, which the port repeats (``_INV_127``)."""
+    w = np.random.default_rng(2).uniform(-0.5, 0.5, (6, 10)).astype(
+        np.float32)
+    if kind == "zeros":
+        w[:] = 0.0
+    elif kind == "negative zeros":
+        w[:] = -0.0
+    elif kind == "inf":
+        w[2, 3] = np.inf
+    elif kind == "-inf":
+        w[5, 0] = -np.inf
+    else:
+        w[1, 1] = -_ULP_CASE
+        assert (_ULP_CASE / np.float32(127.0)
+                != _ULP_CASE * (np.float32(1.0) / np.float32(127.0)))
+    with pltpu.force_tpu_interpret_mode():
+        _, want = jq.quantize_int8_stochastic(jnp.asarray(w), seed=0,
+                                              row_tile=4)
+    got = tq._stochastic_scale(torch.from_numpy(w))
+    assert got.dtype == torch.float32
+    assert got.numpy().view(np.uint32) == np.asarray(want).view(np.uint32)
+    _, s = tq.quantize_int8_stochastic(torch.from_numpy(w), seed=0,
+                                       row_tile=4)
+    assert torch.equal(s, got)
+
+
+def test_stochastic_plain_past_65535_tiles():
+    """70000 row tiles of one row, more than a CUDA grid's y dimension
+    holds: each tile's values are its own Philox stream's rounding."""
+    w = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (70000, 3)).astype(np.float32))
+    q, s = tq.quantize_int8_stochastic(w, seed=5, row_tile=1)
+    assert q.shape == (70000, 3) and q.dtype == torch.int8
+    fl = torch.floor(w / s)
+    assert ((q == fl) | (q == fl + 1)).all()
+    for t in (0, 1, 65535, 65536, 69999):
+        bits = tq.stochastic_bits(5 + t, 1, 3)
+        assert torch.equal(q[t:t + 1], tq.stochastic_round(w[t:t + 1] / s,
+                                                           bits))
+    # the key runs on past 2^16: tiles 0 and 65536 draw different bits
+    assert not torch.equal(tq.stochastic_bits(5, 1, 3),
+                           tq.stochastic_bits(5 + 65536, 1, 3))
+
+
 def test_stochastic_rejects_bad_arguments():
     with pytest.raises(ValueError, match="2-D"):
         tq.quantize_int8_stochastic(torch.zeros(4), seed=0)
