@@ -35,7 +35,10 @@ printed only when every phase passed:
      version's); how many outputs K8 moves against K4 on the same inputs; K13's
      statistics (benchmarks/quantize_tpu_check.py's checks); block 12's int8 x
      int8 -> int32 convolution bit-equal on the card and the CPU, timed against
-     cuDNN float32;
+     cuDNN float32; deep_stage_kernel ("highest" through the deep pair,
+     "default" through K9 at Cin 272) and the CUDA-core deep pair, each just
+     under and past the batch its grid once capped (16384 and 65536
+     images of a 4x4 map), held to their plain versions;
   4. the serving paths on ``artifacts/stage3_final.npz``, 8 requests or calls
      each at batch 1 (640x480 uint8 frames, radar points and proposals from a
      fixed seed): ``FusionEngine.infer`` at ``pallas_max_s01``,
@@ -74,7 +77,28 @@ printed only when every phase passed:
      requests at ``pallas_max_s01``, ``pallas_max4``, ``pallas_pair2``,
      ``pallas_deep``, ``pallas_max4`` with ``roi_precision="highest"``,
      ``pallas_stem`` and the refine path, and over 2 windows;
-  5. a ``kernels`` JSON line, then the contract line
+  5. the recorded-session demo path: a 96-frame recording (640x480 frames
+     from a seed, three walkers and clutter in the radar at 20 fps, written
+     with numpy and pickle) through the radar host chain at the demo's
+     defaults and ``StreamingPipeline``. P15, ``run`` at
+     ``pallas_max_s01``: lossless, every frame bit-identical to
+     ``FusionEngine.infer`` fed by a second ``RadarPipeline``, K4, K1, K2,
+     K3 and K5 once a frame; the live mode's frames + dropped = 96, each
+     delivered frame the lossless answer; no host sync inside the step
+     (``torch.cuda.set_sync_debug_mode("error")``) and, in a profiled run,
+     no more than the drain's two fetches a frame; P16, ``run_batched``
+     at ``pallas_max4`` in windows of 32 over 90 frames (the last padded):
+     each window bit-identical to ``batched_step_fn`` on the stacked
+     arrays and held to its plain versions as the batched window above,
+     the staged replay bit-identical to the host-fed windows, K5 once a
+     window; against the per-frame answers each frame within
+     ``WINDOW_TOL``, or within ``PAIR_PATH_TOL`` (the bf16 class: at batch
+     32 cuDNN moves some boxes 0.5-0.65 px), or beyond it by NMS decisions
+     alone (``window_flips``), the count of each reported;
+     each with frames, e2e_fps, the ``StageTimer`` report, drops, the host
+     ms of the radar chain, the DBSCAN and Hungarian backends and the
+     device's busy share in one profiled run;
+  6. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -910,6 +934,184 @@ def int8_conv_phase(torch, w12, rng):
     return out
 
 
+def deep_batch_cases(torch):
+    """The deep stage's batch past the grid's old cap: deep_stage_kernel
+    at "highest" (the deep pair's two launches, 4x4 maps, 64 -> 64 ->
+    128: 4 slices of 32 channels an image at stage 1, so n = 16384 put
+    65536 on a grid's z) and at "default" (K9 at Cin 272, above the
+    tensor-core kernel's widest Cin, 4x4 -> 128), and the CUDA-core deep
+    pair ("default" at Cin 72, 4x4 maps, whose grid z held n alone), each
+    just under its old cap and past it, held to its plain version:
+    bit-equal at "highest", within ``stem.PAIR_DEFAULT_TOL`` of the
+    largest plain output at "default" (the exact share reported)."""
+    from millieye_torch.ops import stem
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    out = []
+    for label, n, precision, shape in (
+            ("deep pair 'highest' 4x4 64->64->128 (deep_stage_kernel x2)",
+             16383, "highest", (64, 64, 128)),
+            ("deep pair 'highest' 4x4 64->64->128 (deep_stage_kernel x2)",
+             16384, "highest", (64, 64, 128)),
+            ("K9 'default' 4x4 272->128 (deep_stage_kernel)", 16383,
+             "default", (272, 128)),
+            ("K9 'default' 4x4 272->128 (deep_stage_kernel)", 16384,
+             "default", (272, 128)),
+            ("CUDA-core deep pair 'default' 4x4 72->16->24", 65535,
+             "default", (72, 16, 24)),
+            ("CUDA-core deep pair 'default' 4x4 72->16->24", 65536,
+             "default", (72, 16, 24))):
+        x = torch.rand((n, 4, 4, shape[0]), device="cuda", generator=gen)
+        ws = [(rand(co, ci, 3, 3, scale=0.1), rand(co, scale=0.1))
+              for ci, co in zip(shape, shape[1:])]
+        args = [x] + [t for wb in ws for t in wb]
+        if len(ws) == 2:
+            kern = stem.fused_stem_pair_deep
+            plain = stem.fused_stem_pair_deep_plain
+        else:
+            kern, plain = stem.fused_stem_stage, stem.fused_stem_stage_plain
+        before = kern.launches
+        got = kern(*args, precision)
+        torch.cuda.synchronize()
+        if kern.launches != before + 1:
+            raise AssertionError(f"batch cap, {label}, n {n}: no launch")
+        want = plain(*args, precision)
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        exact = float((got == want).double().mean())
+        if got.shape != want.shape or got.dtype != want.dtype or (
+                precision == "highest" and not torch.equal(got, want)) or (
+                not err <= stem.PAIR_DEFAULT_TOL * scale):
+            raise AssertionError(f"batch cap, {label}, n {n}: off the plain "
+                                 f"version by {err} (largest {scale})")
+        out.append({"case": label, "n": n, "precision": precision,
+                    "max_abs_err": err, "exact_share": exact,
+                    "input_mb": x.numel() * 4 / 2 ** 20})
+        del x, ws, args, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+# the recorded session of phases P15 and P16: 96 frames at 20 fps, the
+# demo's radar defaults, a pinhole camera (fx = fy = 500, principal point
+# at the centre of 640x480, no distortion, the default radar -> camera
+# translation)
+STREAM_FRAMES = 96
+STREAM_WINDOW = 32
+STREAM_WINDOW_FRAMES = 90      # three windows, the last 26 frames + 6 pads
+STREAM_PROFILED = 24           # frames of P15's profiled run
+STREAM_CALIB = np.array([500.0, 320.0, 500.0, 240.0, 0.0, 0.0, 0.0, 0.0,
+                         0.0, -0.07, -0.05, 0.0])
+
+
+def write_recording(root, n_frames=STREAM_FRAMES, seed=5):
+    """A recorded session in the recorder's layout, with numpy and pickle
+    only: ``timestamps.txt`` and ``pointcloud.pkl`` (records of
+    ``{"Data": {"numObj", "x", "y", "z", "velocity"}, "Time",
+    "Frame_ID"}``, as tests/test_runtime.py writes them), camera and
+    radar at 20 fps. Each radar frame holds three walkers at 2-6 m depth
+    (turning at the ends) and |x| <= 1.5 m, 12-25 points each spread
+    0.3 m, moving at 0.5-1.5 m/s, and 15 clutter points with |v| < 0.1;
+    radar frames 40 and 41 also hold a burst of 150 points on a walker,
+    so the overlay of two frames passes ``FusionEngine.max_points`` (256)
+    and is trimmed. Returns the video frames, [(index, uint8 [480, 640,
+    3])] from the same seed, to hand over through ``frames=``: decode is
+    not what is measured."""
+    import os
+    import pickle
+    rng = np.random.default_rng(seed)
+    times = 1000.0 + np.arange(n_frames) / 20
+    with open(os.path.join(root, "timestamps.txt"), "w") as f:
+        for i, t in enumerate(times):
+            f.write(f"{float(t)!r} {i}\n")
+    x0 = rng.uniform(-1.5, 1.5, 3)
+    d0 = rng.uniform(2, 6, 3)
+    speed = rng.uniform(0.5, 1.5, 3) * rng.choice([-1.0, 1.0], 3)
+    records = []
+    for i, t in enumerate(times):
+        # depth walks back and forth between 2 and 6 m
+        u = np.mod(d0 - 2 + speed * i / 20, 8)
+        depth = 2 + np.where(u < 4, u, 8 - u)
+        vel = np.where(u < 4, speed, -speed)
+        cols = []
+        for w in range(3):
+            k = int(rng.integers(12, 26)) + (150 if i in (40, 41) and w == 0
+                                             else 0)
+            cols.append(np.stack([x0[w] + rng.normal(0, 0.3, k),
+                                  depth[w] + rng.normal(0, 0.3, k),
+                                  rng.normal(0, 0.3, k),
+                                  vel[w] + rng.normal(0, 0.05, k)]))
+        cols.append(np.stack([rng.uniform(-4, 4, 15), rng.uniform(1, 12, 15),
+                              rng.uniform(-1, 1, 15),
+                              rng.uniform(-0.099, 0.099, 15)]))
+        pts = np.concatenate(cols, 1)
+        records.append({"Data": {"numObj": pts.shape[1], "x": pts[0],
+                                 "y": pts[1], "z": pts[2],
+                                 "velocity": pts[3]},
+                        "Time": float(t), "Frame_ID": i})
+    with open(os.path.join(root, "pointcloud.pkl"), "wb") as f:
+        pickle.dump(records, f)
+    return [(i, rng.integers(0, 256, (FRAME[1], FRAME[0], 3), np.uint8))
+            for i in range(n_frames)]
+
+
+def radar_replay(rec, eng, params):
+    """The radar inputs the stream's producer computes, from a second
+    ``RadarPipeline`` replaying the recording with the producer's frame
+    matching and overlay: per frame (points_uvzv, proposals) and the
+    host's time of the radar chain (``process`` and ``pack_radar``), the
+    native library's first load (or build) done before the first frame."""
+    import os
+    from millieye_torch.collection.sync import (load_pointcloud,
+                                                load_timestamps,
+                                                match_frames)
+    from millieye_torch.radar.dbscan import dbscan
+    from millieye_torch.radar.pipeline import RadarPipeline
+    dbscan(np.zeros((2, 4)), 1.0, 2)
+    vt = load_timestamps(os.path.join(rec, "timestamps.txt"))
+    rt, rf = load_pointcloud(os.path.join(rec, "pointcloud.pkl"))
+    radar = RadarPipeline(STREAM_CALIB, params)
+    overlay, out, host = [], [], []
+    for picks in match_frames(vt, rt, params.num_nearest):
+        t = time.perf_counter()
+        overlay = (overlay + [rf[i] for i in picks])[-params.overlay_num:]
+        r = radar.process(np.concatenate(overlay, 1) if overlay
+                          else np.zeros((4, 0)))
+        eng.pack_radar(r["points_uvzv"], r["proposals"])
+        host.append((time.perf_counter() - t) * 1e3)
+        out.append((r["points_uvzv"], r["proposals"]))
+    return out, host
+
+
+def profile_run(torch, run):
+    """One ``torch.profiler`` pass over ``run()``: (device busy ms, wall
+    ms, host syncs: the runtime's stream and device synchronisations and
+    synchronous copies, device-to-host copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    syncs = sum(e.count for e in events if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy"))
+    d2h = sum(e.count for e in dev if "DtoH" in e.key)
+    return busy, wall, syncs, d2h
+
+
+def same_answer(a, b):
+    return np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+
+
 def requests(rng, n):
     out = []
     for _ in range(n):
@@ -1211,6 +1413,16 @@ def nms_flips(torch, cuda_lib, eng, call, first, tol):
             want2 = call()
         pairs = [(got2, want, got2_in, want_in), (got, want2, got_in,
                                                   want2_in)]
+    return anchors, post_merge_flips(torch, cuda_lib, eng, pairs, tol,
+                                     anchors, "the fully plain run")
+
+
+def post_merge_flips(torch, cuda_lib, eng, pairs, tol, anchors, other):
+    """The last step of ``nms_flips`` and ``window_flips``: each pair of
+    answers still beyond ``tol`` must go through ``nms_flip_proof`` (the
+    post-merge NMS). ``pairs``: [(answers, other answers, their post-merge
+    NMS inputs, the other's)]. Returns the post-merge inputs kept in one
+    run only, summed over the frames."""
     moved = 0
     for answers in pairs:
         for n, (g, w, gi, wi) in enumerate(zip(*answers)):
@@ -1220,12 +1432,58 @@ def nms_flips(torch, cuda_lib, eng, call, first, tol):
                                         tol)
             if not ok:
                 raise AssertionError(
-                    f"frame {n}: beyond {tol} of the fully plain run, and "
-                    f"not by NMS decisions alone: {why}"
+                    f"frame {n}: beyond {tol} of {other}, and not by NMS "
+                    f"decisions alone: {why}"
                     + (" (with the other run's pre-merge NMS decisions)"
                        if anchors else ""))
             moved += k
-    return anchors, moved
+    return moved
+
+
+def window_flips(torch, cuda_lib, eng, window_call, frame_calls, first,
+                 tol):
+    """``nms_flips`` for a window against its frames one call each: a
+    batch of 32 sums its cuDNN convolutions in another order than batch
+    1, which moves scores by bf16 steps and can flip an NMS decision.
+    ``window_call`` returns [(rows, valid)], one a frame of the window
+    (its pads included), ``frame_calls`` answer those frames one at a
+    time, ``first`` is the window's answer. Each side's pre-merge NMS
+    must be the plain NMS of its detections (the frames' records taken as
+    one batch); where the two kept other anchors, each side runs again
+    with the other's decisions; what still differs beyond ``tol`` must be
+    post-merge NMS decisions (``post_merge_flips``). Returns (anchors the
+    pre-merge NMS kept on one side only, post-merge inputs kept on one
+    side only); raises AssertionError when a frame is not proven."""
+    def frames():
+        return [call() for call in frame_calls]
+
+    def as_one(recs):
+        return [{k: (torch.cat([r[k] for r in recs])
+                     if torch.is_tensor(recs[0][k]) else recs[0][k])
+                 for k in recs[0]}]
+
+    with pre_merge_nms(torch) as w_nms, post_merge_inputs(eng) as w_in:
+        got = window_call()
+    with pre_merge_nms(torch) as f_nms, post_merge_inputs(eng) as f_in:
+        want = frames()
+    if not all(same_answer(g, f) for g, f in zip(got, first)):
+        raise AssertionError("the window did not repeat its answer")
+    f_nms = as_one(f_nms)
+    anchors = pre_merge_is_nms(torch, cuda_lib, w_nms, f_nms)
+    pairs = [(got, want, w_in, f_in)]
+    if anchors:
+        per_frame = [{k: (v[i:i + 1] if torch.is_tensor(v) else v)
+                      for k, v in w_nms[0].items()}
+                     for i in range(len(frame_calls))]
+        with pre_merge_nms(torch, inject=f_nms), \
+                post_merge_inputs(eng) as w2_in:
+            got2 = window_call()
+        with pre_merge_nms(torch, inject=per_frame), \
+                post_merge_inputs(eng) as f2_in:
+            want2 = frames()
+        pairs = [(got2, want, w2_in, f_in), (got, want2, w_in, f2_in)]
+    return anchors, post_merge_flips(torch, cuda_lib, eng, pairs, tol,
+                                     anchors, "the per-frame answers")
 
 
 def log_case(name, r):
@@ -1413,6 +1671,13 @@ def main():
     for b, moved, total in checks.k8_vs_k4:
         log(f"K8 against K4 at 416 px, 'default', b{b}: {moved} of {total} "
             f"float16 outputs differ (the hi/lo pool select)")
+    t = time.time()
+    batch_cap = deep_batch_cases(torch)
+    for r in batch_cap:
+        log(f"batch cap: {r['case']} at n {r['n']} ({r['input_mb']:.0f} MB "
+            f"in): max_abs_err {r['max_abs_err']:.3g} against the plain "
+            f"version, exact share {r['exact_share']:.5f}")
+    log(f"batch cap: {time.time() - t:.1f} s")
 
     rng = np.random.default_rng(1)      # the requests' own stream
     reqs = requests(rng, N_REQUESTS)
@@ -1925,6 +2190,292 @@ def main():
         torch, "the window of 8 frames at pallas_max4 (a request: one "
         "window)", [lambda: step(*tens)] * 2)
 
+    # P15 and P16: the recorded session through the streaming runtime,
+    # the radar inputs from the host chain (sync -> projection -> DBSCAN
+    # -> Kalman/Hungarian tracker -> proposals) at the demo's defaults
+    import tempfile
+    from millieye_torch.radar.dbscan import dbscan
+    from millieye_torch.radar.hungarian import assign
+    from millieye_torch.radar.pipeline import RadarParams
+    from millieye_torch.runtime.stream import StreamingPipeline
+
+    def zero_counts():
+        for fn, *_ in kernels.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, (fn, *_) in kernels.items()}
+
+    def collect(store):
+        return lambda i, b, v: store.update({i: (b, v)})
+
+    t = time.time()
+    params = RadarParams()
+    stream_dir = tempfile.TemporaryDirectory()
+    rec = stream_dir.name
+    frames = write_recording(rec)
+    n_frames = len(frames)
+
+    # P15: per frame at pallas_max_s01, lossless, against FusionEngine.infer
+    # fed by a second RadarPipeline replaying the recording
+    eng = engines["pallas_max_s01"]
+    replay, radar_ms = radar_replay(rec, eng, params)
+    with_props = sum(len(p) > 0 for _, p in replay)
+    most_points = max(len(p) for p, _ in replay)
+    if with_props < n_frames / 2 or most_points <= eng.max_points:
+        raise AssertionError(f"stream: the tracker gave proposals on "
+                             f"{with_props} of {n_frames} frames, the "
+                             f"largest cloud {most_points} points")
+    want = [eng.infer(f, *r) for (_, f), r in zip(frames, replay)]
+    zero_counts()
+    eng.warmup(0)
+    warm = counts()
+    zero_counts()
+    dbscan.backends.clear()
+    assign.backends.clear()
+    pipe = StreamingPipeline(eng, rec, STREAM_CALIB, params, frames=frames,
+                             drop_on_full=False)
+    got = {}
+    n, report = pipe.run(on_result=collect(got))
+    launches = counts()
+    launches_by_path["stream@pallas_max_s01"] = launches
+    backends = {"dbscan": dict(dbscan.backends),
+                "hungarian": dict(assign.backends)}
+    per_frame = {k: launches[k] - warm[k] for k in
+                 ("stem_pair", "nms", "ps_roi_align", "roi_align",
+                  "nms_full")}
+    if n != n_frames or sorted(got) != list(range(n_frames)) \
+            or set(per_frame.values()) != {n_frames}:
+        raise AssertionError(f"stream: {n} frames, launches past the "
+                             f"warm-up {per_frame}, want each {n_frames}")
+    differ = [i for i in range(n_frames) if not same_answer(got[i], want[i])]
+    if differ:
+        raise AssertionError(f"stream: frames {differ} differ from "
+                             f"FusionEngine.infer on the same frame")
+    if any(not np.isfinite(b).all() or b.shape != rows(eng)
+           for b, _ in got.values()):
+        raise AssertionError("stream: an answer is not finite or of the "
+                             "wrong shape")
+    live = StreamingPipeline(eng, rec, STREAM_CALIB, params, frames=frames,
+                             drop_on_full=True)
+    got_live = {}
+    n_live, live_report = live.run(on_result=collect(got_live))
+    if n_live + live.dropped != n_frames or not all(
+            same_answer(a, got[i]) for i, a in got_live.items()):
+        raise AssertionError(f"stream, live mode: {n_live} frames + "
+                             f"{live.dropped} dropped, or a delivered frame "
+                             f"differs from the lossless run")
+    # the step never waits for the card: no host sync inside it, and in
+    # a profiled run no more than the drain's two fetches a frame
+    staged = [pipe._stage(f, eng.pack_radar(*r), None)
+              for (_, f), r in zip(frames[:8], replay)]
+    step = eng.step_fn(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fr, packed in staged:
+            step(fr, *packed)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # (the profiler's own cost grows with the trace: 24 frames)
+    n_prof = STREAM_PROFILED
+    _, _, warm_syncs, warm_d2h = profile_run(torch, lambda: eng.warmup(0))
+    busy, wall, syncs, d2h = profile_run(torch, lambda: StreamingPipeline(
+        eng, rec, STREAM_CALIB, params, frames=frames[:n_prof],
+        drop_on_full=False).run())
+    if syncs - warm_syncs > 2 * n_prof:
+        raise AssertionError(f"stream: {syncs - warm_syncs} host syncs "
+                             f"past the warm-up over {n_prof} frames, "
+                             f"more than the drain's two a frame")
+    log(f"path stream@pallas_max_s01 ({card}): {n} frames of 640x480 "
+        f"through StreamingPipeline.run(drop_on_full=False) on the recorded "
+        f"session (3 walkers, radar at 20 fps), each bit-identical to "
+        f"FusionEngine.infer fed by a second RadarPipeline; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (the warm-up frame "
+        f"{ {k: v for k, v in warm.items() if v} }): {per_frame} a frame "
+        f"each; e2e_fps {report['e2e_fps']}, StageTimer {report}; "
+        f"proposals on {with_props} of {n_frames} frames, the largest "
+        f"cloud {most_points} points (trimmed to {eng.max_points}); radar "
+        f"chain on the host {np.mean(radar_ms):.3f} ms a frame (p50 "
+        f"{np.median(radar_ms):.3f}, max {max(radar_ms):.3f}); backends "
+        f"{backends}; live mode (drop_on_full=True): {n_live} frames + "
+        f"{live.dropped} dropped, each delivered frame the lossless "
+        f"answer, e2e_fps {live_report['e2e_fps']}; no host sync inside "
+        f"the step (torch.cuda.set_sync_debug_mode('error') over 8 "
+        f"frames); profiled run of {n_prof} frames: device busy "
+        f"{busy:.2f} ms of {wall:.2f} ms wall ({100 * busy / wall:.1f}%), "
+        f"host syncs {syncs} "
+        f"(warm-up {warm_syncs}), device-to-host copies {d2h} (warm-up "
+        f"{warm_d2h}); {time.time() - t:.1f} s")
+    t = time.time()
+    summary["stream@pallas_max_s01"] = {
+        "frames": n, "e2e_fps": report["e2e_fps"],
+        "stage_fps": {k: report[k] for k in ("track", "device")
+                      if k in report},
+        "dropped": report["dropped"], "launches_per_frame": per_frame,
+        "frames_with_proposals": with_props, "largest_cloud": most_points,
+        "radar_host_ms_mean": float(np.mean(radar_ms)),
+        "radar_host_ms_p50": float(np.median(radar_ms)),
+        "backends": backends,
+        "live": {"frames": n_live, "dropped": live.dropped,
+                 "e2e_fps": live_report["e2e_fps"]},
+        "profiled": {"frames": n_prof, "device_busy_ms": busy,
+                     "wall_ms": wall, "busy_share": busy / wall,
+                     "host_syncs": syncs, "warmup_host_syncs": warm_syncs,
+                     "d2h_copies": d2h}}
+
+    # P16: windows of 32 at pallas_max4 (90 frames: the last window 26
+    # frames and 6 pads), host-fed and staged, against batched_step_fn on
+    # the stacked arrays and the per-frame answers
+    eng = engines["pallas_max4"]
+    nw = STREAM_WINDOW_FRAMES
+    per = [eng.infer(f, *r) for (_, f), r in zip(frames[:nw], replay)]
+    zero_counts()
+    dbscan.backends.clear()
+    assign.backends.clear()
+    pipe = StreamingPipeline(eng, rec, STREAM_CALIB, params, frames=frames)
+    got = {}
+    n, report = pipe.run_batched(window=STREAM_WINDOW,
+                                 on_result=collect(got), max_frames=nw)
+    launches = counts()
+    launches_by_path["stream windows@pallas_max4"] = launches
+    backends = {"dbscan": dict(dbscan.backends),
+                "hungarian": dict(assign.backends)}
+    n_win = -(-nw // STREAM_WINDOW)
+    if n != nw or sorted(got) != list(range(nw)) \
+            or launches["nms_full"] != n_win + 1:
+        raise AssertionError(f"stream windows: {n} frames, K5 launched "
+                             f"{launches['nms_full']} times (want one a "
+                             f"window and the warm-up window's)")
+    step = eng.batched_step_fn(0)
+    windows = []
+    for lo in range(0, nw, STREAM_WINDOW):
+        idx = list(range(lo, min(lo + STREAM_WINDOW, nw)))
+        pad = idx + [idx[-1]] * (STREAM_WINDOW - len(idx))
+        packed = [eng.pack_radar(*replay[i]) for i in pad]
+        arrays = [np.stack([frames[i][1] for i in pad])] + [
+            np.stack(c) for c in zip(*packed)]
+        windows.append((idx, tuple(torch.from_numpy(a).cuda()
+                                   for a in arrays)))
+    w_exact, w_within, w_class, w_box, w_score, w_flips = 0, 0, 0, 0.0, \
+        0.0, 0
+    w_plain, w_moved, f_moved = 0, np.zeros(2, int), np.zeros(2, int)
+    for idx, tens in windows:
+        zero_counts()
+        wr, wv = (a.cpu().numpy() for a in step(*tens))
+        if counts()["nms_full"] != 1:
+            raise AssertionError("stream windows: K5 not once a window")
+        if not all(same_answer((wr[j], wv[j]), got[i])
+                   for j, i in enumerate(idx)):
+            raise AssertionError(f"stream windows {idx[0]}-{idx[-1]}: the "
+                                 f"stream differs from batched_step_fn on "
+                                 f"the stacked arrays")
+        with cuda_lib.plain_versions(keep=tc_kernels):
+            kr, kv = (a.cpu().numpy() for a in step(*tens))
+        if not same_answer((wr, wv), (kr, kv)):
+            raise AssertionError("stream windows: differ from the run with "
+                                 "only the tensor-core kernels launched")
+        with cuda_lib.plain_versions():
+            pr, pv = (a.cpu().numpy() for a in step(*tens))
+        beyond = False
+        for j in range(len(idx)):
+            ok, db, ds, fl = rows_match((wr[j], wv[j]), (pr[j], pv[j]),
+                                        PAIR_PATH_TOL)
+            beyond |= not ok
+            w_plain += same_answer((wr[j], wv[j]), (pr[j], pv[j]))
+        if beyond:
+            try:
+                w_moved += nms_flips(
+                    torch, cuda_lib, eng,
+                    lambda tens=tens: list(zip(*(a.cpu().numpy()
+                                                 for a in step(*tens)))),
+                    list(zip(wr, wv)), PAIR_PATH_TOL)
+            except AssertionError as e:
+                raise AssertionError(f"stream windows: {e}") from None
+        # against the per-frame answers: WINDOW_TOL, else the bf16 class
+        # (a batch of 32 moves some boxes 0.5-0.65 px), else NMS
+        # decisions alone, proven at the bf16 class
+        beyond = False
+        for i in idx:
+            w_exact += same_answer(got[i], per[i])
+            w_within += rows_match(got[i], per[i], WINDOW_TOL)[0]
+            ok, db, ds, fl = rows_match(got[i], per[i], PAIR_PATH_TOL)
+            w_class += ok
+            beyond |= not ok
+            w_box, w_score, w_flips = max(w_box, db), max(w_score, ds), \
+                w_flips + fl
+        if beyond:
+            pad = idx + [idx[-1]] * (STREAM_WINDOW - len(idx))
+            try:
+                f_moved += window_flips(
+                    torch, cuda_lib, eng,
+                    lambda tens=tens: list(zip(*(a.cpu().numpy()
+                                                 for a in step(*tens)))),
+                    [lambda i=i: eng.infer(frames[i][1], *replay[i])
+                     for i in pad], list(zip(wr, wv)), PAIR_PATH_TOL)
+            except AssertionError as e:
+                raise AssertionError(f"stream windows {idx[0]}-{idx[-1]} "
+                                     f"against the per-frame answers: "
+                                     f"{e}") from None
+    pipe2 = StreamingPipeline(eng, rec, STREAM_CALIB, params, frames=frames)
+    got_staged = {}
+    n_staged, staged_report = pipe2.run_batched(
+        window=STREAM_WINDOW, staged=windows,
+        on_result=collect(got_staged))
+    if n_staged != nw or not all(same_answer(got_staged[i], got[i])
+                                 for i in range(nw)):
+        raise AssertionError("stream windows: the staged replay differs "
+                             "from the host-fed windows")
+    busy, wall, syncs, d2h = profile_run(torch, lambda: StreamingPipeline(
+        eng, rec, STREAM_CALIB, params, frames=frames).run_batched(
+            window=STREAM_WINDOW, max_frames=STREAM_WINDOW))
+    n_rows = int(sum(v.sum() for _, v in per))
+    log(f"path stream windows@pallas_max4 ({card}): {n} frames through "
+        f"StreamingPipeline.run_batched(window={STREAM_WINDOW}, "
+        f"max_frames={nw}): {n_win} windows, the last padded; each window "
+        f"bit-identical to batched_step_fn on the stacked arrays and to the "
+        f"same window inside cuda_lib.plain_versions(keep=<tensor-core "
+        f"kernels>), K5 once a window; within PAIR_PATH_TOL of the fully "
+        f"plain windows ({w_plain} of {nw} frames bit-identical to them; "
+        f"NMS decisions proven by nms_flips: {w_moved[0]} anchors and "
+        f"{w_moved[1]} post-merge inputs kept in one run only); staged "
+        f"replay bit-identical to the host-fed windows (e2e_fps "
+        f"{staged_report['e2e_fps']}); against the per-frame answers "
+        f"{w_exact} of {nw} frames bit-identical, {w_within} within "
+        f"WINDOW_TOL {WINDOW_TOL}, {w_class} within PAIR_PATH_TOL (the "
+        f"bf16 class; paired rows within {w_box:.3g} px and {w_score:.3g} "
+        f"on scores, {w_flips} of {n_rows} rows on one side only), the "
+        f"other {nw - w_class} beyond it by NMS decisions alone, proven by "
+        f"window_flips ({f_moved[0]} anchors and {f_moved[1]} post-merge "
+        f"inputs kept on one side only); "
+        f"launches { {k: v for k, v in launches.items() if v} } (the "
+        f"warm-up window's included); e2e_fps {report['e2e_fps']}, "
+        f"StageTimer {report}; backends {backends}; profiled run of one "
+        f"window (its warm-up window included): device busy {busy:.2f} ms "
+        f"of {wall:.2f} ms wall "
+        f"({100 * busy / wall:.1f}%); {time.time() - t:.1f} s")
+    summary["stream windows@pallas_max4"] = {
+        "frames": n, "window": STREAM_WINDOW, "windows": n_win,
+        "e2e_fps": report["e2e_fps"],
+        "staged_e2e_fps": staged_report["e2e_fps"],
+        "stage_fps": {k: report[k] for k in ("track", "device")
+                      if k in report},
+        "dropped": report["dropped"], "backends": backends,
+        "bit_identical_to_plain": w_plain,
+        "nms_kept_on_one_side": {"pre_merge_anchors": int(w_moved[0]),
+                                 "post_merge_inputs": int(w_moved[1])},
+        "bit_identical_to_per_frame": w_exact,
+        "within_window_tol": w_within, "within_pair_path_tol": w_class,
+        "max_box_diff": w_box, "max_score_diff": w_score,
+        "rows_on_one_side": w_flips,
+        "per_frame_nms_kept_on_one_side": {
+            "pre_merge_anchors": int(f_moved[0]),
+            "post_merge_inputs": int(f_moved[1])},
+        "profiled": {"frames": STREAM_WINDOW, "device_busy_ms": busy,
+                     "wall_ms": wall, "busy_share": busy / wall}}
+    stream_dir.cleanup()
+
     line = []
     for name, (_, src, replaces) in kernels.items():
         per_path = {p: l[name] for p, l in launches_by_path.items()
@@ -1945,7 +2496,7 @@ def main():
             "cases": [flat(r) for r in checks.records[name]]})
     log(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": line, "card": card, "paths": summary,
-                      "profile": profiles,
+                      "profile": profiles, "batch_cap": batch_cap,
                       "int8_conv": {f"b{b}": r for b, r in int8_conv.items()},
                       "k8_vs_k4": [{"batch": b, "differ": m, "outputs": t}
                                    for b, m, t in checks.k8_vs_k4]}))

@@ -1149,6 +1149,9 @@ stem_pair_deep_tc_kernel(const float* __restrict__ x,
 // read side by side by 8 lanes, and the 4 pixel pairs of a warp read one
 // halo row. Per input channel a thread loads its 4x6 patch (12 float2
 // loads) once for the 9 taps and 9 float4 weight loads: 288 products.
+// The (image, slice, tile) items lie on a 1-D grid, so the batch has no
+// grid dimension's cap (a grid z of images x slices refused n >= 16384
+// at Cout 128).
 //
 // The same kernel takes K9 where K9's persistent kernel below does not
 // hold its weights and halo in shared memory, at "highest" and, where
@@ -1211,95 +1214,110 @@ __global__ void __launch_bounds__(kFThreads)
 deep_stage_kernel(const float* __restrict__ x,
                   const float* __restrict__ wgt,   // [cin, 3, 3, cout]
                   const float* __restrict__ bias, void* __restrict__ out,
-                  int h, int w, int cin, int cout, int store) {
+                  int n_img, int h, int w, int cin, int cout, int store) {
   __shared__ __align__(16) float s_in[kFCk * kFInRows * kFInCols];
   __shared__ __align__(16) float s_w[kFCk * 9 * kFCo];
 
   const int tid = threadIdx.x;
   const int slices = cdiv(cout, kFCo);
-  const int n = blockIdx.z / slices, co0 = (blockIdx.z % slices) * kFCo;
-  const int co_n = min(kFCo, cout - co0);       // a multiple of 8
+  const int ho = h / 2, wo = w / 2;
+  const int tiles_x = cdiv(wo, kFCols), tiles_y = cdiv(ho, kFRows);
+  const long long n_items =
+      static_cast<long long>(n_img) * slices * tiles_y * tiles_x;
   const int g = tid % (kFCo / 4), pp = tid / (kFCo / 4);
   const int py = pp / (kFCols / 2), px = 2 * (pp % (kFCols / 2));
-  const int ho = h / 2, wo = w / 2;
-  const int oy = kFRows * blockIdx.y + py, ox = kFCols * blockIdx.x + px;
-  const bool active = 4 * g < co_n;
-  // input halo: local (ly, lx) <-> global (2*kFRows*ty - 1 + ly, ...)
-  const int iy0 = 2 * kFRows * blockIdx.y - 1;
-  const int ix0 = 2 * kFCols * blockIdx.x - 1;
-  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
   const bool vec = (cin & 3) == 0;
 
-  float acc[2][4][4] = {};
-  for (int c0 = 0; c0 < cin; c0 += kFCk) {
-    const int cn = min(kFCk, cin - c0);
-    __syncthreads();                     // the previous chunk is consumed
-    // the halo: 4 channels an item, a float4 where cin allows
-    for (int e = tid; e < kFInRows * kFInCols * (kFCk / 4); e += kFThreads) {
-      const int q = e % (kFCk / 4), p = e / (kFCk / 4);
-      const int ly = p / kFInCols, lx = p % kFInCols;
-      const int gy = iy0 + ly, gx = ix0 + lx, c = 4 * q;
-      if (c >= cn) continue;
-      float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-        const float* src = xn + (static_cast<size_t>(gy) * w + gx) * cin + c0
-                           + c;
-        if (vec) {
-          const float4 a = __ldg(reinterpret_cast<const float4*>(src));
-          v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-        } else {
+  // items (image, slice, tile row, tile column), the column fastest: the
+  // order of the blocks of a (columns, rows, images x slices) grid
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int tx = static_cast<int>(item % tiles_x);
+    const int ty = static_cast<int>(item / tiles_x % tiles_y);
+    const long long z = item / (static_cast<long long>(tiles_x) * tiles_y);
+    const int n = static_cast<int>(z / slices);
+    const int co0 = static_cast<int>(z % slices) * kFCo;
+    const int co_n = min(kFCo, cout - co0);       // a multiple of 8
+    const int oy = kFRows * ty + py, ox = kFCols * tx + px;
+    const bool active = 4 * g < co_n;
+    // input halo: local (ly, lx) <-> global (2*kFRows*ty - 1 + ly, ...)
+    const int iy0 = 2 * kFRows * ty - 1;
+    const int ix0 = 2 * kFCols * tx - 1;
+    const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+
+    float acc[2][4][4] = {};
+    for (int c0 = 0; c0 < cin; c0 += kFCk) {
+      const int cn = min(kFCk, cin - c0);
+      __syncthreads();                     // the previous chunk is consumed
+      // the halo: 4 channels an item, a float4 where cin allows
+      for (int e = tid; e < kFInRows * kFInCols * (kFCk / 4); e += kFThreads) {
+        const int q = e % (kFCk / 4), p = e / (kFCk / 4);
+        const int ly = p / kFInCols, lx = p % kFInCols;
+        const int gy = iy0 + ly, gx = ix0 + lx, c = 4 * q;
+        if (c >= cn) continue;
+        float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
+          const float* src = xn + (static_cast<size_t>(gy) * w + gx) * cin + c0
+                             + c;
+          if (vec) {
+            const float4 a = __ldg(reinterpret_cast<const float4*>(src));
+            v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+          } else {
 #pragma unroll
-          for (int k = 0; k < 4; ++k) v[k] = c + k < cn ? src[k] : 0.0f;
+            for (int k = 0; k < 4; ++k) v[k] = c + k < cn ? src[k] : 0.0f;
+          }
         }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          s_in[((c + k) * kFInRows + ly) * kFInCols + lx] =
+              kHighest ? v[k] : bf16_round(v[k]);
       }
+      // the slice's weights, zero past co_n
+      for (int e = tid; e < cn * 9 * (kFCo / 4); e += kFThreads) {
+        // row = c * 9 + tap
+        const int q = e % (kFCo / 4), row = e / (kFCo / 4);
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (4 * q < co_n)
+          v = __ldg(reinterpret_cast<const float4*>(
+              wgt + (static_cast<size_t>(c0) * 9 + row) * cout + co0 + 4 * q));
+        if (!kHighest)
+          v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                          bf16_round(v.w));
+        *reinterpret_cast<float4*>(s_w + row * kFCo + 4 * q) = v;
+      }
+      __syncthreads();
+      if (!active) continue;
+      // the pair's 4x6 patch: rows 2 py + (0..3), columns 2 px + (0..5)
+      for (int c = 0; c < cn; ++c)
+        conv_chan_cuv<kHighest>(
+            acc, s_in + (c * kFInRows + 2 * py) * kFInCols + 2 * px, kFInCols,
+            s_w + c * 9 * kFCo + 4 * g, kFCo);
+    }
+    if (!active || oy >= ho) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (ox + q >= wo) continue;
+      float m[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        s_in[((c + k) * kFInRows + ly) * kFInCols + lx] =
-            kHighest ? v[k] : bf16_round(v[k]);
+        m[k] = pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
+                            acc[q][3][k], bias[co0 + 4 * g + k]);
+      store4(out, ((static_cast<size_t>(n) * ho + oy) * wo + ox + q) * cout
+                      + co0 + 4 * g, m, store);
     }
-    // the slice's weights, zero past co_n
-    for (int e = tid; e < cn * 9 * (kFCo / 4); e += kFThreads) {
-      const int q = e % (kFCo / 4), row = e / (kFCo / 4);   // row = c*9 + tap
-      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (4 * q < co_n)
-        v = __ldg(reinterpret_cast<const float4*>(
-            wgt + (static_cast<size_t>(c0) * 9 + row) * cout + co0 + 4 * q));
-      if (!kHighest)
-        v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
-                        bf16_round(v.w));
-      *reinterpret_cast<float4*>(s_w + row * kFCo + 4 * q) = v;
-    }
-    __syncthreads();
-    if (!active) continue;
-    // the pair's 4x6 patch: rows 2 py + (0..3), columns 2 px + (0..5)
-    for (int c = 0; c < cn; ++c)
-      conv_chan_cuv<kHighest>(
-          acc, s_in + (c * kFInRows + 2 * py) * kFInCols + 2 * px, kFInCols,
-          s_w + c * 9 * kFCo + 4 * g, kFCo);
-  }
-  if (!active || oy >= ho) return;
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    if (ox + q >= wo) continue;
-    float m[4];
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      m[k] = pool4<false>(acc[q][0][k], acc[q][1][k], acc[q][2][k],
-                          acc[q][3][k], bias[co0 + 4 * g + k]);
-    store4(out, ((static_cast<size_t>(n) * ho + oy) * wo + ox + q) * cout
-                    + co0 + 4 * g, m, store);
   }
 }
 
+// One block an item up to the largest 1-D grid; past it each block walks
+// the items with a stride of the grid (any batch that fits in memory).
 int launch_deep_stage(const float* x, const float* wgt, const float* bias,
                       void* out, int n, int h, int w, int cin, int cout,
                       int highest, int store, cudaStream_t st) {
-  const long long z = static_cast<long long>(n) * cdiv(cout, kFCo);
-  if (z > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(cdiv(w / 2, kFCols), cdiv(h / 2, kFRows),
-                  static_cast<unsigned>(z));
+  const long long items = static_cast<long long>(n) * cdiv(cout, kFCo)
+                          * cdiv(h / 2, kFRows) * cdiv(w / 2, kFCols);
+  const unsigned grid = static_cast<unsigned>(
+      items < 0x7fffffffLL ? items : 0x7fffffffLL);
   auto kernel = highest ? deep_stage_kernel<true> : deep_stage_kernel<false>;
-  kernel<<<grid, kFThreads, 0, st>>>(x, wgt, bias, out, h, w, cin, cout,
+  kernel<<<grid, kFThreads, 0, st>>>(x, wgt, bias, out, n, h, w, cin, cout,
                                      store);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1318,7 +1336,8 @@ int launch_deep_stage(const float* x, const float* wgt, const float* bias,
 // thread owns 8 channels of one pixel at all four pool positions (32
 // accumulators); the sums run over (c, u, v), c slowest, as in K9, on
 // bf16 operands (each product exact in float32, so the FMA rounds like
-// the plain version's add).
+// the plain version's add). The (image, tile) items lie on a 1-D grid, so
+// the batch has no grid dimension's cap.
 constexpr int kDTile = 4;                 // output pixels per tile side
 constexpr int kDMid = 2 * kDTile + 2;     // 10 intermediate pixels
 constexpr int kDIn = 4 * kDTile + 6;      // 22 input pixels
@@ -1339,8 +1358,8 @@ stem_pair_deep_kernel(const float* __restrict__ x,
                       const float* __restrict__ b0,
                       const float* __restrict__ w1,   // [cmid, 3, 3, cout]
                       const float* __restrict__ b1, void* __restrict__ out,
-                      int h, int w, int cin, int cmid, int cout, int store,
-                      int select) {
+                      int n_img, int h, int w, int cin, int cmid, int cout,
+                      int store, int select) {
   extern __shared__ __align__(16) float dsmem[];
   float* s_mid = dsmem;                     // [cmid][kDMid][kDMidPitch]
   float* s_chunk = s_mid + align4(cmid * kDMid * kDMidPitch);
@@ -1349,123 +1368,134 @@ stem_pair_deep_kernel(const float* __restrict__ x,
   float* s_w1 = s_chunk;                    // [kDCk*9][cout]
 
   const int tid = threadIdx.x;
-  const int n = blockIdx.z, ty = blockIdx.y, tx = blockIdx.x;
   const int hm = h / 2, wm = w / 2, ho = h / 4, wo = w / 4;
-  const float* xn = x + static_cast<size_t>(n) * h * w * cin;
-  // input local (ly, lx) <-> global (4*kDTile*ty - 3 + ly, ...);
-  // intermediate local <-> global (2*kDTile*ty - 1 + ly, ...)
-  const int iy0 = 4 * kDTile * ty - 3, ix0 = 4 * kDTile * tx - 3;
-  const int my0 = 2 * kDTile * ty - 1, mx0 = 2 * kDTile * tx - 1;
+  const int tiles_x = cdiv(wo, kDTile), tiles_y = cdiv(ho, kDTile);
+  const long long n_tiles =
+      static_cast<long long>(n_img) * tiles_y * tiles_x;
 
-  // stage 0, in rounds of kThreads (pixel, channel group) items
-  const int items0 = kDMid * kDMid * (cmid / kGroup);
-  for (int base = 0; base < items0; base += kThreads) {
-    const int e = base + tid;
-    const bool active = e < items0;
-    const int pix = e % (kDMid * kDMid), g = e / (kDMid * kDMid);
-    const int ly = pix / kDMid, lx = pix % kDMid;
-    float acc[4][kGroup] = {};
-    for (int c0 = 0; c0 < cin; c0 += kDCk) {
-      const int cn = min(kDCk, cin - c0);
-      __syncthreads();                   // the previous chunk is consumed
-      for (int i = tid; i < kDIn * kDIn * cn; i += kThreads) {
-        const int c = i % cn, p = i / cn;
-        const int gy = iy0 + p / kDIn, gx = ix0 + p % kDIn;
-        float v = 0.0f;
-        if (gy >= 0 && gy < h && gx >= 0 && gx < w)
-          v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c0 + c];
-        v = bf16_round(v);
-        s_in[(c * kDIn + p / kDIn) * kDInPitch + p % kDIn] = v;
-      }
-      const float* wsrc = w0 + static_cast<size_t>(c0) * 9 * cmid;
-      for (int i = tid; i < cn * 9 * cmid; i += kThreads)
-        s_w0[i] = bf16_round(wsrc[i]);
-      __syncthreads();
-      if (!active) continue;
-      for (int c = 0; c < cn; ++c) {
-        float patch[4][4];
-        for (int r = 0; r < 4; ++r)
-          for (int q = 0; q < 4; ++q)
-            patch[r][q] = s_in[(c * kDIn + 2 * ly + r) * kDInPitch + 2 * lx
-                               + q];
-        for (int u = 0; u < 3; ++u)
-          for (int v = 0; v < 3; ++v) {
-            const float4* wr = reinterpret_cast<const float4*>(
-                s_w0 + (c * 9 + u * 3 + v) * cmid + g * kGroup);
-            const float4 wa = wr[0], wb = wr[1];
-            const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
-                                      wb.x, wb.y, wb.z, wb.w};
-            for (int d = 0; d < 4; ++d) {
-              const float xv = patch[(d >> 1) + u][(d & 1) + v];
-              for (int k = 0; k < kGroup; ++k)
-                acc[d][k] = fmaf(xv, wv[k], acc[d][k]);
-            }
-          }
-      }
-    }
-    if (!active) continue;
-    const int gy = my0 + ly, gx = mx0 + lx;
-    const bool inside = gy >= 0 && gy < hm && gx >= 0 && gx < wm;
-    for (int k = 0; k < kGroup; ++k) {
-      const float bias = b0[g * kGroup + k];
-      float m = leaky(__fadd_rn(acc[0][k], bias));
-      for (int d = 1; d < 4; ++d)
-        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      if (select) m = pool_select(m);
-      // stage 1's operand; zero outside the map (stage 1's padding)
-      s_mid[((g * kGroup + k) * kDMid + ly) * kDMidPitch + lx] =
-          inside ? bf16_round(m) : 0.0f;
-    }
-  }
+  // tiles (image, row, column), the column fastest: the order of the
+  // blocks of a (columns, rows, images) grid
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int tx = static_cast<int>(tile % tiles_x);
+    const int ty = static_cast<int>(tile / tiles_x % tiles_y);
+    const int n = static_cast<int>(tile / (static_cast<long long>(tiles_x)
+                                          * tiles_y));
+    const float* xn = x + static_cast<size_t>(n) * h * w * cin;
+    // input local (ly, lx) <-> global (4*kDTile*ty - 3 + ly, ...);
+    // intermediate local <-> global (2*kDTile*ty - 1 + ly, ...)
+    const int iy0 = 4 * kDTile * ty - 3, ix0 = 4 * kDTile * tx - 3;
+    const int my0 = 2 * kDTile * ty - 1, mx0 = 2 * kDTile * tx - 1;
 
-  // stage 1: output local (py, px) <-> global (kDTile*ty + py, ...); its
-  // conv outputs read intermediate local rows 2*py + dy + u
-  const int items1 = kDTile * kDTile * (cout / kGroup);
-  for (int base = 0; base < items1; base += kThreads) {
-    const int e = base + tid;
-    const bool active = e < items1;
-    const int pix = e % (kDTile * kDTile), g = e / (kDTile * kDTile);
-    const int py = pix / kDTile, px = pix % kDTile;
-    float acc[4][kGroup] = {};
-    for (int c0 = 0; c0 < cmid; c0 += kDCk) {
-      const int cn = min(kDCk, cmid - c0);
-      __syncthreads();    // s_mid is written, the previous chunk consumed
-      const float* wsrc = w1 + static_cast<size_t>(c0) * 9 * cout;
-      for (int i = tid; i < cn * 9 * cout; i += kThreads)
-        s_w1[i] = bf16_round(wsrc[i]);
-      __syncthreads();
-      if (!active) continue;
-      for (int c = 0; c < cn; ++c) {
-        float patch[4][4];
-        for (int r = 0; r < 4; ++r)
-          for (int q = 0; q < 4; ++q)
-            patch[r][q] = s_mid[((c0 + c) * kDMid + 2 * py + r) * kDMidPitch
-                                + 2 * px + q];
-        for (int u = 0; u < 3; ++u)
-          for (int v = 0; v < 3; ++v) {
-            const float4* wr = reinterpret_cast<const float4*>(
-                s_w1 + (c * 9 + u * 3 + v) * cout + g * kGroup);
-            const float4 wa = wr[0], wb = wr[1];
-            const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
-                                      wb.x, wb.y, wb.z, wb.w};
-            for (int d = 0; d < 4; ++d) {
-              const float mv = patch[(d >> 1) + u][(d & 1) + v];
-              for (int k = 0; k < kGroup; ++k)
-                acc[d][k] = fmaf(mv, wv[k], acc[d][k]);
+    // stage 0, in rounds of kThreads (pixel, channel group) items
+    const int items0 = kDMid * kDMid * (cmid / kGroup);
+    for (int base = 0; base < items0; base += kThreads) {
+      const int e = base + tid;
+      const bool active = e < items0;
+      const int pix = e % (kDMid * kDMid), g = e / (kDMid * kDMid);
+      const int ly = pix / kDMid, lx = pix % kDMid;
+      float acc[4][kGroup] = {};
+      for (int c0 = 0; c0 < cin; c0 += kDCk) {
+        const int cn = min(kDCk, cin - c0);
+        __syncthreads();                   // the previous chunk is consumed
+        for (int i = tid; i < kDIn * kDIn * cn; i += kThreads) {
+          const int c = i % cn, p = i / cn;
+          const int gy = iy0 + p / kDIn, gx = ix0 + p % kDIn;
+          float v = 0.0f;
+          if (gy >= 0 && gy < h && gx >= 0 && gx < w)
+            v = xn[(static_cast<size_t>(gy) * w + gx) * cin + c0 + c];
+          v = bf16_round(v);
+          s_in[(c * kDIn + p / kDIn) * kDInPitch + p % kDIn] = v;
+        }
+        const float* wsrc = w0 + static_cast<size_t>(c0) * 9 * cmid;
+        for (int i = tid; i < cn * 9 * cmid; i += kThreads)
+          s_w0[i] = bf16_round(wsrc[i]);
+        __syncthreads();
+        if (!active) continue;
+        for (int c = 0; c < cn; ++c) {
+          float patch[4][4];
+          for (int r = 0; r < 4; ++r)
+            for (int q = 0; q < 4; ++q)
+              patch[r][q] = s_in[(c * kDIn + 2 * ly + r) * kDInPitch + 2 * lx
+                                 + q];
+          for (int u = 0; u < 3; ++u)
+            for (int v = 0; v < 3; ++v) {
+              const float4* wr = reinterpret_cast<const float4*>(
+                  s_w0 + (c * 9 + u * 3 + v) * cmid + g * kGroup);
+              const float4 wa = wr[0], wb = wr[1];
+              const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
+                                        wb.x, wb.y, wb.z, wb.w};
+              for (int d = 0; d < 4; ++d) {
+                const float xv = patch[(d >> 1) + u][(d & 1) + v];
+                for (int k = 0; k < kGroup; ++k)
+                  acc[d][k] = fmaf(xv, wv[k], acc[d][k]);
+              }
             }
-          }
+        }
+      }
+      if (!active) continue;
+      const int gy = my0 + ly, gx = mx0 + lx;
+      const bool inside = gy >= 0 && gy < hm && gx >= 0 && gx < wm;
+      for (int k = 0; k < kGroup; ++k) {
+        const float bias = b0[g * kGroup + k];
+        float m = leaky(__fadd_rn(acc[0][k], bias));
+        for (int d = 1; d < 4; ++d)
+          m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+        if (select) m = pool_select(m);
+        // stage 1's operand; zero outside the map (stage 1's padding)
+        s_mid[((g * kGroup + k) * kDMid + ly) * kDMidPitch + lx] =
+            inside ? bf16_round(m) : 0.0f;
       }
     }
-    const int oy = kDTile * ty + py, ox = kDTile * tx + px;
-    if (!active || oy >= ho || ox >= wo) continue;
-    const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
-                     + g * kGroup;
-    for (int k = 0; k < kGroup; ++k) {
-      const float bias = b1[g * kGroup + k];
-      float m = leaky(__fadd_rn(acc[0][k], bias));
-      for (int d = 1; d < 4; ++d)
-        m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
-      store_value(out, o + k, select ? pool_select(m) : m, store);
+
+    // stage 1: output local (py, px) <-> global (kDTile*ty + py, ...); its
+    // conv outputs read intermediate local rows 2*py + dy + u
+    const int items1 = kDTile * kDTile * (cout / kGroup);
+    for (int base = 0; base < items1; base += kThreads) {
+      const int e = base + tid;
+      const bool active = e < items1;
+      const int pix = e % (kDTile * kDTile), g = e / (kDTile * kDTile);
+      const int py = pix / kDTile, px = pix % kDTile;
+      float acc[4][kGroup] = {};
+      for (int c0 = 0; c0 < cmid; c0 += kDCk) {
+        const int cn = min(kDCk, cmid - c0);
+        __syncthreads();    // s_mid is written, the previous chunk consumed
+        const float* wsrc = w1 + static_cast<size_t>(c0) * 9 * cout;
+        for (int i = tid; i < cn * 9 * cout; i += kThreads)
+          s_w1[i] = bf16_round(wsrc[i]);
+        __syncthreads();
+        if (!active) continue;
+        for (int c = 0; c < cn; ++c) {
+          float patch[4][4];
+          for (int r = 0; r < 4; ++r)
+            for (int q = 0; q < 4; ++q)
+              patch[r][q] = s_mid[((c0 + c) * kDMid + 2 * py + r) * kDMidPitch
+                                  + 2 * px + q];
+          for (int u = 0; u < 3; ++u)
+            for (int v = 0; v < 3; ++v) {
+              const float4* wr = reinterpret_cast<const float4*>(
+                  s_w1 + (c * 9 + u * 3 + v) * cout + g * kGroup);
+              const float4 wa = wr[0], wb = wr[1];
+              const float wv[kGroup] = {wa.x, wa.y, wa.z, wa.w,
+                                        wb.x, wb.y, wb.z, wb.w};
+              for (int d = 0; d < 4; ++d) {
+                const float mv = patch[(d >> 1) + u][(d & 1) + v];
+                for (int k = 0; k < kGroup; ++k)
+                  acc[d][k] = fmaf(mv, wv[k], acc[d][k]);
+              }
+            }
+        }
+      }
+      const int oy = kDTile * ty + py, ox = kDTile * tx + px;
+      if (!active || oy >= ho || ox >= wo) continue;
+      const size_t o = ((static_cast<size_t>(n) * ho + oy) * wo + ox) * cout
+                       + g * kGroup;
+      for (int k = 0; k < kGroup; ++k) {
+        const float bias = b1[g * kGroup + k];
+        float m = leaky(__fadd_rn(acc[0][k], bias));
+        for (int d = 1; d < 4; ++d)
+          m = fmaxf(m, leaky(__fadd_rn(acc[d][k], bias)));
+        store_value(out, o + k, select ? pool_select(m) : m, store);
+      }
     }
   }
 }
@@ -2339,10 +2369,14 @@ int millieye_stem_pair_deep(const void* x, const void* w0, const void* b0,
   }
   const size_t smem = sizeof(float) * deep_smem_floats(cmid, cout);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  const dim3 grid((w / 4 + kDTile - 1) / kDTile,
-                  (h / 4 + kDTile - 1) / kDTile, n);
-  return launch(stem_pair_deep_kernel, grid, smem, st, xf, static_cast<const float*>(w0),
-                b0f, static_cast<const float*>(w1), b1f, out, h, w, cin, cmid,
+  // one block a tile up to the largest 1-D grid, then a stride of the grid
+  const long long tiles = static_cast<long long>(n) * cdiv(w / 4, kDTile)
+                          * cdiv(h / 4, kDTile);
+  const dim3 grid(static_cast<unsigned>(
+      tiles < 0x7fffffffLL ? tiles : 0x7fffffffLL));
+  return launch(stem_pair_deep_kernel, grid, smem, st, xf,
+                static_cast<const float*>(w0), b0f,
+                static_cast<const float*>(w1), b1f, out, n, h, w, cin, cmid,
                 cout, store, select);
 }
 

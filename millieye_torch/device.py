@@ -1,6 +1,8 @@
 """Device selection and numerics for the port's entry points."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -15,6 +17,14 @@ def resolve_device(device="cuda"):
             " is False; pass device='cpu' to run the plain versions on the"
             " CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values, device, dtype=torch.float32):
+    """``torch.tensor(values)`` on ``device``, made once for each (values,
+    device): inside a step, a copy from pageable host memory would make
+    the host wait for the card's stream."""
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def set_numerics():

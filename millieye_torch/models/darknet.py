@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from millieye_torch.device import constant
 from millieye_torch.ops.quantize import int8_conv2d
 from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_s2d,
@@ -138,7 +139,7 @@ def decode_yolo(raw, anchors, num_classes, img_dim):
     raw = raw.permute(0, 2, 3, 1).reshape(n, g, g, a, f).permute(0, 3, 1, 2, 4)
     raw = raw.float()
     stride = img_dim / g
-    anc = torch.tensor(anchors, dtype=torch.float32, device=raw.device)
+    anc = constant(tuple(map(tuple, anchors)), raw.device)
     xy = torch.sigmoid(raw[..., 0:2])
     twh = raw[..., 2:4]
     conf = torch.sigmoid(raw[..., 4:5])

@@ -25,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from millieye_torch.device import constant
 from millieye_torch.models import heads
 from millieye_torch.models.darknet import Darknet
 from millieye_torch.ops.boxes import box_regress
@@ -140,8 +141,8 @@ class FusionNetwork:
             # [..., 7*128] layout kernel K2 reads
             last_w = p_img[-1]["w"]
             roi_c_out = last_w.shape[0] // 49
-            dst = torch.as_tensor(ps_channel_perm_pad(roi_c_out, 7, 7),
-                                  device=dev)
+            dst = constant(tuple(ps_channel_perm_pad(roi_c_out, 7, 7)
+                                 .tolist()), dev, torch.int64)
             c_pad = 7 * 128
 
             def scat(v, fill):

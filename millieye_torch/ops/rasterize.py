@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from millieye_torch.device import constant
+
 RANGES = ((0.0, 5.0), (12.0, 0.0), (0.0, 4.0))
 
 
@@ -43,6 +45,6 @@ def radar_heatmap(points, pmask, img_size, map_size=32):
     depth = torch.where(depth < 1, torch.full_like(depth, 100.0), depth)
     speed = torch.abs(vsum / (h0 + 1e-6))
     maps = torch.stack([h0, depth, speed], -1)
-    lo = torch.tensor([r[0] for r in RANGES], device=points.device)
-    hi = torch.tensor([r[1] for r in RANGES], device=points.device)
+    lo = constant(tuple(r[0] for r in RANGES), points.device)
+    hi = constant(tuple(r[1] for r in RANGES), points.device)
     return ((maps - lo) / (hi - lo)).clamp(0.0, 1.0)

@@ -693,6 +693,73 @@ def test_deep_pair_kernel_matches_plain(cuda, precision, shape, out_dtype):
             precision)
 
 
+@pytest.mark.parametrize("n,precision,shape", [
+    (16384, "highest", (4, 4, 64, 64, 128)),
+    (65536, "default", (4, 4, 72, 16, 24))])
+def test_deep_pair_past_the_old_batch_cap(cuda, n, precision, shape):
+    """The batch has no grid dimension's cap: at "highest" the deep pair's
+    two deep_stage_kernel launches (stage 1 at 4 slices of 32 channels an
+    image put 65536 blocks on grid z at n = 16384), at "default" Cin 72
+    the CUDA-core deep pair (n alone on grid z past 65535); held to the
+    plain version as at any batch."""
+    args = _pair_weights(cuda, n, *shape)
+    before = fused_stem_pair_deep.launches
+    got = fused_stem_pair_deep(*args, precision)
+    assert fused_stem_pair_deep.launches == before + 1
+    _held_to_pair_plain(got, fused_stem_pair_deep_plain(*args, precision),
+                        precision)
+
+
+def test_deep_stage_kernel_past_the_old_batch_cap(cuda):
+    """K9 at "default" and Cin 272 (past the tensor-core kernel's widest
+    weight slice) runs deep_stage_kernel; at n = 16384, 4 slices of 32
+    output channels an image once put 65536 blocks on grid z."""
+    g = torch.Generator(device="cpu").manual_seed(272)
+    x = torch.rand((16384, 4, 4, 272), generator=g).to(cuda)
+    w = (0.1 * torch.randn((128, 272, 3, 3), generator=g)).to(cuda)
+    b = (0.1 * torch.randn(128, generator=g)).to(cuda)
+    before = fused_stem_stage.launches
+    got = fused_stem_stage(x, w, b, "default")
+    assert fused_stem_stage.launches == before + 1
+    _held_to_pair_plain(got, fused_stem_stage_plain(x, w, b, "default"),
+                        "default")
+
+
+def test_stream_equals_infer(cuda, tmp_path):
+    """chip_smoke.py's P15 at 16 frames: the lossless stream at
+    pallas_max_s01, each frame bit-identical to FusionEngine.infer fed by
+    a second RadarPipeline, and no host sync inside the step."""
+    from pathlib import Path
+
+    import chip_smoke as cs
+    from millieye_torch.cli._common import build_fusion
+    from millieye_torch.radar.pipeline import RadarParams
+    from millieye_torch.runtime.engine import FusionEngine
+    from millieye_torch.runtime.stream import StreamingPipeline
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts/stage3_final.npz"
+    frames = cs.write_recording(str(tmp_path), n_frames=16)
+    eng = FusionEngine(*build_fusion(str(ckpt), "pallas_max_s01"),
+                       frame_size=cs.FRAME)
+    params = RadarParams()
+    replay, _ = cs.radar_replay(str(tmp_path), eng, params)
+    got = {}
+    n, _ = StreamingPipeline(eng, str(tmp_path), cs.STREAM_CALIB, params,
+                             frames=frames, drop_on_full=False).run(
+        on_result=lambda i, bx, v: got.update({i: (bx, v)}))
+    assert n == 16
+    for (i, f), r in zip(frames, replay):
+        assert cs.same_answer(got[i], eng.infer(f, *r))
+    step = eng.step_fn(0)
+    tens = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (frames[0][1],) + eng.pack_radar(*replay[0])]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(*tens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
 @pytest.mark.parametrize("precision", ["default", "highest"])
 def test_deep_pair_is_batch_independent(cuda, precision):
     """At "default" the deep pair walks its tiles on a persistent grid (5
@@ -883,17 +950,25 @@ def test_fused_stem_is_batch_independent(cuda, shape):
             assert torch.equal(one, full[i:i + 1])
 
 
-def _device_kernels(fn):
-    """The device kernels one call of ``fn`` launches, by name."""
+def _device_kernels(fn, traces=3):
+    """The device kernels one call of ``fn`` launches, by name: the
+    longest list of ``traces`` profiler traces of one call each (late in
+    a long process the profiler drops some device records of a short
+    trace; it adds none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.key for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA for _ in range(e.count)]
+    found = []
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 for _ in range(e.count)]
+        found = max(found, names, key=len)
+    return found
 
 
 def test_k10_k13_run_no_pytorch_reduction(cuda):

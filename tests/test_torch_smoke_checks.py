@@ -141,3 +141,55 @@ def test_nms_flips_on_perturbed_detections(engine, monkeypatch, fault):
         del dn.apply
     assert beyond
     assert fault or anchors
+
+
+@pytest.mark.parametrize("fault", [None, "shift"])
+def test_window_flips_on_perturbed_window(engine, fault):
+    """A window's detections nudged as the batched convolutions move them
+    (objectness by up to 0.005, centres by up to 0.2 px, in the window's
+    run only) flip NMS decisions against the frames run one at a time;
+    ``window_flips`` proves them by taking the other side's decisions,
+    and refuses the window when its best anchor's box also shifts 8 px."""
+    dn = engine.model.darknet
+    real_apply = dn.apply
+
+    def nudged(*args, **kw):
+        out = real_apply(*args, **kw)
+        d = out["detections"]
+        if d.shape[0] == 1:                      # a frame alone
+            return out
+        d = d.clone()
+        g = torch.Generator().manual_seed(0)
+        d[..., 4] += (torch.rand(d.shape[:-1], generator=g) - 0.5) * 0.01
+        d[..., :2] += (torch.rand(d.shape[:-1] + (2,), generator=g)
+                       - 0.5) * 0.4
+        if fault == "shift":
+            d[0, d[0, :, 4].argmax(), 0] += 8.0
+        return dict(out, detections=d)
+
+    reqs = cs.requests(np.random.default_rng(1), 2)
+    tens = [torch.from_numpy(np.ascontiguousarray(np.stack(a)))
+            for a in [[f for f, _, _ in reqs]]
+            + [list(c) for c in zip(*[engine.pack_radar(p, b)
+                                      for _, p, b in reqs])]]
+    step = engine.batched_step_fn(0)
+
+    def window():
+        return list(zip(*(a.numpy() for a in step(*tens))))
+
+    frame_calls = [lambda r=r: engine.infer(*r) for r in reqs]
+    dn.apply = nudged
+    try:
+        got = window()
+        assert not all(cs.rows_match(g, c(), TOL)[0]
+                       for g, c in zip(got, frame_calls))
+        if fault:
+            with pytest.raises(AssertionError, match="not by NMS"):
+                cs.window_flips(torch, _Lib(), engine, window, frame_calls,
+                                got, TOL)
+        else:
+            anchors, moved = cs.window_flips(torch, _Lib(), engine, window,
+                                             frame_calls, got, TOL)
+            assert anchors > 0
+    finally:
+        del dn.apply
