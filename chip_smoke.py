@@ -98,7 +98,36 @@ printed only when every phase passed:
      each with frames, e2e_fps, the ``StageTimer`` report, drops, the host
      ms of the radar chain, the DBSCAN and Hungarian backends and the
      device's busy share in one profiled run;
-  6. a ``kernels`` JSON line, then the contract line
+  6. P17, weights in every format: the tracked checkpoint written with
+     the port's writers into a temporary directory as the JAX package's
+     ``.npz`` (its arrays byte-equal to the tracked file's), a darknet
+     ``.weights`` of the backbone, a reference module3 ``.pth``, an
+     ultralytics-style ``.pt`` (``{"model": nn.Module}``) of the backbone
+     and a ``yolov3-tiny.conv.15`` file; each read on the host
+     (``load_weights_any``, ``load_fusion`` for the ``.weights`` files,
+     ``load_ultralytics_pt`` for the ``.pt`` by position too) to the tree
+     written, the backbone-only files over the checkpoint's heads, the
+     conv.15 file over ``FusionNetwork.init``'s (blocks 15-23 and heads
+     kept), its host ms reported; each served at ``pallas_max_s01`` on
+     P1's 8 requests with K4, K1, K2, K3 and K5 on every request, held to
+     the plain versions as P1 and bit-identical to P1's answers (the
+     conv.15 tree: its own); ``cli.demo.main`` on P15's recording read
+     from disk (PNG frames, a camera_info YAML) with ``--weights`` the
+     ``.pth``, then the ``.npz`` (every frame both live runs delivered
+     bit-identical between the two), then with none (the seed-0 init),
+     each to its end (frames delivered + dropped = 96) with the five
+     kernels launched on every frame and finite answers;
+  7. P18, the full YOLOv3 (Darknet-53, 80 classes, 416 px) from a ``.cfg``
+     the script writes: ``parse_model_config`` back to ``yolov3_defs``, a
+     stem preset refused, ``Darknet.init`` on the card equal to the CPU's
+     moved there, the forward at batch 8 on the card with every image
+     held to the CPU's forward (TF32 off) within ``YOLOV3_TOL``,
+     ``batched_nms`` on the 8 x 10647 detections at ``pre_top_k=512``
+     (one K1 launch, bit-identical to its plain version), device ms a
+     forward at batch 1 and 8, and the full ``.weights`` file (62M
+     floats) and a ``darknet53.conv.74`` cutoff file round-tripped leaf
+     for leaf;
+  8. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -135,6 +164,13 @@ WINDOW_TOL = dict(box=0.5, score=2e-2, flipped=1)
 # NMS of their own inputs, and the answers meet within it once one run
 # takes the other's decisions
 PAIR_PATH_TOL = dict(WINDOW_TOL, box=1.0)
+# P18, Darknet-53 on the card against the CPU, float32 with TF32 off on
+# both (summation order only): the feature map within 1e-3 of its largest
+# magnitude, the detections (pixels and sigmoid scores) within 1e-3;
+# float32 against float64 on the CPU at 160 px is 1.4e-6 of the feature
+# map's magnitude and 6e-8 on the detections
+YOLOV3_TOL = {"feature_map": lambda w: 1e-3 * float(w.abs().max()),
+              "detections": lambda w: 1e-3}
 BF16_TOL = 0.04   # a bf16 library yardstick against a plain version, as a
                   # share of the output's largest magnitude
 
@@ -1486,6 +1522,262 @@ def window_flips(torch, cuda_lib, eng, window_call, frame_calls, first,
                                      anchors, "the per-frame answers")
 
 
+# phases P17 and P18: the weights in every format, written from the
+# tracked checkpoint with the port's own writers; the reference's formats
+# have no writer in either package, so the two below stand in for the
+# reference's own ``torch.save``
+def write_cfg(blocks, path):
+    """A darknet ``.cfg`` of ``blocks`` (models/zoo.py's dicts): one
+    ``[type]`` section a block, its other keys as ``key=value`` lines."""
+    with open(path, "w") as f:
+        for block in blocks:
+            f.write(f"[{block['type']}]\n")
+            f.writelines(f"{k}={v}\n" for k, v in block.items()
+                         if k != "type")
+            f.write("\n")
+
+
+def module3_state_dict(torch, model, params, state):
+    """The reference module3 ``Network.state_dict()`` of a port
+    ``FusionNetwork`` tree: the keys that
+    ``io/torch_ckpt.py:fill_fusion_network`` reads, in the reference's
+    module order, each BN with the ``num_batches_tracked`` the fills skip;
+    conv weights OIHW, linear weights [out, in]."""
+    sd = {}
+
+    def conv(key, p):
+        sd[f"{key}.weight"] = p["w"]
+        sd[f"{key}.bias"] = p["b"]
+
+    def bn(key, p, s):
+        sd.update({f"{key}.weight": p["gamma"], f"{key}.bias": p["beta"],
+                   f"{key}.running_mean": s["mean"],
+                   f"{key}.running_var": s["var"],
+                   f"{key}.num_batches_tracked": torch.tensor(0)})
+
+    def linear(key, p):
+        sd[f"{key}.weight"] = p["w"].t()
+        sd[f"{key}.bias"] = p["b"]
+
+    for i, info in enumerate(model.darknet._plan):
+        if info["type"] != "convolutional":
+            continue
+        p, base = params["darknet"][i], f"base_detector.module_list.{i}"
+        if info["bn"]:
+            sd[f"{base}.conv_{i}.weight"] = p["w"]
+            bn(f"{base}.batch_norm_{i}", p, state["darknet"][i])
+        else:
+            conv(f"{base}.conv_{i}", p)
+    for i, (p, s) in enumerate(zip(params["img_cnn"], state["img_cnn"])):
+        conv(f"img_cnn_layers.net.conv_{i}", p)
+        bn(f"img_cnn_layers.net.batch_norm_{i}", p["bn"], s)
+    enc, enc_s = params["radar_enc"], state["radar_enc"]
+    for i, name in enumerate(("conv1", "conv2", "conv3")):
+        conv(f"radar_cnn_layers.{name}.0", enc[i])
+        bn(f"radar_cnn_layers.{name}.1", enc[i]["bn"], enc_s[i])
+    conv("radar_cnn_layers.conv3.3", enc[3])
+    ref = params["refine"]
+    for net in ("net0", "net1", "net2"):
+        linear(f"refinement_head.{net}.0", ref[net])
+    rn = ref["radar_net"]
+    conv("refinement_head.radar_net.0", rn["conv7"])
+    bn("refinement_head.radar_net.1", rn["bn"], state["refine"]["radar_net"])
+    conv("refinement_head.radar_net.3", rn["conv1"])
+    for fc in ("fc1", "fc2"):
+        linear(f"ensemble_head.{fc}.0", params["ensemble"][fc])
+    return {k: v.detach().cpu().contiguous() for k, v in sd.items()}
+
+
+def darknet_module(torch, darknet, params, state):
+    """An ultralytics-style ``nn.Module`` of a Darknet tree:
+    ``module_list`` of Sequential(conv_{i}[, batch_norm_{i}]), so its
+    ``state_dict`` holds, block by block, the conv weight, then the conv
+    bias or the BN weight, bias, running mean, running var and
+    ``num_batches_tracked`` (the order a positional load reads)."""
+    nn = torch.nn
+    blocks = nn.ModuleList()
+    for i, info in enumerate(darknet._plan):
+        seq = nn.Sequential()
+        if info["type"] == "convolutional":
+            p, k = params[i], info["size"]
+            cv = nn.utils.skip_init(nn.Conv2d, info["in_ch"],
+                                    info["filters"], k, info["stride"],
+                                    (k - 1) // 2, bias=not info["bn"])
+            seq.add_module(f"conv_{i}", cv)
+            with torch.no_grad():
+                cv.weight.copy_(p["w"])
+                if info["bn"]:
+                    b = nn.BatchNorm2d(info["filters"])
+                    b.weight.copy_(p["gamma"])
+                    b.bias.copy_(p["beta"])
+                    b.running_mean.copy_(state[i]["mean"])
+                    b.running_var.copy_(state[i]["var"])
+                    seq.add_module(f"batch_norm_{i}", b)
+                else:
+                    cv.bias.copy_(p["b"])
+        blocks.append(seq)
+    holder = nn.Module()
+    holder.module_list = blocks
+    return holder
+
+
+def write_weight_files(torch, root, model, params, state):
+    """A FusionNetwork's CPU tree in every format the loaders read: the
+    JAX package's ``.npz``, a darknet ``.weights`` of the backbone, a
+    module3 ``.pth`` state dict, an ultralytics-style ``.pt``
+    (``{"model": nn.Module}``) of the backbone, and a
+    ``yolov3-tiny.conv.15`` file of its first 15 blocks. Returns
+    {format: path}."""
+    import os
+    from millieye_torch.io.checkpoint import save_checkpoint
+    from millieye_torch.io.darknet_weights import save_darknet_weights
+    dn, dp, ds = model.darknet, params["darknet"], state["darknet"]
+    files = {f: os.path.join(root, name) for f, name in (
+        ("npz", "fusion.npz"), ("weights", "fusion.weights"),
+        ("pth", "module3.pth"), ("pt", "darknet.pt"),
+        ("tiny15", "yolov3-tiny.conv.15"))}
+    save_checkpoint(files["npz"], {"params": params, "state": state})
+    save_darknet_weights(dn, dp, ds, files["weights"])
+    torch.save(module3_state_dict(torch, model, params, state), files["pth"])
+    torch.save({"model": darknet_module(torch, dn, dp, ds), "epoch": -1},
+               files["pt"])
+    save_darknet_weights(dn, dp, ds, files["tiny15"], cutoff=15)
+    return files
+
+
+def same_tree(torch, a, b):
+    """Two trees with the same key paths and bit-equal leaves."""
+    from millieye_torch.io.checkpoint import leaf_items
+    la, lb = leaf_items(a), leaf_items(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def write_demo_inputs(rec, frames):
+    """The recorded session's frames as ``frames/*.png`` (lossless) and
+    its pinhole camera (``STREAM_CALIB``) as a camera_info YAML, so
+    ``cli.demo`` can read the recording from disk. Returns the YAML's
+    path."""
+    import os
+    from PIL import Image
+    os.makedirs(os.path.join(rec, "frames"), exist_ok=True)
+    for i, f in frames:
+        Image.fromarray(f).save(os.path.join(rec, "frames", f"{i:06d}.png"))
+    fx, cx, fy, cy = STREAM_CALIB[:4]
+    path = os.path.join(rec, "calib.yaml")
+    with open(path, "w") as f:
+        f.write(f"camera_matrix: {{data: [{fx}, 0.0, {cx}, 0.0, {fy}, {cy}, "
+                f"0.0, 0.0, 1.0]}}\n"
+                f"distortion_coefficients: {{data: "
+                f"{[float(v) for v in STREAM_CALIB[4:9]]}}}\n")
+    return path
+
+
+def yolov3_phase(torch, cuda_lib, root, size=416, batch=8):
+    """P18: the full YOLOv3 (Darknet-53, 80 classes) at ``size`` px from a
+    ``.cfg`` written under ``root``: parsed back to ``yolov3_defs``, a stem
+    preset refused, ``Darknet.init`` on the card equal to the CPU's moved
+    there, the forward of ``batch`` images on the card with every image
+    held to the CPU's forward within ``YOLOV3_TOL``, ``batched_nms`` at
+    ``pre_top_k=512`` (one K1 launch, bit-identical to its plain
+    version), device ms a forward at batch 1 and ``batch``, and the full
+    ``.weights`` and a ``darknet53.conv.74`` file round-tripped leaf for
+    leaf. Returns (summary, the stem preset's refusal, the tolerances)."""
+    import os
+    from millieye_torch.io.checkpoint import leaf_items
+    from millieye_torch.io.config import parse_model_config
+    from millieye_torch.io.darknet_weights import (load_darknet_weights,
+                                                   save_darknet_weights)
+    from millieye_torch.models.darknet import Darknet
+    from millieye_torch.models.zoo import yolov3_defs
+    from millieye_torch.ops import nms_kernel
+    from millieye_torch.ops.nms import batched_nms
+    cfg_path = os.path.join(root, "yolov3.cfg")
+    defs = yolov3_defs(num_classes=80, img_size=size)
+    write_cfg(defs, cfg_path)
+    if parse_model_config(cfg_path) != defs:
+        raise AssertionError("yolov3: the .cfg parses to other blocks")
+    try:
+        Darknet(cfg_path, stem_stages=(0, 2))
+    except ValueError as e:
+        stem_refusal = str(e)
+    else:
+        raise AssertionError("yolov3: a stem preset on Darknet-53 built")
+    dn = Darknet(cfg_path, img_size=size, feature_tap=36)
+    p53, s53 = dn.init(torch.Generator().manual_seed(0))
+    p53_card, s53_card = dn.init(torch.Generator().manual_seed(0),
+                                 device="cuda")
+    if not same_tree(torch, (p53_card, s53_card), (p53, s53)):
+        raise AssertionError("yolov3: Darknet.init on the card differs "
+                             "from the same init on the CPU")
+    x53 = torch.from_numpy(np.random.default_rng(3).uniform(
+        0, 1, (batch, size, size, 3)).astype(np.float32))
+    x53_card = x53.cuda()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        want = dn.apply(p53, s53, x53, collect_outputs=True)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        got = dn.apply(p53_card, s53_card, x53_card)
+    errs, limits = {}, {}
+    for key, tol in YOLOV3_TOL.items():
+        g, w = got[key].cpu(), want[key]
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"yolov3 {key}: {tuple(g.shape)}, want "
+                                 f"{tuple(w.shape)}, or not finite")
+        errs[key], limits[key] = float((g - w).abs().max()), tol(w)
+        if errs[key] > limits[key]:
+            raise AssertionError(f"yolov3 {key}: the card is off the CPU "
+                                 f"by {errs[key]:.3g}, above "
+                                 f"{limits[key]:.3g}")
+    det53 = got["detections"]
+    before = nms_kernel.nms_keep_mask_blocked.launches
+    kd, kv = batched_nms(det53, 0.3, 0.5, max_det=100, pre_top_k=512)
+    k1 = nms_kernel.nms_keep_mask_blocked.launches - before
+    with cuda_lib.plain_versions():
+        pd, pv = batched_nms(det53, 0.3, 0.5, max_det=100, pre_top_k=512)
+    if k1 != 1 or not (torch.equal(kd, pd) and torch.equal(kv, pv)):
+        raise AssertionError(f"yolov3: K1 launched {k1} times, or its "
+                             f"detections differ from its plain version's")
+    ms53 = {f"b{b}": device_ms(torch, lambda b=b: dn.apply(
+        p53_card, s53_card, x53_card[:b]), calls=5) for b in (1, batch)}
+    # the bound of a forward: each convolution's multiply-adds (2 flops)
+    # at its output's size, float32 outside the tensor cores; bytes: the
+    # weights and statistics, the images, the detections and feature map
+    flops = sum(2 * info["size"] ** 2 * info["in_ch"] * info["filters"]
+                * out.shape[2] * out.shape[3]
+                for info, out in zip(dn._plan, want["outputs"])
+                if info["type"] == "convolutional")
+    n_params = sum(v.numel() for _, v in leaf_items((p53, s53)))
+    per_image = 4 * (x53[0].numel() + want["detections"][0].numel()
+                     + want["feature_map"][0].numel())
+    bound53 = {f"b{b}": bound_ms(4 * n_params + b * per_image, b * flops,
+                                 F32_FLOP_S) for b in (1, batch)}
+    full = os.path.join(root, "yolov3.weights")
+    header = np.array([0, 2, 0, 32013, 0], np.int32)
+    save_darknet_weights(dn, p53, s53, full, header=header)
+    tp, ts = dn.init(torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    lp, ls, hdr = load_darknet_weights(dn, tp, ts, full)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    cut = os.path.join(root, "darknet53.conv.74")
+    save_darknet_weights(dn, p53, s53, cut, cutoff=75)
+    cp, cs, _ = load_darknet_weights(dn, tp, ts, cut)
+    if not (same_tree(torch, (lp, ls), (p53, s53))
+            and np.array_equal(hdr, header)
+            and same_tree(torch, (cp, cs), (p53[:75] + tp[75:],
+                                            s53[:75] + ts[75:]))):
+        raise AssertionError("yolov3: a .weights round trip differs")
+    return ({"blocks": len(dn.block_defs),
+             "weights": n_params,
+             "max_err_vs_cpu": errs, "device_ms": ms53,
+             "bound_ms": bound53, "flops_per_image": flops,
+             f"cpu_b{batch}_ms": cpu_ms,
+             "weights_floats": (os.path.getsize(full) - 20) // 4,
+             "weights_load_host_ms": load_ms,
+             "nms_rows_kept_b8": int(kv.sum())}, stem_refusal, limits)
+
+
 def log_case(name, r):
     """One line for a kernel case of phase 3."""
     lib = ("none (no single PyTorch call computes it)"
@@ -2474,6 +2766,164 @@ def main():
             "post_merge_inputs": int(f_moved[1])},
         "profiled": {"frames": STREAM_WINDOW, "device_busy_ms": busy,
                      "wall_ms": wall, "busy_share": busy / wall}}
+
+    # P17: the weights in every format, written from the tracked
+    # checkpoint with the port's writers into a temporary directory,
+    # each loaded on the host and served at pallas_max_s01 on P1's
+    # requests; then cli.demo on P15's recording from disk
+    import os
+    from millieye_torch.cli import demo
+    from millieye_torch.cli._common import load_fusion, load_weights_any
+    from millieye_torch.io.torch_ckpt import load_ultralytics_pt
+    t = time.time()
+    wdir = tempfile.TemporaryDirectory()
+    t0 = time.perf_counter()
+    model, ck_p, ck_s = build_fusion(CKPT, "pallas_max_s01", device="cpu")
+    build_ms = (time.perf_counter() - t0) * 1e3     # the init + the load
+    files = write_weight_files(torch, wdir.name, model, ck_p, ck_s)
+    with np.load(CKPT) as z0, np.load(files["npz"]) as z1:
+        if sorted(z0.files) != sorted(z1.files) or not all(
+                z0[k].dtype == z1[k].dtype and z0[k].shape == z1[k].shape
+                and z0[k].tobytes() == z1[k].tobytes() for k in z0.files):
+            raise AssertionError("weights: save_checkpoint's .npz differs "
+                                 "from the tracked checkpoint")
+    t0 = time.perf_counter()
+    init_p, init_s = model.init(torch.Generator().manual_seed(0))
+    init_ms = (time.perf_counter() - t0) * 1e3
+
+    def with_darknet(tree):
+        dp, ds = tree[:2]
+        return dict(ck_p, darknet=dp), dict(ck_s, darknet=ds)
+
+    loaders = {   # format -> (load, the tree it must give)
+        "npz": (lambda: load_weights_any(model, init_p, init_s,
+                                         files["npz"]), (ck_p, ck_s)),
+        "weights": (lambda: load_fusion(model, ck_p, ck_s,
+                                        files["weights"]), (ck_p, ck_s)),
+        "pth": (lambda: load_weights_any(model, init_p, init_s,
+                                         files["pth"]), (ck_p, ck_s)),
+        "pt": (lambda: with_darknet(load_weights_any(
+            model.darknet, init_p["darknet"], init_s["darknet"],
+            files["pt"])), (ck_p, ck_s)),
+        "pt positional": (lambda: with_darknet(load_ultralytics_pt(
+            model.darknet, init_p["darknet"], init_s["darknet"],
+            files["pt"])), (ck_p, ck_s)),
+        "yolov3-tiny.conv.15": (lambda: load_fusion(
+            model, init_p, init_s, files["tiny15"]), None)}
+    loader_ms, weight_paths = {}, {}
+    for fmt, (load, want) in loaders.items():
+        t0 = time.perf_counter()
+        lp, ls = load()
+        loader_ms[fmt] = (time.perf_counter() - t0) * 1e3
+        if want is None:     # blocks 0-14 the checkpoint's, the rest init
+            want = (dict(init_p, darknet=ck_p["darknet"][:15]
+                         + init_p["darknet"][15:]),
+                    dict(init_s, darknet=ck_s["darknet"][:15]
+                         + init_s["darknet"][15:]))
+        if not same_tree(torch, (lp, ls), want):
+            raise AssertionError(f"weights {fmt}: the loaded tree differs "
+                                 f"from the one written")
+        if fmt == "pt positional":
+            continue                    # the same tree as "pt"
+        path = f"weights {fmt}@pallas_max_s01"
+        weight_paths[fmt] = path
+        eng = engines[path] = FusionEngine(model, lp, ls, frame_size=FRAME)
+        drive(path, infer_calls(eng), rows(eng),
+              one(("nms", "ps_roi_align", "roi_align", "stem_pair",
+                   "nms_full"), 1))
+        if fmt != "yolov3-tiny.conv.15" and not all(
+                same_answer(g, w) for g, w in zip(
+                    answers_by_path[path], answers_by_path["pallas_max_s01"])):
+            raise AssertionError(f"{path}: answers differ from P1's")
+    calib_path = write_demo_inputs(rec, frames)
+    demo_runs, saver = {}, demo._make_saver
+    for name, w in (("pth", files["pth"]), ("npz", files["npz"]),
+                    ("init", None)):
+        got = {}
+        # each delivered frame is caught where --save_dir's saver writes it
+        demo._make_saver = lambda args, got=got: collect(got)
+        zero_counts()
+        t0 = time.time()
+        try:
+            report = demo.main(["--recording", rec, "--calib", calib_path,
+                                "--serving", "pallas_max_s01", "--save_dir",
+                                os.path.join(wdir.name, "demo")]
+                               + (["--weights", w] if w else []))
+        finally:
+            demo._make_saver = saver
+        launches = counts()
+        launches_by_path[f"demo {name}@pallas_max_s01"] = launches
+        # the demo runs live: a frame that finds the queue full is dropped
+        short = {k: launches[k] for k in ("stem_pair", "nms", "ps_roi_align",
+                                          "roi_align", "nms_full")
+                 if launches[k] < len(got)}
+        if report["frames"] + report["dropped"] != n_frames or len(
+                got) != report["frames"] or not got or short:
+            raise AssertionError(f"demo --weights {w}: {report['frames']} "
+                                 f"frames + {report['dropped']} dropped, "
+                                 f"kernels launched fewer times than "
+                                 f"frames: {short}")
+        if any(not np.isfinite(b).all() or b.shape != rows(engines[
+                "pallas_max_s01"]) for b, _ in got.values()):
+            raise AssertionError(f"demo --weights {w}: an answer is not "
+                                 f"finite or of the wrong shape")
+        demo_runs[name] = (got, report, time.time() - t0)
+    both = sorted(set(demo_runs["pth"][0]) & set(demo_runs["npz"][0]))
+    differ = [i for i in both if not same_answer(demo_runs["pth"][0][i],
+                                                 demo_runs["npz"][0][i])]
+    if not both or differ:
+        raise AssertionError(f"demo: frames {differ} of the {len(both)} "
+                             f"both runs delivered differ between --weights "
+                             f".pth and .npz")
+    log(f"weights ({card}): save_checkpoint's .npz byte-equal to "
+        f"{CKPT} under the same keys; every format's tree equal to the "
+        f"one written (yolov3-tiny.conv.15: blocks 0-14 the checkpoint's, "
+        f"the rest FusionNetwork.init's); host ms the seed-0 init "
+        f"{init_ms:.3f}, build_fusion of {CKPT} (that init, then the load) "
+        f"{build_ms:.3f}, a load into the init "
+        f"{ {k: round(v, 3) for k, v in loader_ms.items()} } (file sizes "
+        f"{ {k: os.path.getsize(v) for k, v in files.items()} } bytes); "
+        f"{', '.join(p for f, p in weight_paths.items() if 'tiny' not in f)}"
+        f": answers bit-identical to P1's; cli.demo on the recording "
+        f"({n_frames} frames from disk, live: frames delivered "
+        f"{ {k: r[1]['frames'] for k, r in demo_runs.items()} }, the rest "
+        f"dropped): --weights .pth and .npz bit-identical on the "
+        f"{len(both)} frames both delivered, e2e_fps "
+        f"{ {k: r[1]['e2e_fps'] for k, r in demo_runs.items()} }, seconds "
+        f"{ {k: round(r[2], 2) for k, r in demo_runs.items()} } (no "
+        f"--weights: the seed-0 init); {time.time() - t:.1f} s")
+    summary["weights"] = {
+        "init_host_ms": init_ms, "build_fusion_npz_host_ms": build_ms,
+        "loader_host_ms": loader_ms,
+        "file_bytes": {k: os.path.getsize(v) for k, v in files.items()},
+        "paths": weight_paths,
+        "demo": {k: {"frames": r[1]["frames"], "dropped": r[1]["dropped"],
+                     "e2e_fps": r[1]["e2e_fps"], "seconds": r[2]}
+                 for k, r in demo_runs.items()},
+        "demo_frames_compared": len(both)}
+
+    # P18: the full YOLOv3 (Darknet-53) from a .cfg
+    t = time.time()
+    zero_counts()
+    summary["yolov3"], stem_refusal, limits = yolov3_phase(
+        torch, cuda_lib, wdir.name)
+    launches_by_path["yolov3@f32"] = counts()
+    y = summary["yolov3"]
+    log(f"yolov3 ({card}): Darknet-53 from a .cfg ({y['blocks']} blocks, "
+        f"{y['weights']} weights and statistics; a stem preset refused: "
+        f"{stem_refusal!r}); Darknet.init on the card equal to the CPU's "
+        f"moved there; forward b8 on the card, all 8 images held to the "
+        f"CPU's forward (TF32 off): max errors {y['max_err_vs_cpu']} within {limits}; "
+        f"batched_nms on 8 x 10647 detections (pre_top_k 512): K1 once, "
+        f"bit-identical to its plain version, {y['nms_rows_kept_b8']} rows "
+        f"kept over 8 images; device ms a forward {y['device_ms']} (ms, "
+        f"profiler records), bound {y['bound_ms']} ({y['flops_per_image']} "
+        f"flops an image, float32 at {F32_FLOP_S:.3g}/s); CPU "
+        f"forward b8 {y['cpu_b8_ms']:.0f} ms (host clock); .weights round "
+        f"trip of {y['weights_floats']} floats leaf for leaf (load "
+        f"{y['weights_load_host_ms']:.0f} ms on the host), "
+        f"darknet53.conv.74 the first 75 blocks; {time.time() - t:.1f} s")
+    wdir.cleanup()
     stream_dir.cleanup()
 
     line = []

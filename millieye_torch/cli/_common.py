@@ -1,12 +1,26 @@
-"""The port's serving presets and network constructors (port of
-``millieye_tpu/cli/_common.py``: the 33 rows of ``SERVING_PRESETS``,
-``serving_overrides``, ``build_fusion``, ``build_refine``)."""
+"""The port's serving presets, network constructors and weight loading
+(port of ``millieye_tpu/cli/_common.py``: the 33 rows of
+``SERVING_PRESETS``, ``serving_overrides``, ``build_darknet``,
+``build_fusion``, ``build_refine``, ``load_weights_any``; and
+``load_fusion``, the counterpart of ``cli/evaluate.py:_load_fusion``).
+
+Weights load on the host into CPU trees; the constructors move the
+result to the device once, with ``to_device``."""
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from millieye_torch.device import resolve_device, set_numerics
-from millieye_torch.io.checkpoint import convert, read_npz, to_device
+from millieye_torch.io.checkpoint import (convert, load_checkpoint,
+                                          to_device)
+from millieye_torch.io.darknet_weights import (BACKBONE_FILES,
+                                               load_darknet_weights)
+from millieye_torch.io.torch_ckpt import (fill_darknet, fill_fusion_network,
+                                          fill_refine_network,
+                                          read_state_dict)
 from millieye_torch.models.darknet import Darknet
 from millieye_torch.models.fusion import (_DTYPES, FusionConfig,
                                           FusionNetwork, RefineNetwork)
@@ -102,51 +116,130 @@ def serving_overrides(name):
     return hi, store, stem_kw, preset
 
 
-def _build_darknet(preset, img_size, num_classes):
+def build_darknet(model_cfg=None, num_classes=12, img_size=416,
+                  **darknet_kw):
+    """A Darknet from a darknet ``.cfg`` path (the path that keeps
+    ``.weights`` files loadable) or the zoo's tiny-YOLOv3."""
+    defs = model_cfg or tiny_yolov3_defs(num_classes=num_classes,
+                                         img_size=img_size)
+    return Darknet(defs, img_size=img_size, **darknet_kw)
+
+
+def _build_darknet(preset, img_size, num_classes, model_def):
     hi, store, stem_kw, over = serving_overrides(preset)
-    darknet = Darknet(tiny_yolov3_defs(num_classes=num_classes,
-                                       img_size=img_size),
-                      img_size=img_size, hi_prec_stages=hi,
-                      hi_prec_store=_DTYPES[store] if store else None,
-                      **stem_kw)
+    darknet = build_darknet(model_def, num_classes, img_size,
+                            hi_prec_stages=hi,
+                            hi_prec_store=_DTYPES[store] if store else None,
+                            **stem_kw)
     return darknet, over
 
 
-def build_fusion(weights, preset="f32", img_size=416, num_classes=12,
-                 device="cuda", **overrides):
+def _darknet_file(path):
+    """A darknet ``.weights`` file, or a backbone file named exactly by
+    its convention (``darknet53.conv.74``, ``yolov3-tiny.conv.15``): the
+    extension decides, and a file's directories never do."""
+    return os.path.splitext(path)[1] == ".weights" or \
+        os.path.basename(path) in BACKBONE_FILES
+
+
+def load_weights_any(model, params, state, path):
+    """Fill (params, state) from a weight file, by its extension: a
+    darknet ``.weights`` or a backbone file under its conventional name
+    (a ``Darknet`` only; returns (params, state, header)), a torch
+    ``.pt``/``.pth`` (a module3 state dict for a ``FusionNetwork``,
+    module2's for a ``RefineNetwork``, keyed Darknet weights for a
+    ``Darknet``), or the JAX package's ``.npz``
+    (``load_checkpoint`` into this template). Runs on the host: loaded
+    leaves are CPU tensors."""
+    ext = os.path.splitext(path)[1]
+    if _darknet_file(path):
+        return load_darknet_weights(model, params, state, path)
+    if ext in (".pt", ".pth"):
+        sd = read_state_dict(path)
+        if isinstance(model, FusionNetwork):
+            return fill_fusion_network(model, params, state, sd)
+        if isinstance(model, RefineNetwork):
+            return fill_refine_network(model, params, state, sd)
+        return fill_darknet(model, params, state, sd)
+    if ext == ".npz":
+        restored = load_checkpoint(path, {"params": params, "state": state})
+        return restored["params"], restored["state"]
+    raise ValueError(f"unknown weight format: {path}")
+
+
+def load_fusion(model, params, state, path):
+    """A ``FusionNetwork``'s or ``RefineNetwork``'s (params, state) from
+    any weight file: a darknet file replaces (the blocks it holds of) the
+    Darknet only and keeps the rest of the template; the other formats go
+    through ``load_weights_any``."""
+    if not _darknet_file(path):
+        return load_weights_any(model, params, state, path)
+    params, state = dict(params), dict(state)
+    params["darknet"], state["darknet"], _ = load_darknet_weights(
+        model.darknet, params["darknet"], state["darknet"], path)
+    return params, state
+
+
+def _init_or_load(model, weights):
+    """The CPU (params, state) of ``model`` for ``weights``: a JAX
+    ``(params, state)`` pair of nested numpy arrays through ``convert``;
+    else the init from ``torch.Generator().manual_seed(0)`` (the JAX
+    package's ``PRNGKey(0)``), filled from the file ``weights`` names."""
+    if isinstance(weights, (tuple, list)):
+        return convert(*weights)
+    params, state = model.init(torch.Generator().manual_seed(0))
+    if weights is None:
+        return params, state
+    return load_fusion(model, params, state, weights)
+
+
+def build_fusion(weights=None, preset="f32", img_size=416, num_classes=12,
+                 device="cuda", model_def=None, **overrides):
     """The fusion network at a serving preset, with its weights on
-    ``device``. ``weights``: a JAX-package ``.npz`` checkpoint path or a
-    JAX ``(params, state)`` pair of nested numpy arrays. Returns
-    (model, params, state) with unfolded BN (``runtime.engine`` folds)."""
+    ``device``. ``weights``: None (the seed-0 init), a weight file of any
+    format ``load_fusion`` reads, or a JAX ``(params, state)`` pair of
+    nested numpy arrays. ``model_def``: a darknet ``.cfg`` path for the
+    backbone (default: the zoo's tiny-YOLOv3). Returns (model, params,
+    state) with unfolded BN (``runtime.engine`` folds)."""
     dev = resolve_device(device)
     set_numerics()
-    darknet, over = _build_darknet(preset, img_size, num_classes)
+    darknet, over = _build_darknet(preset, img_size, num_classes, model_def)
     model = FusionNetwork(darknet, FusionConfig(**{**over, **overrides}))
-    params, state = convert(*(read_npz(weights) if isinstance(weights, str)
-                              else weights))
+    params, state = _init_or_load(model, weights)
     return model, to_device(params, dev), to_device(state, dev)
 
 
-def build_refine(weights, preset="f32", img_size=416, num_classes=12,
-                 device="cuda", **overrides):
+def _fusion_npz(path):
+    """Whether ``path`` is a ``.npz`` holding a FusionNetwork's tree."""
+    if os.path.splitext(path)[1] != ".npz":
+        return False
+    with np.load(path, allow_pickle=False) as z:
+        return any(k.split("|", 1)[1].startswith("params/img_cnn/")
+                   for k in z.files)
+
+
+def build_refine(weights=None, preset="f32", img_size=416, num_classes=12,
+                 device="cuda", model_def=None, **overrides):
     """The camera-only refinement network (module2, ``class_num`` 12) at
-    a serving preset. ``weights``: a JAX ``(params, state)`` pair of
-    nested numpy arrays for ``RefineNetwork``, or the path of a fusion
+    a serving preset. ``weights`` as for ``build_fusion`` (a module2
+    ``.pth``, a RefineNetwork ``.npz``, ...), or the path of a fusion
     ``.npz`` checkpoint: then the Darknet and the score-map stack (the
     fusion network's ``img_cnn``, the same 256 -> 490 layout) come from
-    it, and the refinement and ensemble heads, which no such checkpoint
-    holds, from ``RefineNetwork.init_heads`` with
+    it (read through ``load_weights_any`` into a ``FusionNetwork``'s
+    seed-0 init), and the refinement and ensemble heads, which no such
+    checkpoint holds, from ``RefineNetwork.init_heads`` with
     ``torch.Generator().manual_seed(0)``: untrained heads."""
     dev = resolve_device(device)
     set_numerics()
-    darknet, over = _build_darknet(preset, img_size, num_classes)
+    darknet, over = _build_darknet(preset, img_size, num_classes, model_def)
     over.setdefault("class_num", 12)
     model = RefineNetwork(darknet, FusionConfig(**{**over, **overrides}))
-    if isinstance(weights, str):
-        fp, fs = convert(*read_npz(weights))
+    if isinstance(weights, str) and _fusion_npz(weights):
+        fusion = FusionNetwork(darknet, model.cfg)
+        fp, fs = _init_or_load(fusion, weights)
         hp, hs = model.init_heads(torch.Generator().manual_seed(0))
         params = {"darknet": fp["darknet"], "fcn": fp["img_cnn"], **hp}
         state = {"darknet": fs["darknet"], "fcn": fs["img_cnn"], **hs}
     else:
-        params, state = convert(*weights)
+        params, state = _init_or_load(model, weights)
     return model, to_device(params, dev), to_device(state, dev)

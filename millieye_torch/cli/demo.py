@@ -6,10 +6,11 @@
 Replays a recorded session (video or frames + timestamps + pointcloud)
 through the host radar tracker and the engine's step on the card,
 printing per-stage FPS; ``--save_dir`` writes annotated frames (PIL).
-``--weights`` takes the JAX package's ``.npz`` checkpoints. The other
-weight formats (``.pt``, ``.pth``, darknet ``.weights``) and a random
-initialisation without ``--weights`` are not ported yet, and ask for
-them raises.
+``--weights`` takes every format ``cli/_common.py:load_fusion`` reads:
+the JAX package's ``.npz``, a module3 ``.pth``/``.pt`` state dict, or a
+darknet ``.weights`` file, which replaces the backbone of the seed-0
+init; without ``--weights`` the network is the seed-0 init, as the JAX
+demo's ``PRNGKey(0)`` (other numbers: the PRNGs differ).
 
 ``calibrate`` computes the int8-activation scales the ``int8_acts``
 preset needs, on frames already read (the demo reads a recording's first
@@ -39,7 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--recording", required=True)
     p.add_argument("--calib", required=True)
     p.add_argument("--weights", default=None,
-                   help="a .npz checkpoint of the JAX package")
+                   help=".npz, .pt, .pth or darknet .weights; none: the "
+                        "seed-0 init")
     p.add_argument("--mode", type=int, default=0)
     p.add_argument("--img_size", type=int, default=416)
     p.add_argument("--frame_w", type=int, default=640)
@@ -61,26 +63,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _weights_path(path):
-    """The checkpoint the port can read, or a clear error."""
-    if path is None:
-        raise NotImplementedError(
-            "millieye_torch.cli.demo needs --weights: the port has no "
-            "random initialisation (the JAX package's FusionNetwork.init) "
-            "yet; pass a .npz checkpoint such as "
-            "artifacts/stage3_final.npz")
-    if os.path.splitext(path)[1] != ".npz":
-        raise NotImplementedError(
-            f"millieye_torch.cli.demo: cannot read {path!r} yet; the port "
-            f"reads the JAX package's .npz checkpoints (the .pt, .pth and "
-            f"darknet .weights readers are not ported)")
-    return path
-
-
 def main(argv=None):
     args = parse_args(argv)
     model, params, state = build_fusion(
-        _weights_path(args.weights), args.serving, img_size=args.img_size,
+        args.weights, args.serving, img_size=args.img_size,
         device=args.device,
         refine_threshold_radar=args.refine_threshold_radar)
     act_absmax = None

@@ -1,9 +1,11 @@
-"""cfg-driven Darknet (tiny-YOLOv3 family), inference only (port of
-``millieye_tpu/models/darknet.py``).
+"""cfg-driven Darknet (tiny-YOLOv3, YOLOv3 on Darknet-53), inference
+only (port of ``millieye_tpu/models/darknet.py``).
 
-Parameters are explicit: ``params`` / ``state`` are lists with one dict
-of tensors per block (empty for blocks without weights), convolution
-weights OIHW. ``apply`` takes and returns the JAX package's layouts
+The graph comes from a list of block dicts (``models/zoo.py``) or a
+darknet ``.cfg`` path. Parameters are explicit: ``params`` / ``state``
+are lists with one dict of tensors per block (empty for blocks without
+weights), convolution weights OIHW; ``init`` draws them from a
+``torch.Generator``. ``apply`` takes and returns the JAX package's layouts
 (NHWC images and feature map, [N, A, 5+C] detections) and runs
 channels_last NCHW inside.
 
@@ -38,6 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from millieye_torch.device import constant
+from millieye_torch.io.checkpoint import to_device
+from millieye_torch.io.config import parse_model_config
 from millieye_torch.ops.quantize import int8_conv2d
 from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_s2d,
@@ -160,6 +164,8 @@ class Darknet:
                  stem_pair=False, stem_precision="highest",
                  stem_pair_variant="select", stem_pairs="first",
                  s2d_stages=(), im2col_stages=()):
+        if isinstance(config, str):
+            config = parse_model_config(config)
         self.hyperparams = config[0]
         self.block_defs = list(config[1:])
         self.img_size = img_size
@@ -324,6 +330,32 @@ class Darknet:
         if i in self.hi_prec_stages:
             return self.hi_prec_store or torch.float32
         return compute_dtype
+
+    def init(self, gen, device="cpu"):
+        """(params, state) from an explicit ``torch.Generator``, the JAX
+        package's ``weights_init_normal`` layout: conv weights (OIHW) ~
+        N(0, 0.02); with BN gamma ~ 1 + N(0, 0.02), beta 0, running mean
+        0 and var 1, else a zero bias; ``{}`` for weightless blocks.
+        Drawn on the CPU in block order (weights, then gamma), then moved
+        to ``device``: one seed gives the same tree on every device."""
+        params, state = [], []
+        for info in self._plan:
+            if info["type"] != "convolutional":
+                params.append({})
+                state.append({})
+                continue
+            c, k = info["filters"], info["size"]
+            w = 0.02 * torch.randn((c, info["in_ch"], k, k), generator=gen)
+            if info["bn"]:
+                params.append({"w": w,
+                               "gamma": 1.0 + 0.02 * torch.randn(
+                                   c, generator=gen),
+                               "beta": torch.zeros(c)})
+                state.append({"mean": torch.zeros(c), "var": torch.ones(c)})
+            else:
+                params.append({"w": w, "b": torch.zeros(c)})
+                state.append({})
+        return to_device(params, device), to_device(state, device)
 
     def apply(self, params, state, images, compute_dtype=torch.float32,
               collect_act_stats=False, collect_outputs=False):

@@ -1,5 +1,5 @@
 """Radar+camera fusion detector ("module3") and the camera-only
-refinement detector ("module2"), inference only (port of
+refinement detector ("module2"), inference and initialisation (port of
 ``millieye_tpu/models/fusion.py``: ``FusionNetwork``, ``RefineNetwork``).
 
 backbone -> YOLO decode -> class-aware NMS -> score maps -> RoI crops ->
@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from millieye_torch.device import constant
+from millieye_torch.io.checkpoint import to_device
 from millieye_torch.models import heads
 from millieye_torch.models.darknet import Darknet
 from millieye_torch.ops.boxes import box_regress
@@ -98,6 +99,22 @@ class FusionNetwork:
         self.darknet = darknet
         self.cfg = config or FusionConfig()
         _check_config(self.cfg)
+
+    def init(self, gen, device="cpu"):
+        """(params, state) from an explicit ``torch.Generator``, in the
+        JAX package's tree: the Darknet, then the 256 -> 490 score-map
+        stack, the radar encoder, the refinement head and the ensemble
+        head, drawn on the CPU in that order and moved to ``device``."""
+        d_params, d_state = self.darknet.init(gen)
+        img_cnn_p, img_cnn_s = heads.conv_bn_stack_init(gen, (256, 490))
+        radar_p, radar_s = heads.radar_encoder_init(gen)
+        ref_p, ref_s = heads.refinement_head_init(gen, with_radar=True)
+        ens_p = heads.ensemble_head_init(gen, self.cfg.class_num)
+        params = {"darknet": d_params, "img_cnn": img_cnn_p,
+                  "radar_enc": radar_p, "refine": ref_p, "ensemble": ens_p}
+        state = {"darknet": d_state, "img_cnn": img_cnn_s,
+                 "radar_enc": radar_s, "refine": ref_s}
+        return to_device(params, device), to_device(state, device)
 
     def apply(self, params, state, images, radar_maps, radar_boxes,
               radar_mask, mode=0):
@@ -243,6 +260,17 @@ class RefineNetwork:
         self.darknet = darknet
         self.cfg = config or FusionConfig(class_num=12)
         _check_config(self.cfg)
+
+    def init(self, gen, device="cpu"):
+        """(params, state) from an explicit ``torch.Generator``: the
+        Darknet, the score-map stack ``fcn``, then the heads as
+        ``init_heads`` draws them; on the CPU, moved to ``device``."""
+        d_params, d_state = self.darknet.init(gen)
+        fcn_p, fcn_s = heads.conv_bn_stack_init(gen, (256, 490))
+        hp, hs = self.init_heads(gen)
+        params = {"darknet": d_params, "fcn": fcn_p, **hp}
+        state = {"darknet": d_state, "fcn": fcn_s, **hs}
+        return to_device(params, device), to_device(state, device)
 
     def init_heads(self, gen):
         """(params, state) of the refinement and ensemble heads from an

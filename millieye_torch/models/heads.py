@@ -1,8 +1,9 @@
 """Fusion-stage heads, inference only (port of
 ``millieye_tpu/models/heads.py``): score-map encoders, the module3
 refinement head with radar-confidence fusion, module2's without the radar
-branch, the ensemble head, and seeded initialisers for heads that have no
-checkpoint.
+branch, the ensemble head, and their initialisers, which draw from an
+explicit ``torch.Generator`` in the JAX package's layout (its numbers
+come from JAX's PRNG and cannot be repeated).
 
 Tensors are NHWC at the interfaces; convolution weights are OIHW and
 linear weights [in, out], as the weight converter
@@ -59,6 +60,49 @@ def _linear_init(gen, fan_in, fan_out):
             * (2.0 / fan_in) ** 0.5)
 
 
+def _conv_init(gen, k, cin, cout):
+    """Conv weights ~ N(0, 0.02), OIHW."""
+    return 0.02 * torch.randn((cout, cin, k, k), generator=gen)
+
+
+def _bn_init(gen, c):
+    """(params, state) of a BN: gamma ~ 1 + N(0, 0.02), beta 0, running
+    mean 0 and var 1."""
+    return ({"gamma": 1.0 + 0.02 * torch.randn(c, generator=gen),
+             "beta": torch.zeros(c)},
+            {"mean": torch.zeros(c), "var": torch.ones(c)})
+
+
+def conv_bn_stack_init(gen, channels):
+    """1x1 conv + BN + leaky per stage, channels e.g. (256, 490): each
+    stage's weights, then its gamma."""
+    params, state = [], []
+    for cin, cout in zip(channels[:-1], channels[1:]):
+        w = _conv_init(gen, 1, cin, cout)
+        bn_p, bn_s = _bn_init(gen, cout)
+        params.append({"w": w, "b": torch.zeros(cout), "bn": bn_p})
+        state.append(bn_s)
+    return params, state
+
+
+_RADAR_ENC_CHANNELS = (3, 32, 64, 128)
+
+
+def radar_encoder_init(gen):
+    """Three 3x3 conv + BN + leaky stages (3 -> 32 -> 64 -> 128), then a
+    1x1 conv to 10 channels."""
+    params, state = [], []
+    chans = _RADAR_ENC_CHANNELS
+    for cin, cout in zip(chans[:-1], chans[1:]):
+        w = _conv_init(gen, 3, cin, cout)
+        bn_p, bn_s = _bn_init(gen, cout)
+        params.append({"w": w, "b": torch.zeros(cout), "bn": bn_p})
+        state.append(bn_s)
+    params.append({"w": _conv_init(gen, 1, chans[-1], 10),
+                   "b": torch.zeros(10)})
+    return params, state
+
+
 def refinement_head_init(gen, in_dim=490, hidden=256, net2_out=13,
                          with_radar=True):
     """(params, state) from an explicit ``torch.Generator``: the layout of
@@ -73,15 +117,13 @@ def refinement_head_init(gen, in_dim=490, hidden=256, net2_out=13,
     }
     state = {}
     if with_radar:
+        conv7 = {"w": _conv_init(gen, 7, 10, 10), "b": torch.zeros(10)}
+        bn_p, bn_s = _bn_init(gen, 10)
         params["radar_net"] = {
-            "conv7": {"w": 0.02 * torch.randn((10, 10, 7, 7), generator=gen),
-                      "b": torch.zeros(10)},
-            "bn": {"gamma": 1.0 + 0.02 * torch.randn(10, generator=gen),
-                   "beta": torch.zeros(10)},
-            "conv1": {"w": 0.02 * torch.randn((1, 10, 1, 1), generator=gen),
-                      "b": torch.zeros(1)},
+            "conv7": conv7, "bn": bn_p,
+            "conv1": {"w": _conv_init(gen, 1, 10, 1), "b": torch.zeros(1)},
         }
-        state["radar_net"] = {"mean": torch.zeros(10), "var": torch.ones(10)}
+        state["radar_net"] = bn_s
     return params, state
 
 

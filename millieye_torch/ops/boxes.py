@@ -3,7 +3,9 @@
 All functions take [..., 4] tensors: (x1, y1, x2, y2) for "xyxy" and
 (cx, cy, w, h) for "xywh". ``plus_one`` selects the reference's +1 pixel
 convention; torchvision's NMS (and so this package's NMS) uses
-``plus_one=False``. ``box_regress`` runs ``exp`` in float32.
+``plus_one=False``. ``box_regress`` runs ``exp`` in float32;
+``encode_boxes`` is its inverse, the regression targets, with the
+reference's ``1e-16`` guards.
 """
 from __future__ import annotations
 
@@ -35,9 +37,24 @@ def _iou_core(a, b, plus_one):
     return inter / (area_a + area_b - inter + 1e-16)
 
 
+def iou_pairwise(a, b, plus_one=True):
+    """Elementwise IoU of equal-shaped [..., 4] xyxy boxes."""
+    return _iou_core(a, b, plus_one)
+
+
 def iou_matrix(a, b, plus_one=True):
     """All-pairs IoU: a [..., n, 4] x b [..., m, 4] -> [..., n, m]."""
     return _iou_core(a[..., :, None, :], b[..., None, :, :], plus_one)
+
+
+def wh_iou(wh1, wh2):
+    """IoU by shape only (boxes co-centred): wh1 [n, 2] x wh2 [m, 2] ->
+    [n, m], with the reference's 1e-16 inside the union."""
+    w1, h1 = wh1[:, None, 0], wh1[:, None, 1]
+    w2, h2 = wh2[None, :, 0], wh2[None, :, 1]
+    inter = torch.minimum(w1, w2) * torch.minimum(h1, h2)
+    union = (w1 * h1 + 1e-16) + w2 * h2 - inter
+    return inter / union
 
 
 def rescale_boxes(boxes, current_dim, original_shape):
@@ -67,3 +84,16 @@ def box_regress(regress_param, roi_xyxy):
     wr = torch.exp(p[..., 2].clamp(-20.0, 20.0)) * w
     hr = torch.exp(p[..., 3].clamp(-20.0, 20.0)) * h
     return xywh_to_xyxy(torch.stack([xr, yr, wr, hr], -1))
+
+
+def encode_boxes(roi_xyxy, target_xyxy):
+    """Regression targets for roi -> target: ((xt - x) / w, (yt - y) / h,
+    log(wt / w + 1e-16), log(ht / h + 1e-16)), the 1e-16 where the
+    reference puts it."""
+    r = xyxy_to_xywh(roi_xyxy)
+    t = xyxy_to_xywh(target_xyxy)
+    x, y, w, h = r[..., 0], r[..., 1], r[..., 2], r[..., 3]
+    xt, yt, wt, ht = t[..., 0], t[..., 1], t[..., 2], t[..., 3]
+    return torch.stack([(xt - x) / (w + 1e-16), (yt - y) / (h + 1e-16),
+                        torch.log(wt / w + 1e-16),
+                        torch.log(ht / h + 1e-16)], -1)

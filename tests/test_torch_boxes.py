@@ -58,3 +58,37 @@ def test_box_regress(rng):
     want = jb.box_regress(jnp.asarray(deltas), jnp.asarray(rois))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_iou_pairwise(rng, plus_one):
+    a, b = _boxes(rng, 60).reshape(3, 20, 4), _boxes(rng, 60).reshape(3, 20, 4)
+    b[0, :5] = a[0, :5]                  # identical pairs: IoU 1
+    got = tb.iou_pairwise(torch.from_numpy(a), torch.from_numpy(b), plus_one)
+    want = jb.iou_pairwise(jnp.asarray(a), jnp.asarray(b), plus_one)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=1e-7)
+
+
+def test_wh_iou(rng):
+    wh1 = rng.uniform(0.5, 120, (9, 2)).astype(np.float32)
+    wh2 = rng.uniform(0.5, 120, (14, 2)).astype(np.float32)
+    wh2[0] = 0.0                         # a degenerate anchor: the 1e-16
+    got = tb.wh_iou(torch.from_numpy(wh1), torch.from_numpy(wh2))
+    want = jb.wh_iou(jnp.asarray(wh1), jnp.asarray(wh2))
+    assert got.shape == (9, 14)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=1e-7)
+
+
+def test_encode_boxes(rng):
+    """The regression targets, and box_regress of them back to the
+    targets (log then exp: a few float32 ulps)."""
+    rois, tgt = _boxes(rng, 50), _boxes(rng, 50)
+    tgt[0] = rois[0]                     # zero deltas
+    got = tb.encode_boxes(torch.from_numpy(rois), torch.from_numpy(tgt))
+    want = jb.encode_boxes(jnp.asarray(rois), jnp.asarray(tgt))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(tb.box_regress(got, torch.from_numpy(
+        rois)).numpy(), tgt, rtol=1e-5, atol=1e-3)

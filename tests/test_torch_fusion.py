@@ -27,7 +27,8 @@ import pytest
 import torch
 
 from millieye_torch.cli._common import build_fusion
-from millieye_torch.io.checkpoint import convert, read_npz
+from millieye_torch.io.checkpoint import convert
+from millieye_torch.io.checkpoint import load_checkpoint as torch_load
 from millieye_torch.ops import cuda_lib
 from millieye_torch.ops import letterbox as tlb
 from millieye_torch.ops.rasterize import radar_heatmap
@@ -209,10 +210,15 @@ def test_ingest_matches():
 
 
 def test_weight_converter():
-    """read_npz + convert give the JAX package's leaves, conv kernels
-    turned HWIO -> OIHW."""
+    """convert gives the JAX package's leaves, conv kernels turned HWIO
+    -> OIHW, and load_checkpoint of the checkpoint the same tree."""
     _, jp, js = _jax_model("f32")
-    tp, ts = convert(*read_npz(CKPT))
+    tp, ts = convert(*jax.tree.map(np.asarray, (jp, js)))
+    _, ip, is_ = build_fusion(None, "f32", img_size=S, device="cpu")
+    lt = torch_load(CKPT, {"params": ip, "state": is_})
+    for got, want in ((lt["params"], tp), (lt["state"], ts)):
+        jax.tree.map(lambda a, b: np.testing.assert_array_equal(
+            a.numpy(), b.numpy()), got, want)
     w = np.asarray(jp["darknet"][2]["w"])
     np.testing.assert_array_equal(tp["darknet"][2]["w"].numpy(),
                                   w.transpose(3, 2, 0, 1))
@@ -220,7 +226,7 @@ def test_weight_converter():
                                   np.asarray(jp["refine"]["net0"]["w"]))
     np.testing.assert_array_equal(ts["img_cnn"][0]["var"].numpy(),
                                   np.asarray(js["img_cnn"][0]["var"]))
-    assert tp["darknet"][1] == {} and len(tp["darknet"]) == 23
+    assert tp["darknet"][1] == {} and len(tp["darknet"]) == 24
 
 
 def test_roi_reduce_validation():

@@ -1110,3 +1110,55 @@ def test_wrappers_refuse_wrong_inputs(cuda):
             torch.randn(8, generator=g).to(cuda))
     assert torch.equal(fused_stem(*args, th=1),
                        fused_stem_plain(*args, th=1))
+
+
+def test_init_on_the_card_equals_the_cpu_init(cuda):
+    """``init(gen, device=...)`` draws on the CPU and moves the tree: the
+    same seed gives the same weights on the card."""
+    from millieye_torch.io.checkpoint import leaf_items
+    from millieye_torch.models.darknet import Darknet
+    from millieye_torch.models.fusion import FusionNetwork
+    from millieye_torch.models.zoo import tiny_yolov3_defs, yolov3_defs
+    for model in (Darknet(yolov3_defs(80, 416)),
+                  FusionNetwork(Darknet(tiny_yolov3_defs(12, 416)))):
+        got = model.init(torch.Generator().manual_seed(0), device=cuda)
+        want = model.init(torch.Generator().manual_seed(0))
+        got, want = leaf_items(got), leaf_items(want)
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (k, a), (_, b) in zip(got, want):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b), k
+
+
+@pytest.mark.parametrize("fmt", ["npz", "weights", "pth", "pt", "tiny15"])
+def test_weights_round_trip_serves_on_the_card(cuda, tmp_path, fmt):
+    """The tracked checkpoint written in each format (chip_smoke.py's
+    writers), read on the host and served at pallas_max_s01: the
+    kernels launch, and the answers are bit-identical to the checkpoint
+    engine's (the conv.15 file, over the seed-0 init: finite, of the
+    right shape)."""
+    import chip_smoke as cs
+    from millieye_torch.cli._common import (build_fusion, load_fusion,
+                                            load_weights_any)
+    from millieye_torch.runtime.engine import FusionEngine
+    model, p, s = build_fusion(cs.CKPT, "pallas_max_s01", device="cpu")
+    files = cs.write_weight_files(torch, str(tmp_path), model, p, s)
+    if fmt == "pt":             # the backbone, over the checkpoint's heads
+        dp, ds = load_weights_any(model.darknet, p["darknet"], s["darknet"],
+                                  files["pt"])
+        lp, ls = dict(p, darknet=dp), dict(s, darknet=ds)
+    elif fmt == "weights":
+        lp, ls = load_fusion(model, p, s, files["weights"])
+    else:                       # tiny15: over the seed-0 init
+        _, lp, ls = build_fusion(files[fmt], "pallas_max_s01", device="cpu")
+    if fmt != "tiny15":
+        assert cs.same_tree(torch, (lp, ls), (p, s))
+    eng = FusionEngine(model, lp, ls, device=cuda)
+    ref = FusionEngine(model, p, s, device=cuda)
+    nms_keep_mask_blocked.launches = 0
+    for frame, pts, props in cs.requests(np.random.default_rng(1), 2):
+        boxes, valid = eng.infer(frame, pts, props)
+        assert boxes.shape == (96, 6) and np.isfinite(boxes).all()
+        if fmt != "tiny15":
+            assert cs.same_answer((boxes, valid), ref.infer(frame, pts,
+                                                            props))
+    assert nms_keep_mask_blocked.launches >= 2

@@ -26,6 +26,8 @@ so per rung:
   On boxes whose interpolation weights are dyadic (so by and bx are bf16
   values too) the rung is held bit-equal to kernel K2's plain version,
   which is itself held to the Pallas kernel that rounds explicitly."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +39,9 @@ from millieye_tpu.ops.roi_align import (_batched_prep as j_batched_prep,
                                         ps_roi_align_batched as j_ps_batched,
                                         roi_align_batched as j_roi_batched)
 from millieye_tpu.ops import roi_pallas as jrp
+
+# the module: millieye_tpu.ops exports a function of the same name
+jra = importlib.import_module("millieye_tpu.ops.roi_align")
 
 # small shapes: one thread per process, so that test workers running side
 # by side do not oversubscribe the cores
@@ -147,6 +152,80 @@ def test_einsum_path_f32_matches(rng):
         tra.ps_roi_align_batched(torch.from_numpy(ps), tb_).numpy(),
         np.asarray(j_ps_batched(jnp.asarray(ps), jnp.asarray(boxes))),
         rtol=1e-5, atol=1e-5)
+
+
+def _rois(rng, n_img, k, hi):
+    """[K, 5] rows of (image, x1, y1, x2, y2): random boxes, one below
+    the minimum size, one past the map's border, one on each image."""
+    boxes = _boxes(rng, 1, k, hi=hi)[0]
+    boxes[1] = [hi - 30, hi - 20, hi + 60, hi + 50]
+    img = rng.integers(0, n_img, k).astype(np.float32)
+    img[:n_img] = np.arange(n_img)
+    return np.concatenate([img[:, None], boxes], 1)
+
+
+@pytest.mark.parametrize("method", ["einsum", "gather"])
+@pytest.mark.parametrize("sampling_ratio", [-1, 2])
+def test_per_roi_api_matches(rng, method, sampling_ratio):
+    """The per-RoI ``roi_align`` and ``ps_roi_align`` (NHWC features,
+    rois [K, 5]) against the JAX package's, each method against its
+    golden of the same method and against the other method's: float32,
+    summation order only, so rtol 1e-5 and atol 1e-6."""
+    n, hw, k = 3, 13, 17
+    feats = rng.standard_normal((n, hw, hw, 10)).astype(np.float32)
+    ps = rng.standard_normal((n, hw, hw, 490)).astype(np.float32)
+    rois = _rois(rng, n, k, hi=16 * hw)
+    kw = dict(sampling_ratio=sampling_ratio, method=method)
+    got = tra.roi_align(torch.from_numpy(feats), torch.from_numpy(rois),
+                        **kw)
+    want = jra.roi_align(jnp.asarray(feats), jnp.asarray(rois), **kw)
+    assert got.shape == (k, 7, 7, 10) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    got_ps = tra.ps_roi_align(torch.from_numpy(ps), torch.from_numpy(rois),
+                              **kw)
+    want_ps = jra.ps_roi_align(jnp.asarray(ps), jnp.asarray(rois), **kw)
+    assert got_ps.shape == (k, 7, 7, 10)
+    np.testing.assert_allclose(got_ps.numpy(), np.asarray(want_ps),
+                               rtol=1e-5, atol=1e-6)
+    other = "gather" if method == "einsum" else "einsum"
+    kw["method"] = other
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jra.roi_align(jnp.asarray(feats),
+                                              jnp.asarray(rois), **kw)),
+        rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(
+        got_ps.numpy(), np.asarray(jra.ps_roi_align(jnp.asarray(ps),
+                                                    jnp.asarray(rois), **kw)),
+        rtol=1e-5, atol=1e-6)
+
+
+def test_per_roi_helpers_match(rng):
+    """``_bilinear_terms`` (taps inside, on and past the border) and
+    ``_per_image``."""
+    y = rng.uniform(-2, 15, (40,)).astype(np.float32)
+    x = rng.uniform(-2, 15, (40,)).astype(np.float32)
+    y[:3], x[:3] = [-1.0, 12.0, 13.0], [-0.5, 12.5, 0.0]
+    got = tra._bilinear_terms(torch.from_numpy(y), torch.from_numpy(x),
+                              13, 13)
+    want = jra._bilinear_terms(jnp.asarray(y), jnp.asarray(x), 13, 13)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    batch = np.array([0, 2, 1, 2, 0], np.int32)
+    vals = rng.standard_normal((3, 5, 2, 2, 4)).astype(np.float32)
+    got = tra._per_image(torch.from_numpy(batch), 3,
+                         lambda b: torch.from_numpy(vals[b]))
+    want = jra._per_image(jnp.asarray(batch), 3,
+                          lambda b: jnp.asarray(vals[b]))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_per_roi_api_rejects_unfactored_channels(rng):
+    feats = torch.zeros((1, 5, 5, 48))
+    rois = torch.tensor([[0.0, 1.0, 1.0, 40.0, 40.0]])
+    for method in ("einsum", "gather"):
+        with pytest.raises(ValueError, match="do not factor"):
+            tra.ps_roi_align(feats, rois, method=method)
 
 
 _LADDER_TOL = {"highest": 1e-5, "split": 2.0 ** -14, "default": 2.0 ** -6}

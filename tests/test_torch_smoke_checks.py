@@ -193,3 +193,72 @@ def test_window_flips_on_perturbed_window(engine, fault):
             assert anchors > 0
     finally:
         del dn.apply
+
+
+def test_module3_state_dict_gives_back_the_checkpoint(tmp_path):
+    """chip_smoke.py's module3 ``.pth`` of the tracked checkpoint, read by
+    the JAX package's ``read_state_dict`` and ``fill_fusion_network``,
+    gives back the checkpoint's trees exactly (every leaf of the
+    template replaced); its ``.pt`` of the backbone, by position and by
+    key, gives back the Darknet."""
+    import jax
+    from millieye_tpu.io.checkpoint import load_checkpoint
+    from millieye_tpu.io.torch_ckpt import (fill_darknet,
+                                            fill_fusion_network,
+                                            load_ultralytics_pt,
+                                            read_state_dict)
+    from millieye_tpu.models import Darknet, tiny_yolov3_defs
+    from millieye_tpu.models.fusion import FusionConfig, FusionNetwork
+    model, p, s = build_fusion(str(CKPT), "f32", device="cpu")
+    path = str(tmp_path / "module3.pth")
+    torch.save(cs.module3_state_dict(torch, model, p, s), path)
+    jm = FusionNetwork(Darknet(tiny_yolov3_defs(12, 416)), FusionConfig())
+    like = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    want = load_checkpoint(str(CKPT), {"params": like[0], "state": like[1]})
+    sd = read_state_dict(path)
+    got = fill_fusion_network(jm, like[0], like[1], sd)
+    leaves = jax.tree.leaves_with_path((want["params"], want["state"]))
+    got_leaves = jax.tree.leaves_with_path(got)
+    assert [k for k, _ in got_leaves] == [k for k, _ in leaves]
+    for (k, a), (_, b) in zip(got_leaves, leaves):
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    assert sd["base_detector.module_list.0.batch_norm_0.num_batches_tracked"
+              ].dtype == np.int64
+    pt = str(tmp_path / "darknet.pt")
+    torch.save({"model": cs.darknet_module(torch, model.darknet,
+                                           p["darknet"], s["darknet"])}, pt)
+    dl = (like[0]["darknet"], like[1]["darknet"])
+    for dp, ds in (load_ultralytics_pt(jm.darknet, *dl, pt),
+                   fill_darknet(jm.darknet, *dl, read_state_dict(pt))):
+        for a, b in zip(jax.tree.leaves((dp, ds)), jax.tree.leaves(
+                (want["params"]["darknet"], want["state"]["darknet"]))):
+            assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("defs", ["tiny", "yolov3"])
+def test_write_cfg_parses_back(tmp_path, defs):
+    """chip_smoke.py's ``.cfg`` writer, read by the JAX package's parser:
+    the zoo's blocks, and the same plan in its Darknet."""
+    from millieye_tpu.io.config import parse_model_config
+    from millieye_tpu.models import Darknet, tiny_yolov3_defs
+    from millieye_tpu.models.zoo import yolov3_defs
+    blocks = (tiny_yolov3_defs(12, 416) if defs == "tiny"
+              else yolov3_defs(80, 416))
+    path = str(tmp_path / "m.cfg")
+    cs.write_cfg(blocks, path)
+    assert parse_model_config(path) == blocks
+    assert Darknet(path)._plan == Darknet(blocks)._plan
+
+
+def test_write_demo_inputs(tmp_path):
+    """The recording's frames from disk are the frames written, and the
+    YAML gives ``STREAM_CALIB``."""
+    from millieye_torch.collection.prepare import iter_frames
+    from millieye_torch.radar.projection import load_calib
+    rng = np.random.default_rng(0)
+    frames = [(i, rng.integers(0, 256, (48, 64, 3), np.uint8))
+              for i in range(3)]
+    path = cs.write_demo_inputs(str(tmp_path), frames)
+    np.testing.assert_array_equal(load_calib(path), cs.STREAM_CALIB)
+    for (i, f), (j, g) in zip(frames, iter_frames(str(tmp_path))):
+        assert i == j and np.array_equal(f, g)

@@ -24,6 +24,7 @@ from millieye_torch.cli import demo
 from millieye_torch.cli._common import build_fusion
 from millieye_torch.collection.prepare import iter_frames
 from millieye_torch.radar.pipeline import RadarParams
+from millieye_torch.radar.projection import load_calib
 from millieye_torch.runtime.engine import FusionEngine
 from millieye_torch.runtime.profiler import (StageTimer, device_trace,
                                              trace_annotation)
@@ -43,6 +44,7 @@ CALIB = np.array([40.0, 32.0, 40.0, 24.0,   # fx cx fy cy
                   0, 0, 0, 0, 0,            # no distortion
                   0, 0, 0], np.float64)     # no translation
 TOL_F32 = dict(score=1e-4, box=1e-3)
+CKPT = "artifacts/stage3_final.npz"
 PARAMS = dict(frame_size=FRAME, num_pts_filter=1, min_hits=1,
               min_velocity=0.0)
 
@@ -268,17 +270,121 @@ def test_demo_main(tmp_path, capsys):
         assert img.shape == frames[int(name[:6])].shape
 
 
-@pytest.mark.parametrize("weights", [None, "w.pt", "w.pth", "w.weights"])
-def test_demo_needs_npz_weights(tmp_path, weights):
-    argv = ["--recording", str(tmp_path), "--calib", "c.yaml",
-            "--device", "cpu"]
-    if weights:
-        argv += ["--weights", weights]
-    with pytest.raises(NotImplementedError,
-                       match="FusionNetwork.init" if weights is None
-                       else "not ported"):
-        demo.main(argv)
+def _demo_inputs(tmp_path):
+    """A 4-frame recording and its camera YAML, and a ``--save_dir``
+    (whose saver ``_demo_answers`` replaces)."""
+    import yaml
+    rec = str(tmp_path / "rec")
+    _write_recording(rec, n_frames=4)
+    calib = tmp_path / "calib.yaml"
+    calib.write_text(yaml.safe_dump({
+        "camera_matrix": {"data": [40.0, 0, 32.0, 0, 40.0, 24.0, 0, 0, 1]},
+        "distortion_coefficients": {"data": [0.0] * 5}}))
+    return ["--recording", rec, "--calib", str(calib), "--img_size", str(S),
+            "--frame_w", str(FRAME[0]), "--frame_h", str(FRAME[1]),
+            "--save_dir", str(tmp_path / "out")]
 
+
+def _demo_answers(monkeypatch, module, argv):
+    """The frames ``module.main(argv)`` delivers, caught where its
+    ``--save_dir`` saver would write them."""
+    got = {}
+    monkeypatch.setattr(module, "_make_saver", lambda args: _collect(got))
+    module.main(argv)
+    assert got                          # the demo runs live: frames that
+    return got                          # find its queue full are dropped
+
+
+def _lossless(weights, argv):
+    """The demo's network (``build_fusion`` of ``weights``, the demo's
+    ``refine_threshold_radar``) over the whole recording, lossless: the
+    answer every frame a live run delivers must give."""
+    model, p, s = build_fusion(weights, "f32", img_size=S, device="cpu",
+                               refine_threshold_radar=0.56)
+    eng = FusionEngine(model, p, s, frame_size=FRAME, device="cpu")
+    want = {}
+    StreamingPipeline(eng, argv[1], load_calib(argv[3]),
+                      RadarParams(frame_size=FRAME), drop_on_full=False).run(
+        on_result=_collect(want))
+    assert sorted(want) == [0, 1, 2, 3]
+    return want
+
+
+def _same_frames(got, want):
+    for i in got:
+        np.testing.assert_array_equal(got[i][0], want[i][0])
+        np.testing.assert_array_equal(got[i][1], want[i][1])
+
+
+def _weight_files(tmp_path):
+    """The tracked checkpoint at S as chip_smoke.py writes it, plus its
+    module3 state dict as a ``.pt``."""
+    import shutil
+    import chip_smoke as cs
+    model, p, s = build_fusion(CKPT, "f32", img_size=S, device="cpu")
+    files = cs.write_weight_files(torch, str(tmp_path), model, p, s)
+    files["module3.pt"] = str(tmp_path / "module3.pt")
+    shutil.copy(files["pth"], files["module3.pt"])
+    return model, files
+
+
+@pytest.mark.parametrize("weights", [None, "w.pt", "w.pth", "w.weights"])
+def test_demo_needs_npz_weights(tmp_path, monkeypatch, weights):
+    """The demo takes every format the JAX demo takes, and none: a
+    module3 state dict as ``.pt`` or ``.pth`` and a darknet ``.weights``
+    (each written from the tracked checkpoint), and no ``--weights`` (the
+    seed-0 init). It runs live, dropping frames that find its queue
+    full: each frame it delivers is bit-identical to the lossless run of
+    ``build_fusion`` of that file (or init) over the recording. (The name
+    is kept from when the demo refused these cases, so that the test's
+    record stays continuous; it now checks that none is refused.)"""
+    argv = _demo_inputs(tmp_path) + ["--device", "cpu", "--max_frames", "2"]
+    path = None
+    if weights:
+        _, files = _weight_files(tmp_path)
+        path = str(tmp_path / weights)
+        os.replace(files["pth" if weights.endswith((".pt", ".pth"))
+                         else "weights"], path)
+        argv += ["--weights", path]
+    got = _demo_answers(monkeypatch, demo, argv)
+    assert len(got) <= 2
+    _same_frames(got, _lossless(path, argv))
+
+
+def test_demo_matches_jax_on_each_format(tmp_path, monkeypatch):
+    """The port's demo on the tracked checkpoint as .npz, .pth and .pt
+    (one tree) and on a darknet .weights (the checkpoint's backbone over
+    the seed-0 init), each frame it delivers bit-identical to the
+    lossless run of its tree; the JAX package's demo on the .npz, and on
+    a .npz of the .weights tree written by the port's
+    ``save_checkpoint`` (the JAX package's ``_load_fusion`` unpacks
+    ``load_darknet_weights``' header into its pair and raises on a
+    .weights file), each frame it delivers within TOL_F32 of the same
+    lossless run, rows matched by box. Both demos run live, so each is
+    held to the lossless run, not to the other's frames."""
+    import millieye_tpu.cli.demo as jdemo
+    from millieye_torch.cli._common import load_fusion
+    from millieye_torch.io.checkpoint import save_checkpoint
+    argv = _demo_inputs(tmp_path) + ["--max_frames", "3"]
+    model, files = _weight_files(tmp_path)
+    init = build_fusion(None, "f32", img_size=S, device="cpu")
+    tree = load_fusion(model, init[1], init[2], files["weights"])
+    files["from_weights.npz"] = str(tmp_path / "from_weights.npz")
+    save_checkpoint(files["from_weights.npz"],
+                    {"params": tree[0], "state": tree[1]})
+    want = {"npz": _lossless(files["npz"], argv),
+            "from_weights.npz": _lossless(files["from_weights.npz"], argv)}
+    assert sum(int(v.sum()) for _, v in want["npz"].values()) > 0
+    for f, tree_of in (("npz", "npz"), ("pth", "npz"), ("module3.pt", "npz"),
+                       ("weights", "from_weights.npz")):
+        _same_frames(_demo_answers(monkeypatch, demo, argv + [
+            "--device", "cpu", "--weights", files[f]]), want[tree_of])
+    for f in ("npz", "from_weights.npz"):
+        store = _demo_answers(monkeypatch, jdemo,
+                              argv + ["--weights", files[f]])
+        for i in store:
+            _match_rows(want[f][i], tuple(map(np.asarray, store[i])),
+                        TOL_F32)
 
 
 def test_chip_smoke_session(jax_model, tmp_path):
