@@ -127,7 +127,34 @@ printed only when every phase passed:
      forward at batch 1 and 8, and the full ``.weights`` file (62M
      floats) and a ``darknet53.conv.74`` cutoff file round-tripped leaf
      for leaf;
-  8. a ``kernels`` JSON line, then the contract line
+  8. P19, the evaluation path: ``cli.evaluate.main`` in this process on
+     ``SyntheticScenes(64, seed=777)`` (H and L) at 416 px, batch 8, on
+     the tracked checkpoint: ``--what fusion`` at ``f32``,
+     ``pallas_max_s01``, ``pallas_max4`` and ``int8_acts`` (calibrated on
+     the first 4 eval batches), ``pallas_max_s01`` with ``--device_cache``
+     and at ``--model_mode 3``, ``--what yolo`` on P17's ``.weights`` file
+     and ``--what refine`` on the ``.npz``; each run's launches counted
+     per batch (the preset's kernels on every batch; the eval step has no
+     post-merge NMS, so no K5), the run repeated inside
+     ``cuda_lib.plain_versions()``: at ``f32``, ``int8_acts``, yolo and
+     refine every batch bit-identical and the same mAP, at the tensor-core
+     presets each image's rows within ``PAIR_PATH_TOL`` or beyond it by
+     pre-merge NMS decisions alone (``eval_flips``), both mAPs printed;
+     mAP, images/s and wall s per run; the device cache's batches equal to
+     the host collate's after the float16 round trip; one profiled run
+     (the device's busy share); ``--plot`` where matplotlib imports;
+  9. P20, the export path: ``cli.export.main --verify`` on the card at
+     ``pallas_max_s01`` b1, ``pallas_max4`` b8 and ``f32`` b1 (the
+     artifact bit-identical to the live graph), each blob served by
+     ``io/export.py:load_serving`` in a process of its own that imports no
+     model code, on P1's letterboxed inputs: bit-identical to the live
+     ``FusionNetwork.apply``, the preset's kernels launched once a call
+     (K4, K1, K2, K3, and K9 at ``pallas_max4``; K1 at ``f32``), and
+     inside ``plain_versions()`` no launch and the live graph's plain
+     answer; blob MB, export s, load s, device ms a call of the artifact
+     and of the live step; then a custom op's host cost against a direct
+     launch of its kernel (K1 at P1's shape) beside P1's host ms;
+ 10. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1778,6 +1805,456 @@ def yolov3_phase(torch, cuda_lib, root, size=416, batch=8):
              "nms_rows_kept_b8": int(kv.sum())}, stem_refusal, limits)
 
 
+# phases P19 and P20: the evaluation path (cli.evaluate) and the export
+# path (cli.export, io/export.py's artifact in a process of its own)
+EVAL_SCENES = 64               # SyntheticScenes(64, seed=777), H and L
+EVAL_BATCH = 8
+# the runs' common arguments, first: a run's own --weights comes later
+EVAL_ARGS = ["--weights", CKPT, "--synthetic", str(EVAL_SCENES),
+             "--illumination", "H", "L", "--batch_size", str(EVAL_BATCH)]
+_RIGHT_PAIR = ("stem_pair", "nms", "ps_roi_align", "roi_align")
+
+
+def eval_runs(weights_file):
+    """(label, argv, launches a batch, held): ``held`` "exact" for a run
+    whose kernels are bit-equal to their plain versions, "tensor-core"
+    for one that runs the stem pair or K9 at "default"."""
+    one = dict.fromkeys
+    return (
+        ("fusion@f32", ["--what", "fusion", "--serving", "f32"],
+         {"nms": 1}, "exact"),
+        ("fusion@pallas_max_s01", ["--what", "fusion", "--serving",
+                                   "pallas_max_s01"], one(_RIGHT_PAIR, 1),
+         "tensor-core"),
+        ("fusion@pallas_max4", ["--what", "fusion", "--serving",
+                                "pallas_max4"],
+         one(_RIGHT_PAIR + ("stem_stage",), 1), "tensor-core"),
+        ("fusion@int8_acts", ["--what", "fusion", "--serving", "int8_acts"],
+         {"nms": 1}, "exact"),
+        ("fusion@pallas_max_s01+device_cache",
+         ["--what", "fusion", "--serving", "pallas_max_s01",
+          "--device_cache"], one(_RIGHT_PAIR, 1), "tensor-core"),
+        ("fusion@pallas_max_s01+mode3",
+         ["--what", "fusion", "--serving", "pallas_max_s01",
+          "--model_mode", "3"], one(("stem_pair", "nms"), 1), "tensor-core"),
+        ("yolo@weights", ["--what", "yolo", "--weights", weights_file],
+         {"nms": 1}, "exact"),
+        ("refine@npz", ["--what", "refine"], {"nms": 1}, "exact"),
+    )
+
+
+@contextlib.contextmanager
+def eval_records(harness):
+    """Record each batch of a harness run: its forward, its device batch,
+    its answer (rows [B, K, 7], valid [B, K]) and, for the fusion
+    harness at mode 3, the mode ``auto_mode`` chose."""
+    seen, modes = [], []
+    real_eval, real_auto = harness._evaluate, harness.auto_mode
+
+    def evaluate(batches, forward, iou_thresh):
+        def rec(batch):
+            out = forward(batch)
+            seen.append({"forward": forward, "batch": batch, "out": out})
+            return out
+        return real_eval(batches, rec, iou_thresh)
+
+    def auto(images, brightness=None):
+        modes.append(real_auto(images, brightness))
+        return modes[-1]
+
+    harness._evaluate, harness.auto_mode = evaluate, auto
+    try:
+        yield seen, modes
+    finally:
+        harness._evaluate, harness.auto_mode = real_eval, real_auto
+
+
+def _np_out(out):
+    return tuple(a.cpu().numpy() for a in out)
+
+
+def eval_flips(torch, cuda_lib, rec, tol):
+    """One batch of a tensor-core run whose rows differ from its fully
+    plain run beyond ``tol``: prove that NMS decisions alone make the
+    difference (the eval step has only the pre-merge NMS). Both runs
+    again with the pre-merge NMS recorded; the kernel run must repeat its
+    answer, each run's NMS must be the plain NMS of its own detections
+    (``pre_merge_is_nms``) and have kept other anchors, and each run
+    under the other's decisions (``pre_merge_nms(inject=)``) must meet
+    the other's answer within ``tol``, image by image. Returns the
+    anchors kept by one run only; raises AssertionError otherwise."""
+    forward, batch = rec["forward"], rec["batch"]
+    with torch.inference_mode():
+        with pre_merge_nms(torch) as got_nms:
+            got = _np_out(forward(batch))
+        with pre_merge_nms(torch) as want_nms, cuda_lib.plain_versions():
+            want = _np_out(forward(batch))
+        if not all(np.array_equal(a, b) for a, b in zip(got,
+                                                        _np_out(rec["out"]))):
+            raise AssertionError("an eval batch did not repeat its answer")
+        anchors = pre_merge_is_nms(torch, cuda_lib, got_nms, want_nms)
+        if not anchors:
+            raise AssertionError("an eval batch differs beyond its bound "
+                                 "with the same NMS decisions")
+        with pre_merge_nms(torch, inject=want_nms):
+            got2 = _np_out(forward(batch))
+        with pre_merge_nms(torch, inject=got_nms), cuda_lib.plain_versions():
+            want2 = _np_out(forward(batch))
+    for a, b in ((got2, want), (got, want2)):
+        for i in range(len(a[0])):
+            ok, db, ds, fl = rows_match((a[0][i], a[1][i]),
+                                        (b[0][i], b[1][i]), tol)
+            if not ok:
+                raise AssertionError(
+                    f"an eval batch under the other run's NMS decisions "
+                    f"differs beyond {tol} (image {i}: box {db}, score {ds},"
+                    f" {fl} rows on one side only)")
+    return anchors
+
+
+def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts):
+    """P19: ``cli.evaluate.main`` in this process on the card, each run of
+    ``eval_runs`` with its launches counted, again inside
+    ``plain_versions()``, and held to it; the device cache's batches
+    against the host collate's; one profiled run. Returns (summary,
+    {label: launches})."""
+    import io
+    from millieye_torch.cli import evaluate
+    from millieye_torch.data.device_cache import DeviceCache
+    from millieye_torch.data.loader import DataLoader, PaddedCollate
+    from millieye_torch.data.synthetic import SyntheticScenes
+    from millieye_torch.eval import harness
+
+    def run(argv):
+        with contextlib.redirect_stdout(io.StringIO()), \
+                eval_records(harness) as (seen, modes):
+            t0 = time.perf_counter()
+            m_ap = evaluate.main(EVAL_ARGS + argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return m_ap, wall, seen, modes
+
+    summary, launches_by_run = {}, {}
+    for label, argv, per_batch, held in eval_runs(weights_file):
+        zero_counts()
+        m_ap, wall, seen, modes = run(argv)
+        launches = counts()
+        launches_by_run[label] = launches
+        n_b = len(seen)
+        need = {k: v * n_b for k, v in per_batch.items()}
+        if modes:       # mode 3: the RoI kernels on the batches at mode 0
+            need.update(dict.fromkeys(("ps_roi_align", "roi_align"),
+                                      modes.count(0)))
+        short = {k: launches[k] for k, v in need.items() if launches[k] < v}
+        if n_b != EVAL_SCENES // EVAL_BATCH or short:
+            raise AssertionError(f"eval {label}: {n_b} batches; kernels "
+                                 f"launched too few times: {short} (need "
+                                 f"{need})")
+        with cuda_lib.plain_versions():
+            m_plain, wall_plain, pseen, _ = run(argv)
+        got = [_np_out(r["out"]) for r in seen]
+        want = [_np_out(r["out"]) for r in pseen]
+        for g, w in zip(got, want):
+            if g[0].shape != (EVAL_BATCH,) + g[0].shape[1:] or \
+                    not np.isfinite(g[0]).all():
+                raise AssertionError(f"eval {label}: bad rows {g[0].shape}")
+        same = sum(all(np.array_equal(a, b) for a, b in zip(g, w))
+                   for g, w in zip(got, want))
+        d_box = d_score = 0.0
+        flips = anchors = 0
+        if held == "exact":
+            if same != n_b or m_ap != m_plain:
+                raise AssertionError(
+                    f"eval {label}: kernels and plain versions disagree "
+                    f"({same} of {n_b} batches bit-identical, mAP {m_ap} "
+                    f"against {m_plain})")
+        else:
+            for rec, g, w in zip(seen, got, want):
+                beyond = False
+                for i in range(len(g[0])):
+                    ok, db, ds, fl = rows_match((g[0][i], g[1][i]),
+                                                (w[0][i], w[1][i]),
+                                                PAIR_PATH_TOL)
+                    d_box, d_score = max(d_box, db), max(d_score, ds)
+                    flips += fl
+                    beyond |= not ok
+                if beyond:
+                    try:
+                        anchors += eval_flips(torch, cuda_lib, rec,
+                                              PAIR_PATH_TOL)
+                    except AssertionError as e:
+                        raise AssertionError(f"eval {label}: {e}") from None
+        used = {k: v for k, v in launches.items() if v}
+        summary[label] = {
+            "mAP": m_ap, "plain_mAP": m_plain, "batches": n_b,
+            "images": EVAL_SCENES, "wall_s": wall,
+            "images_per_s": EVAL_SCENES / wall, "plain_wall_s": wall_plain,
+            "launches": used, "batches_bit_identical_to_plain": same,
+            "against_plain": {"max_box_diff": d_box,
+                              "max_score_diff": d_score,
+                              "rows_on_one_side": flips,
+                              "nms_anchors_on_one_side": anchors},
+            "modes": modes or None}
+        log(f"eval {label}: mAP {m_ap:.6f} (plain versions {m_plain:.6f}); "
+            f"{EVAL_SCENES} images in {wall:.2f} s, "
+            f"{EVAL_SCENES / wall:.1f} images/s (host clock: the call to "
+            f"cli.evaluate.main, the build, the data and the calibration "
+            f"included); launches {used} over {n_b} batches"
+            + (f", modes chosen {modes}" if modes else "") + "; "
+            + ("every batch bit-identical to the plain versions' run"
+               if held == "exact" else
+               f"{same} of {n_b} batches bit-identical to the plain "
+               f"versions' run, the rest within PAIR_PATH_TOL (box "
+               f"{d_box:.3g} px, score {d_score:.3g}, {flips} rows on one "
+               f"side only) or beyond it by NMS decisions alone "
+               f"({anchors} anchors kept by one run only)"))
+
+    # the device cache's batches against the host collate's
+    ds = SyntheticScenes(EVAL_SCENES, seed=777, illumination=("H", "L"))
+    coll = dict(max_targets=64, max_radar=32, max_points=256)
+    t0 = time.perf_counter()
+    cache = DeviceCache.build(ds, PaddedCollate(416, **coll), device="cuda")
+    build_s = time.perf_counter() - t0
+    n_cached = 0
+    host_loader = DataLoader(ds, EVAL_BATCH, PaddedCollate(416, **coll))
+    for got, host in zip(cache.loader(EVAL_BATCH), host_loader):
+        want = host["images"].astype(np.float16).astype(np.float32)
+        if not (got["images"].dtype == torch.float32 and np.array_equal(
+                got["images"].cpu().numpy(), want)):
+            raise AssertionError("device cache: images differ from the host "
+                                 "collate's after the float16 round trip")
+        for k in ("targets", "tmask", "radar_boxes", "rmask",
+                  "radar_points", "pmask"):
+            if not np.array_equal(got[k].cpu().numpy(), host[k]):
+                raise AssertionError(f"device cache: {k} differs from the "
+                                     f"host collate's")
+        n_cached += 1
+    mb = sum(t.numel() * t.element_size()
+             for t in cache.arrays.values()) / 1e6
+    log(f"eval device cache: {n_cached} batches equal to the host "
+        f"collate's (images after the float16 round trip); {mb:.1f} MB on "
+        f"the card, built in {build_s:.2f} s")
+    summary["device_cache"] = {"batches_equal": n_cached, "mb": mb,
+                               "build_s": build_s}
+    argv = eval_runs(weights_file)[1][1]
+    summary["profile@pallas_max_s01"] = profile_calls(
+        torch, "eval fusion@pallas_max_s01 (one cli.evaluate.main call)",
+        [lambda: run(argv)])
+    try:
+        import matplotlib  # noqa: F401
+        plot = True
+    except ImportError:
+        plot = False
+    if plot:
+        import os
+        import tempfile
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "pr.png")
+            with contextlib.redirect_stdout(io.StringIO()):
+                evaluate.main(EVAL_ARGS + argv + ["--plot", path])
+            if not os.path.getsize(path):
+                raise AssertionError("eval --plot wrote an empty file")
+    log("eval --plot: " + ("a PR curve written" if plot else
+                           "matplotlib does not import here: not run"))
+    summary["plot"] = plot
+    return summary, launches_by_run
+
+
+_SERVE = r"""
+import json, sys, time
+import numpy as np
+import torch
+import chip_smoke
+from millieye_torch.io.export import load_serving
+from millieye_torch.ops import cuda_lib, library
+t0 = time.perf_counter()
+step = load_serving(open(sys.argv[1], "rb").read())
+load_s = time.perf_counter() - t0
+if "millieye_torch.models" in sys.modules:
+    raise SystemExit("load_serving imported millieye_torch.models")
+z = np.load(sys.argv[2])
+ins = [tuple(torch.from_numpy(z[f"{k}{i}"]).cuda()
+             for k in ("imgs", "maps", "rb", "rm"))
+       for i in range(int(z["n"]))]
+step(*ins[0])                              # first call: builds the kernels
+fns = {n: op.wrapper for n, op in library.OPS.items()}
+for f in fns.values():
+    f.launches = 0
+outs = [step(*x) for x in ins]
+torch.cuda.synchronize()
+launches = {n: f.launches for n, f in fns.items() if f.launches}
+for f in fns.values():
+    f.launches = 0
+with cuda_lib.plain_versions():
+    plain = step(*ins[0])
+torch.cuda.synchronize()
+plain_launches = {n: f.launches for n, f in fns.items() if f.launches}
+dev_ms = chip_smoke.device_ms(torch, lambda: step(*ins[0]))
+host = chip_smoke.host_ms(torch, lambda: step(*ins[0]))
+res = {f"boxes{i}": o["boxes"].cpu().numpy() for i, o in enumerate(outs)}
+res.update({f"valid{i}": o["valid"].cpu().numpy()
+            for i, o in enumerate(outs)})
+res.update(plain_boxes=plain["boxes"].cpu().numpy(),
+           plain_valid=plain["valid"].cpu().numpy())
+np.savez(sys.argv[3], **res)
+print(json.dumps({"load_s": load_s, "launches": launches,
+                  "plain_launches": plain_launches, "meta": step.meta,
+                  "device_ms": dev_ms[0], "device_records": dev_ms[1],
+                  "host_ms": host, "calls": len(ins),
+                  "models_imported": "millieye_torch.models" in sys.modules}))
+"""
+
+
+def p1_inputs(eng, reqs):
+    """What ``FusionNetwork.apply`` gets from ``FusionEngine.infer`` for
+    each request: (images, radar maps, radar boxes, mask), batch 1."""
+    seen, real = [], eng.model.apply
+
+    def record(params, state, *args, **kw):
+        seen.append(tuple(t.clone() for t in args[:4]))
+        return real(params, state, *args, **kw)
+
+    eng.model.apply = record
+    try:
+        for r in reqs:
+            eng.infer(*r)
+    finally:
+        del eng.model.apply
+    return seen
+
+
+def export_phase(torch, cuda_lib, engines, reqs, p1_host_ms):
+    """P20: ``cli.export.main --verify`` on the card at pallas_max_s01 b1,
+    pallas_max4 b8 and f32 b1; each blob served by ``load_serving`` in a
+    process of its own that imports no model code, on P1's letterboxed
+    inputs (the 8 requests, as 8 calls at b1 or one at b8): its answers
+    bit-identical to the live ``FusionNetwork.apply``, its launches the
+    preset's kernels once a call, and, inside ``plain_versions()``, the
+    plain versions (no launch, bit-identical to the live graph's plain
+    run); then what a custom op costs the host against a direct launch.
+    Returns (summary, {label: launches})."""
+    import io
+    import os
+    import tempfile
+    from millieye_torch.cli import export
+    from millieye_torch.ops import library, nms_kernel
+
+    summary, launches_by_run = {}, {}
+    cases = (("pallas_max_s01", 1, _RIGHT_PAIR),
+             ("pallas_max4", 8, _RIGHT_PAIR + ("stem_stage",)),
+             ("f32", 1, ("nms",)))
+    d = tempfile.TemporaryDirectory()
+    for preset, batch, must in cases:
+        label = f"export@{preset}_b{batch}"
+        eng = engines[preset]
+        per_req = p1_inputs(eng, reqs)
+        calls = (per_req if batch == 1 else
+                 [tuple(torch.cat(ts) for ts in zip(*per_req))])
+        blob = os.path.join(d.name, f"{preset}.pt2")
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            res = export.main(["--out", blob, "--serving", preset,
+                               "--weights", CKPT, "--batch", str(batch),
+                               "--verify"])
+        if not res["verify_bit_identical"]:
+            raise AssertionError(f"{label}: --verify: the artifact differs "
+                                 f"from the live graph: {out.getvalue()}")
+        ins = os.path.join(d.name, f"{preset}_in.npz")
+        arrays = {"n": len(calls)}
+        for i, c in enumerate(calls):
+            arrays.update({f"{k}{i}": t.cpu().numpy() for k, t in
+                           zip(("imgs", "maps", "rb", "rm"), c)})
+        np.savez(ins, **arrays)
+        got_path = os.path.join(d.name, f"{preset}_out.npz")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _SERVE, blob, ins,
+                               got_path], capture_output=True, text=True)
+        proc_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"{label}: the serving process failed:\n"
+                                 f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+        rep = json.loads(proc.stdout.strip().splitlines()[-1])
+        got = np.load(got_path)
+        with torch.inference_mode():
+            live = [eng.model.apply(eng.params, eng.state, *c) for c in calls]
+            with cuda_lib.plain_versions():
+                live_plain = eng.model.apply(eng.params, eng.state, *calls[0])
+        same, gap, fl = 0, 0.0, 0
+        for i, o in enumerate(live):
+            g = (got[f"boxes{i}"], got[f"valid{i}"])
+            w = (o["boxes"].cpu().numpy(), o["valid"].cpu().numpy())
+            if np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1]):
+                same += 1
+                continue
+            for j in range(len(g[0])):
+                ok, db, ds, f = rows_match((g[0][j], g[1][j]),
+                                           (w[0][j], w[1][j]), PAIR_PATH_TOL)
+                gap, fl = max(gap, db, ds), fl + f
+                if not ok:
+                    raise AssertionError(
+                        f"{label} call {i}: the artifact's answer differs "
+                        f"from the live graph's beyond {PAIR_PATH_TOL} "
+                        f"(box {db}, score {ds}, {f} rows on one side only)")
+        if not (np.array_equal(got["plain_boxes"],
+                               live_plain["boxes"].cpu().numpy())
+                and np.array_equal(got["plain_valid"],
+                                   live_plain["valid"].cpu().numpy())):
+            raise AssertionError(f"{label}: the artifact inside "
+                                 f"plain_versions() differs from the live "
+                                 f"graph's plain run")
+        short = {k: rep["launches"].get(k, 0) for k in must
+                 if rep["launches"].get(k, 0) != len(calls)}
+        if short or rep["plain_launches"] or rep["models_imported"]:
+            raise AssertionError(f"{label}: replay launches {rep['launches']}"
+                                 f" (need {must} once a call), inside "
+                                 f"plain_versions() {rep['plain_launches']}")
+        with torch.inference_mode():
+            def live_call():
+                return eng.model.apply(eng.params, eng.state, *calls[0])
+            live_dev = device_ms(torch, live_call)
+            live_host = host_ms(torch, live_call)
+        launches_by_run[label] = rep["launches"]
+        summary[label] = {
+            "blob_mb": res["bytes"] / 1e6, "export_s": res["export_s"],
+            "load_s": rep["load_s"], "serve_process_s": proc_s,
+            "calls": len(calls), "bit_identical": same,
+            "max_gap": gap, "rows_on_one_side": fl,
+            "launches": rep["launches"],
+            "device_ms": rep["device_ms"], "live_device_ms": live_dev[0],
+            "host_ms": rep["host_ms"], "live_host_ms": live_host}
+        log(f"{label}: blob {res['bytes'] / 1e6:.1f} MB, export "
+            f"{res['export_s']:.2f} s, load {rep['load_s']:.2f} s in a "
+            f"process of its own ({proc_s:.1f} s in all; no model code "
+            f"imported); {same} of {len(calls)} calls bit-identical to the "
+            f"live FusionNetwork.apply on P1's inputs"
+            + ("" if same == len(calls) else
+               f" (the rest within PAIR_PATH_TOL, gap {gap:.3g}, {fl} rows "
+               f"on one side only)")
+            + f"; launches {rep['launches']}; inside plain_versions() no "
+            f"launch, bit-identical to the live plain run; device "
+            f"{rep['device_ms']:.4f} ms a call ({rep['device_records']} "
+            f"profiler records) against the live step's {live_dev[0]:.4f} "
+            f"ms; host {rep['host_ms']:.3f} ms a call against the live "
+            f"step's {live_host:.3f} ms")
+    d.cleanup()
+
+    # the custom op's cost on the host: K1 at P1's shape through its op
+    # (the wrapper) against a direct launch of its kernel
+    boxes, valid = (torch.tensor(a, device="cuda")
+                    for a in nms_inputs(np.random.default_rng(3), 1, 128))
+    op = library.OPS["nms"]
+    via_op = host_ms(torch, lambda: nms_kernel.nms_keep_mask_blocked(
+        boxes, valid, 0.5), calls=200)
+    direct = host_ms(torch, lambda: op.launch(boxes, valid, 0.5), calls=200)
+    summary["dispatch"] = {"op_host_ms": via_op, "direct_host_ms": direct,
+                           "p1_host_ms": p1_host_ms}
+    log(f"custom-op dispatch: K1 at b1, K 128 through millieye::nms "
+        f"{via_op * 1e3:.1f} us a call on the host, a direct launch "
+        f"{direct * 1e3:.1f} us ({(via_op - direct) * 1e3:.1f} us more; P1 "
+        f"makes 5 such calls a request, whose host time is "
+        f"{p1_host_ms:.2f} ms, p50)")
+    return summary, launches_by_run
+
+
 def log_case(name, r):
     """One line for a kernel case of phase 3."""
     lib = ("none (no single PyTorch call computes it)"
@@ -2923,6 +3400,21 @@ def main():
         f"trip of {y['weights_floats']} floats leaf for leaf (load "
         f"{y['weights_load_host_ms']:.0f} ms on the host), "
         f"darknet53.conv.74 the first 75 blocks; {time.time() - t:.1f} s")
+    # P19: the evaluation path, cli.evaluate on the card
+    t = time.time()
+    summary["eval"], eval_launches = eval_phase(
+        torch, cuda_lib, files["weights"], zero_counts, counts)
+    launches_by_path.update({f"eval {k}": {n: v.get(n, 0) for n in kernels}
+                             for k, v in eval_launches.items()})
+    log(f"eval phase ({card}): {time.time() - t:.1f} s")
+
+    # P20: the export path, cli.export and the artifact in its own process
+    t = time.time()
+    summary["export"], export_launches = export_phase(
+        torch, cuda_lib, engines, reqs, summary["pallas_max_s01"]["p50_ms"])
+    launches_by_path.update({k: {n: v.get(n, 0) for n in kernels}
+                             for k, v in export_launches.items()})
+    log(f"export phase ({card}): {time.time() - t:.1f} s")
     wdir.cleanup()
     stream_dir.cleanup()
 

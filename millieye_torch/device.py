@@ -4,6 +4,7 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 
 def resolve_device(device="cuda"):
@@ -23,8 +24,11 @@ def resolve_device(device="cuda"):
 def constant(values, device, dtype=torch.float32):
     """``torch.tensor(values)`` on ``device``, made once for each (values,
     device): inside a step, a copy from pageable host memory would make
-    the host wait for the card's stream."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    the host wait for the card's stream. It is made outside any active
+    dispatch mode, so a first call under a tracer (``torch.export``'s fake
+    tensors) caches a real tensor, which the trace takes as a constant."""
+    with _disable_current_modes():
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def set_numerics():

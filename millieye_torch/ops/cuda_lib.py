@@ -8,10 +8,13 @@ PyTorch header is compiled, so a build takes seconds. Libraries land in
 edited source is rebuilt and an unchanged one is reused. ``build()``
 starts one ``nvcc`` for each missing library, all at once.
 
-Every kernel wrapper asks ``takes_plain`` whether to run its plain
-version instead: it does so for a CPU tensor, and for a CUDA tensor only
-inside a ``plain_versions()`` block, unless the block keeps that
-wrapper's kernel (``keep``).
+Every kernel wrapper calls its ``torch.library`` custom op
+``millieye::<name>`` (``kernel_op``), so that ``torch.export`` and other
+tracers see one operator with an output shape instead of a ``ctypes``
+call. The op's CUDA implementation asks ``takes_plain`` whether to run
+the plain version instead: it does so only inside a ``plain_versions()``
+block, unless the block keeps that wrapper's kernel (``keep``); a CPU
+tensor always takes the plain version.
 """
 from __future__ import annotations
 
@@ -79,6 +82,41 @@ def takes_plain(t, name):
     if name not in KERNELS:
         raise ValueError(f"takes_plain: unknown kernel {name!r}")
     return t.device.type == "cpu" or (_plain_on_cuda and name not in _kept)
+
+
+def kernel_op(name, schema, plain, launch, fake, wrapper):
+    """Register the custom op ``millieye::<name>`` (``name`` from
+    ``KERNELS``) with ``schema`` and return it. On the CPU it runs
+    ``plain``; on the card ``launch``, counted on ``wrapper.launches``,
+    or ``plain`` where ``takes_plain`` says so, read at each call (a
+    replayed exported program too). ``fake`` gives the outputs' shapes
+    and dtypes while tracing, and never touches a library. The op keeps
+    ``plain``, ``launch`` and ``wrapper`` as attributes."""
+    if name not in KERNELS:
+        raise ValueError(f"kernel_op: unknown kernel {name!r}")
+
+    def _plain(*args):
+        # contiguous, as the kernels write their outputs
+        out = plain(*args)
+        if isinstance(out, tuple):
+            return tuple(t.contiguous() for t in out)
+        return out.contiguous()
+
+    op = torch.library.custom_op(f"millieye::{name}", _plain,
+                                 mutates_args=(), device_types="cpu",
+                                 schema=schema)
+
+    @op.register_kernel("cuda")
+    def _cuda(*args):
+        if takes_plain(args[0], name):
+            return _plain(*args)
+        out = launch(*args)
+        wrapper.launches += 1
+        return out
+
+    op.register_fake(fake)
+    op.plain, op.launch, op.wrapper = _plain, launch, wrapper
+    return op
 
 
 def _nvcc():

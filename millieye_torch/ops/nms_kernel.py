@@ -14,8 +14,9 @@ bits over a thread block cluster, the greedy scan in 32-row tiles); the
 plain versions keep the whole-matrix form, which gives the same bits.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
-raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
-counts kernel launches.
+raises (outside ``cuda_lib.plain_versions()``). Each wrapper calls its
+custom op (``cuda_lib.kernel_op``); ``<wrapper>.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -102,27 +103,34 @@ def _launch(name, symbol, boxes, valid, iou_thresh, multiple):
     return keep
 
 
+def _fake_keep(boxes, valid, iou_thresh):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+_SCHEMA = "(Tensor boxes, Tensor valid, float iou_thresh) -> Tensor"
+
+
 def nms_keep_mask_blocked(boxes, valid, iou_thresh):
     """K1: keep [B, K] bool for score-sorted boxes [B, K, 4], K % 128 == 0
-    (see module)."""
-    if cuda_lib.takes_plain(boxes, "nms"):
-        return nms_keep_mask_blocked_plain(boxes, valid, iou_thresh)
-    keep = _launch("nms_keep_mask_blocked", "millieye_nms_keep_mask", boxes,
-                   valid, iou_thresh, 128)
-    nms_keep_mask_blocked.launches += 1
-    return keep
+    (see module); the op ``millieye::nms``."""
+    return _blocked_op(boxes, valid, float(iou_thresh))
 
 
 def nms_keep_mask_full(boxes, valid, iou_thresh):
     """K5: keep [B, K] bool for score-sorted boxes [B, K, 4], any
-    K <= 1024 (see module)."""
-    if cuda_lib.takes_plain(boxes, "nms_full"):
-        return nms_keep_mask_full_plain(boxes, valid, iou_thresh)
-    keep = _launch("nms_keep_mask_full", "millieye_nms_keep_mask_full", boxes,
-                   valid, iou_thresh, 1)
-    nms_keep_mask_full.launches += 1
-    return keep
+    K <= 1024 (see module); the op ``millieye::nms_full``."""
+    return _full_op(boxes, valid, float(iou_thresh))
 
 
 nms_keep_mask_blocked.launches = 0
 nms_keep_mask_full.launches = 0
+_blocked_op = cuda_lib.kernel_op(
+    "nms", _SCHEMA, nms_keep_mask_blocked_plain,
+    lambda b, v, t: _launch("nms_keep_mask_blocked", "millieye_nms_keep_mask",
+                            b, v, t, 128),
+    _fake_keep, nms_keep_mask_blocked)
+_full_op = cuda_lib.kernel_op(
+    "nms_full", _SCHEMA, nms_keep_mask_full_plain,
+    lambda b, v, t: _launch("nms_keep_mask_full",
+                            "millieye_nms_keep_mask_full", b, v, t, 1),
+    _fake_keep, nms_keep_mask_full)

@@ -29,7 +29,8 @@ scales, and the stochastic-rounding kernel K13.
 
 A CPU tensor takes K13's plain version; a CUDA tensor takes the kernel or
 raises (outside ``cuda_lib.plain_versions()``).
-``quantize_int8_stochastic.launches`` counts kernel launches.
+``quantize_int8_stochastic.launches`` counts kernel launches; the
+wrapper calls the custom op ``millieye::quantize_stochastic``.
 """
 from __future__ import annotations
 
@@ -255,8 +256,10 @@ def quantize_int8_stochastic(w2d, seed, row_tile=512):
     counted as one; no PyTorch operation runs but the allocations (and a
     cast of a non-float32 or non-contiguous input)."""
     _check_stochastic(w2d, seed, row_tile)
-    if cuda_lib.takes_plain(w2d, "quantize_stochastic"):
-        return quantize_int8_stochastic_plain(w2d, seed, row_tile)
+    return _stochastic_op(w2d, int(seed), int(row_tile))
+
+
+def _launch_stochastic(w2d, seed, row_tile):
     w2d = w2d.float().contiguous()
     m, n = w2d.shape
     lib, parts = _lib()
@@ -269,8 +272,16 @@ def quantize_int8_stochastic(w2d, seed, row_tile=512):
         cuda_lib.ptr(scratch), m, n, min(row_tile, m), seed,
         cuda_lib.stream_ptr(dev))
     cuda_lib.check(lib, rc, "quantize_int8_stochastic")
-    quantize_int8_stochastic.launches += 1
     return out, scale
 
 
+def _fake_stochastic(w2d, seed, row_tile):
+    return (w2d.new_empty(w2d.shape, dtype=torch.int8),
+            w2d.new_empty((), dtype=torch.float32))
+
+
 quantize_int8_stochastic.launches = 0
+_stochastic_op = cuda_lib.kernel_op(
+    "quantize_stochastic", "(Tensor w2d, int seed, int row_tile) -> "
+    "(Tensor, Tensor)", quantize_int8_stochastic_plain, _launch_stochastic,
+    _fake_stochastic, quantize_int8_stochastic)

@@ -37,8 +37,9 @@ in float32 and round each ``t * bx`` product to bf16 before the float32
 sum over w, as the TPU kernels do at precision="default".
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
-raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
-counts kernel launches.
+raises (outside ``cuda_lib.plain_versions()``). Each wrapper calls its
+custom op (``cuda_lib.kernel_op``); ``<wrapper>.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -287,33 +288,35 @@ def _launch_k2(features, by, bx, c_out):
 
 
 def ps_roi_align_padded_kernel(features, by, bx, c_out):
-    """K2 on CUDA tensors (the plain version's contract)."""
-    if cuda_lib.takes_plain(features, "ps_roi_align"):
-        return ps_roi_align_padded_plain(features, by, bx, c_out)
-    out = _launch_k2(features, by, bx, c_out)
-    ps_roi_align_padded_kernel.launches += 1
-    return out
+    """K2 (the plain version's contract); the op
+    ``millieye::ps_roi_align``."""
+    return _k2_op(features, by, bx, int(c_out))
 
 
 def ps_roi_align_padded_vpu_kernel(features, by, bx, c_out):
     """K2 for ``reduce="vpu"`` (see module): the same function and
-    kernel, its launches counted here."""
-    if cuda_lib.takes_plain(features, "ps_roi_align_vpu"):
-        return ps_roi_align_padded_plain(features, by, bx, c_out)
-    out = _launch_k2(features, by, bx, c_out)
-    ps_roi_align_padded_vpu_kernel.launches += 1
-    return out
+    kernel, its launches counted here; the op
+    ``millieye::ps_roi_align_vpu``."""
+    return _k2_vpu_op(features, by, bx, int(c_out))
 
 
 def roi_align_kernel(features, by, bx, precision="default"):
-    """K3 on CUDA tensors (the plain versions' contracts): bf16 operands
-    at "default", float32 operands at "split"/"highest"."""
+    """K3 (the plain versions' contracts): bf16 operands at "default",
+    float32 operands at "split"/"highest"; the op
+    ``millieye::roi_align``."""
     if precision not in PRECISIONS:
         raise ValueError(f"roi_align: unknown precision {precision!r}")
+    return _k3_op(features, by, bx, precision)
+
+
+def _roi_align_plain(features, by, bx, precision):
+    if precision != "default":
+        return roi_align_f32_plain(features, by, bx, precision)
+    return roi_align_plain(features, by, bx)
+
+
+def _launch_k3(features, by, bx, precision):
     f32 = precision != "default"
-    if cuda_lib.takes_plain(features, "roi_align"):
-        return (roi_align_f32_plain(features, by, bx, precision) if f32
-                else roi_align_plain(features, by, bx))
     _check("roi_align", features, by, bx,
            torch.float32 if f32 else torch.bfloat16)
     b, h, w, c = features.shape
@@ -330,7 +333,6 @@ def roi_align_kernel(features, by, bx, precision="default"):
         rc = lib.millieye_roi_align(*args,
                                     cuda_lib.stream_ptr(features.device))
     cuda_lib.check(lib, rc, "roi_align")
-    roi_align_kernel.launches += 1
     return out
 
 
@@ -353,16 +355,22 @@ _STRIDES = {  # channel of (p, u, q) = p*sp + u*su + q*sq, by layout
 
 def ps_roi_align_f32_kernel(features, by, bx, c_out, precision="default",
                             layout="upq"):
-    """K6 on CUDA tensors: float32 operands; ``layout`` "upq", "puq", or
-    "c" (a map without bin channels: RoIAlign, [B, N, ph, pw, C])."""
+    """K6: float32 operands; ``layout`` "upq", "puq", or "c" (a map
+    without bin channels: RoIAlign, [B, N, ph, pw, C]); the op
+    ``millieye::ps_roi_align_f32``."""
     if precision not in PRECISIONS or layout not in _STRIDES:
         raise ValueError(f"ps_roi_align: precision {precision!r}, layout "
                          f"{layout!r}")
-    if cuda_lib.takes_plain(features, "ps_roi_align_f32"):
-        if layout == "c":
-            return roi_align_f32_plain(features, by, bx, precision)
-        return ps_roi_align_f32_plain(features, by, bx, c_out, precision,
-                                      layout)
+    return _k6_op(features, by, bx, int(c_out), precision, layout)
+
+
+def _ps_roi_align_f32_plain(features, by, bx, c_out, precision, layout):
+    if layout == "c":
+        return roi_align_f32_plain(features, by, bx, precision)
+    return ps_roi_align_f32_plain(features, by, bx, c_out, precision, layout)
+
+
+def _launch_k6(features, by, bx, c_out, precision, layout):
     _check("ps_roi_align", features, by, bx, torch.float32)
     b, h, w, c = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
@@ -378,19 +386,20 @@ def ps_roi_align_f32_kernel(features, by, bx, c_out, precision="default",
         *_STRIDES[layout](ph, pw, c_out), PRECISIONS[precision],
         cuda_lib.stream_ptr(features.device))
     cuda_lib.check(lib, rc, "ps_roi_align")
-    ps_roi_align_f32_kernel.launches += 1
     return out
 
 
 def ps_roi_align_padded_f32_kernel(features, by, bx, c_out,
                                    precision="highest"):
-    """K7 on CUDA tensors: K2's padded map with float32 operands."""
+    """K7: K2's padded map with float32 operands; the op
+    ``millieye::ps_roi_align_padded_f32``."""
     if precision not in PRECISIONS:
         raise ValueError(f"ps_roi_align_padded: unknown precision "
                          f"{precision!r}")
-    if cuda_lib.takes_plain(features, "ps_roi_align_padded_f32"):
-        return ps_roi_align_f32_plain(features, by, bx, c_out, precision,
-                                      "padded")
+    return _k7_op(features, by, bx, int(c_out), precision)
+
+
+def _launch_k7(features, by, bx, c_out, precision):
     _check("ps_roi_align_padded", features, by, bx, torch.float32)
     b, h, w, c_pad = features.shape
     n, ph, pw = by.shape[1], by.shape[2], bx.shape[2]
@@ -405,8 +414,17 @@ def ps_roi_align_padded_f32_kernel(features, by, bx, c_out,
         cuda_lib.ptr(out), b, n, h, w, c_pad, ph, pw, c_out,
         PRECISIONS[precision], cuda_lib.stream_ptr(features.device))
     cuda_lib.check(lib, rc, "ps_roi_align_padded")
-    ps_roi_align_padded_f32_kernel.launches += 1
     return out
+
+
+def _fake_crop(features, by, bx, c_out, *_):
+    """[B, N, ph, pw, c_out] float32 from the operands' shapes."""
+    return features.new_empty(tuple(by.shape[:3]) + (bx.shape[2], c_out),
+                              dtype=torch.float32)
+
+
+def _fake_roi(features, by, bx, precision):
+    return _fake_crop(features, by, bx, features.shape[3])
 
 
 ps_roi_align_padded_kernel.launches = 0
@@ -414,6 +432,26 @@ ps_roi_align_padded_vpu_kernel.launches = 0
 roi_align_kernel.launches = 0
 ps_roi_align_f32_kernel.launches = 0
 ps_roi_align_padded_f32_kernel.launches = 0
+_K2_SCHEMA = "(Tensor features, Tensor by, Tensor bx, int c_out) -> Tensor"
+_k2_op = cuda_lib.kernel_op("ps_roi_align", _K2_SCHEMA,
+                            ps_roi_align_padded_plain, _launch_k2, _fake_crop,
+                            ps_roi_align_padded_kernel)
+_k2_vpu_op = cuda_lib.kernel_op("ps_roi_align_vpu", _K2_SCHEMA,
+                                ps_roi_align_padded_plain, _launch_k2,
+                                _fake_crop, ps_roi_align_padded_vpu_kernel)
+_k3_op = cuda_lib.kernel_op(
+    "roi_align", "(Tensor features, Tensor by, Tensor bx, str precision) -> "
+    "Tensor", _roi_align_plain, _launch_k3, _fake_roi, roi_align_kernel)
+_k6_op = cuda_lib.kernel_op(
+    "ps_roi_align_f32", "(Tensor features, Tensor by, Tensor bx, int c_out, "
+    "str precision, str layout) -> Tensor", _ps_roi_align_f32_plain,
+    _launch_k6, _fake_crop, ps_roi_align_f32_kernel)
+_k7_op = cuda_lib.kernel_op(
+    "ps_roi_align_padded_f32", "(Tensor features, Tensor by, Tensor bx, "
+    "int c_out, str precision) -> Tensor",
+    lambda f, by, bx, c_out, precision: ps_roi_align_f32_plain(
+        f, by, bx, c_out, precision, "padded"),
+    _launch_k7, _fake_crop, ps_roi_align_padded_f32_kernel)
 
 
 # ------------------------------------------------------ public entry points

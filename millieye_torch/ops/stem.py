@@ -78,8 +78,10 @@ them (bf16 scratches only at "default"; ``groups0`` in {2, 4, 8}) and
 change nothing else.
 
 A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
-raises (outside ``cuda_lib.plain_versions()``). ``<wrapper>.launches``
-counts kernel launches.
+raises (outside ``cuda_lib.plain_versions()``). Each wrapper calls its
+custom op ``millieye::<name>`` (``cuda_lib.kernel_op``, names as
+``cuda_lib.KERNELS`` has them); ``<wrapper>.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -242,8 +244,10 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
         raise ValueError(f"fused_stem_stage: unknown precision {precision!r}")
     if out_dtype not in _STORE_CODES:
         raise TypeError(f"fused_stem_stage: cannot store {out_dtype}")
-    if cuda_lib.takes_plain(x, "stem_stage"):
-        return fused_stem_stage_plain(x, w, b, precision, out_dtype)
+    return _stage_op(x, w, b, precision, out_dtype)
+
+
+def _launch_stage(x, w, b, precision, out_dtype):
     _check_cuda("fused_stem_stage", x, w, b)
     if x.dim() != 4:
         raise ValueError("fused_stem_stage: want an NHWC input")
@@ -271,7 +275,6 @@ def fused_stem_stage(x, w, b, precision="default", out_dtype=torch.float32):
         int(precision == "highest"), _STORE_CODES[out_dtype],
         cuda_lib.stream_ptr(x.device))
     cuda_lib.check(lib, rc, "fused_stem_stage")
-    fused_stem_stage.launches += 1
     return out
 
 
@@ -326,8 +329,10 @@ def fused_stem_plain(x, w, b, th=26, out_dtype=None, variant="vconcat"):
 def fused_stem(x, w, b, th=26, out_dtype=None, variant="vconcat"):
     """K10: [N, H, W, Cin] -> [N, H/2, W/2, Cout] (see module)."""
     out_dtype = _check_nhwc(x, w, b, th, out_dtype, variant)
-    if cuda_lib.takes_plain(x, "fused_stem"):
-        return fused_stem_plain(x, w, b, th, out_dtype, variant)
+    return _nhwc_op(x, w, b, int(th), out_dtype, variant)
+
+
+def _launch_nhwc(x, w, b, th, out_dtype, variant):
     xk = x.float().contiguous()
     _check_cuda("fused_stem", xk, w, b)
     n, h, wd, cin = x.shape
@@ -344,7 +349,6 @@ def fused_stem(x, w, b, th=26, out_dtype=None, variant="vconcat"):
         cuda_lib.ptr(out), n, h, wd, cin, cout, int(variant != "im2col"),
         _STORE_CODES[out_dtype], cuda_lib.stream_ptr(x.device))
     cuda_lib.check(lib, rc, "fused_stem")
-    fused_stem.launches += 1
     return out
 
 
@@ -452,21 +456,14 @@ def _launch_pair(name, x, w0, b0, w1, b1, precision, out_dtype, deep=False,
     return out
 
 
-def _pair(name, fn, x, w0, b0, w1, b1, precision, out_dtype, route,
+def _pair(op, x, w0, b0, w1, b1, precision, out_dtype, route,
           select=False):
-    """Run one pair wrapper: the deep pair where ``route`` says so (it
-    counts its own launch), else the plain version on a CPU tensor or the
-    stem pair kernel, counted on ``fn``."""
+    """Run one pair wrapper's op, or the deep pair's where ``route`` says
+    so (it counts its own launch)."""
     if route == "deep":
         return fused_stem_pair_deep(x, w0, b0, w1, b1, precision, out_dtype,
                                     select)
-    if cuda_lib.takes_plain(x, name):
-        return fused_stem_pair_plain(x, w0, b0, w1, b1, precision, out_dtype,
-                                     select)
-    out = _launch_pair(fn.__name__, x, w0, b0, w1, b1, precision, out_dtype,
-                       select=select)
-    fn.launches += 1
-    return out
+    return op(x, w0, b0, w1, b1, precision, out_dtype, select)
 
 
 def fused_stem_pair(x, w0, b0, w1, b1, precision="default",
@@ -474,7 +471,7 @@ def fused_stem_pair(x, w0, b0, w1, b1, precision="default",
     """K4: [N, H, W, Cin] float32 -> [N, H/4, W/4, Cout] (see module)."""
     route = _check_pair("fused_stem_pair", x, w0, b0, w1, b1, precision,
                         out_dtype, scratch_dtype)
-    return _pair("stem_pair", fused_stem_pair, x, w0, b0, w1, b1, precision,
+    return _pair(_pair_ops["stem_pair"], x, w0, b0, w1, b1, precision,
                  out_dtype, route)
 
 
@@ -484,8 +481,8 @@ def fused_stem_pair_select(x, w0, b0, w1, b1, precision="default",
     module); H % 32 == 0."""
     route = _check_pair("fused_stem_pair_select", x, w0, b0, w1, b1,
                         precision, out_dtype, h_multiple=32)
-    return _pair("stem_pair_select", fused_stem_pair_select, x, w0, b0, w1,
-                 b1, precision, out_dtype, route, precision == "default")
+    return _pair(_pair_ops["stem_pair_select"], x, w0, b0, w1, b1,
+                 precision, out_dtype, route, precision == "default")
 
 
 def fused_stem_pair_packed(x, w0, b0, w1, b1, precision="default",
@@ -493,8 +490,8 @@ def fused_stem_pair_packed(x, w0, b0, w1, b1, precision="default",
     """K11: K4's function (see module); H % 32 == 0."""
     route = _check_pair("fused_stem_pair_packed", x, w0, b0, w1, b1,
                         precision, out_dtype, scratch_dtype, h_multiple=32)
-    return _pair("stem_pair_packed", fused_stem_pair_packed, x, w0, b0, w1,
-                 b1, precision, out_dtype, route)
+    return _pair(_pair_ops["stem_pair_packed"], x, w0, b0, w1, b1,
+                 precision, out_dtype, route)
 
 
 def fused_stem_pair_s2d(x, w0, b0, w1, b1, precision="default",
@@ -506,8 +503,8 @@ def fused_stem_pair_s2d(x, w0, b0, w1, b1, precision="default",
     if groups0 not in (2, 4, 8):
         raise ValueError(f"fused_stem_pair_s2d: groups0 {groups0!r} not in "
                          f"(2, 4, 8)")
-    return _pair("stem_pair_s2d", fused_stem_pair_s2d, x, w0, b0, w1, b1,
-                 precision, out_dtype, route)
+    return _pair(_pair_ops["stem_pair_s2d"], x, w0, b0, w1, b1, precision,
+                 out_dtype, route)
 
 
 def fused_stem_pair_deep(x, w0, b0, w1, b1, precision="default",
@@ -516,14 +513,9 @@ def fused_stem_pair_deep(x, w0, b0, w1, b1, precision="default",
     module), with K8's pool select at "default" when ``select``."""
     _check_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
                 out_dtype)
-    select = select and precision == "default"
-    if cuda_lib.takes_plain(x, "stem_pair_deep"):
-        return fused_stem_pair_deep_plain(x, w0, b0, w1, b1, precision,
-                                          out_dtype, select)
-    out = _launch_pair("fused_stem_pair_deep", x, w0, b0, w1, b1, precision,
-                       out_dtype, deep=True, select=select)
-    fused_stem_pair_deep.launches += 1
-    return out
+    return _pair_ops["stem_pair_deep"](x, w0, b0, w1, b1, precision,
+                                       out_dtype,
+                                       select and precision == "default")
 
 
 fused_stem_stage.launches = 0
@@ -533,3 +525,44 @@ fused_stem_pair_select.launches = 0
 fused_stem_pair_packed.launches = 0
 fused_stem_pair_s2d.launches = 0
 fused_stem_pair_deep.launches = 0
+
+
+def _fake_stage(x, w, b, precision, out_dtype):
+    return x.new_empty((x.shape[0], x.shape[1] // 2, x.shape[2] // 2,
+                        w.shape[0]), dtype=out_dtype)
+
+
+def _fake_nhwc(x, w, b, th, out_dtype, variant):
+    return x.new_empty((x.shape[0], x.shape[1] // 2, x.shape[2] // 2,
+                        w.shape[3]), dtype=out_dtype)
+
+
+def _fake_pair(x, w0, b0, w1, b1, precision, out_dtype, select):
+    return x.new_empty((x.shape[0], x.shape[1] // 4, x.shape[2] // 4,
+                        w1.shape[0]), dtype=out_dtype)
+
+
+_stage_op = cuda_lib.kernel_op(
+    "stem_stage", "(Tensor x, Tensor w, Tensor b, str precision, "
+    "ScalarType out_dtype) -> Tensor", fused_stem_stage_plain, _launch_stage,
+    _fake_stage, fused_stem_stage)
+_nhwc_op = cuda_lib.kernel_op(
+    "fused_stem", "(Tensor x, Tensor w, Tensor b, int th, ScalarType "
+    "out_dtype, str variant) -> Tensor", fused_stem_plain, _launch_nhwc,
+    _fake_nhwc, fused_stem)
+_PAIR_SCHEMA = ("(Tensor x, Tensor w0, Tensor b0, Tensor w1, Tensor b1, "
+                "str precision, ScalarType out_dtype, bool select) -> Tensor")
+_pair_ops = {
+    name: cuda_lib.kernel_op(
+        name, _PAIR_SCHEMA,
+        fused_stem_pair_deep_plain if deep else fused_stem_pair_plain,
+        lambda x, w0, b0, w1, b1, precision, out_dtype, select, fn=fn,
+        deep=deep: _launch_pair(fn.__name__, x, w0, b0, w1, b1, precision,
+                                out_dtype, deep=deep, select=select),
+        _fake_pair, fn)
+    for name, fn, deep in (
+        ("stem_pair", fused_stem_pair, False),
+        ("stem_pair_select", fused_stem_pair_select, False),
+        ("stem_pair_packed", fused_stem_pair_packed, False),
+        ("stem_pair_s2d", fused_stem_pair_s2d, False),
+        ("stem_pair_deep", fused_stem_pair_deep, True))}

@@ -1162,3 +1162,88 @@ def test_weights_round_trip_serves_on_the_card(cuda, tmp_path, fmt):
             assert cs.same_answer((boxes, valid), ref.infer(frame, pts,
                                                             props))
     assert nms_keep_mask_blocked.launches >= 2
+
+
+# ------------------------------------------------------------ custom ops
+def op_cases(device="cpu"):
+    """{kernel name: the arguments of its custom op}, small shapes the
+    kernels take (the stem pairs at H % 32 == 0, the crop maps at the
+    serving widths), made from a seed; ``tests/test_torch_export.py``
+    runs ``opcheck`` on the CPU with them."""
+    rng = np.random.default_rng(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def t(a, dtype=f32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def crop(b, n, h, w, c, dtype):
+        xy = np.sort(rng.uniform(0, 16 * h, size=(b, n, 2, 2)), 2)
+        boxes = t(xy.transpose(0, 1, 3, 2).reshape(b, n, 4))
+        by, bx = _batched_prep(boxes, h, w, (7, 7), 1 / 16, -0.5, 0.1, -1, 4)
+        return (t(rng.standard_normal((b, h, w, c)), dtype),
+                by.to(dtype).contiguous(), bx.to(dtype).contiguous())
+
+    boxes = rng.uniform(0, 50, (2, 128, 4))
+    boxes[..., 2:] += boxes[..., :2]
+    valid = t(rng.uniform(size=(2, 128)) < 0.8, torch.bool)
+    x = t(rng.standard_normal((1, 32, 32, 3)))
+    w0 = t(rng.standard_normal((8, 3, 3, 3)) * 0.3)
+    w1 = t(rng.standard_normal((16, 8, 3, 3)) * 0.3)
+    b8, b16 = t(rng.standard_normal(8)), t(rng.standard_normal(16))
+    pair = (x, w0, b8, w1, b16, "default", torch.float16)
+    return {
+        "nms": (t(boxes), valid, 0.5),
+        "nms_full": (t(boxes[:, :40]), valid[:, :40].contiguous(), 0.45),
+        "ps_roi_align": (*crop(2, 3, 4, 4, 7 * 128, bf), 10),
+        "ps_roi_align_vpu": (*crop(1, 2, 4, 4, 7 * 128, bf), 10),
+        "roi_align": (*crop(2, 3, 4, 4, 10, bf), "default"),
+        "ps_roi_align_f32": (*crop(1, 2, 4, 4, 10 * 49, f32), 10,
+                             "highest", "upq"),
+        "ps_roi_align_padded_f32": (*crop(1, 2, 4, 4, 7 * 128, f32), 10,
+                                    "split"),
+        "stem_stage": (x, w0, b8, "default", torch.float16),
+        "fused_stem": (x, w0.permute(2, 3, 1, 0).contiguous(), b8, 2, f32,
+                       "vconcat"),
+        "stem_pair": pair + (False,),
+        "stem_pair_select": pair + (True,),
+        "stem_pair_packed": pair + (False,),
+        "stem_pair_s2d": (x, w0, b8, w1, b16, "highest", f32, False),
+        "stem_pair_deep": pair[:6] + (torch.bfloat16, True),
+        "quantize_stochastic": (t(rng.standard_normal((5, 7))), 3, 2),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(op_cases()))
+def test_custom_op_on_the_card(cuda, name):
+    """Each ``millieye::`` op on the card: one launch, bit-identical to a
+    direct launch of its kernel (the wrapper's path before the ops), held
+    to its plain version by the rules above, and its fake output of the
+    real output's shape and dtype."""
+    from millieye_torch.ops import library
+    args = op_cases(cuda)[name]
+    op = library.OPS[name]
+    wrapper = op.wrapper
+    before = wrapper.launches
+    got = library.op(name)(*args)
+    assert wrapper.launches == before + 1
+    direct, plain = op.launch(*args), op.plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    many = isinstance(got, tuple)
+    got, direct, plain = ((got, direct, plain) if many
+                          else ((got,), (direct,), (plain,)))
+    with torch._subclasses.fake_tensor.FakeTensorMode() as mode:
+        fake = library.op(name)(*(mode.from_tensor(a)
+                                  if isinstance(a, torch.Tensor) else a
+                                  for a in args))
+    fake = fake if many else (fake,)
+    tensor_core = name in stem.TENSOR_CORE_KERNELS and "default" in args
+    for g, d, p, f in zip(got, direct, plain, fake):
+        assert g.dtype == d.dtype and torch.equal(g, d)
+        assert (f.shape, f.dtype, f.device) == (g.shape, g.dtype, g.device)
+        if tensor_core:
+            scale = float(p.float().abs().max())
+            assert float((g.float() - p.float()).abs().max()) \
+                <= PAIR_DEFAULT_TOL * scale
+        else:
+            assert torch.equal(g, p)
