@@ -16,7 +16,8 @@ printed only when every phase passed:
      as K4, K8 (hi/lo pool select), K11 and K12, K12's deep pair (stages 4+6),
      K5 whole-matrix NMS (K1 and K5 on knife-edge inputs, each case also with
      its device time per call from the profiler and the cluster size its launch
-     takes), K6 PS-RoIAlign on the unpadded float32 map, K7 padded PS-RoIAlign
+     takes), K4 at "default" storing float32 at batch 8 and 32 (the training
+     forward of ``cli.train --fold_frozen``), K6 PS-RoIAlign on the unpadded float32 map, K7 padded PS-RoIAlign
      on float32 operands, K9 single stem stage, K10 (the NHWC stage, "vconcat"
      and "im2col" tap orders) at stages 0 and 2 and at block 8's shape (its
      streamed route), K13 (stochastic int8) on block 12's weight and on the
@@ -154,7 +155,24 @@ printed only when every phase passed:
      answer; blob MB, export s, load s, device ms a call of the artifact
      and of the live step; then a custom op's host cost against a direct
      launch of its kernel (K1 at P1's shape) beside P1's host ms;
- 10. a ``kernels`` JSON line, then the contract line
+ 10. P21, the training path: ``cli.train.main`` in this process on
+     ``SyntheticScenes(64, seed=777)`` at 416 px, batch 8, ``--grad_accum
+     2``, one epoch (8 steps) for each stage: (a) stage 3 ``--fold_frozen``
+     and (b) stage 3 unfolded from the tracked checkpoint, (c) stage 2 from
+     its Darknet and score-map stack (seed-0 heads), (d) stage 1 from the
+     seed-0 init; each step's launches read around it (K4 and K1 once in
+     (a), K1 once in (b) and (c), none in (d), and nothing else); every
+     metric finite but module3's category and regression terms, which its
+     total leaves out, and no element reverted; the frozen leaves and the
+     Darknet's BN statistics bit-identical after the run, the trained ones
+     moved; steps/s after the first (host clock, synchronised), device ms
+     and busy share of one profiled step, peak allocated memory. (a)'s
+     frozen forward again inside ``plain_versions()`` (the rows within
+     ``PAIR_PATH_TOL``, or beyond it by NMS decisions alone) and its first
+     two steps (the loss within ``TRAIN_LOSS_RTOL``); (d)'s first step
+     against the CPU's and against its float64 gradient
+     (``YOLO_CPU_TOL``);
+ 11. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -446,6 +464,32 @@ class KernelChecks:
                    f"{lib_note} (max error {lib_err:.3g} against the plain "
                    f"version, largest value {scale:.3g})")
         self.records.setdefault(name, []).append(rec)
+
+    def stem_pair_f32(self, b, darknet_params):
+        """K4 at "default" storing float32: the training forward of
+        ``cli.train --fold_frozen`` (stage 2 is a hi-prec stage with no
+        store type), on 416 px frames with the folded weights of the
+        tracked checkpoint; held within ``stem.PAIR_DEFAULT_TOL`` of its
+        plain version's largest output, timed and bounded as the K4 row;
+        library: cuDNN bf16 twice."""
+        from millieye_torch.ops import stem
+        torch = self.torch
+        w0, b0, w1, b1 = (darknet_params[i][k].float() for i in (0, 2)
+                          for k in ("w", "b"))
+        x = torch.tensor(self.rng.uniform(0, 1, (b, 416, 416, 3)),
+                         dtype=torch.float32, device=self.dev)
+        args = (x, w0, b0, w1, b1, "default", torch.float32)
+        self.case(
+            "stem_pair", "416 px 3->16->32 default float32 (training)", b,
+            lambda: stem.fused_stem_pair(*args),
+            lambda: stem.fused_stem_pair_plain(*args),
+            x.numel() * 4 + b * 104 * 104 * 32 * 4
+            + (w0.numel() + w1.numel()) * 2,
+            2 * b * (416 * 416 * 16 * 27 + 208 * 208 * 32 * 144),
+            BF16_FLOP_S, cudnn_stem(torch, x, [(w0, b0), (w1, b1)],
+                                    torch.bfloat16),
+            "cuDNN conv2d+bias+leaky+max_pool2d twice, bf16", BF16_TOL,
+            tol=stem.PAIR_DEFAULT_TOL)
 
     # ------------------------------------------------------------- NMS
     def nms(self, b, live=None):
@@ -2060,6 +2104,387 @@ def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts):
     return summary, launches_by_run
 
 
+TRAIN_SCENES = 64             # SyntheticScenes(64, seed=777), as P19
+TRAIN_BATCH = 8
+TRAIN_SIZE = 416
+TRAIN_LR = 5e-4
+# the kernels each P21 run must launch on every step, and nothing else
+TRAIN_EXPECT = {"fusion_fold": {"stem_pair": 1, "nms": 1},
+                "fusion": {"nms": 1}, "refine": {"nms": 1}, "yolo": {}}
+# module3's total leaves out its category and regression terms; they are
+# reported, and the category BCE is NaN wherever a class score saturates
+# to 1.0 in float32 (its clip, 1 - 1e-12, rounds to 1.0): so in the JAX
+# package too. Every other metric must be finite.
+TRAIN_OUTSIDE_TOTAL = {"fusion_fold": ("category_loss", "loss_xy",
+                                       "loss_wh"),
+                       "fusion": ("category_loss", "loss_xy", "loss_wh")}
+# (a) against its plain versions: the frozen forward moves by the tensor
+# cores' bf16 roundings (the pair within 2^-6), so the loss within 2e-2
+# relative, as the CPU tests hold the fold step to the unfolded one
+TRAIN_LOSS_RTOL = 2e-2
+# (d) stage 1 on the card (TF32 off) against the CPU, both float32: the
+# loss within 1e-4 relative; the gradient held to the same gradient in
+# float64 on the CPU, the card's largest error over every leaf at most 4
+# times the CPU float32 step's. (Each float32 gradient is off the float64
+# one by up to ~2e-3 of the tree's largest: train-mode BN sums N*H*W =
+# 1.4M terms a channel at 416 px b8, and its backward cancels them; the
+# two devices sum in other orders, so leaf by leaf they differ by that.)
+YOLO_CPU_TOL = dict(loss=1e-4, f64=4.0)
+
+
+@contextlib.contextmanager
+def step_probe(torch, recipes, counts):
+    """Every ``Trainer`` made inside: each step synchronised before and
+    after and timed on the host clock, its metrics and its launches (the
+    counts read around it) kept, and its first batch and its unwrapped
+    step function."""
+    rec = {"s": [], "metrics": [], "launches": [], "batch": None,
+           "step_fn": None}
+    orig = recipes.Trainer.__init__
+
+    def init(self, step_fn, *a, **kw):
+        def timed(ts, batch, draw):
+            torch.cuda.synchronize()
+            c0, t0 = counts(), time.perf_counter()
+            ts, m = step_fn(ts, batch, draw)
+            torch.cuda.synchronize()
+            rec["s"].append(time.perf_counter() - t0)
+            c1 = counts()
+            rec["launches"].append({k: c1[k] - c0[k] for k in c1})
+            rec["metrics"].append({k: float(v) for k, v in m.items()})
+            if rec["batch"] is None:
+                rec["batch"] = batch
+            return ts, m
+
+        orig(self, timed, *a, **kw)
+        rec["step_fn"] = step_fn
+
+    recipes.Trainer.__init__ = init
+    try:
+        yield rec
+    finally:
+        recipes.Trainer.__init__ = orig
+
+
+def _leaves_moved(torch, got, start):
+    from millieye_torch.train.optim import tree_leaves
+    return any(not torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                                     tree_leaves(start)))
+
+
+def _frozen_identical(torch, params, start, frozen):
+    from millieye_torch.train.optim import label_tree, tree_leaves
+    for lab, a, b in zip(tree_leaves(label_tree(params, frozen)),
+                         tree_leaves(params), tree_leaves(start)):
+        if lab == "freeze" and not torch.equal(a, b):
+            return False
+    return True
+
+
+def fold_forward_vs_plain(torch, cuda_lib, model, params, state, images,
+                          zero_counts, counts):
+    """(a)'s frozen forward, the folded Darknet and its NMS, as the fold
+    step runs it: K4 and K1 once; bit-identical to the run with every
+    kernel but the tensor-core ones plain; against the fully plain run
+    each image's rows within ``PAIR_PATH_TOL``, or beyond it by NMS
+    decisions alone (each run's NMS the plain NMS of its detections, and
+    the kernel run's detections under the plain run's decisions within
+    the bound). Returns (largest box difference, largest score
+    difference, anchors kept in one run only)."""
+    from millieye_torch.models import fusion
+    from millieye_torch.ops import stem
+    with torch.no_grad():
+        fp, fs = model.darknet.fold_batchnorm(params["darknet"],
+                                              state["darknet"])
+    p, s = dict(params, darknet=fp), dict(state, darknet=fs)
+
+    def fwd():
+        det, valid, _ = fusion._frozen_forward(model, p, s, images, True)
+        return det[..., :7].cpu().numpy(), valid.cpu().numpy()
+
+    zero_counts()
+    got = fwd()
+    c = counts()
+    if {k: v for k, v in c.items() if v} != {"stem_pair": 1, "nms": 1}:
+        raise AssertionError(f"P21 frozen forward launched {c}")
+    with cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS):
+        keep = fwd()
+    if not same_answer(got, keep):
+        raise AssertionError("P21 frozen forward: not bit-identical to its "
+                             "run with only the tensor-core kernels")
+    with cuda_lib.plain_versions():
+        want = fwd()
+    rows = [rows_match((got[0][i], got[1][i]), (want[0][i], want[1][i]),
+                       PAIR_PATH_TOL) for i in range(len(got[1]))]
+    anchors = 0
+    if not all(r[0] for r in rows):
+        with pre_merge_nms(torch) as got_nms:
+            fwd()
+        with pre_merge_nms(torch) as want_nms, cuda_lib.plain_versions():
+            fwd()
+        anchors = pre_merge_is_nms(torch, cuda_lib, got_nms, want_nms)
+        with pre_merge_nms(torch, inject=want_nms):
+            got2 = fwd()
+        for i in range(len(got2[1])):
+            if not rows_match((got2[0][i], got2[1][i]),
+                              (want[0][i], want[1][i]), PAIR_PATH_TOL)[0]:
+                raise AssertionError(f"P21 frozen forward, image {i}: "
+                                     f"beyond {PAIR_PATH_TOL} of plain, and "
+                                     f"not by NMS decisions alone")
+    return (max(r[1] for r in rows), max(r[2] for r in rows), anchors)
+
+
+def fold_step_vs_plain(torch, cuda_lib, trainer, batch, dev="cuda"):
+    """(a)'s first two steps (one optimizer update at every_k 2) from the
+    same start and the same draws, with the kernels and inside
+    ``plain_versions()``: (loss, plain loss, largest difference of the
+    trained leaves after the update, frozen leaves identical)."""
+    from millieye_torch.train.optim import (STAGE3_FROZEN, label_tree,
+                                            tree_leaves)
+    from millieye_torch.train.steps import generator_draw
+
+    def run():
+        draw = generator_draw(torch.Generator(device=dev).manual_seed(3))
+        ts, m = trainer.step(trainer.ts, batch, draw)
+        loss = float(m["loss"])
+        ts, _ = trainer.step(ts, batch, draw)
+        return loss, ts.params
+
+    loss, got = run()
+    with cuda_lib.plain_versions():
+        plain_loss, want = run()
+    labels = tree_leaves(label_tree(got, STAGE3_FROZEN))
+    d_trained, frozen_same = 0.0, True
+    for lab, a, b, c in zip(labels, tree_leaves(got), tree_leaves(want),
+                            tree_leaves(trainer.ts.params)):
+        if lab == "freeze":
+            frozen_same &= torch.equal(a, c) and torch.equal(b, c)
+        else:
+            d_trained = max(d_trained, float((a - b).abs().max()))
+    return loss, plain_loss, d_trained, frozen_same
+
+
+def _yolo_grads(torch, darknet, p, s, batch, dtype):
+    """The stage-1 loss and its gradient leaves, straight through
+    ``Darknet.apply(train=True, compute_dtype=dtype)`` and ``yolo_loss``
+    on the trees' and the batch's device, in ``dtype``."""
+    from millieye_torch.models.yolo_head import yolo_loss
+    from millieye_torch.train.optim import tree_leaves, tree_map
+    dev = batch["images"].device
+    p = tree_map(lambda t: t.to(dev, dtype).requires_grad_(True), p)
+    s = tree_map(lambda t: t.to(dev, dtype), s)
+    out = darknet.apply(p, s, batch["images"].to(dtype), train=True,
+                        compute_dtype=dtype)
+    loss, _ = yolo_loss(out["preds"], darknet.anchors_per_scale,
+                        batch["images"].shape[1], batch["targets"].to(dtype),
+                        batch["tmask"])
+    return float(loss.detach()), [g.double().cpu() for g in torch.autograd.grad(
+        loss, tree_leaves(p))]
+
+
+def yolo_step_vs_cpu(torch, darknet, p0, s0, batch, dev="cuda"):
+    """(d)'s first step on the card and on the CPU from the seed-0 init,
+    and the same gradient in float64 on the CPU: the loss of the two
+    steps within ``YOLO_CPU_TOL["loss"]``; the card's gradient (the
+    accumulated gradient after one step at every_k 2 is that step's) no
+    farther from the float64 one, at its worst leaf element, than
+    ``YOLO_CPU_TOL["f64"]`` times the CPU's (float32 in both, TF32 off on
+    the card). Returns the numbers."""
+    from millieye_torch.io.checkpoint import to_device
+    from millieye_torch.train.optim import frozen_adam, tree_leaves
+    from millieye_torch.train.steps import (init_train_state,
+                                            make_yolo_train_step)
+    out = []
+    for d in (dev, "cpu"):
+        p, s = to_device(p0, d), to_device(s0, d)
+        tx = frozen_adam(p, lr=TRAIN_LR, every_k=2)
+        step = make_yolo_train_step(darknet, tx)
+        b = {k: batch[k].to(d) for k in ("images", "targets", "tmask")}
+        ts, m = step(init_train_state(p, s, tx), b)
+        out.append((float(m["loss"]), [
+            g.double().cpu() for g in tree_leaves(ts.opt_state.acc_grads)]))
+    ref_loss, ref = _yolo_grads(torch, darknet, p0, s0, {
+        k: batch[k].cpu() for k in ("images", "targets", "tmask")},
+        torch.float64)
+    top = max(float(g.abs().max()) for g in ref)
+    err = {"card": [], "cpu": []}
+    for gc, gh, gr in zip(out[0][1], out[1][1], ref):
+        err["card"].append(float((gc - gr).abs().max()))
+        err["cpu"].append(float((gh - gr).abs().max()))
+    r = {"loss": out[0][0], "cpu_loss": out[1][0], "f64_loss": ref_loss,
+         "worst_card_err_of_tree_max": max(err["card"]) / top,
+         "worst_cpu_err_of_tree_max": max(err["cpu"]) / top,
+         "card_vs_cpu_err_of_tree_max": max(float((a - b).abs().max())
+                                            for a, b in zip(out[0][1],
+                                                            out[1][1])) / top,
+         "tf32": {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                  "matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+                  "cudnn.conv.fp32_precision": getattr(getattr(
+                      torch.backends.cudnn, "conv", None), "fp32_precision",
+                      None)}}
+    log(f"  yolo first step against float64: {r}")
+    if abs(r["loss"] - r["cpu_loss"]) > YOLO_CPU_TOL["loss"] * abs(
+            r["cpu_loss"]) or max(err["card"]) > YOLO_CPU_TOL["f64"] * max(
+            err["cpu"]):
+        raise AssertionError(f"P21 yolo: the card's first step beyond "
+                             f"{YOLO_CPU_TOL} of the CPU's: {r}")
+    return r
+
+
+def train_phase(torch, cuda_lib, zero_counts, counts, card, dev="cuda"):
+    """P21: ``cli.train.main`` in this process on ``SyntheticScenes(64,
+    seed=777)`` at 416 px, batch 8, every_k 2, one epoch (8 steps) each:
+    (a) stage 3 ``--fold_frozen`` from the tracked checkpoint, (b) stage 3
+    unfolded, (c) stage 2 from the checkpoint's Darknet and score-map
+    stack (seed-0 heads), (d) stage 1 from the seed-0 init. Every step's
+    launches are read around it and must be the run's kernels once each
+    (``TRAIN_EXPECT``); every metric finite and ``nonfinite_reverted`` 0;
+    the frozen leaves (and the Darknet's BN statistics) bit-identical
+    after the run and the trained ones moved. (a) again inside
+    ``plain_versions()``: its frozen forward (``fold_forward_vs_plain``)
+    and its first two steps (``fold_step_vs_plain``); (d)'s first step
+    against the CPU's (``yolo_step_vs_cpu``). Returns (summary, {run:
+    launches})."""
+    import tempfile
+    from millieye_torch.cli import train as tcli
+    from millieye_torch.cli._common import (TRAIN_FOLD, build_darknet,
+                                            build_fusion, build_refine)
+    from millieye_torch.io.checkpoint import (load_checkpoint,
+                                              save_checkpoint, to_device)
+    from millieye_torch.train import recipes
+    from millieye_torch.train.optim import (STAGE2_FROZEN, STAGE3_FROZEN,
+                                            tree_leaves)
+    from millieye_torch.train.steps import generator_draw
+    tmp = tempfile.TemporaryDirectory()
+    train_args = ["--synthetic", str(TRAIN_SCENES), "--seed", "777",
+                  "--img_size", str(TRAIN_SIZE), "--batch_size",
+                  str(TRAIN_BATCH), "--grad_accum", "2", "--epochs", "1",
+                  "--device", dev]
+    darknet = build_darknet(img_size=TRAIN_SIZE)
+    p0, s0 = darknet.init(torch.Generator().manual_seed(0))
+    yolo_init = f"{tmp.name}/yolo_seed0.npz"
+    save_checkpoint(yolo_init, {"params": p0, "state": s0})
+    runs = {"fusion_fold": ["--stage", "fusion", "--fold_frozen",
+                            "--checkpoint", CKPT],
+            "fusion": ["--stage", "fusion", "--checkpoint", CKPT],
+            "refine": ["--stage", "refine", "--pretrained", CKPT],
+            "yolo": ["--stage", "yolo", "--checkpoint", yolo_init]}
+    summary, launches = {}, {}
+    for name, argv in runs.items():
+        t = time.time()
+        zero_counts()
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with step_probe(torch, recipes, counts) as rec:
+            trainer = tcli.main(argv + train_args + [
+                "--checkpoint_dir", f"{tmp.name}/{name}"])
+        wall = time.time() - t
+        launches[f"train {name}"] = counts()
+        peak_mb = (torch.cuda.max_memory_allocated() / 2 ** 20
+                   if dev == "cuda" else 0.0)
+        n = len(rec["s"])
+        if n != TRAIN_SCENES // TRAIN_BATCH or trainer.ts.step != n:
+            raise AssertionError(f"P21 {name}: {n} steps")
+        want = TRAIN_EXPECT[name]
+        for i, got in enumerate(rec["launches"]):
+            if {k: v for k, v in got.items() if v} != want:
+                raise AssertionError(f"P21 {name} step {i}: launched {got}, "
+                                     f"expected {want}")
+        for i, m in enumerate(rec["metrics"]):
+            if not all(np.isfinite(v) for k, v in m.items()
+                       if k not in TRAIN_OUTSIDE_TOTAL.get(name, ())) \
+                    or m["nonfinite_reverted"]:
+                raise AssertionError(f"P21 {name} step {i}: metrics {m}")
+        params, state = trainer.ts.params, trainer.ts.state
+        if name.startswith("fusion"):
+            start = to_device(load_checkpoint(CKPT, {"params": params,
+                                                     "state": state}), dev)
+            ok = (_frozen_identical(torch, params, start["params"],
+                                    STAGE3_FROZEN)
+                  and all(torch.equal(a, b) for a, b in zip(
+                      tree_leaves(state["darknet"]),
+                      tree_leaves(start["state"]["darknet"]))))
+            moved = {k: _leaves_moved(torch, v, w) for k, v, w in (
+                ("radar_enc", params["radar_enc"],
+                 start["params"]["radar_enc"]),
+                ("refine.radar_net", params["refine"]["radar_net"],
+                 start["params"]["refine"]["radar_net"]),
+                ("ensemble", params["ensemble"],
+                 start["params"]["ensemble"]))}
+        elif name == "refine":
+            _, rp, rs = build_refine(CKPT, img_size=TRAIN_SIZE, device=dev)
+            ok = (_frozen_identical(torch, params, rp, STAGE2_FROZEN)
+                  and all(torch.equal(a, b) for a, b in zip(
+                      tree_leaves(state["darknet"]),
+                      tree_leaves(rs["darknet"]))))
+            # module2 trains on its image proposals alone: only a run
+            # whose proposals met a target (IoU above 0.7) has a loss
+            if sum(m["true"] for m in rec["metrics"]):
+                moved = {k: _leaves_moved(torch, params[k], rp[k])
+                         for k in ("fcn", "refine", "ensemble")}
+            else:
+                moved = {"no positives in the run": True}
+        else:
+            ok = True
+            moved = {"darknet": _leaves_moved(torch, params,
+                                              to_device(p0, dev))}
+        if not ok or not all(moved.values()):
+            raise AssertionError(f"P21 {name}: frozen leaves identical "
+                                 f"{ok}, trained ones moved {moved}")
+        draw = generator_draw(torch.Generator(device=dev).manual_seed(1))
+        busy, pwall, _, _ = profile_run(torch, lambda: rec["step_fn"](
+            trainer.ts, rec["batch"], draw))
+        r = {"steps": n, "wall_s": wall,
+             "steps_per_s_after_first": (n - 1) / sum(rec["s"][1:]),
+             "first_step_s": rec["s"][0],
+             "device_ms_per_step": busy, "profiled_step_wall_ms": pwall,
+             "busy_share": busy / pwall, "peak_mb": peak_mb,
+             "loss_first_last": (rec["metrics"][0]["loss"],
+                                 rec["metrics"][-1]["loss"]),
+             "launches_per_step": want, "moved": moved}
+        if name == "fusion_fold":
+            model, fp_, fs_ = build_fusion(CKPT, TRAIN_FOLD,
+                                           img_size=TRAIN_SIZE, device=dev)
+            r["frozen_forward_vs_plain"] = fold_forward_vs_plain(
+                torch, cuda_lib, model, fp_, fs_, rec["batch"]["images"],
+                zero_counts, counts)
+            twin = recipes.fusion_trainer(model, fp_, fs_,
+                                          f"{tmp.name}/twin",
+                                          lr=TRAIN_LR, every_k=2,
+                                          fold_frozen=True)
+            loss, plain_loss, d_tr, frozen_same = fold_step_vs_plain(
+                torch, cuda_lib, twin, rec["batch"], dev)
+            if not (abs(loss - plain_loss) <= TRAIN_LOSS_RTOL
+                    * abs(plain_loss) and frozen_same
+                    and d_tr <= 2 * TRAIN_LR + 1e-6):
+                raise AssertionError(
+                    f"P21 fold step against plain: loss {loss} / "
+                    f"{plain_loss}, trained leaves {d_tr} apart, frozen "
+                    f"identical {frozen_same}")
+            r["step_vs_plain"] = {"loss": loss, "plain_loss": plain_loss,
+                                  "trained_leaves_max_diff": d_tr}
+            del model, fp_, fs_, twin
+        if name == "yolo":
+            r["first_step_vs_cpu"] = yolo_step_vs_cpu(
+                torch, darknet, p0, s0, rec["batch"], dev)
+        log(f"P21 {name} ({card}): {n} steps, "
+            f"{r['steps_per_s_after_first']:.2f} steps/s after the first "
+            f"(host clock, synchronised; first step {rec['s'][0]:.2f} s), "
+            f"device {busy:.2f} ms of {pwall:.2f} ms a profiled step (busy "
+            f"{100 * busy / pwall:.1f}%), peak {peak_mb:.0f} MB allocated, "
+            f"launches a step {want or 'none'}, loss {r['loss_first_last']}"
+            f", trained leaves moved {moved}; {wall:.1f} s")
+        for k in ("frozen_forward_vs_plain", "step_vs_plain",
+                  "first_step_vs_cpu"):
+            if k in r:
+                log(f"  {k}: {r[k]}")
+        summary[name] = r
+        del trainer, rec
+        torch.cuda.empty_cache()
+    tmp.cleanup()
+    return summary, launches
+
+
 _SERVE = r"""
 import json, sys, time
 import numpy as np
@@ -2406,6 +2831,8 @@ def main():
         checks.roi_f32(b)
         checks.stems(b, engines["pallas_max_s01"].params["darknet"])
         checks.fused_stem_nhwc(b, engines["pallas_max_s01"].params["darknet"])
+    for b in (8, 32):     # the f32 engine's weights are folded, float32
+        checks.stem_pair_f32(b, engines["f32"].params["darknet"])
     w12 = engines["f32"].params["darknet"][12]["w"]
     checks.quantize(w12)
     torch.cuda.empty_cache()
@@ -3415,6 +3842,14 @@ def main():
     launches_by_path.update({k: {n: v.get(n, 0) for n in kernels}
                              for k, v in export_launches.items()})
     log(f"export phase ({card}): {time.time() - t:.1f} s")
+
+    # P21: the training path, cli.train on the card, four stages
+    t = time.time()
+    summary["train"], train_launches = train_phase(
+        torch, cuda_lib, zero_counts, counts, card)
+    launches_by_path.update({k: {n: v.get(n, 0) for n in kernels}
+                             for k, v in train_launches.items()})
+    log(f"train phase ({card}): {time.time() - t:.1f} s")
     wdir.cleanup()
     stream_dir.cleanup()
 

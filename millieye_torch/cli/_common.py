@@ -99,10 +99,22 @@ SERVING_PRESETS = {
 }
 
 
+# ``cli/train.py --fold_frozen``: the JAX package's train-step
+# configuration for a folded frozen Darknet (its cli/train.py): bf16
+# convolutions, stages 0/2/4 in float32 arithmetic and stored float32,
+# stages 0+2 as the pair kernel K4 ("phase_s01") with bf16 products. The
+# heads train in float32 whatever the preset.
+TRAIN_FOLD = {"compute_dtype": "bfloat16", "hi_prec": (0, 2, 4),
+              "stem": (0, 2), "stem_pair": True, "stem_precision": "default",
+              "stem_variant": "phase_s01"}
+
+
 def serving_overrides(name):
     """(hi_prec_stages, hi_prec_store, stem options for ``Darknet``,
-    ``FusionConfig`` overrides). ``s2d: True`` means s2d stages (0, 2)."""
-    preset = dict(SERVING_PRESETS[name])
+    ``FusionConfig`` overrides) of a preset: a name of
+    ``SERVING_PRESETS`` or such a row itself (``TRAIN_FOLD``). ``s2d:
+    True`` means s2d stages (0, 2)."""
+    preset = dict(SERVING_PRESETS[name] if isinstance(name, str) else name)
     hi = tuple(preset.pop("hi_prec", ()))
     store = preset.pop("hi_store", None)
     stem_kw = {
@@ -233,6 +245,8 @@ def build_refine(weights=None, preset="f32", img_size=416, num_classes=12,
     set_numerics()
     darknet, over = _build_darknet(preset, img_size, num_classes, model_def)
     over.setdefault("class_num", 12)
+    over.setdefault("loss_variant", "module2")
+    over.setdefault("loss_lambda", (15.0, 5.0))
     model = RefineNetwork(darknet, FusionConfig(**{**over, **overrides}))
     if isinstance(weights, str) and _fusion_npz(weights):
         fusion = FusionNetwork(darknet, model.cfg)

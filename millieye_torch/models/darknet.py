@@ -1,5 +1,5 @@
-"""cfg-driven Darknet (tiny-YOLOv3, YOLOv3 on Darknet-53), inference
-only (port of ``millieye_tpu/models/darknet.py``).
+"""cfg-driven Darknet (tiny-YOLOv3, YOLOv3 on Darknet-53) (port of
+``millieye_tpu/models/darknet.py``).
 
 The graph comes from a list of block dicts (``models/zoo.py``) or a
 darknet ``.cfg`` path. Parameters are explicit: ``params`` / ``state``
@@ -33,6 +33,16 @@ convolution runs int8 x int8 -> int32 (``int8_conv2d``).
 ``collect_act_stats`` returns each convolution's input absmax
 (``act_absmax``) for calibrating ``xs``; it runs the stem pairs as
 single stages, as the JAX package does.
+
+Training (``apply(train=True)``): BN normalizes with the batch statistics
+and updates the running ones with momentum 0.9 (the reference's
+``BatchNorm2d(momentum=0.9)``: running <- 0.1 running + 0.9 batch, the
+variance unbiased over N*H*W); the output also holds ``preds``, each YOLO
+scale's [N, A, G, G, 5+C] (sigmoid x, y, raw w, h, sigmoid conf and
+classes) for the loss, and the new ``state``. No kernel runs in train
+mode: the stem kernels need folded weights and ``not train``, as in the
+JAX package, and the custom ops have no backward. ``feature_map`` and
+``detections`` never carry a gradient.
 """
 from __future__ import annotations
 
@@ -48,6 +58,8 @@ from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_select, fused_stem_stage)
 
 _BN_EPS = 1e-5
+# torch BatchNorm2d(momentum=0.9): running <- 0.1 running + 0.9 batch
+_BN_MOMENTUM = 0.9
 
 # The JAX package's pair variants (``pallas_stem_pair_variant``) -> the
 # kernel wrapper and its keyword arguments. The four "phase" spellings
@@ -133,15 +145,18 @@ def im2col_stem_weight(w):
     return wm
 
 
-def decode_yolo(raw, anchors, num_classes, img_dim):
+def decode_yolo(raw, anchors, num_classes, img_dim, with_pred=False):
     """One YOLO scale: raw [N, A*(5+C), G, G] conv output (any dtype) ->
-    detections [N, A*G*G, 5+C] float32 in image scale, anchor-major then
-    row then column."""
+    detections [N, A*G*G, 5+C] float32 (float64 from float64) in image
+    scale, anchor-major then
+    row then column; ``with_pred`` also returns pred [N, A, G, G, 5+C]
+    (sigmoid x, y, raw w, h, sigmoid conf and classes), what the loss
+    reads."""
     n, g = raw.shape[0], raw.shape[2]
     a = len(anchors)
     f = 5 + num_classes
     raw = raw.permute(0, 2, 3, 1).reshape(n, g, g, a, f).permute(0, 3, 1, 2, 4)
-    raw = raw.float()
+    raw = raw.to(torch.promote_types(raw.dtype, torch.float32))
     stride = img_dim / g
     anc = constant(tuple(map(tuple, anchors)), raw.device)
     xy = torch.sigmoid(raw[..., 0:2])
@@ -153,11 +168,29 @@ def decode_yolo(raw, anchors, num_classes, img_dim):
     grid = torch.stack([gx, gy], -1)[None, None]
     bxy = (xy + grid) * stride
     bwh = torch.exp(twh.clamp(-20.0, 20.0)) * anc[None, :, None, None, :]
-    return torch.cat([bxy, bwh, conf, cls], -1).reshape(n, a * g * g, f)
+    det = torch.cat([bxy, bwh, conf, cls], -1).reshape(n, a * g * g, f)
+    if with_pred:
+        return det, torch.cat([xy, twh, conf, cls], -1)
+    return det
+
+
+def _train_bn(x, p, s):
+    """Train-mode BN of an NCHW conv output: the batch statistics
+    normalize (biased variance); returns (y, the running statistics
+    updated with the unbiased one, detached)."""
+    mean = x.mean((0, 2, 3))
+    var = x.var((0, 2, 3), unbiased=False)
+    cnt = x.shape[0] * x.shape[2] * x.shape[3]
+    var_u = var * (cnt / max(cnt - 1, 1))
+    m = _BN_MOMENTUM
+    new_s = {"mean": (1 - m) * s["mean"] + m * mean.detach(),
+             "var": (1 - m) * s["var"] + m * var_u.detach()}
+    y = (x - mean[:, None, None]) * torch.rsqrt(var[:, None, None] + _BN_EPS)
+    return y * p["gamma"][:, None, None] + p["beta"][:, None, None], new_s
 
 
 class Darknet:
-    """Layer plan + inference forward over explicit parameters."""
+    """Layer plan + forward (eval or train) over explicit parameters."""
 
     def __init__(self, config, img_size=416, feature_tap=8,
                  hi_prec_stages=(), hi_prec_store=None, stem_stages=(),
@@ -358,22 +391,26 @@ class Darknet:
         return to_device(params, device), to_device(state, device)
 
     def apply(self, params, state, images, compute_dtype=torch.float32,
-              collect_act_stats=False, collect_outputs=False):
+              collect_act_stats=False, collect_outputs=False, train=False):
         """images [N, H, W, 3] -> {"feature_map": [N, H/16, W/16, 256]
         NHWC in the compute dtype, "detections": [N, sum(A*G*G), 5+C]
         float32}; with ``collect_act_stats`` also "act_absmax" [n_blocks]
         float32, each convolution's input absmax (0 elsewhere); with
         ``collect_outputs`` also "outputs", each block's output (NCHW; the
-        blocks a fused pair or stage covers repeat its output)."""
+        blocks a fused pair or stage covers repeat its output); with
+        ``train`` also "preds" (per YOLO scale) and "state" (the updated
+        BN statistics)."""
         img_dim = images.shape[1]
         x_in = images.permute(0, 3, 1, 2)
-        outputs, dets = [], []
+        outputs, dets, preds = [], [], []
+        new_state = list(state)
         feature_map = None
         act_absmax = [torch.zeros((), device=images.device)] * len(self._plan)
 
         def fused(j):
-            # the kernels bake bias + leaky + pool: folded weights only
-            return (j in self.stem_stages and "w" in params[j]
+            # the kernels bake bias + leaky + pool: folded weights only,
+            # and never in training (the custom ops have no backward)
+            return (j in self.stem_stages and not train and "w" in params[j]
                     and "gamma" not in params[j])
 
         def transformed(j):
@@ -455,7 +492,9 @@ class Darknet:
             elif t == "convolutional":
                 x = conv(i, p, prev, "w", info["stride"],
                          (info["size"] - 1) // 2)
-                if "gamma" in p:      # BN not folded away (eval mode)
+                if "gamma" in p and train:
+                    x, new_state[i] = _train_bn(x, p, s)
+                elif "gamma" in p:    # BN not folded away (eval mode)
                     x = (x - s["mean"][:, None, None]) * torch.rsqrt(
                         s["var"][:, None, None] + _BN_EPS)
                     x = (x * p["gamma"][:, None, None]
@@ -475,10 +514,14 @@ class Darknet:
                 x = prev + outputs[info["frm"]]
             elif t == "yolo":
                 x = decode_yolo(prev, info["anchors"], info["classes"],
-                                img_dim)
+                                img_dim, with_pred=train)
+                if train:
+                    x, pred = x
+                    preds.append(pred)
                 dets.append(x)
             if (t == "convolutional" and self.hi_prec_store is not None
-                    and i in self.hi_prec_stages and i not in pair_los):
+                    and i in self.hi_prec_stages and not train
+                    and i not in pair_los):
                 # float32 arithmetic, compact storage (a pair's output is
                 # already in its second stage's store type)
                 x = x.to(self.hi_prec_store)
@@ -489,6 +532,12 @@ class Darknet:
         out = {"feature_map": feature_map,
                "detections": (torch.cat(dets, 1) if dets
                               else outputs[-1].permute(0, 2, 3, 1))}
+        if train:
+            # the feature tap and the decode carry no gradient (the
+            # reference's .detach() of the tap)
+            out.update(feature_map=feature_map.detach(),
+                       detections=out["detections"].detach(), preds=preds,
+                       state=new_state)
         if collect_act_stats:
             out["act_absmax"] = torch.stack(act_absmax)
         if collect_outputs:
@@ -546,6 +595,12 @@ class Darknet:
                                  "fold_im2col")
             out[i] = {"wi": im2col_stem_weight(p["w"]), "b": p["b"]}
         return out
+
+    @property
+    def anchors_per_scale(self):
+        """Each YOLO block's anchors in pixels, in block order."""
+        return [info["anchors"] for info in self._plan
+                if info["type"] == "yolo"]
 
     @property
     def act_int8_skip(self):

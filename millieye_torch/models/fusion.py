@@ -1,6 +1,7 @@
 """Radar+camera fusion detector ("module3") and the camera-only
-refinement detector ("module2"), inference and initialisation (port of
-``millieye_tpu/models/fusion.py``: ``FusionNetwork``, ``RefineNetwork``).
+refinement detector ("module2"): inference, training and initialisation
+(port of ``millieye_tpu/models/fusion.py``: ``FusionNetwork``,
+``RefineNetwork``).
 
 backbone -> YOLO decode -> class-aware NMS -> score maps -> RoI crops ->
 refinement / ensemble heads -> regression and priority sort, over padded
@@ -17,11 +18,24 @@ Modes: 0 millieye, 1 yolo only, 2 radar only.
 ``RefineNetwork``: frozen YOLO -> NMS -> PS-RoIAlign over a 490-channel
 score map -> refinement head -> ensemble head -> re-scored, regressed
 boxes [B, max_det, 7]; no radar branch, all classes kept.
+
+Training (``apply(train=True, targets=, tmask=, draw=)``): the Darknet
+and its NMS run in eval mode under ``torch.no_grad()`` (the base detector
+is frozen, and its kernels have no backward); the heads run in train mode
+in float32 with the einsum crops, and the output gains ``loss``,
+``metrics`` and the new ``state``. The losses (``_losses``): IoU labels
+against same-class targets (+1 pixel), k = min(balance_factor * pos,
+neg) negatives chosen at random, a focal loss on the image proposals, a
+confidence BCE, and (module2) the smooth-L1 regression and category BCE.
+The random numbers come from ``draw(kind, shape)``: "negatives", uniform
+[0, 1) float32 keys, and "dropout", module2's bool keep mask at p 0.5
+(``train/steps.py:generator_draw`` draws them from a ``torch.Generator``).
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -29,7 +43,8 @@ from millieye_torch.device import constant
 from millieye_torch.io.checkpoint import to_device
 from millieye_torch.models import heads
 from millieye_torch.models.darknet import Darknet
-from millieye_torch.ops.boxes import box_regress
+from millieye_torch.ops.boxes import (box_regress, encode_boxes,
+                                      iou_matrix, xywh_to_xyxy)
 from millieye_torch.ops.nms import batched_nms
 from millieye_torch.ops.roi_align import (ps_roi_align_batched,
                                           roi_align_batched)
@@ -50,8 +65,13 @@ class FusionConfig:
     max_det: int = 200            # detections per image
     max_radar: int = 32           # padded radar proposals per image
     pre_nms_top_k: int = 512
+    iou_thresh: tuple = (0.3, 0.7)   # training labels: neg below, pos above
+    alpha: float = 0.75              # focal loss
+    balance_factor: int = 5          # negatives per positive
+    loss_lambda: tuple = (6.0, 1.0)  # module3's divisors
     refine_threshold_img: float = 0.0
     refine_threshold_radar: float = 0.0
+    loss_variant: str = "module3"    # or "module2" (regression, category)
     sampling_max: int = 4         # RoIAlign adaptive grid bound
     compute_dtype: str = "float32"   # backbone convolutions
     heads_dtype: str = "float32"     # score maps, RoI crops, heads
@@ -117,21 +137,21 @@ class FusionNetwork:
         return to_device(params, device), to_device(state, device)
 
     def apply(self, params, state, images, radar_maps, radar_boxes,
-              radar_mask, mode=0):
+              radar_mask, mode=0, train=False, targets=None, tmask=None,
+              draw=None):
         """images [B, S, S, 3] letterboxed float; radar_maps [B, S/16,
         S/16, 3]; radar_boxes [B, R, 4] xyxy in (0, 1), radar_mask [B, R].
-        Returns {"boxes" [B, K+R, 7], "valid" [B, K+R], ...}."""
+        Returns {"boxes" [B, K+R, 7], "valid" [B, K+R], ...}; with
+        ``train`` (targets [B, T, 5] of (class, cx, cy, w, h) in (0, 1),
+        tmask [B, T], ``draw`` the random numbers) also "loss", "metrics"
+        and the new "state"."""
         cfg = self.cfg
         b_sz, img_size = images.shape[0], images.shape[1]
         k_img, r_rad = cfg.max_det, cfg.max_radar
         dev = images.device
 
-        d_out = self.darknet.apply(params["darknet"], state["darknet"], images,
-                                   compute_dtype=_DTYPES[cfg.compute_dtype])
-        det, det_valid = batched_nms(
-            d_out["detections"], cfg.conf_thresh, cfg.nms_thresh,
-            max_det=k_img, pre_top_k=cfg.pre_nms_top_k,
-            use_blocked=cfg.nms_use_blocked)
+        det, det_valid, feature_map = _frozen_forward(self, params, state,
+                                                      images, train)
         det_valid = det_valid & (det[:, :, 6].long() == cfg.class_idx)
         img_xyxy, img_conf = det[:, :, 0:4], det[:, :, 4]
         img_class_score, img_class_pred = det[:, :, 5], det[:, :, 6]
@@ -143,14 +163,15 @@ class FusionNetwork:
                                    img_class_pred[..., None]], -1)
             return {"boxes": boxes_out, "valid": det_valid, "num_img": k_img}
 
-        hd = _DTYPES[cfg.heads_dtype]
+        # the heads train in float32, with the einsum crops
+        hd = torch.float32 if train else _DTYPES[cfg.heads_dtype]
         p_img, s_img = _cast_floats((params["img_cnn"], state["img_cnn"]), hd)
         p_rad, s_rad = _cast_floats((params["radar_enc"], state["radar_enc"]),
                                     hd)
         p_ref, s_ref = _cast_floats((params["refine"], state["refine"]), hd)
         p_ens = _cast_floats(params["ensemble"], hd)
         radar_maps = radar_maps.to(hd)
-        use_kernel_roi = cfg.roi_impl == "kernel"
+        use_kernel_roi = cfg.roi_impl == "kernel" and not train
         roi_c_out = None
         if use_kernel_roi:
             # permute AND pad the score-map conv's output channels (a few
@@ -175,9 +196,10 @@ class FusionNetwork:
             p_img = p_img[:-1] + [last]
             s_img = s_img[:-1] + [{"mean": scat(s_img[-1]["mean"], 0.0),
                                    "var": scat(s_img[-1]["var"], 1.0)}]
-        roi_score_map = heads.conv_bn_stack_apply(
-            p_img, s_img, d_out["feature_map"].to(hd))
-        radar_score_map = heads.radar_encoder_apply(p_rad, s_rad, radar_maps)
+        roi_score_map, img_cnn_s = heads.conv_bn_stack_apply(
+            p_img, s_img, feature_map.to(hd), train)
+        radar_score_map, radar_enc_s = heads.radar_encoder_apply(
+            p_rad, s_rad, radar_maps, train)
 
         radar_xyxy = radar_boxes * img_size
         all_xyxy = torch.cat([img_xyxy, radar_xyxy], 1)
@@ -205,8 +227,12 @@ class FusionNetwork:
         img_crop = img_crop.to(hd).reshape(b_sz * n_all, 7, 7, -1)
         radar_crop = radar_crop.to(hd).reshape(b_sz * n_all, 7, 7, -1)
 
-        regress_param, refinement_vector = heads.refinement_head_apply(
-            p_ref, s_ref, radar_crop, img_crop, class_num=cfg.class_num)
+        regress_param, refinement_vector, refine_s = \
+            heads.refinement_head_apply(
+                p_ref, s_ref, radar_crop, img_crop,
+                valid=all_valid.reshape(-1).to(hd) if train else None,
+                train=train,
+                class_num=cfg.class_num)
         regress_param = regress_param.float().reshape(b_sz, n_all, 4)
         refinement_vector = refinement_vector.float().reshape(
             b_sz, n_all, 1 + cfg.class_num)
@@ -231,22 +257,136 @@ class FusionNetwork:
                                  refinement_vector[:, k_img:, 1]], 1)
         class_pred = torch.cat([img_class_pred,
                                 torch.zeros((b_sz, r_rad), device=dev)], 1)
-        boxes_out = torch.cat([out_xyxy, fg[..., None], class_score[..., None],
-                               class_pred[..., None]], -1)
+        result = _sorted_rows(
+            torch.cat([out_xyxy, fg[..., None], class_score[..., None],
+                       class_pred[..., None]], -1),
+            fg * torch.cat([torch.ones(k_img, device=dev),
+                            torch.full((r_rad,), 1.0 / 5,
+                                       device=dev)])[None, :], positive)
+        result.update(num_img=k_img,
+                      radar_attention=radar_score_map[..., :1])
+        if not train:
+            return result
+        new_state = {"darknet": state["darknet"], "img_cnn": img_cnn_s,
+                     "radar_enc": radar_enc_s, "refine": refine_s}
+        loss, metrics = _losses(
+            cfg, draw, targets, tmask, all_xyxy, all_valid, class_pred,
+            regress_param, refinement_vector, fg, positive, k_img, img_size)
+        result.update(loss=loss, metrics=metrics, state=new_state)
+        return result
 
-        priority = fg * torch.cat([torch.ones(k_img, device=dev),
-                                   torch.full((r_rad,), 1.0 / 5,
-                                              device=dev)])[None, :]
-        priority = torch.where(positive, priority,
-                               torch.full_like(priority, float("-inf")))
-        order = torch.argsort(-priority, dim=1, stable=True)
-        boxes_out = torch.gather(boxes_out, 1,
-                                 order[..., None].expand(-1, -1, 7))
-        out_valid = torch.gather(positive, 1, order)
-        boxes_out = torch.where(out_valid[..., None], boxes_out,
-                                torch.zeros_like(boxes_out))
-        return {"boxes": boxes_out, "valid": out_valid, "num_img": k_img,
-                "radar_attention": radar_score_map[..., :1]}
+
+def _frozen_forward(model, params, state, images, train):
+    """The base detector and its NMS: (detections [B, max_det, 7+C],
+    valid, feature map NHWC). Eval-mode BN always (the reference keeps
+    the base detector in eval mode while the heads train); under
+    ``torch.no_grad()`` in training, so that no kernel sees a tensor that
+    requires grad (detections and feature map are the JAX package's
+    ``stop_gradient`` outputs)."""
+    cfg = model.cfg
+    with torch.no_grad() if train else contextlib.nullcontext():
+        d_out = model.darknet.apply(params["darknet"], state["darknet"],
+                                    images,
+                                    compute_dtype=_DTYPES[cfg.compute_dtype])
+        det, det_valid = batched_nms(
+            d_out["detections"], cfg.conf_thresh, cfg.nms_thresh,
+            max_det=cfg.max_det, pre_top_k=cfg.pre_nms_top_k,
+            use_blocked=cfg.nms_use_blocked)
+    return det, det_valid, d_out["feature_map"]
+
+
+def _sorted_rows(rows, priority, positive):
+    """Rows [B, N, 7] sorted by priority among the positives (stable),
+    zeroed where not valid: {"boxes", "valid"}."""
+    priority = torch.where(positive, priority,
+                           torch.full_like(priority, float("-inf")))
+    order = torch.argsort(-priority, dim=1, stable=True)
+    boxes_out = torch.gather(rows, 1, order[..., None].expand(-1, -1, 7))
+    out_valid = torch.gather(positive, 1, order)
+    boxes_out = torch.where(out_valid[..., None], boxes_out,
+                            torch.zeros_like(boxes_out))
+    return {"boxes": boxes_out, "valid": out_valid}
+
+
+def _losses(cfg, draw, targets, tmask, all_xyxy, all_valid, class_pred,
+            regress_param, refinement_vector, fg, positive, k_img, img_size):
+    """The training losses over the proposals (all [B, N, ...]):
+    (total, metrics). ``draw("negatives", [B*N])`` gives the uniform keys
+    that choose the negatives."""
+    if draw is None:
+        raise ValueError("training needs draw(kind, shape), the random "
+                         "numbers of the negative sampling")
+    b_sz, n_all = all_valid.shape
+    dev = all_valid.device
+    with torch.no_grad():
+        t_cls = targets[..., 0]
+        t_xyxy = xywh_to_xyxy(targets[..., 1:5]) * img_size
+        # vectorized IoU labels: max IoU over same-image, same-class targets
+        iou = iou_matrix(all_xyxy, t_xyxy, plus_one=True)          # [B, N, T]
+        ok = ((class_pred[:, :, None] == t_cls[:, None, :])
+              & tmask.bool()[:, None, :] & all_valid[:, :, None])
+        iou = torch.where(ok, iou, torch.zeros_like(iou))
+        iou_labels = iou.amax(2)
+        best = torch.argmax(iou, 2)
+        target_loc = torch.gather(t_xyxy, 1,
+                                  best[..., None].expand(-1, -1, 4))
+
+        pos = (iou_labels > cfg.iou_thresh[1]) & all_valid
+        neg = (iou_labels < cfg.iou_thresh[0]) & all_valid
+        # balanced sampling: k = min(balance_factor * pos, neg) negatives,
+        # the k of smallest random key
+        flat_pos, flat_neg = pos.reshape(-1), neg.reshape(-1)
+        top_k = torch.minimum(flat_pos.sum() * cfg.balance_factor,
+                              flat_neg.sum())
+        keys = draw("negatives", flat_neg.shape).to(dev)
+        keys = torch.where(flat_neg, keys, torch.full_like(keys, float("inf")))
+        rank = torch.argsort(torch.argsort(keys, stable=True), stable=True)
+        sample = flat_pos | (flat_neg & (rank < top_k))
+        is_img = (torch.arange(n_all, device=dev) < k_img).repeat(b_sz)
+        w_img = (sample & is_img).float()
+        w_pos = flat_pos.float()
+        label2 = torch.stack([1.0 - w_pos, w_pos], -1)
+        enc = encode_boxes(all_xyxy.reshape(-1, 4), target_loc.reshape(-1, 4))
+        cls = class_pred.reshape(-1).long() - cfg.class_idx
+        # one_hot as JAX's: an index out of range gives a row of zeros
+        cls_onehot = (cls[:, None] == torch.arange(cfg.class_num, device=dev)
+                      ).float()
+
+    flat_fg = fg.reshape(-1)
+    masks2 = torch.stack([1 - flat_fg, flat_fg], -1)
+    # focal loss over the sampled image proposals
+    masks_loss = heads.focal_loss(masks2, label2, w_img, cfg.alpha)
+    rv = refinement_vector.reshape(-1, refinement_vector.shape[-1])
+    # confidence BCE over every sampled proposal
+    conf_loss = heads.bce_sum(rv[:, 0], w_pos, sample.float())
+    # regression smooth-L1 on the positives
+    rp = regress_param.reshape(-1, 4)
+    loss_xy = heads.smooth_l1_sum(rp[:, :2], enc[:, :2], w_pos)
+    loss_wh = heads.smooth_l1_sum(rp[:, 2:], enc[:, 2:], w_pos)
+    # category BCE on the positives (the detector's class ids, shifted to
+    # the refinement vector's channels)
+    category_loss = heads.bce_sum(rv[:, 1:], cls_onehot, w_pos)
+
+    if cfg.loss_variant == "module2":
+        total = (masks_loss
+                 + (conf_loss + category_loss) / cfg.loss_lambda[0]
+                 + (loss_xy + loss_wh) / cfg.loss_lambda[1])
+    else:   # module3 ships with regression and category excluded
+        total = masks_loss + conf_loss / cfg.loss_lambda[0]
+
+    flat_positive = positive.reshape(-1)
+    metrics = {
+        "masks_loss": masks_loss.detach(),
+        "conf_loss": conf_loss.detach(),
+        "category_loss": category_loss.detach(),
+        "loss_xy": loss_xy.detach(),
+        "loss_wh": loss_wh.detach(),
+        "total": flat_pos.sum() + flat_neg.sum(),
+        "true": flat_pos.sum(),
+        "positive": flat_positive.sum(),
+        "tp": (flat_positive & flat_pos).sum(),
+    }
+    return total, metrics
 
 
 class RefineNetwork:
@@ -258,7 +398,11 @@ class RefineNetwork:
 
     def __init__(self, darknet: Darknet, config: FusionConfig = None):
         self.darknet = darknet
-        self.cfg = config or FusionConfig(class_num=12)
+        cfg = config or FusionConfig(class_num=12, loss_variant="module2",
+                                     loss_lambda=(15.0, 5.0))
+        # this IS the module2 network: its loss keeps the category and
+        # regression terms whatever config a caller passes for one knob
+        self.cfg = replace(cfg, loss_variant="module2")
         _check_config(self.cfg)
 
     def init(self, gen, device="cpu"):
@@ -281,31 +425,30 @@ class RefineNetwork:
         ens_p = heads.ensemble_head_init(gen, self.cfg.class_num)
         return {"refine": ref_p, "ensemble": ens_p}, {"refine": ref_s}
 
-    def apply(self, params, state, images):
+    def apply(self, params, state, images, train=False, targets=None,
+              tmask=None, draw=None):
         """images [B, S, S, 3] letterboxed float -> {"boxes" [B, K, 7] rows
         of (x1, y1, x2, y2, p(foreground), class_score, class_pred),
-        "valid" [B, K]}, sorted by p(foreground)."""
+        "valid" [B, K]}, sorted by p(foreground); with ``train`` also
+        "loss", "metrics" and the new "state" (``draw`` gives the dropout
+        mask and the negatives' keys)."""
         cfg = self.cfg
         b_sz, img_size = images.shape[0], images.shape[1]
         k_img = cfg.max_det
 
-        d_out = self.darknet.apply(params["darknet"], state["darknet"], images,
-                                   compute_dtype=_DTYPES[cfg.compute_dtype])
-        det, det_valid = batched_nms(
-            d_out["detections"], cfg.conf_thresh, cfg.nms_thresh,
-            max_det=k_img, pre_top_k=cfg.pre_nms_top_k,
-            use_blocked=cfg.nms_use_blocked)
+        det, det_valid, feature_map = _frozen_forward(self, params, state,
+                                                      images, train)
         img_xyxy = det[:, :, 0:4]
 
-        hd = _DTYPES[cfg.heads_dtype]
+        hd = torch.float32 if train else _DTYPES[cfg.heads_dtype]
         p_fcn, s_fcn = _cast_floats((params["fcn"], state["fcn"]), hd)
         p_ref, s_ref = _cast_floats((params["refine"], state["refine"]), hd)
         p_ens = _cast_floats(params["ensemble"], hd)
-        roi_score_map = heads.conv_bn_stack_apply(
-            p_fcn, s_fcn, d_out["feature_map"].to(hd))
+        roi_score_map, fcn_s = heads.conv_bn_stack_apply(
+            p_fcn, s_fcn, feature_map.to(hd), train)
 
         smax = _eff_sampling_max(cfg, img_size)
-        if cfg.roi_impl == "kernel":
+        if cfg.roi_impl == "kernel" and not train:
             img_crop = ps_roi_align(roi_score_map, img_xyxy, (7, 7), 1.0 / 16,
                                     sampling_max=smax,
                                     precision=cfg.roi_precision)
@@ -315,8 +458,15 @@ class RefineNetwork:
                                             compute_dtype=hd)
         img_crop = img_crop.to(hd).reshape(b_sz * k_img, 7, 7, -1)
 
-        regress_param, refinement_vector = heads.refinement_head_apply(
-            p_ref, s_ref, None, img_crop, class_num=cfg.class_num)
+        keep = None
+        if train and draw is not None:
+            keep = draw("dropout", (b_sz * k_img,
+                                    p_ref["net0"]["w"].shape[1])).to(
+                img_crop.device)
+        regress_param, refinement_vector, refine_s = \
+            heads.refinement_head_apply(p_ref, s_ref, None, img_crop,
+                                        train=train, dropout_keep=keep,
+                                        class_num=cfg.class_num)
         regress_param = regress_param.float().reshape(b_sz, k_img, 4)
         refinement_vector = refinement_vector.float().reshape(b_sz, k_img, -1)
 
@@ -329,14 +479,16 @@ class RefineNetwork:
 
         positive = det_valid & (fg > cfg.refine_threshold_img)
         out_xyxy = box_regress(regress_param, img_xyxy)
-        boxes_out = torch.cat([out_xyxy, fg[..., None], det[:, :, 5:6],
-                               det[:, :, 6:7]], -1)
-        priority = torch.where(positive, fg,
-                               torch.full_like(fg, float("-inf")))
-        order = torch.argsort(-priority, dim=1, stable=True)
-        boxes_out = torch.gather(boxes_out, 1,
-                                 order[..., None].expand(-1, -1, 7))
-        out_valid = torch.gather(positive, 1, order)
-        boxes_out = torch.where(out_valid[..., None], boxes_out,
-                                torch.zeros_like(boxes_out))
-        return {"boxes": boxes_out, "valid": out_valid, "num_img": k_img}
+        result = _sorted_rows(torch.cat([out_xyxy, fg[..., None],
+                                         det[:, :, 5:6], det[:, :, 6:7]], -1),
+                              fg, positive)
+        result["num_img"] = k_img
+        if not train:
+            return result
+        new_state = {"darknet": state["darknet"], "fcn": fcn_s,
+                     "refine": refine_s}
+        loss, metrics = _losses(
+            cfg, draw, targets, tmask, img_xyxy, det_valid, det[:, :, 6],
+            regress_param, refinement_vector, fg, positive, k_img, img_size)
+        result.update(loss=loss, metrics=metrics, state=new_state)
+        return result

@@ -1,9 +1,10 @@
-"""Fusion-stage heads, inference only (port of
-``millieye_tpu/models/heads.py``): score-map encoders, the module3
-refinement head with radar-confidence fusion, module2's without the radar
-branch, the ensemble head, and their initialisers, which draw from an
-explicit ``torch.Generator`` in the JAX package's layout (its numbers
-come from JAX's PRNG and cannot be repeated).
+"""Fusion-stage heads (port of ``millieye_tpu/models/heads.py``):
+score-map encoders, the module3 refinement head with radar-confidence
+fusion, module2's without the radar branch (with its dropout), the
+ensemble head, train- and eval-mode BN, the losses (focal, BCE and
+smooth-L1 sums over a sample mask), and the initialisers, which draw
+from an explicit ``torch.Generator`` in the JAX package's layout (its
+numbers come from JAX's PRNG and cannot be repeated).
 
 Tensors are NHWC at the interfaces; convolution weights are OIHW and
 linear weights [in, out], as the weight converter
@@ -18,14 +19,44 @@ import torch.nn.functional as F
 from millieye_torch.models.darknet import leaky
 
 _BN_EPS = 1e-5
+_HEAD_BN_MOMENTUM = 0.1  # torch's default, every head BN
 
 
-def batch_norm(x, p, s):
-    """Eval-mode BN over the last axis (eps in the statistics' dtype, as
-    JAX rounds a weakly typed constant)."""
-    eps = torch.full((), _BN_EPS, dtype=s["var"].dtype, device=x.device)
-    return ((x - s["mean"]) * torch.rsqrt(s["var"] + eps) * p["gamma"]
-            + p["beta"])
+def batch_norm(x, p, s, train=False, weight=None,
+               momentum=_HEAD_BN_MOMENTUM):
+    """BN over the last axis; returns (y, new state). In eval mode the
+    running statistics normalize (eps in their dtype, as JAX rounds a
+    weakly typed constant) and the state is returned unchanged. In train
+    mode the batch statistics over all leading axes normalize, with the
+    biased variance, and the running variance takes the unbiased one
+    (torch's semantics); ``weight`` (broadcastable to x[..., 0]) masks
+    padded rows out of the statistics, which are then weighted means over
+    ``max(sum(weight), 1)`` rows. The new state carries no gradient.
+    Hand-written, not ``nn.BatchNorm``: that update is unweighted."""
+    if not train:
+        eps = torch.full((), _BN_EPS, dtype=s["var"].dtype, device=x.device)
+        return ((x - s["mean"]) * torch.rsqrt(s["var"] + eps) * p["gamma"]
+                + p["beta"]), s
+    axes = tuple(range(x.dim() - 1))
+    if weight is None:
+        mean = x.mean(axes)
+        var = x.var(axes, unbiased=False)
+        cnt = 1
+        for d in x.shape[:-1]:
+            cnt *= d
+        var_u = var * (cnt / max(cnt - 1, 1))
+    else:
+        wsum = torch.clamp(weight.sum(), min=1.0)
+        # trailing singletons up to x.dim(): a bare [..., None] would
+        # right-align [N] against [N, 1, 1, C]
+        wx = weight.reshape(weight.shape + (1,) * (x.dim() - weight.dim()))
+        mean = (x * wx).sum(axes) / wsum
+        var = (((x - mean) ** 2) * wx).sum(axes) / wsum
+        var_u = var * (wsum / torch.clamp(wsum - 1.0, min=1.0))
+    new_s = {"mean": (1 - momentum) * s["mean"] + momentum * mean.detach(),
+             "var": (1 - momentum) * s["var"] + momentum * var_u.detach()}
+    y = (x - mean) * torch.rsqrt(var + _BN_EPS) * p["gamma"] + p["beta"]
+    return y, new_s
 
 
 def _conv2d(x, w, padding):
@@ -34,19 +65,29 @@ def _conv2d(x, w, padding):
     return y.permute(0, 2, 3, 1)
 
 
-def conv_bn_stack_apply(params, state, x):
-    """1x1 conv + BN + leaky per stage (the 490-channel score map)."""
+def conv_bn_stack_apply(params, state, x, train=False):
+    """1x1 conv + BN + leaky per stage (the 490-channel score map).
+    Returns (x, new state)."""
+    new_state = []
     for p, s in zip(params, state):
-        x = leaky(batch_norm(_conv2d(x, p["w"], "same") + p["b"], p["bn"], s))
-    return x
+        x, ns = batch_norm(_conv2d(x, p["w"], "same") + p["b"], p["bn"], s,
+                           train)
+        x = leaky(x)
+        new_state.append(ns)
+    return x, new_state
 
 
-def radar_encoder_apply(params, state, x):
-    """[B, H, W, 3] heatmap -> sigmoid score map [B, H, W, 10]."""
+def radar_encoder_apply(params, state, x, train=False):
+    """[B, H, W, 3] heatmap -> (sigmoid score map [B, H, W, 10], new
+    state)."""
+    new_state = []
     for p, s in zip(params[:-1], state):
-        x = leaky(batch_norm(_conv2d(x, p["w"], "same") + p["b"], p["bn"], s))
+        x, ns = batch_norm(_conv2d(x, p["w"], "same") + p["b"], p["bn"], s,
+                           train)
+        x = leaky(x)
+        new_state.append(ns)
     return torch.sigmoid(_conv2d(x, params[-1]["w"], "same")
-                         + params[-1]["b"])
+                         + params[-1]["b"]), new_state
 
 
 def _flatten_chw(crop):
@@ -135,26 +176,34 @@ def ensemble_head_init(gen, class_num, hidden=32):
     }
 
 
-def refinement_head_apply(params, state, radar_crop, img_crop, class_num=1):
+def refinement_head_apply(params, state, radar_crop, img_crop, valid=None,
+                          train=False, dropout_keep=None, class_num=1):
     """radar_crop, img_crop [N, 7, 7, 10] -> (regress [N, 4], refinement
-    vector). module3 (``radar_net`` in params): the vector is [N,
-    1+class_num], its confidence fused with the radar crop's. module2 (no
+    vector, new state). module3 (``radar_net`` in params): the vector is
+    [N, 1+class_num], its confidence fused with the radar crop's, whose BN
+    takes ``valid`` [N] as its rows' weights in train mode. module2 (no
     ``radar_net``; ``radar_crop`` is ignored): the whole sigmoid class
-    vector [N, net2_out]."""
+    vector [N, net2_out]; ``dropout_keep`` (a bool mask of the hidden
+    layer's shape) applies its Dropout(0.5)."""
+    new_state = dict(state)
     t = leaky(_flatten_chw(img_crop) @ params["net0"]["w"]
               + params["net0"]["b"])
+    if dropout_keep is not None:
+        t = torch.where(dropout_keep, t / 0.5, torch.zeros_like(t))
     box_regression = t @ params["net1"]["w"] + params["net1"]["b"]
     class_vector = torch.sigmoid(t @ params["net2"]["w"] + params["net2"]["b"])
     if "radar_net" not in params:
-        return box_regression, class_vector
+        return box_regression, class_vector, new_state
     rn = params["radar_net"]
     r = _conv2d(radar_crop, rn["conv7"]["w"], "valid") + rn["conv7"]["b"]
-    r = leaky(batch_norm(r, rn["bn"], state["radar_net"]))
+    r, new_state["radar_net"] = batch_norm(r, rn["bn"], state["radar_net"],
+                                           train, weight=valid)
+    r = leaky(r)
     r = _conv2d(r, rn["conv1"]["w"], "valid") + rn["conv1"]["b"]
     radar_conf = torch.sigmoid(r.reshape(r.shape[0], 1))
     confidence = torch.sigmoid(radar_conf + class_vector[:, :1])
     return box_regression, torch.cat(
-        [confidence, class_vector[:, 1:1 + class_num]], -1)
+        [confidence, class_vector[:, 1:1 + class_num]], -1), new_state
 
 
 def _softmax(x):
@@ -174,3 +223,47 @@ def ensemble_head_apply(params, refinement_vector, yolo_vector,
     if fc2_leaky:
         x = leaky(x)
     return _softmax(x)
+
+
+def _weighted_sum(per, weight):
+    return torch.where(weight > 0, per * weight, torch.zeros_like(per)).sum()
+
+
+def _select_rows(weight, value, neutral):
+    """Unsampled rows replaced by a neutral constant BEFORE the
+    differentiable ops: a NaN or inf outside the sample set (the encoded
+    target of a padded zero-size RoI) must not reach the loss or, through
+    0 * NaN, its gradient."""
+    sel = weight > 0
+    while sel.dim() < value.dim():
+        sel = sel[..., None]
+    return torch.where(sel, value, torch.full_like(value, neutral))
+
+
+def focal_loss(inputs, labels, weight, alpha=0.75, gamma=2.0):
+    """Binary focal loss, sum reduction: inputs [N, 2] softmaxed, labels
+    [N, 2] one-hot, weight [N] the balanced sample set."""
+    a = torch.where(labels[:, 1] == 1, torch.full_like(weight, alpha),
+                    torch.full_like(weight, 1.0 - alpha))
+    inputs = _select_rows(weight, inputs, 0.5)
+    probs = torch.clamp((inputs * labels).sum(-1), 1e-12, 1.0)
+    per = -a * (1.0 - probs) ** gamma * torch.log(probs)
+    return _weighted_sum(per, weight)
+
+
+def bce_sum(p, t, weight):
+    p = _select_rows(weight, p, 0.5)
+    t = _select_rows(weight, t, 0.5)
+    p = torch.clamp(p, 1e-12, 1.0 - 1e-12)
+    per = -(t * torch.log(p) + (1 - t) * torch.log(1 - p))
+    if per.dim() > weight.dim():
+        per = per.sum(-1)
+    return _weighted_sum(per, weight)
+
+
+def smooth_l1_sum(pred, target, weight):
+    target = _select_rows(weight, target, 0.0)
+    pred = _select_rows(weight, pred, 0.0)
+    d = torch.abs(pred - target)
+    per = torch.where(d < 1.0, 0.5 * d * d, d - 0.5).sum(-1)
+    return _weighted_sum(per, weight)

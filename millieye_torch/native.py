@@ -3,32 +3,69 @@
 ``millieye_tpu/native/__init__.py``, copied: the port imports nothing of
 the JAX package).
 
-The library is ``native/libmillieye_native.so`` at the repository root,
-built from ``native/millieye_native.cpp`` by ``native/Makefile`` on first
-use where it is missing; both packages load the same file. Every caller
-treats a failure to build or load it as "use the Python fallback", so
-the radar chain runs without a compiler too.
+The source is ``native/millieye_native.cpp`` with its ``Makefile``. The
+port builds its own copy, ``build/millieye_torch/native/
+libmillieye_native.so`` at the repository root, on first use where it is
+missing or older than the source: under an exclusive file lock, the two
+files copied into a fresh temporary directory there, ``make`` run in it,
+and the library moved into place with ``os.replace``. So processes that
+start together (test workers) build it once, and none loads a file that
+is still being written. (The JAX package builds ``native/
+libmillieye_native.so`` in place, without a lock.) Every caller treats a
+failure to build or load it as "use the Python fallback", so the radar
+chain runs without a compiler too.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import os
+import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
 
-_NATIVE_DIR = Path(__file__).resolve().parents[1] / "native"
-_LIB_PATH = _NATIVE_DIR / "libmillieye_native.so"
+_ROOT = Path(__file__).resolve().parents[1]
+_NATIVE_DIR = _ROOT / "native"
+_BUILD_DIR = _ROOT / "build" / "millieye_torch" / "native"
+_LIB_PATH = _BUILD_DIR / "libmillieye_native.so"
+_SOURCES = ("Makefile", "millieye_native.cpp")
 _lib = None
+
+
+def _fresh():
+    return _LIB_PATH.exists() and all(
+        _LIB_PATH.stat().st_mtime >= (_NATIVE_DIR / f).stat().st_mtime
+        for f in _SOURCES)
+
+
+def _build():
+    """Build the library into ``_LIB_PATH`` unless a fresh one is there,
+    one process at a time."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if _fresh():
+            return
+        tmp = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
+        try:
+            for f in _SOURCES:
+                shutil.copy2(_NATIVE_DIR / f, tmp / f)
+            subprocess.run(["make", "-C", str(tmp), "-s"], check=True,
+                           capture_output=True)
+            os.replace(tmp / "libmillieye_native.so", _LIB_PATH)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _load():
     global _lib
     if _lib is not None:
         return _lib
-    if not _LIB_PATH.exists():
-        subprocess.run(["make", "-C", str(_NATIVE_DIR), "-s"], check=True,
-                       capture_output=True)
+    if not _fresh():
+        _build()
     lib = ctypes.CDLL(str(_LIB_PATH))
     lib.me_dbscan.restype = ctypes.c_int
     lib.me_dbscan.argtypes = [

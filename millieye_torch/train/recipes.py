@@ -1,19 +1,39 @@
-"""The device side of a collated batch (port of the ingest part of
-``millieye_tpu/train/recipes.py``: ``_map_ingest``, ``_HOST_BATCH_KEYS``
-and ``fusion_device_batch``; the trainer and the stage recipes are not
-ported yet).
+"""Epoch-level training recipes for the three stages (port of
+``millieye_tpu/train/recipes.py``):
 
-Radar heatmaps are rasterized on the device from the padded point
-clouds, image by image (the JAX package ``vmap``s one image's function).
+* stage 1  YOLO on image datasets (``yolo_trainer``);
+* stage 2  frozen YOLO + refinement heads (``refine_trainer``);
+* stage 3  frozen image branch + radar and ensemble heads on the
+           radar/camera dataset (``fusion_trainer``).
+
+``Trainer`` runs a step function over a loader for some epochs, logs
+scalars every ``log_every`` steps (the only point where it waits for the
+card), saves ``{name}_ckpt_{epoch}.npz`` after each epoch in the JAX
+package's format (``io/checkpoint.py``) and resumes from such a file,
+the JAX package's too. Radar heatmaps are rasterized on the device from
+the padded point clouds, image by image (``fusion_device_batch``; the
+JAX package ``vmap``s one image's function).
 """
 from __future__ import annotations
+
+import os
+import sys
 
 import numpy as np
 import torch
 
 from millieye_torch.device import resolve_device
+from millieye_torch.io.checkpoint import (load_checkpoint, save_checkpoint,
+                                          to_device)
 from millieye_torch.ops import letterbox as lb
 from millieye_torch.ops.rasterize import radar_heatmap
+from millieye_torch.train.logging import MetricsLogger
+from millieye_torch.train.optim import (STAGE2_FROZEN, STAGE3_FROZEN,
+                                        frozen_adam, tree_leaves, tree_map)
+from millieye_torch.train.steps import (init_train_state,
+                                        make_fusion_train_step,
+                                        make_refine_train_step,
+                                        make_yolo_train_step)
 
 
 def _map_ingest(points, pmask, frame_size, img_size):
@@ -60,3 +80,137 @@ def fusion_device_batch(batch, img_size, device="cuda"):
                                         _to(batch["pmask"], dev),
                                         (int(w), int(h)), img_size)
     return out
+
+
+class Trainer:
+    """The epoch loop: a step function, a loader, logging, checkpoints.
+    The step returns a new train state (``self.ts``); seed a later stage
+    from the state ``fit`` returns."""
+
+    def __init__(self, step_fn, train_state, ckpt_dir, logdir=None,
+                 log_every=10, name="stage", viz_fn=None, viz_every=50):
+        self.step = step_fn
+        self.ts = train_state
+        self.ckpt_dir = ckpt_dir
+        self.logger = MetricsLogger(logdir or os.path.join(ckpt_dir, "logs"))
+        self.log_every = log_every
+        self.name = name
+        # image summaries: viz_fn(train_state, device_batch) -> {tag:
+        # [N, H, W, C] float}
+        self.viz_fn = viz_fn
+        self.viz_every = viz_every
+        os.makedirs(ckpt_dir, exist_ok=True)
+
+    def fit(self, loader, epochs, draw, batch_fn, on_epoch_end=None):
+        """``draw(kind, shape)``: the steps' random numbers
+        (``steps.generator_draw``)."""
+        step_no = int(self.ts.step)
+        for epoch in range(epochs):
+            for batch in loader:
+                device_batch = batch_fn(batch)
+                self.ts, metrics = self.step(self.ts, device_batch, draw)
+                step_no += 1
+                if step_no % self.log_every == 0:
+                    self.logger.scalars(
+                        step_no, {k: v for k, v in metrics.items()
+                                  if getattr(v, "dim", lambda: 0)() == 0})
+                    # read at log points only: one wait for the card
+                    nrev = int(metrics.get("nonfinite_reverted", 0))
+                    if nrev:
+                        print(f"WARNING [{self.name}] step {step_no}: "
+                              f"{nrev} non-finite param/BN elements "
+                              "reverted (NaN/inf batch): the loss may be "
+                              "poisoned; consider grad_clip",
+                              file=sys.stderr, flush=True)
+                if self.viz_fn and step_no % self.viz_every == 0:
+                    for tag, imgs in self.viz_fn(self.ts,
+                                                 device_batch).items():
+                        self.logger.image_grid(step_no, tag, imgs)
+            self.save(epoch)
+            if on_epoch_end:
+                on_epoch_end(epoch, self.ts)
+        return self.ts
+
+    def save(self, epoch):
+        path = os.path.join(self.ckpt_dir, f"{self.name}_ckpt_{epoch}.npz")
+        save_checkpoint(path, {"params": self.ts.params,
+                               "state": self.ts.state})
+        return path
+
+    def resume(self, path):
+        """Params and BN state from a ``.npz`` of this tree (the JAX
+        package's or the port's); the optimizer state stays."""
+        restored = load_checkpoint(path, {"params": self.ts.params,
+                                          "state": self.ts.state})
+        dev = tree_leaves(self.ts.params)[0].device
+        self.ts = self.ts._replace(params=to_device(restored["params"], dev),
+                                   state=to_device(restored["state"], dev))
+
+
+def yolo_trainer(model, params, state, ckpt_dir, lr=1e-3, every_k=2,
+                 log_every=10, grad_clip=None):
+    tx = frozen_adam(params, lr=lr, every_k=every_k, grad_clip=grad_clip)
+    return Trainer(make_yolo_train_step(model, tx),
+                   init_train_state(params, state, tx), ckpt_dir,
+                   name="yolo", log_every=log_every)
+
+
+def refine_trainer(model, params, state, ckpt_dir, lr=5e-4, every_k=2,
+                   log_every=10, grad_clip=None):
+    tx = frozen_adam(params, lr=lr, frozen_prefixes=STAGE2_FROZEN,
+                     every_k=every_k, grad_clip=grad_clip)
+    return Trainer(make_refine_train_step(model, tx,
+                                          frozen_prefixes=STAGE2_FROZEN),
+                   init_train_state(params, state, tx), ckpt_dir,
+                   name="module2", log_every=log_every)
+
+
+def fusion_viz(model, mode=0):
+    """Image-summary hook: the radar heatmaps and the learned radar
+    attention (the reference's TensorBoard grids)."""
+
+    def viz(ts, batch):
+        with torch.no_grad():
+            out = model.apply(ts.params, ts.state, batch["images"],
+                              batch["radar_maps"], batch["radar_boxes"],
+                              batch["rmask"], mode=mode)
+        return {"radar/maps": batch["radar_maps"],
+                "radar/attention": out["radar_attention"]}
+
+    return viz
+
+
+def fusion_trainer(model, params, state, ckpt_dir, lr=5e-4, every_k=2,
+                   mode=0, freeze_module2=True, viz=False, log_every=10,
+                   grad_clip=None, fold_frozen=False):
+    """``fold_frozen``: fold the frozen Darknet's BN inside the step, so
+    the model's stem kernels (``Darknet(stem_stages=...)``) run in the
+    training forward; exact for the eval-mode frozen base detector."""
+    frozen = STAGE3_FROZEN if freeze_module2 else (("darknet",),)
+    tx = frozen_adam(params, lr=lr, grad_clip=grad_clip,
+                     frozen_prefixes=frozen, every_k=every_k)
+    return Trainer(make_fusion_train_step(model, tx, mode,
+                                          frozen_prefixes=frozen,
+                                          fold_frozen=fold_frozen),
+                   init_train_state(params, state, tx), ckpt_dir,
+                   name="module3", log_every=log_every,
+                   viz_fn=fusion_viz(model, mode) if viz else None)
+
+
+def transfer_module2_to_fusion(refine_params, refine_state, fusion_params,
+                               fusion_state):
+    """The module2 -> module3 cross-load on the port's trees: the stage-2
+    RefineNetwork's ``fcn`` stack into ``img_cnn`` and its refinement
+    nets 0-2 into the fusion refinement head (``radar_net`` keeps its
+    init). Pair with ``STAGE3_FROZEN`` so the transferred subtrees stay
+    frozen. The tensors are shared, not copied (no step writes in
+    place)."""
+    fusion_params = dict(fusion_params)
+    fusion_state = dict(fusion_state)
+    fusion_params["img_cnn"] = tree_map(lambda x: x, refine_params["fcn"])
+    fusion_state["img_cnn"] = tree_map(lambda x: x, refine_state["fcn"])
+    refine = dict(fusion_params["refine"])
+    for net in ("net0", "net1", "net2"):
+        refine[net] = refine_params["refine"][net]
+    fusion_params["refine"] = refine
+    return fusion_params, fusion_state

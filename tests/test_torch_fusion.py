@@ -240,8 +240,8 @@ def test_roi_reduce_validation():
 
 
 def test_port_imports_no_jax():
-    """No module of millieye_torch, and not chip_smoke.py, imports jax or
-    millieye_tpu."""
+    """No module of millieye_torch, and not chip_smoke.py, imports jax,
+    optax, flax or millieye_tpu."""
     files = sorted((REPO / "millieye_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
@@ -254,7 +254,8 @@ def test_port_imports_no_jax():
                 names = [node.module or ""]
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "millieye_tpu"), \
+                assert root not in ("jax", "jaxlib", "optax", "flax",
+                                    "millieye_tpu"), \
                     f"{path.relative_to(REPO)} imports {name}"
 
 

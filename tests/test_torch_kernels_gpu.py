@@ -1247,3 +1247,62 @@ def test_custom_op_on_the_card(cuda, name):
                 <= PAIR_DEFAULT_TOL * scale
         else:
             assert torch.equal(g, p)
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_stem_pair_default_float32_store(cuda, n):
+    """K4 at "default" storing float32, the training forward of
+    ``cli.train --fold_frozen`` (stage 2 is a hi-prec stage with no store
+    type), at 416 px: within PAIR_DEFAULT_TOL of its plain version."""
+    args = _pair_weights(cuda, n, 416, 416, 3, 16, 32)
+    before = fused_stem_pair.launches
+    got = fused_stem_pair(*args, "default", torch.float32)
+    assert fused_stem_pair.launches == before + 1
+    _held_to_pair_plain(got, fused_stem_pair_plain(*args, "default",
+                                                   torch.float32), "default")
+
+
+def test_fold_step_frozen_forward_on_kernels(cuda, tmp_path):
+    """One fold step's frozen forward (``TRAIN_FOLD``, the folded Darknet
+    and its NMS at 416 px, b4 of synthetic scenes) on the kernels: K4 and
+    K1 once, bit-identical to the run with only the tensor-core kernel
+    launched, within chip_smoke.PAIR_PATH_TOL of the fully plain run or
+    beyond it by NMS decisions alone (chip_smoke.fold_forward_vs_plain);
+    then the step itself: K4 and K1 once, a finite loss, no reverted
+    element."""
+    from pathlib import Path
+
+    import chip_smoke as cs
+    from millieye_torch.cli._common import TRAIN_FOLD, build_fusion
+    from millieye_torch.data.loader import PaddedCollate
+    from millieye_torch.data.synthetic import SyntheticScenes
+    from millieye_torch.ops import cuda_lib, library
+    from millieye_torch.train import recipes
+    from millieye_torch.train.steps import generator_draw
+
+    ckpt = Path(__file__).resolve().parents[1] / "artifacts/stage3_final.npz"
+    model, params, state = build_fusion(str(ckpt), TRAIN_FOLD, img_size=416)
+    ds = SyntheticScenes(4, seed=777)
+    host = PaddedCollate(416, max_targets=64, max_radar=32, max_points=256)(
+        [ds.get(i) for i in range(4)])
+    batch = recipes.fusion_device_batch(host, 416)
+    wrappers = {name: op.wrapper for name, op in library.OPS.items()}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {name: w.launches for name, w in wrappers.items()}
+
+    cs.fold_forward_vs_plain(torch, cuda_lib, model, params, state,
+                             batch["images"], zero, counts)
+    trainer = recipes.fusion_trainer(model, params, state, str(tmp_path),
+                                     fold_frozen=True)
+    zero()
+    _, metrics = trainer.step(trainer.ts, batch, generator_draw(
+        torch.Generator(device="cuda").manual_seed(0)))
+    assert {k: v for k, v in counts().items() if v} == {"stem_pair": 1,
+                                                       "nms": 1}
+    assert torch.isfinite(metrics["loss"])
+    assert int(metrics["nonfinite_reverted"]) == 0

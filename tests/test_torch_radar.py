@@ -70,8 +70,8 @@ def _eq_tree(a, b):
 
 @pytest.fixture
 def native_lib():
-    """Both packages' native library (one file), or a skip where no
-    compiler can build it."""
+    """Both packages' native libraries (each package builds its own), or
+    a skip where no compiler can build them."""
     try:
         tnative._load()
         jnative._load()
