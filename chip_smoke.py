@@ -172,7 +172,23 @@ printed only when every phase passed:
      two steps (the loss within ``TRAIN_LOSS_RTOL``); (d)'s first step
      against the CPU's and against its float64 gradient
      (``YOLO_CPU_TOL``);
- 11. a ``kernels`` JSON line, then the contract line
+ 11. P22, the live path: ``cli.realtime.main`` in this process on P15's
+     recording and engine (``pallas_max_s01``), through its seams: the
+     camera a capture of the 96 frames, the radar the recording's frames
+     as TI demo-protocol packets behind a garbage prefix, read by the
+     port's ``RadarReader`` in uneven chunks off a replayed data port
+     that receives a frame's packet as the camera takes that frame, and a
+     headless display that keeps each frame's record (``live_phase``):
+     the native frame parser answering every packet, each frame's answer
+     bit-identical to ``FusionEngine.infer`` on the points it consumed
+     (replayed through a second ``RadarPipeline``), K4, K1, K2, K3 and K5
+     once in every frame and nothing else, the radar thread stopped when
+     ``main`` returns; host ms a frame, frames/s and, in a profiled run of
+     24 frames, the device's busy share. Then ``cli.prepare_data.main``
+     on the recording (its PNG frames and camera YAML from P17), its
+     stems and radar pickles equal to an in-process ``RadarPipeline``'s
+     (``prepare_data_check``);
+ 12. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -2485,6 +2501,291 @@ def train_phase(torch, cuda_lib, zero_counts, counts, card, dev="cuda"):
     return summary, launches
 
 
+# phase P22: the live path, cli.realtime over P15's recorded session
+# (the radar as a TI UART byte stream, the camera as a capture of the
+# recorded frames), and cli.prepare_data on the same recording
+LIVE_CFG = ("% the contract's cfg (tests/test_collection.py:57-71)",
+            "sensorStop",
+            "profileCfg 0 60 7 3 24 0 0 166 1 256 12500 0 0 30",
+            "frameCfg 0 2 16 0 55 1 0", "sensorStart")
+LIVE_PROFILED = 24             # frames of P22's profiled run
+LIVE_KERNELS = ("stem_pair", "nms", "ps_roi_align", "roi_align", "nms_full")
+
+
+def tlv_packet(frame_no, xyzv):
+    """One TI demo-protocol packet of ``xyzv`` [n, 4] float32 rows: the
+    40-byte header and one type-1 (detected points) TLV, the layout of
+    tests/test_collection.py:17-27."""
+    import struct
+    payload = np.ascontiguousarray(xyzv, np.float32).tobytes()
+    tlv = struct.pack("<II", 1, len(payload)) + payload
+    header = bytes([2, 1, 4, 3, 6, 5, 8, 7]) + struct.pack(
+        "<IIIIIIII", 0x0A0B0C0D, 40 + len(tlv), 0x68430000, frame_no,
+        12345, len(xyzv), 1, 0)
+    return header + tlv
+
+
+def radar_stream(rec, seed=11):
+    """The recording's radar frames (``pointcloud.pkl``) as the sensor's
+    data port would send them: 61 bytes of garbage (no magic word), then
+    one packet a frame. Returns (stream, the end offset of each packet,
+    each frame's float32 [n, 4] xyzv rows)."""
+    import os
+    import pickle
+    with open(os.path.join(rec, "pointcloud.pkl"), "rb") as f:
+        records = pickle.load(f)
+    rows = [np.stack([r["Data"][k] for k in ("x", "y", "z", "velocity")],
+                     1).astype(np.float32) for r in records]
+    stream = bytearray(np.random.default_rng(seed).integers(
+        9, 256, 61, np.uint8).tobytes())
+    ends = []
+    for r, xyzv in zip(records, rows):
+        stream += tlv_packet(r["Frame_ID"], xyzv)
+        ends.append(len(stream))
+    return bytes(stream), ends, rows
+
+
+class SerialReplay:
+    """A data port that replays a byte stream as a serial port hands it
+    over: bytes become readable when ``release_to(offset)`` is called (the
+    sensor sent them), a read returns at most the next of a seeded run of
+    uneven chunk sizes (1-700 bytes), and a read with nothing to return
+    waits up to ``timeout`` s (pyserial's ``timeout=0.1``) and returns
+    b""."""
+
+    def __init__(self, stream, seed=12, timeout=0.1):
+        import threading
+        self.stream, self.timeout = stream, timeout
+        self.pos = self.limit = 0
+        self.sizes = np.random.default_rng(seed).integers(1, 701, 1 << 16)
+        self.reads = 0
+        self.cond = threading.Condition()
+
+    def release_to(self, end):
+        with self.cond:
+            self.limit = max(self.limit, end)
+            self.cond.notify_all()
+
+    def read(self, size):
+        with self.cond:
+            if self.pos >= self.limit:
+                self.cond.wait(self.timeout)
+            k = min(size, int(self.sizes[self.reads % len(self.sizes)]),
+                    self.limit - self.pos)
+            if k <= 0:
+                return b""
+            self.reads += 1
+            chunk = self.stream[self.pos:self.pos + k]
+            self.pos += k
+            return chunk
+
+
+class ReplayCapture:
+    """A camera (``cv2.VideoCapture``'s ``read``/``release``) over
+    recorded RGB frames: each read returns a BGR copy of the next frame
+    and lets the radar port deliver that frame's packet, so radar and
+    camera run at one rate, as in the recording; ``on_read(i)`` is called
+    before frame i is returned."""
+
+    def __init__(self, frames, port, ends, on_read=None):
+        self.frames, self.port, self.ends = frames, port, ends
+        self.on_read = on_read
+        self.i = 0
+
+    def read(self):
+        if self.i >= len(self.frames):
+            return False, None
+        i, self.i = self.i, self.i + 1
+        if i < len(self.ends):
+            self.port.release_to(self.ends[i])
+        if self.on_read:
+            self.on_read(i)
+        return True, np.ascontiguousarray(self.frames[i][1][:, :, ::-1])
+
+    def release(self):
+        pass
+
+
+def live_phase(torch, eng, rec, frames, calib_path, counts=None,
+               zero_counts=None, dev="cuda", profile=True):
+    """P22: ``cli.realtime.main`` in this process over a recorded session:
+    ``frames`` through a ``ReplayCapture``, the radar frames of ``rec`` as
+    a UART byte stream (``radar_stream``) through the port's
+    ``RadarReader`` over a ``SerialReplay`` data port, a headless display
+    that keeps each frame's record, and ``eng`` (built by the caller).
+    Checks: the native frame parser answered every packet (in the loop's
+    reader, and over the whole stream, each frame the recording's float32
+    points); the radar thread stopped when ``main`` returned; each frame's
+    ``boxes`` and ``valid`` bit-identical to ``eng.infer`` on the points
+    that frame consumed, replayed through a second ``RadarPipeline`` with
+    the loop's parameters in the loop's order; and, with ``counts`` (the
+    kernel wrappers' launch counts), K4, K1, K2, K3 and K5 launched once
+    in each frame and nothing else (set to 0 by ``zero_counts`` before
+    the run, read after it). Returns the phase's numbers: host ms
+    a frame (from the capture's read to the display), frames/s, and with
+    ``profile`` the device's busy share over a run of its first
+    ``LIVE_PROFILED`` frames."""
+    import io
+    import os
+    import threading
+    from millieye_torch.cli import realtime
+    from millieye_torch.collection.uart import FrameAssembler, RadarReader
+    from millieye_torch.radar.pipeline import RadarParams, RadarPipeline
+    from millieye_torch.radar.projection import load_calib
+    cfg = os.path.join(rec, "radar.cfg")
+    with open(cfg, "w") as f:
+        f.write("\n".join(LIVE_CFG) + "\n")
+    stream, ends, rows = radar_stream(rec)
+    w, h = eng.frame_size
+    argv = ["--calib", calib_path, "--cfg", cfg, "--frame_w", str(w),
+            "--frame_h", str(h), "--mode", "0", "--device", dev]
+
+    # the whole stream through a reader: every packet, by the native branch
+    port = SerialReplay(stream)
+    port.release_to(len(stream))
+    FrameAssembler.backends.clear()
+    reader = RadarReader(cfg, cli=io.BytesIO(), data=port)
+    parsed = []
+    while port.pos < len(stream):
+        parsed += reader.poll()
+    if [n for n, _ in parsed] != list(range(len(rows))) or not all(
+            np.array_equal(p, r) for (_, p), r in zip(parsed, rows)) \
+            or dict(FrameAssembler.backends) != {"native": len(rows)}:
+        raise AssertionError(f"live: the stream parsed to {len(parsed)} of "
+                             f"{len(rows)} frames, backends "
+                             f"{dict(FrameAssembler.backends)}")
+
+    def run(n_frames, shown, marks):
+        port = SerialReplay(stream)
+        cli = io.BytesIO()
+
+        def on_read(i):
+            marks.append([time.perf_counter(), counts() if counts else None])
+
+        def display(bgr, frame):
+            marks[-1] += [time.perf_counter(), counts() if counts else None]
+            shown.append(dict(frame, shape=bgr.shape))
+
+        rc = realtime.main(
+            argv, capture=ReplayCapture(frames[:n_frames], port, ends,
+                                        on_read),
+            reader=RadarReader(cfg, cli=cli, data=port), display=display,
+            engine=eng)
+        alive = [t for t in threading.enumerate()
+                 if t.name == "realtime-radar"]
+        if rc != 0 or alive or len(shown) != n_frames \
+                or b"sensorStart" not in cli.getvalue():
+            raise AssertionError(f"live: main returned {rc}, {len(shown)} of "
+                                 f"{n_frames} frames shown, radar threads "
+                                 f"alive after it {alive}, or the cfg was "
+                                 f"not sent")
+        return port
+
+    FrameAssembler.backends.clear()
+    shown, marks = [], []
+    if counts:
+        zero_counts()
+    port = run(len(frames), shown, marks)
+    launches = counts() if counts else None
+    backends = dict(FrameAssembler.backends)
+    if backends.get("numpy") or not backends.get("native"):
+        raise AssertionError(f"live: the loop's parser backends {backends}")
+    radar = RadarPipeline(load_calib(calib_path),
+                          RadarParams(frame_size=eng.frame_size))
+    differ, with_points, with_props = [], 0, 0
+    for i, ((_, f), got) in enumerate(zip(frames, shown)):
+        r = radar.process(got["pts"])
+        want = eng.infer(f, r["points_uvzv"], r["proposals"], 0)
+        if got["shape"] != f.shape or not same_answer(
+                (got["boxes"], got["valid"]), want):
+            differ.append(i)
+        with_points += got["pts"].shape[1] > 0
+        with_props += len(r["proposals"]) > 0
+    if differ:
+        raise AssertionError(f"live: frames {differ} differ from "
+                             f"FusionEngine.infer on the points they "
+                             f"consumed")
+    per_frame = None
+    if counts:
+        per_frame = [{k: b[k] - a[k] for k in a if b[k] != a[k]}
+                     for _, a, _, b in marks]
+        want = dict.fromkeys(LIVE_KERNELS, 1)
+        bad = [i for i, c in enumerate(per_frame) if c != want]
+        if bad:
+            raise AssertionError(f"live: frames {bad} launched "
+                                 f"{[per_frame[i] for i in bad[:3]]}, want "
+                                 f"{want} each")
+    frame_ms = [(b - a) * 1e3 for a, _, b, _ in marks]
+    out = {"frames": len(shown), "frames_with_points": int(with_points),
+           "frames_with_proposals": int(with_props),
+           "frame_host_ms_mean": float(np.mean(frame_ms)),
+           "frame_host_ms_p50": float(np.median(frame_ms)),
+           "frame_host_ms_max": float(max(frame_ms)),
+           "frames_per_s": len(shown) / (marks[-1][2] - marks[0][0]),
+           "port_reads": port.reads,
+           "native_frames_loop": backends["native"],
+           "native_frames_stream": len(parsed),
+           "launches_per_frame": per_frame[0] if per_frame else None,
+           "launches": launches}
+    if profile:
+        n_prof = min(LIVE_PROFILED, len(frames))
+        busy, wall, _, _ = profile_run(torch, lambda: run(n_prof, [], []))
+        out["profiled"] = {"frames": n_prof, "device_busy_ms": busy,
+                           "wall_ms": wall, "busy_share": busy / wall}
+    return out
+
+
+def prepare_data_check(rec, calib_path, out_dir, scene=""):
+    """``cli.prepare_data.main`` on a recording, against an in-process
+    ``RadarPipeline`` (the CLI's ``RadarParams()`` and calibration) fed
+    the same matches and overlay: the stems every 5th frame, the
+    ``dataset.txt`` lines, and each kept frame's ``radar_point`` and
+    ``radar_box`` pickles equal (dtype, shape and values). Returns the
+    stems."""
+    import os
+    import pickle
+    from millieye_torch.cli import prepare_data
+    from millieye_torch.collection.sync import (load_pointcloud,
+                                                load_timestamps,
+                                                match_frames)
+    from millieye_torch.radar.pipeline import RadarParams, RadarPipeline
+    from millieye_torch.radar.projection import load_calib
+    prepare_data.main(["--recording", rec, "--out", out_dir, "--calib",
+                       calib_path] + (["--scene", scene] if scene else []))
+    params = RadarParams()
+    vt = load_timestamps(os.path.join(rec, "timestamps.txt"))
+    rt, rf = load_pointcloud(os.path.join(rec, "pointcloud.pkl"))
+    matches = match_frames(vt, rt, params.num_nearest)
+    n = min(len(matches), len(os.listdir(os.path.join(rec, "frames"))))
+    radar = RadarPipeline(load_calib(calib_path), params)
+    overlay, stems = [], []
+    for i in range(n):
+        overlay = (overlay + [rf[j] for j in matches[i]])[
+            -params.overlay_num:]
+        r = radar.process(np.concatenate(overlay, 1) if overlay
+                          else np.zeros((4, 0)))
+        if i % 5:
+            continue
+        stem = f"{scene}{i:06d}"
+        stems.append(stem)
+        for sub, want in (("radar_point", r["points_uvzv"]),
+                          ("radar_box", r["proposals"])):
+            with open(os.path.join(out_dir, sub, stem + ".pkl"), "rb") as f:
+                got = pickle.load(f)
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise AssertionError(f"prepare_data: {sub}/{stem} differs "
+                                     f"from the in-process pipeline")
+    with open(os.path.join(out_dir, "dataset.txt")) as f:
+        listed = f.read().splitlines()
+    images = sorted(os.listdir(os.path.join(out_dir, "image")))
+    if listed != [os.path.join(out_dir, "image", s + ".jpg")
+                  for s in stems] or images != [s + ".jpg" for s in stems]:
+        raise AssertionError(f"prepare_data: dataset.txt {len(listed)} "
+                             f"lines, images {len(images)}, want the stems "
+                             f"{stems}")
+    return stems
+
+
 _SERVE = r"""
 import json, sys, time
 import numpy as np
@@ -3850,6 +4151,41 @@ def main():
     launches_by_path.update({k: {n: v.get(n, 0) for n in kernels}
                              for k, v in train_launches.items()})
     log(f"train phase ({card}): {time.time() - t:.1f} s")
+
+    # P22: the live path, cli.realtime in this process over P15's
+    # recording (radar as a UART byte stream, camera as a capture of its
+    # frames) on P15's engine; then cli.prepare_data on the recording
+    t = time.time()
+    eng = engines["pallas_max_s01"]
+    live = live_phase(torch, eng, rec, frames, calib_path, counts=counts,
+                      zero_counts=zero_counts)
+    launches = live.pop("launches")
+    launches_by_path["realtime@pallas_max_s01"] = launches
+    stems = prepare_data_check(rec, calib_path,
+                               os.path.join(wdir.name, "dataset"))
+    live["prepare_data_stems"] = len(stems)
+    summary["realtime@pallas_max_s01"] = live
+    p = live["profiled"]
+    log(f"P22 realtime@pallas_max_s01 ({card}): cli.realtime.main over "
+        f"{live['frames']} frames of 640x480, the radar's {n_frames} "
+        f"frames as a TI UART byte stream ({live['port_reads']} uneven "
+        f"reads in the loop): the native parser answered every packet "
+        f"({live['native_frames_stream']} of the whole stream, "
+        f"{live['native_frames_loop']} in the loop, numpy none); each frame "
+        f"bit-identical to FusionEngine.infer on the points it consumed "
+        f"(points on {live['frames_with_points']} frames, proposals on "
+        f"{live['frames_with_proposals']}); launches a frame "
+        f"{live['launches_per_frame']} on every frame, the run's "
+        f"{ {k: v for k, v in launches.items() if v} } (the warm-up's "
+        f"included); host ms a frame {live['frame_host_ms_mean']:.3f} "
+        f"(p50 {live['frame_host_ms_p50']:.3f}, max "
+        f"{live['frame_host_ms_max']:.3f}), {live['frames_per_s']:.2f} "
+        f"frames/s; profiled run of {p['frames']} frames: device busy "
+        f"{p['device_busy_ms']:.2f} ms of {p['wall_ms']:.2f} ms wall "
+        f"({100 * p['busy_share']:.1f}%); the radar thread stopped; "
+        f"cli.prepare_data: {len(stems)} stems, every radar_point and "
+        f"radar_box pickle equal to the in-process pipeline's; "
+        f"{time.time() - t:.1f} s")
     wdir.cleanup()
     stream_dir.cleanup()
 

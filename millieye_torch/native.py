@@ -1,7 +1,7 @@
 """ctypes bindings of the repository's native host library (the
-``me_dbscan`` and ``me_hungarian`` bindings of
-``millieye_tpu/native/__init__.py``, copied: the port imports nothing of
-the JAX package).
+``me_dbscan``, ``me_hungarian`` and ``me_parse_mmwave_frame`` bindings
+of ``millieye_tpu/native/__init__.py``, copied: the port imports nothing
+of the JAX package).
 
 The source is ``native/millieye_native.cpp`` with its ``Makefile``. The
 port builds its own copy, ``build/millieye_torch/native/
@@ -13,7 +13,7 @@ start together (test workers) build it once, and none loads a file that
 is still being written. (The JAX package builds ``native/
 libmillieye_native.so`` in place, without a lock.) Every caller treats a
 failure to build or load it as "use the Python fallback", so the radar
-chain runs without a compiler too.
+chain and the UART frame parser run without a compiler too.
 """
 from __future__ import annotations
 
@@ -75,6 +75,12 @@ def _load():
     lib.me_hungarian.argtypes = [
         ctypes.POINTER(ctypes.c_double), ctypes.c_long, ctypes.c_long,
         ctypes.POINTER(ctypes.c_long)]
+    lib.me_parse_mmwave_frame.restype = ctypes.c_int
+    lib.me_parse_mmwave_frame.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_long), ctypes.POINTER(ctypes.c_long),
+        ctypes.POINTER(ctypes.c_long)]
     _lib = lib
     return lib
 
@@ -112,3 +118,19 @@ def hungarian_native(cost):
         rows, col = col, rows
     order = np.argsort(rows)
     return rows[order], col[order]
+
+
+def parse_mmwave_frame(buf, max_points=1024):
+    """buf: bytes/bytearray. Returns (ok, xyzv [n, 4], frame_number,
+    consumed_bytes)."""
+    lib = _load()
+    arr = np.frombuffer(bytes(buf), np.uint8)
+    out = np.empty((max_points, 4), np.float32)
+    n_pts = ctypes.c_long()
+    frame_no = ctypes.c_long()
+    consumed = ctypes.c_long()
+    ok = lib.me_parse_mmwave_frame(
+        arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), len(arr),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), max_points,
+        ctypes.byref(n_pts), ctypes.byref(frame_no), ctypes.byref(consumed))
+    return bool(ok), out[:n_pts.value].copy(), frame_no.value, consumed.value

@@ -33,15 +33,15 @@ import numpy as np
 import pytest
 import torch
 
-from millieye_torch.ops import roi_align as tra
 from millieye_torch.ops import roi_kernel as trk
 from millieye_tpu.ops.roi_align import (_batched_prep as j_batched_prep,
                                         ps_roi_align_batched as j_ps_batched,
                                         roi_align_batched as j_roi_batched)
 from millieye_tpu.ops import roi_pallas as jrp
 
-# the module: millieye_tpu.ops exports a function of the same name
+# the modules: each package's ops exports a function of the same name
 jra = importlib.import_module("millieye_tpu.ops.roi_align")
+tra = importlib.import_module("millieye_torch.ops.roi_align")
 
 # small shapes: one thread per process, so that test workers running side
 # by side do not oversubscribe the cores
