@@ -188,12 +188,33 @@ printed only when every phase passed:
      on the recording (its PNG frames and camera YAML from P17), its
      stems and radar pickles equal to an in-process ``RadarPipeline``'s
      (``prepare_data_check``);
- 12. a ``kernels`` JSON line, then the contract line
+ 12. P23, ``parallel/``: four gloo ranks sharing the card (spawned by
+     ``parallel/world.py``, each join with a time limit), each rank's
+     launch counts read in the rank: (a) ``cli.evaluate.main --what
+     fusion --data_parallel 4`` at ``f32`` and ``pallas_max_s01`` on
+     P19's 64 scenes, 2 images a rank a batch, against P19's one-process
+     runs: the f32 mAP within ``PAR_EVAL_MAP_TOL``, each image's rows
+     within ``PAIR_PATH_TOL`` or beyond it by NMS decisions alone
+     (``slice_flips``), K1 (and at ``pallas_max_s01`` K4, K2 and K3) once
+     a batch on every rank and nothing else; (b) ``cli.train.main --stage
+     fusion --fold_frozen --data_parallel 2 --model_parallel 2 --grad_accum
+     1`` on 32 scenes (4 steps) from the tracked checkpoint against the
+     same run in one process: K4 and K1 once a step on every rank, the
+     frozen leaves unchanged on every rank, the replicated leaves
+     bit-identical across ranks after every step, each step's loss and
+     the final checkpoint within ``PAR_TRAIN_TOL``;
+     (c) the ``pallas_max4`` engine window of P1's 8 frames, 2 a rank, each
+     rank's bit-identical to ``batched_step_fn`` over its frames here, K9,
+     K4, K1, K2, K3 and K5 once a rank; (d) ``entry.dryrun_multichip(4,
+     device="cuda")``; then a ``parallel`` JSON line (meshes, launches a
+     rank, wall s a part with the spawn, the largest deviations);
+ 13. a ``kernels`` JSON line, then the contract line
      ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -1911,12 +1932,12 @@ def eval_records(harness):
     seen, modes = [], []
     real_eval, real_auto = harness._evaluate, harness.auto_mode
 
-    def evaluate(batches, forward, iou_thresh):
+    def evaluate(batches, forward, iou_thresh, mesh=None):
         def rec(batch):
             out = forward(batch)
             seen.append({"forward": forward, "batch": batch, "out": out})
             return out
-        return real_eval(batches, rec, iou_thresh)
+        return real_eval(batches, rec, iou_thresh, mesh)
 
     def auto(images, brightness=None):
         modes.append(real_auto(images, brightness))
@@ -1972,12 +1993,14 @@ def eval_flips(torch, cuda_lib, rec, tol):
     return anchors
 
 
-def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts):
+def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts,
+               keep=None):
     """P19: ``cli.evaluate.main`` in this process on the card, each run of
     ``eval_runs`` with its launches counted, again inside
     ``plain_versions()``, and held to it; the device cache's batches
     against the host collate's; one profiled run. Returns (summary,
-    {label: launches})."""
+    {label: launches}); ``keep`` (a dict) gets (mAP, records) of each
+    run its keys name, for P23."""
     import io
     from millieye_torch.cli import evaluate
     from millieye_torch.data.device_cache import DeviceCache
@@ -2010,6 +2033,8 @@ def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts):
             raise AssertionError(f"eval {label}: {n_b} batches; kernels "
                                  f"launched too few times: {short} (need "
                                  f"{need})")
+        if keep is not None and label in keep:
+            keep[label] = (m_ap, seen)
         with cuda_lib.plain_versions():
             m_plain, wall_plain, pseen, _ = run(argv)
         got = [_np_out(r["out"]) for r in seen]
@@ -3021,10 +3046,441 @@ def flat(r):
             "device_ms": r["device_ms"][0], "host_ms": r["host_ms"]}
 
 
-def window_tensors(torch, engine, reqs):
+# phase P23: parallel/ on gloo ranks that share the card (the mesh,
+# sharded evaluation, data- and tensor-parallel training, a sharded
+# engine window and entry.dryrun_multichip)
+PAR_RANKS = 4
+PAR_TRAIN_SCENES = 32          # 4 steps of batch 8, 2 images a rank
+PAR_TRAIN_ARGS = ["--stage", "fusion", "--fold_frozen", "--checkpoint",
+                  CKPT, "--synthetic", str(PAR_TRAIN_SCENES), "--seed",
+                  "777", "--img_size", "416", "--batch_size", "8",
+                  "--grad_accum", "1", "--epochs", "1"]
+PAR_MESH_ARGS = ["--data_parallel", "2", "--model_parallel", "2"]
+PAR_EVAL_MAP_TOL = 1e-4        # f32: the mesh's mAP against one process
+# the mesh's training against one process, both on the card. The ranks
+# run the frozen forward at 2 images a call, one process at 8: cuDNN's
+# bf16 convolutions may pick other algorithms and K1 other keep
+# decisions, and the sums run in another order. Adam's step is
+# lr m / sqrt(v) a step, about lr where the gradient's sign holds, so an
+# element whose gradient is rounding noise in both runs may end up to a
+# few lr apart. The limits (set from a first card run, which measured a
+# step's loss 9.3e-5 relative apart, the trained parameters 1.9 lr, and
+# 1.25e-5 of the checkpoint's elements beyond the CPU contract):
+# * loss_rtol: each step's loss;
+# * trained_lr: each trained parameter element, in lr;
+# * bn_fed_lr_a_step: the conv biases that feed a train-mode BN
+#   (PAR_BN_FED): their exact gradient is 0, so both runs step them by
+#   rounding noise, each at most lr (1 - b1) / sqrt(1 - b2) ~ 3.17 lr a
+#   step; nothing else holds them;
+# * share: the least share of the checkpoint's elements within the CPU
+#   contract's rtol 2e-4 / atol 2e-5;
+# * bn_rel: the heads' BN statistics, relative to the leaf's largest.
+# The frozen leaves and the frozen Darknet's BN state are bit-equal.
+PAR_TRAIN_TOL = dict(loss_rtol=5e-4, trained_lr=3.0,
+                     bn_fed_lr_a_step=2 * 3.17, share=1 - 1e-4,
+                     bn_rel=2e-2)
+PAR_BN_FED = {"params/radar_enc/0/b", "params/radar_enc/1/b",
+              "params/radar_enc/2/b", "params/refine/radar_net/conv7/b"}
+PAR_WORLD_TIMEOUT = 600
+# the kernels each part must launch on every rank (a batch, a step, the
+# window), and nothing else
+PAR_NEED = {"eval@f32": {"nms": 1},
+            "eval@pallas_max_s01": dict.fromkeys(_RIGHT_PAIR, 1),
+            "train": {"stem_pair": 1, "nms": 1},
+            "window": dict.fromkeys(("stem_stage", "stem_pair", "nms",
+                                     "ps_roi_align", "roi_align",
+                                     "nms_full"), 1)}
+
+
+def rank_counts():
+    """This process's launch counts, every wrapper of ``ops/library.py``."""
+    from millieye_torch.ops.library import OPS
+    return {n: op.wrapper.launches for n, op in OPS.items()}
+
+
+def zero_rank_counts():
+    from millieye_torch.ops.library import OPS
+    for op in OPS.values():
+        op.wrapper.launches = 0
+
+
+def _total(counts_list):
+    """The launch counts of several ranks (or steps) added up."""
+    out = {}
+    for c in counts_list:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+class ParEvalProbe:
+    """``cli.evaluate.main``'s probe: in each rank, the launch counts set
+    to 0 around the evaluation and read after it, and each batch's
+    answer (the rank's slice)."""
+
+    @contextlib.contextmanager
+    def around(self):
+        from millieye_torch.eval import harness
+        zero_rank_counts()
+        with eval_records(harness) as (seen, _):
+            yield
+        self.launches = rank_counts()
+        self.rows = [_np_out(r["out"]) for r in seen]
+
+    def report(self):
+        return {"launches": self.launches, "rows": self.rows}
+
+
+def _digest(torch, leaves):
+    import hashlib
+    h = hashlib.sha256()
+    for t in leaves:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+class ParTrainProbe:
+    """``cli.train.main``'s probe: in each rank, the launch counts from 0
+    at the start, each step's launches, loss and the digest of the
+    replicated leaves (parameters and BN state) after it, and the digest
+    of the frozen leaves at the start and the end."""
+
+    def start(self, trainer):
+        self.mesh = trainer.mesh
+        self.losses, self.launches, self.digests = [], [], []
+        self.frozen0 = self._frozen(trainer.ts.params)
+        zero_rank_counts()
+        self.prev = rank_counts()
+
+    def _frozen(self, params):
+        from millieye_torch.io.checkpoint import leaf_items
+        from millieye_torch.train.optim import STAGE3_FROZEN, label_tree
+        import torch
+        labels = dict(leaf_items(label_tree(params, STAGE3_FROZEN)))
+        return _digest(torch, [x for k, x in leaf_items(params)
+                               if labels[k] == "freeze"])
+
+    def __call__(self, step_no, ts, metrics):
+        import torch
+        from millieye_torch.io.checkpoint import leaf_items
+        now = rank_counts()
+        self.launches.append({k: now[k] - self.prev[k] for k in now
+                              if now[k] != self.prev[k]})
+        self.prev = now
+        self.losses.append(float(metrics["loss"]))
+        sharded = self.mesh.sharded if self.mesh is not None else ()
+        self.digests.append(_digest(torch, [
+            x for k, x in leaf_items({"p": ts.params, "s": ts.state})
+            if tuple(k.split("/")[1:]) not in sharded or k[0] == "s"]))
+
+    def report(self, trainer):
+        return {"losses": self.losses, "launches": self.launches,
+                "digests": self.digests,
+                "frozen_same": self._frozen(trainer.ts.params)
+                == self.frozen0}
+
+
+def par_window_rank(rank, dev, reqs):
+    """P23(c) in a rank: the ``pallas_max4`` engine's window of this
+    rank's frames of ``reqs`` (its "data" slice), launches counted around
+    the counted call (after a warm-up)."""
+    import torch
+    from millieye_torch import parallel
+    from millieye_torch.cli._common import build_fusion
+    from millieye_torch.runtime.engine import FusionEngine
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh(PAR_RANKS, model_axis=1,
+                              devices=[str(dev)] * PAR_RANKS)
+    model, params, state = build_fusion(CKPT, "pallas_max4", device=dev)
+    eng = FusionEngine(model, params, state, frame_size=FRAME, device=dev)
+    tens = window_tensors(torch, eng, reqs, dev)
+    mine = list(parallel.shard_batch(
+        mesh, {str(i): t for i, t in enumerate(tens)}).values())
+    step = eng.batched_step_fn(0)
+    build_s = time.perf_counter() - t0
+    step(*mine)                                   # warm-up
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0 - build_s
+    zero_rank_counts()
+    t0 = time.perf_counter()
+    rows = [a.cpu().numpy() for a in step(*mine)]
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"rows": rows, "launches": rank_counts(), "ms": ms,
+            "index": mesh.index("data"), "build_s": build_s,
+            "warm_s": warm_s}
+
+
+def _slice_batch(batch, lo, hi):
+    """Images [lo, hi) of a device batch (its host copy too)."""
+    size = batch["images"].shape[0]
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        if hasattr(x, "shape") and len(x.shape) and x.shape[0] == size:
+            return x[lo:hi]
+        return x
+
+    return {k: v if k in ("_n", "brightness") else cut(v)
+            for k, v in batch.items()}
+
+
+def slice_flips(torch, cuda_lib, rec, lo, hi, rank_rows, tol):
+    """A rank's answer for images [lo, hi) of a batch (the rank ran them
+    at batch hi - lo) beyond ``tol`` of the one-process answer (batch 8):
+    prove that NMS decisions alone make the difference. The slice again
+    here must repeat the rank's answer bit for bit; each run's pre-merge
+    NMS must be the plain NMS of its own detections and have kept other
+    anchors; and each run under the other's decisions must meet the
+    other's answer within ``tol``, image by image. Returns the anchors
+    kept by one run only."""
+    forward, batch = rec["forward"], rec["batch"]
+    part = _slice_batch(batch, lo, hi)
+
+    def cut(recs):
+        return [dict(r, pred=r["pred"][lo:hi], out=r["out"][lo:hi],
+                     valid=r["valid"][lo:hi], anchors=r["anchors"][lo:hi])
+                for r in recs]
+
+    def put(full, part_recs):
+        out = []
+        for f, p in zip(full, part_recs):
+            valid, anchors = f["valid"].clone(), f["anchors"].clone()
+            valid[lo:hi], anchors[lo:hi] = p["valid"], p["anchors"]
+            out.append(dict(f, valid=valid, anchors=anchors))
+        return out
+
+    with torch.inference_mode():
+        with pre_merge_nms(torch) as got_nms:
+            got = _np_out(forward(part))
+        with pre_merge_nms(torch) as want_nms:
+            want = _np_out(forward(batch))
+        if not all(np.array_equal(a, b) for a, b in zip(got, rank_rows)):
+            raise AssertionError("a rank's slice did not repeat here")
+        anchors = pre_merge_is_nms(torch, cuda_lib, got_nms, cut(want_nms))
+        if not anchors:
+            raise AssertionError("a rank's slice differs beyond its bound "
+                                 "with the same NMS decisions")
+        with pre_merge_nms(torch, inject=cut(want_nms)):
+            got2 = _np_out(forward(part))
+        with pre_merge_nms(torch, inject=put(want_nms, got_nms)):
+            want2 = _np_out(forward(batch))
+    want = tuple(a[lo:hi] for a in want)
+    want2 = tuple(a[lo:hi] for a in want2)
+    for a, b in ((got2, want), (got, want2)):
+        for i in range(len(a[0])):
+            ok, db, ds, fl = rows_match((a[0][i], a[1][i]),
+                                        (b[0][i], b[1][i]), tol)
+            if not ok:
+                raise AssertionError(
+                    f"a rank's slice under the one-process run's NMS "
+                    f"decisions differs beyond {tol} (image {lo + i}: box "
+                    f"{db}, score {ds}, {fl} rows on one side only)")
+    return anchors
+
+
+def _eval_part(torch, cuda_lib, evaluate, preset, one, dev):
+    """P23(a) at one preset: ``cli.evaluate.main --data_parallel 4``
+    against P19's one-process run of the same arguments (``one``: its
+    mAP and records)."""
+    m_one, seen = one
+    probe = ParEvalProbe()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        m_ap = evaluate.main(EVAL_ARGS + [
+            "--what", "fusion", "--serving", preset, "--data_parallel",
+            str(PAR_RANKS), "--device", dev], probe=probe,
+            timeout=PAR_WORLD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    n_b = len(seen)
+    per = EVAL_BATCH // PAR_RANKS
+    need = {k: v * n_b for k, v in PAR_NEED[f"eval@{preset}"].items()}
+    d_box = d_score = 0.0
+    flips = anchors = 0
+    for r, rep in enumerate(probe.reports):
+        short = {k: rep["launches"][k] for k, v in need.items()
+                 if rep["launches"][k] != v}
+        other = {k: v for k, v in rep["launches"].items()
+                 if v and k not in need}
+        if len(rep["rows"]) != n_b or short or other:
+            raise AssertionError(
+                f"P23 eval {preset}: rank {r} ran {len(rep['rows'])} "
+                f"batches, launches {rep['launches']} (need {need} and "
+                f"nothing else)")
+        for j, (rec, got) in enumerate(zip(seen, rep["rows"])):
+            lo, hi = r * per, (r + 1) * per
+            want = _np_out(rec["out"])
+            beyond = False
+            for i in range(per):
+                ok, db, ds, fl = rows_match(
+                    (got[0][i], got[1][i]),
+                    (want[0][lo + i], want[1][lo + i]), PAIR_PATH_TOL)
+                d_box, d_score = max(d_box, db), max(d_score, ds)
+                flips += fl
+                beyond |= not ok
+            if beyond and preset != "f32":
+                anchors += slice_flips(torch, cuda_lib, rec, lo, hi, got,
+                                       PAIR_PATH_TOL)
+            elif beyond:
+                raise AssertionError(f"P23 eval f32: rank {r} batch {j} "
+                                     f"beyond PAIR_PATH_TOL")
+    if preset == "f32" and abs(m_ap - m_one) > PAR_EVAL_MAP_TOL:
+        raise AssertionError(f"P23 eval f32: mAP {m_ap} over {PAR_RANKS} "
+                             f"ranks, {m_one} in one process")
+    return {"mAP": m_ap, "one_process_mAP": m_one, "wall_s": wall,
+            "batches_a_rank": n_b, "images_a_rank_a_batch": per,
+            "launches_a_rank": [
+                {k: v for k, v in rep["launches"].items() if v}
+                for rep in probe.reports],
+            "against_one_process": {"max_box_diff": d_box,
+                                    "max_score_diff": d_score,
+                                    "rows_on_one_side": flips,
+                                    "nms_anchors_on_one_side": anchors},
+            "launches_total": _total(rep["launches"]
+                                     for rep in probe.reports)}
+
+
+def _train_part(torch, tcli, tmp, dev):
+    """P23(b): ``cli.train.main`` at dp 2 x mp 2 against one process."""
+    from millieye_torch.io.checkpoint import leaf_items
+    from millieye_torch.train.optim import STAGE3_FROZEN, label_tree
+    one = ParTrainProbe()
+    with contextlib.redirect_stdout(io.StringIO()):
+        t0 = time.perf_counter()
+        trainer = tcli.main(PAR_TRAIN_ARGS + ["--device", dev,
+                                              "--checkpoint_dir",
+                                              f"{tmp}/one"], probe=one)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = tcli.main(PAR_TRAIN_ARGS + PAR_MESH_ARGS + [
+            "--device", dev, "--checkpoint_dir", f"{tmp}/mesh"],
+            probe=ParTrainProbe(), timeout=PAR_WORLD_TIMEOUT)
+        wall = time.perf_counter() - t0
+    steps = PAR_TRAIN_SCENES // 8
+    reps = [o["report"] for o in out]
+    for r, rep in enumerate(reps):
+        bad = [s for s in rep["launches"] if s != PAR_NEED["train"]]
+        if len(rep["launches"]) != steps or bad or not rep["frozen_same"]:
+            raise AssertionError(
+                f"P23 train: rank {r}: launches a step {rep['launches']} "
+                f"(want K4 and K1 once, {steps} steps), frozen leaves "
+                f"unchanged {rep['frozen_same']}")
+        for a, b in zip(rep["losses"], one.losses):
+            if abs(a - b) > PAR_TRAIN_TOL["loss_rtol"] * abs(b):
+                raise AssertionError(f"P23 train: rank {r} loss {a}, one "
+                                     f"process {b}")
+    for s in range(steps):
+        if len({rep["digests"][s] for rep in reps}) != 1:
+            raise AssertionError(f"P23 train: the replicated leaves differ "
+                                 f"across ranks after step {s + 1}")
+    with np.load(f"{tmp}/one/module3_ckpt_final.npz") as z1, \
+            np.load(f"{tmp}/mesh/module3_ckpt_final.npz") as zm:
+        keys = sorted(z1.files)
+        if keys != sorted(zm.files):
+            raise AssertionError("P23 train: checkpoint keys differ")
+        labels = dict(leaf_items({"params": label_tree(
+            trainer.ts.params, STAGE3_FROZEN)}))
+        worst, worst_bn_fed, n_in, n_all = 0.0, 0.0, 0, 0
+        for k in keys:
+            a, b = z1[k].astype(np.float64), zm[k].astype(np.float64)
+            name = k.split("|", 1)[1]
+            d = np.abs(a - b)
+            n_in += int((d <= 2e-5 + 2e-4 * np.abs(a)).sum())
+            n_all += a.size
+            if labels.get(name) == "freeze" or name.startswith(
+                    "state/darknet/"):
+                ok = bool((d == 0).all())
+            elif name in PAR_BN_FED:
+                ok = bool((d <= PAR_TRAIN_TOL["bn_fed_lr_a_step"] * steps
+                           * TRAIN_LR).all())
+                worst_bn_fed = max(worst_bn_fed, float(d.max()))
+            elif name.startswith("params/"):
+                ok = bool((d <= PAR_TRAIN_TOL["trained_lr"]
+                           * TRAIN_LR).all())
+                worst = max(worst, float(d.max()))
+            else:
+                ok = bool((d <= PAR_TRAIN_TOL["bn_rel"]
+                           * max(np.abs(a).max(), 1e-12)).all())
+            if not ok:
+                raise AssertionError(f"P23 train: {name} of the mesh's "
+                                     f"checkpoint beyond PAR_TRAIN_TOL "
+                                     f"(largest {d.max()})")
+    if n_in < PAR_TRAIN_TOL["share"] * n_all:
+        raise AssertionError(f"P23 train: {n_all - n_in} of {n_all} "
+                             f"checkpoint elements beyond the CPU "
+                             f"contract (share {n_in / n_all})")
+    return {"wall_s": wall, "one_process_s": one_s, "steps": steps,
+            "losses": reps[0]["losses"], "one_process_losses": one.losses,
+            "launches_a_step_a_rank": reps[0]["launches"][0],
+            "launches_total": _total(c for rep in reps
+                                     for c in rep["launches"]),
+            "max_trained_param_diff": worst,
+            "max_trained_param_diff_lr": worst / TRAIN_LR,
+            "max_bn_fed_bias_diff_lr": worst_bn_fed / TRAIN_LR,
+            "max_loss_rdiff": max(abs(a - b) / abs(b) for rep in reps
+                                  for a, b in zip(rep["losses"],
+                                                  one.losses)),
+            "share_within_cpu_contract": n_in / n_all}
+
+
+def parallel_phase(torch, cuda_lib, eng4, reqs, eval_keep, dev="cuda"):
+    """P23: four ranks over gloo on the card, in four parts: (a) the
+    evaluation over 4 ranks, (b) training at dp 2 x mp 2, (c) a sharded
+    engine window, (d) ``entry.dryrun_multichip(4)``. Returns the
+    summary."""
+    import tempfile
+    from millieye_torch.cli import evaluate
+    from millieye_torch.cli import train as tcli
+    from millieye_torch.entry import dryrun_multichip
+    from millieye_torch.parallel import world
+    summary = {"ranks": PAR_RANKS, "device_count": torch.cuda.device_count()}
+    for preset in ("f32", "pallas_max_s01"):
+        summary[f"eval@{preset}"] = _eval_part(
+            torch, cuda_lib, evaluate, preset,
+            eval_keep[f"fusion@{preset}"], dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        summary["train"] = _train_part(torch, tcli, tmp, dev)
+    t0 = time.perf_counter()
+    out = world.launch(par_window_rank, PAR_RANKS, dev, (reqs,),
+                       timeout=PAR_WORLD_TIMEOUT)
+    wall = time.perf_counter() - t0
+    step = eng4.batched_step_fn(0)
+    per = N_REQUESTS // PAR_RANKS
+    want_k = PAR_NEED["window"]
+    for o in out:
+        d = o["index"]
+        tens = window_tensors(torch, eng4, reqs[d * per:(d + 1) * per], dev)
+        want = [a.cpu().numpy() for a in step(*tens)]
+        if not all(np.array_equal(a, b) for a, b in zip(o["rows"], want)):
+            raise AssertionError(f"P23 window: rank {d}'s sub-window is not "
+                                 f"bit-identical to batched_step_fn over "
+                                 f"its frames in one process")
+        got = {k: v for k, v in o["launches"].items() if v}
+        if got != want_k:
+            raise AssertionError(f"P23 window: rank {d} launches "
+                                 f"{o['launches']}")
+    summary["window@pallas_max4"] = {
+        "wall_s": wall, "frames_a_rank": per,
+        "rank_ms": [o["ms"] for o in out],
+        "rank_build_s": [o["build_s"] for o in out],
+        "rank_warm_up_s": [o["warm_s"] for o in out],
+        "launches_a_rank": {k: v for k, v in out[0]["launches"].items()
+                            if v},
+        "launches_total": _total(o["launches"] for o in out)}
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(PAR_RANKS, device=dev, timeout=PAR_WORLD_TIMEOUT)
+    summary["dryrun_multichip"] = {"wall_s": time.perf_counter() - t0,
+                                   "mesh": dry[0]["mesh"],
+                                   "loss": dry[0]["loss"],
+                                   "window_rows": dry[0]["window_rows"]}
+    return summary
+
+
+def window_tensors(torch, engine, reqs, device="cuda"):
     """The requests as one window's tensors on the card."""
     packed = [engine.pack_radar(pts, props) for _, pts, props in reqs]
-    return [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to("cuda")
+    return [torch.from_numpy(np.ascontiguousarray(np.stack(a))).to(device)
             for a in [[f for f, _, _ in reqs]] + [list(c)
                                                   for c in zip(*packed)]]
 
@@ -4130,8 +4586,10 @@ def main():
         f"darknet53.conv.74 the first 75 blocks; {time.time() - t:.1f} s")
     # P19: the evaluation path, cli.evaluate on the card
     t = time.time()
+    eval_keep = dict.fromkeys(("fusion@f32", "fusion@pallas_max_s01"))
     summary["eval"], eval_launches = eval_phase(
-        torch, cuda_lib, files["weights"], zero_counts, counts)
+        torch, cuda_lib, files["weights"], zero_counts, counts,
+        keep=eval_keep)
     launches_by_path.update({f"eval {k}": {n: v.get(n, 0) for n in kernels}
                              for k, v in eval_launches.items()})
     log(f"eval phase ({card}): {time.time() - t:.1f} s")
@@ -4188,6 +4646,67 @@ def main():
         f"{time.time() - t:.1f} s")
     wdir.cleanup()
     stream_dir.cleanup()
+
+    # P23: parallel/ on 4 gloo ranks sharing the card
+    t = time.time()
+    par = parallel_phase(torch, cuda_lib, engines["pallas_max4"], reqs,
+                         eval_keep)
+    eval_keep.clear()
+    summary["parallel"] = par
+    for part in ("eval@f32", "eval@pallas_max_s01", "train",
+                 "window@pallas_max4"):
+        tot = par[part].pop("launches_total")
+        launches_by_path[f"parallel {part}"] = {n: tot.get(n, 0)
+                                                for n in kernels}
+    log(f"P23 parallel ({card}): {par['ranks']} gloo ranks on "
+        f"{par['device_count']} card(s); eval (4 x 1 mesh, 2 images a rank "
+        f"a batch): f32 mAP {par['eval@f32']['mAP']:.6f} (one process "
+        f"{par['eval@f32']['one_process_mAP']:.6f}), pallas_max_s01 "
+        f"{par['eval@pallas_max_s01']['against_one_process']}; train (dp 2 "
+        f"x mp 2, --fold_frozen, {par['train']['steps']} steps): launches "
+        f"a step a rank {par['train']['launches_a_step_a_rank']}, losses "
+        f"{par['train']['losses']} (one process "
+        f"{par['train']['one_process_losses']}), largest trained-parameter "
+        f"difference {par['train']['max_trained_param_diff_lr']:.3g} lr "
+        f"(the BN-fed biases "
+        f"{par['train']['max_bn_fed_bias_diff_lr']:.3g} lr), largest loss "
+        f"difference {par['train']['max_loss_rdiff']:.3g} relative, share "
+        f"within the CPU contract "
+        f"{par['train']['share_within_cpu_contract']:.6f}; window "
+        f"bit-identical on every rank; dryrun_multichip(4) "
+        f"{par['dryrun_multichip']['mesh']}; {time.time() - t:.1f} s")
+    print("parallel " + json.dumps({
+        "ranks": par["ranks"], "card": card,
+        "meshes": {"eval": {"data": PAR_RANKS, "model": 1},
+                   "train": {"data": 2, "model": 2},
+                   "window": {"data": PAR_RANKS, "model": 1},
+                   "dryrun": par["dryrun_multichip"]["mesh"]},
+        "launches_a_rank": {
+            "eval@f32": par["eval@f32"]["launches_a_rank"],
+            "eval@pallas_max_s01":
+                par["eval@pallas_max_s01"]["launches_a_rank"],
+            "train_a_step": par["train"]["launches_a_step_a_rank"],
+            "window": par["window@pallas_max4"]["launches_a_rank"]},
+        "wall_s": {"eval@f32": par["eval@f32"]["wall_s"],
+                   "eval@pallas_max_s01": par["eval@pallas_max_s01"]["wall_s"],
+                   "train": par["train"]["wall_s"],
+                   "train_one_process": par["train"]["one_process_s"],
+                   "window": par["window@pallas_max4"]["wall_s"],
+                   "dryrun": par["dryrun_multichip"]["wall_s"],
+                   "phase": time.time() - t},
+        "deviations": {
+            "eval@f32_mAP": abs(par["eval@f32"]["mAP"]
+                                - par["eval@f32"]["one_process_mAP"]),
+            "eval@f32": par["eval@f32"]["against_one_process"],
+            "eval@pallas_max_s01":
+                par["eval@pallas_max_s01"]["against_one_process"],
+            "train_max_param": par["train"]["max_trained_param_diff"],
+            "train_max_param_lr": par["train"]["max_trained_param_diff_lr"],
+            "train_max_bn_fed_bias_lr":
+                par["train"]["max_bn_fed_bias_diff_lr"],
+            "train_max_loss_rdiff": par["train"]["max_loss_rdiff"],
+            "train_share_within_cpu_contract":
+                par["train"]["share_within_cpu_contract"]}}), flush=True)
 
     line = []
     for name, (_, src, replaces) in kernels.items():

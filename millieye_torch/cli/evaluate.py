@@ -17,10 +17,27 @@ every format ``cli/_common.py`` reads: for ``--what yolo`` a Darknet's
 ``refine`` a RefineNetwork's or a fusion ``.npz`` (its Darknet and
 score-map stack, with seed-0 heads: ``build_refine``), for ``fusion``
 what ``load_fusion`` reads.
+
+``--what fusion --data_parallel N`` (N > 1) evaluates over a mesh of N
+ranks (``parallel/``): ``main`` launches a gloo world of N processes
+itself, each builds the model and the loader as one process does and
+evaluates its slice of every batch (``harness.evaluate_fusion(mesh=)``).
+Where the JAX package refuses N above its visible devices, the port
+places rank r on ``cuda:(r % device_count)``: ranks are processes, and
+on one card they share it. The batch must divide by N.
+
+``main(argv, probe=None, timeout=None)`` returns the mAP, under a mesh
+too (every rank computes the same; rank 0 prints the table);
+``timeout``: seconds the mesh's world may run (None, no limit).
+``probe``: in each rank (one process: this one), ``with
+probe.around():`` wraps the evaluation and ``probe.report()`` is read
+after it; under a mesh the parent's ``probe.reports`` gets the ranks'
+reports in rank order.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import torch
 
@@ -33,6 +50,7 @@ from millieye_torch.data.loader import DataLoader, PaddedCollate
 from millieye_torch.device import resolve_device, set_numerics
 from millieye_torch.eval import harness
 from millieye_torch.io.checkpoint import to_device
+from millieye_torch.parallel import make_mesh, world
 from millieye_torch.train.recipes import fusion_device_batch
 
 
@@ -71,8 +89,9 @@ def parse_args(argv=None):
                         "(data/device_cache.py) instead of per-batch "
                         "transfers")
     p.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                   help="fusion only: shard eval batches over N devices; "
-                        "N > 1 waits for parallel/ (ROADMAP.md §1 item 9)")
+                   help="fusion only: shard eval batches over N ranks "
+                        "(gloo processes, placed round-robin on the "
+                        "visible cards); batch_size must be divisible by N")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
@@ -99,23 +118,35 @@ def _batches(loader, img_size, device):
         yield fusion_device_batch(b, img_size, device)
 
 
-def _check_data_parallel(n):
-    """``--data_parallel``: up to one device runs here; more than the
-    visible CUDA devices is refused as the JAX package refuses it; the
-    rest needs ``parallel/``."""
-    if n <= 1:
-        return
-    visible = torch.cuda.device_count()
-    if visible < n:
-        raise SystemExit(f"--data_parallel {n} needs that many devices; "
-                         f"{visible} visible")
-    raise SystemExit(f"--data_parallel {n}: evaluation over several devices "
-                     f"needs the port of parallel/ (ROADMAP.md §1 item 9)")
+def _rank_main(rank, dev, args, probe):
+    mesh = make_mesh(args.data_parallel, model_axis=1,
+                     devices=[str(world.rank_device(r, args.device))
+                              for r in range(args.data_parallel)])
+    with probe.around() if probe else contextlib.nullcontext():
+        m_ap = _evaluate(args, dev, mesh, quiet=rank != 0)
+    return {"mAP": m_ap, "report": probe.report() if probe else None}
 
 
-def main(argv=None):
+def main(argv=None, probe=None, timeout=None):
     args = parse_args(argv)
+    if args.what == "fusion" and args.data_parallel > 1:
+        if args.batch_size % args.data_parallel:
+            raise SystemExit("batch_size must be divisible by "
+                             "--data_parallel")
+        out = world.launch(_rank_main, args.data_parallel, args.device,
+                           (args, probe), timeout=timeout)
+        if probe is not None:
+            probe.reports = [r["report"] for r in out]
+        return out[0]["mAP"]
     dev = resolve_device(args.device)
+    with probe.around() if probe else contextlib.nullcontext():
+        m_ap = _evaluate(args, dev)
+    if probe is not None:
+        probe.reports = [probe.report()]
+    return m_ap
+
+
+def _evaluate(args, dev, mesh=None, quiet=False):
     set_numerics()
     names = None
     if args.class_names:
@@ -123,7 +154,6 @@ def main(argv=None):
         names = load_classes(args.class_names)
 
     if args.what == "fusion":
-        _check_data_parallel(args.data_parallel)
         model, params, state = build_fusion(
             args.weights, args.serving, img_size=args.img_size, device=dev,
             model_def=args.model_def, conf_thresh=args.conf_thresh,
@@ -147,7 +177,7 @@ def main(argv=None):
                                              act_absmax)
         result = harness.evaluate_fusion(
             model, params, state, _batches(loader, args.img_size, dev),
-            mode=args.model_mode, iou_thresh=args.iou_thresh)
+            mode=args.model_mode, iou_thresh=args.iou_thresh, mesh=mesh)
     else:
         if args.synthetic:
             from millieye_torch.data.synthetic import SyntheticScenes
@@ -180,6 +210,8 @@ def main(argv=None):
                 iou_thresh=args.iou_thresh)
 
     table, m_ap = harness.summarize(result, names)
+    if quiet:
+        return m_ap
     print(table)
     if args.plot:
         out = harness.save_pr_curve(result, args.plot,

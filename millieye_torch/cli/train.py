@@ -14,8 +14,26 @@ step, so the frozen forward runs the stem pair kernel K4 (and, at every
 stage-2 and stage-3 step, the NMS kernel K1). ``--pretrained`` of stage 2
 may also name a fusion ``.npz``: the Darknet and the score-map stack come
 from it (``build_refine``), the heads from the seed-0 init.
-``--data_parallel`` / ``--model_parallel`` above 1 wait for the port of
-``parallel/``. ``main`` returns the ``Trainer``.
+
+``--data_parallel N --model_parallel M`` (N x M above 1) trains over a
+("data", "model") mesh of N x M ranks: ``main`` launches a gloo world of
+that many processes itself (``parallel/world.py``), each building the
+same trainer with ``mesh=`` (``train/recipes.py``), so an in-process call
+works as a one-process one does. Where the JAX package refuses a mesh
+larger than its visible devices, the port places rank r on
+``cuda:(r % device_count)``: ranks are processes, and the ranks of a
+one-card machine share the card. The batch must divide by N, and
+``--device_cache`` (one device's cache) is refused with a mesh. A rank
+that fails ends the world with an error.
+
+``main(argv, probe=None, timeout=None)`` returns the ``Trainer`` in one
+process; under a mesh, a list with a dict for each rank: its ``rank``,
+``data`` and ``model`` indices, the ``checkpoint`` path of the final
+save (written by rank 0) and ``probe.report(trainer)`` as ``report``. ``probe`` (a
+picklable object under a mesh) runs in each rank: ``probe.start(trainer)``
+(where it has one) before the first step, ``probe(step_no, train_state,
+metrics)`` after every step. ``timeout``: seconds the mesh's world may
+run (``parallel/world.py:launch``; None, no limit).
 """
 from __future__ import annotations
 
@@ -31,6 +49,7 @@ from millieye_torch.data.datasets import (ExDarkDataset, ImageListDataset,
 from millieye_torch.data.loader import DataLoader, PaddedCollate
 from millieye_torch.device import resolve_device, set_numerics
 from millieye_torch.io.checkpoint import to_device
+from millieye_torch.parallel import make_mesh, world
 from millieye_torch.train import recipes
 from millieye_torch.train.steps import generator_draw
 
@@ -77,24 +96,30 @@ def parse_args(argv=None):
                         "--multiscale)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data_parallel", type=int, default=0, metavar="N",
-                   help="shard the batch over N devices; N > 1 waits for "
-                        "parallel/ (ROADMAP.md §1 item 9)")
+                   help="shard the batch over N ranks (gloo processes, "
+                        "placed round-robin on the visible cards); "
+                        "batch_size must be divisible by N")
     p.add_argument("--model_parallel", type=int, default=1, metavar="M",
-                   help="shard the wide layers over M devices; M > 1 "
-                        "waits for parallel/ (ROADMAP.md §1 item 9)")
+                   help="additionally shard the wide 490/256-channel "
+                        "layers over M ranks (N*M ranks in all)")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions")
     return p.parse_args(argv)
 
 
-def _check_parallel(args):
-    """One device trains here; a mesh needs the port of ``parallel/``."""
-    if args.data_parallel > 1 or args.model_parallel > 1:
-        raise SystemExit(
-            f"--data_parallel {args.data_parallel} --model_parallel "
-            f"{args.model_parallel}: training over several devices needs "
-            f"the port of parallel/ (ROADMAP.md §1 item 9)")
+def _world_size(args):
+    """The mesh's rank count (1: no mesh), after the JAX package's
+    refusals that still hold."""
+    n = max(args.data_parallel, 1) * max(args.model_parallel, 1)
+    if n == 1:
+        return 1
+    if args.batch_size % max(args.data_parallel, 1):
+        raise SystemExit("batch_size must be divisible by --data_parallel")
+    if args.device_cache:
+        raise SystemExit("--device_cache caches on ONE device; drop it "
+                         "when training over a mesh")
+    return n
 
 
 def _make_loader(dataset, args, device, max_targets=64, radar=False):
@@ -114,7 +139,7 @@ def _make_loader(dataset, args, device, max_targets=64, radar=False):
                       seed=args.seed)
 
 
-def _fusion_stage(args, dev):
+def _fusion_stage(args, dev, mesh=None):
     model, params, state = build_fusion(
         None, TRAIN_FOLD if args.fold_frozen else "f32",
         img_size=args.img_size, device="cpu", model_def=args.model_def)
@@ -130,7 +155,7 @@ def _fusion_stage(args, dev):
     trainer = recipes.fusion_trainer(
         model, to_device(params, dev), to_device(state, dev),
         args.checkpoint_dir, lr=args.lr, every_k=args.grad_accum,
-        fold_frozen=args.fold_frozen)
+        fold_frozen=args.fold_frozen, mesh=mesh)
     if args.synthetic:
         from millieye_torch.data.synthetic import SyntheticScenes
         dataset = SyntheticScenes(args.synthetic, seed=args.seed,
@@ -142,7 +167,7 @@ def _fusion_stage(args, dev):
     return trainer, _make_loader(dataset, args, dev, radar=True)
 
 
-def _image_stage(args, dev):
+def _image_stage(args, dev, mesh=None):
     if args.synthetic:
         from millieye_torch.data.synthetic import SyntheticScenes
         dataset = SyntheticScenes(args.synthetic, seed=args.seed,
@@ -160,7 +185,8 @@ def _image_stage(args, dev):
                                              args.pretrained)[:2]
         trainer = recipes.yolo_trainer(
             darknet, to_device(params, dev), to_device(state, dev),
-            args.checkpoint_dir, lr=args.lr, every_k=args.grad_accum)
+            args.checkpoint_dir, lr=args.lr, every_k=args.grad_accum,
+            mesh=mesh)
         return trainer, loader
     fusion_file = bool(args.pretrained) and _fusion_npz(args.pretrained)
     model, params, state = build_refine(
@@ -172,25 +198,48 @@ def _image_stage(args, dev):
             args.pretrained)[:2]
     trainer = recipes.refine_trainer(
         model, to_device(params, dev), to_device(state, dev),
-        args.checkpoint_dir, lr=args.lr, every_k=args.grad_accum)
+        args.checkpoint_dir, lr=args.lr, every_k=args.grad_accum, mesh=mesh)
     return trainer, loader
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    _check_parallel(args)
-    dev = resolve_device(args.device)
+def _train(args, dev, mesh=None, probe=None):
     set_numerics()
     if args.stage == "fusion":
-        trainer, loader = _fusion_stage(args, dev)
+        trainer, loader = _fusion_stage(args, dev, mesh)
     else:
-        trainer, loader = _image_stage(args, dev)
+        trainer, loader = _image_stage(args, dev, mesh)
     if args.checkpoint:
         trainer.resume(args.checkpoint)
+    if hasattr(probe, "start"):
+        probe.start(trainer)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     trainer.fit(loader, args.epochs, generator_draw(gen),
-                lambda b: recipes.fusion_device_batch(b, args.img_size, dev))
-    print("done:", trainer.save("final"))
+                lambda b: recipes.fusion_device_batch(b, args.img_size, dev),
+                on_step=probe)
+    path = trainer.save("final")
+    if trainer.lead:
+        print("done:", path)
+    return trainer, path
+
+
+def _rank_main(rank, dev, args, n, probe):
+    mesh = make_mesh(n, model_axis=max(args.model_parallel, 1),
+                     devices=[str(world.rank_device(r, args.device))
+                              for r in range(n)])
+    trainer, path = _train(args, dev, mesh, probe)
+    return {"rank": rank, "data": mesh.index("data"),
+            "model": mesh.index("model"), "checkpoint": path,
+            "report": (probe.report(trainer)
+                       if hasattr(probe, "report") else None)}
+
+
+def main(argv=None, probe=None, timeout=None):
+    args = parse_args(argv)
+    n = _world_size(args)
+    if n > 1:
+        return world.launch(_rank_main, n, args.device, (args, n, probe),
+                            timeout=timeout)
+    trainer, _ = _train(args, resolve_device(args.device), probe=probe)
     return trainer
 
 

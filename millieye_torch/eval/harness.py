@@ -17,14 +17,22 @@ to the host once, unpads it there and feeds the numpy mAP engine
 (eval/metrics.py), with the targets from the batch's host copy. Returns
 (precision, recall, AP, f1, classes) per class plus the global PR curve:
 the ``ap_per_class`` contract.
+
+``evaluate_fusion(mesh=)`` runs in every rank of a world
+(``parallel/``): the parameters are replicated (sharded leaves
+gathered), each "data" rank evaluates its slice of every batch, and the
+per-image statistics are gathered in global batch order before
+``_finish``, so every rank returns the one-process result.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from millieye_torch.eval.metrics import ap_per_class, get_batch_statistics
 from millieye_torch.ops.nms import batched_nms
+from millieye_torch.parallel.mesh import gather_params, shard_batch
 
 
 def _unpad(boxes, valid, n=None):
@@ -79,20 +87,57 @@ def _finish(stats, all_target_cls):
     return ap_per_class(tp, conf, pred, all_target_cls)
 
 
-def _evaluate(batches, forward, iou_thresh):
+def _pad_batch(batch, rows):
+    """A tail batch with its last sample repeated ``rows`` more times
+    (the repeats are trimmed by ``_n``, which keeps the true size)."""
+    size = batch["images"].shape[0]
+
+    def pad(x):
+        if isinstance(x, dict):
+            return {k: pad(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == size:
+            return torch.cat([x, x[-1:].expand((rows,) + x.shape[1:])])
+        if isinstance(x, np.ndarray) and x.ndim and x.shape[0] == size:
+            return np.concatenate([x, np.repeat(x[-1:], rows, 0)])
+        return x
+
+    return dict(pad(batch), _n=_batch_n(batch))
+
+
+def _evaluate(batches, forward, iou_thresh, mesh=None):
     """The loop the three harnesses share: ``forward(batch)`` -> (rows
-    [B, K, 7], valid [B, K]) on the device, then the mAP statistics."""
+    [B, K, 7], valid [B, K]) on the device, then the mAP statistics.
+    ``mesh``: each "data" rank takes its slice of a batch, and the
+    slices' statistics are gathered over "data" in batch order (a tail
+    batch that does not divide is padded, and its pads trimmed)."""
     stats, target_cls = [], []
     for batch in batches:
         n = _batch_n(batch)
+        if mesh is not None:
+            short = -batch["images"].shape[0] % mesh.shape["data"]
+            if short:
+                batch = _pad_batch(batch, short)
+            b = batch["images"].shape[0] // mesh.shape["data"]
+            first = mesh.index("data") * b
+            batch = shard_batch(mesh, batch)
+            n = min(max(n - first, 0), b)
         with torch.inference_mode():
             boxes, valid = forward(batch)
         targets, tmask = _host_targets(batch)
         targets = _targets_to_eval(targets[:n], tmask[:n],
                                    batch["images"].shape[1])
-        target_cls.extend(targets[:, 1].tolist())
-        stats.extend(get_batch_statistics(_unpad(boxes, valid, n), targets,
-                                          iou_thresh))
+        cls = targets[:, 1].tolist()
+        st = get_batch_statistics(_unpad(boxes, valid, n), targets,
+                                  iou_thresh)
+        if mesh is not None and mesh.shape["data"] > 1:
+            parts = [None] * mesh.shape["data"]
+            dist.all_gather_object(parts, (cls, st),
+                                   group=mesh.group("data"))
+        else:
+            parts = [(cls, st)]
+        for cls, st in parts:
+            target_cls.extend(cls)
+            stats.extend(st)
     return _finish(stats, target_cls)
 
 
@@ -132,13 +177,15 @@ def auto_mode(images, brightness=None):
 def evaluate_fusion(model, params, state, batches, mode=0, iou_thresh=0.5,
                     mesh=None):
     """Stage-3 full fusion. ``mode``: 0 millieye / 1 yolo / 2 radar /
-    3 auto (per-batch selection). ``mesh`` must be None: sharding a batch
-    over devices (the JAX package's mesh) waits for ``parallel/``
-    (ROADMAP.md §1 item 9)."""
+    3 auto (per-batch selection).
+
+    ``mesh``: a ``parallel.make_mesh`` mesh, in every rank of its world:
+    batches are sharded over its "data" axis (the batch size must divide
+    by it), params replicated; every rank returns the one-process
+    result."""
     if mesh is not None:
-        raise NotImplementedError(
-            "evaluate_fusion: a device mesh needs the port of parallel/ "
-            "(ROADMAP.md §1 item 9); evaluate on one device")
+        with torch.no_grad(), mesh.active():
+            params = gather_params(mesh, params)
 
     def forward(batch):
         m = (auto_mode(batch["images"], batch.get("brightness"))
@@ -148,7 +195,7 @@ def evaluate_fusion(model, params, state, batches, mode=0, iou_thresh=0.5,
                           batch["rmask"], mode=m)
         return out["boxes"], out["valid"]
 
-    return _evaluate(batches, forward, iou_thresh)
+    return _evaluate(batches, forward, iou_thresh, mesh)
 
 
 def summarize(result, class_names=None):

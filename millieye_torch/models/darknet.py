@@ -56,6 +56,7 @@ from millieye_torch.ops.quantize import int8_conv2d
 from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_s2d,
                                      fused_stem_pair_select, fused_stem_stage)
+from millieye_torch.parallel import collectives as pc
 
 _BN_EPS = 1e-5
 # torch BatchNorm2d(momentum=0.9): running <- 0.1 running + 0.9 batch
@@ -177,10 +178,17 @@ def decode_yolo(raw, anchors, num_classes, img_dim, with_pred=False):
 def _train_bn(x, p, s):
     """Train-mode BN of an NCHW conv output: the batch statistics
     normalize (biased variance); returns (y, the running statistics
-    updated with the unbiased one, detached)."""
-    mean = x.mean((0, 2, 3))
-    var = x.var((0, 2, 3), unbiased=False)
+    updated with the unbiased one, detached). Under an active mesh the
+    statistics are the global batch's (sums over every "data" rank)."""
     cnt = x.shape[0] * x.shape[2] * x.shape[3]
+    if pc.data_size() == 1:
+        mean = x.mean((0, 2, 3))
+        var = x.var((0, 2, 3), unbiased=False)
+    else:
+        cnt *= pc.data_size()
+        mean = pc.data_sum(x.sum((0, 2, 3))) / cnt
+        var = pc.data_sum(((x - mean[:, None, None]) ** 2).sum((0, 2, 3))) \
+            / cnt
     var_u = var * (cnt / max(cnt - 1, 1))
     m = _BN_MOMENTUM
     new_s = {"mean": (1 - m) * s["mean"] + m * mean.detach(),

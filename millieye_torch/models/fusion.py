@@ -30,6 +30,15 @@ confidence BCE, and (module2) the smooth-L1 regression and category BCE.
 The random numbers come from ``draw(kind, shape)``: "negatives", uniform
 [0, 1) float32 keys, and "dropout", module2's bool keep mask at p 0.5
 (``train/steps.py:generator_draw`` draws them from a ``torch.Generator``).
+
+Under an active mesh (``parallel/``) a rank holds its slice of the
+batch: the negatives' budget and each key's rank are the global batch's
+(every rank draws the global keys and keeps its slice, as module2's
+dropout mask), the BN statistics are global, and the losses are the
+rank's partial sums. The layers listed in ``TP_LEAVES`` run
+tensor-parallel where the train step sharded their weights over "model":
+the score-map convolution column-parallel, the refinement head's
+``net0``-``net2`` row-parallel.
 """
 from __future__ import annotations
 
@@ -51,6 +60,7 @@ from millieye_torch.ops.roi_align import (ps_roi_align_batched,
 from millieye_torch.ops.roi_kernel import (PRECISIONS, REDUCES,
                                            ps_channel_perm_pad, ps_roi_align,
                                            ps_roi_align_padded, roi_align)
+from millieye_torch.parallel import collectives as pc
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -112,8 +122,17 @@ def _check_config(cfg):
         raise ValueError(f"unknown roi_reduce {cfg.roi_reduce!r}")
 
 
+def _row_parallel():
+    return tuple(n for n in ("net0", "net1", "net2")
+                 if pc.model_parallel(("refine", n, "w")))
+
+
 class FusionNetwork:
     """Radar+camera fusion detector over explicit parameters."""
+
+    # the leaves whose layers can run tensor-parallel over "model"
+    TP_LEAVES = frozenset({("img_cnn", "0", "w"), ("refine", "net0", "w"),
+                           ("refine", "net1", "w"), ("refine", "net2", "w")})
 
     def __init__(self, darknet: Darknet, config: FusionConfig = None):
         self.darknet = darknet
@@ -197,7 +216,9 @@ class FusionNetwork:
             s_img = s_img[:-1] + [{"mean": scat(s_img[-1]["mean"], 0.0),
                                    "var": scat(s_img[-1]["var"], 1.0)}]
         roi_score_map, img_cnn_s = heads.conv_bn_stack_apply(
-            p_img, s_img, feature_map.to(hd), train)
+            p_img, s_img, feature_map.to(hd), train,
+            col_parallel=(0,) if pc.model_parallel(("img_cnn", "0", "w"))
+            else ())
         radar_score_map, radar_enc_s = heads.radar_encoder_apply(
             p_rad, s_rad, radar_maps, train)
 
@@ -232,7 +253,7 @@ class FusionNetwork:
                 p_ref, s_ref, radar_crop, img_crop,
                 valid=all_valid.reshape(-1).to(hd) if train else None,
                 train=train,
-                class_num=cfg.class_num)
+                class_num=cfg.class_num, row_parallel=_row_parallel())
         regress_param = regress_param.float().reshape(b_sz, n_all, 4)
         refinement_vector = refinement_vector.float().reshape(
             b_sz, n_all, 1 + cfg.class_num)
@@ -334,14 +355,15 @@ def _losses(cfg, draw, targets, tmask, all_xyxy, all_valid, class_pred,
         pos = (iou_labels > cfg.iou_thresh[1]) & all_valid
         neg = (iou_labels < cfg.iou_thresh[0]) & all_valid
         # balanced sampling: k = min(balance_factor * pos, neg) negatives,
-        # the k of smallest random key
+        # the k of smallest random key, over the global batch
         flat_pos, flat_neg = pos.reshape(-1), neg.reshape(-1)
-        top_k = torch.minimum(flat_pos.sum() * cfg.balance_factor,
-                              flat_neg.sum())
-        keys = draw("negatives", flat_neg.shape).to(dev)
-        keys = torch.where(flat_neg, keys, torch.full_like(keys, float("inf")))
+        all_pos, all_neg = pc.data_gather(flat_pos), pc.data_gather(flat_neg)
+        top_k = torch.minimum(all_pos.sum() * cfg.balance_factor,
+                              all_neg.sum())
+        keys = draw("negatives", all_neg.shape).to(dev)
+        keys = torch.where(all_neg, keys, torch.full_like(keys, float("inf")))
         rank = torch.argsort(torch.argsort(keys, stable=True), stable=True)
-        sample = flat_pos | (flat_neg & (rank < top_k))
+        sample = flat_pos | (flat_neg & pc.data_slice(rank < top_k))
         is_img = (torch.arange(n_all, device=dev) < k_img).repeat(b_sz)
         w_img = (sample & is_img).float()
         w_pos = flat_pos.float()
@@ -396,6 +418,9 @@ class RefineNetwork:
     ensemble's second layer has a LeakyReLU, and channel 1 of its output
     is p(foreground)."""
 
+    TP_LEAVES = frozenset({("fcn", "0", "w"), ("refine", "net0", "w"),
+                           ("refine", "net1", "w"), ("refine", "net2", "w")})
+
     def __init__(self, darknet: Darknet, config: FusionConfig = None):
         self.darknet = darknet
         cfg = config or FusionConfig(class_num=12, loss_variant="module2",
@@ -445,7 +470,9 @@ class RefineNetwork:
         p_ref, s_ref = _cast_floats((params["refine"], state["refine"]), hd)
         p_ens = _cast_floats(params["ensemble"], hd)
         roi_score_map, fcn_s = heads.conv_bn_stack_apply(
-            p_fcn, s_fcn, feature_map.to(hd), train)
+            p_fcn, s_fcn, feature_map.to(hd), train,
+            col_parallel=(0,) if pc.model_parallel(("fcn", "0", "w"))
+            else ())
 
         smax = _eff_sampling_max(cfg, img_size)
         if cfg.roi_impl == "kernel" and not train:
@@ -460,13 +487,15 @@ class RefineNetwork:
 
         keep = None
         if train and draw is not None:
-            keep = draw("dropout", (b_sz * k_img,
-                                    p_ref["net0"]["w"].shape[1])).to(
-                img_crop.device)
+            # the global batch's mask; a rank keeps its rows
+            keep = pc.data_slice(draw("dropout", (
+                b_sz * pc.data_size() * k_img,
+                p_ref["net0"]["w"].shape[1])).to(img_crop.device))
         regress_param, refinement_vector, refine_s = \
             heads.refinement_head_apply(p_ref, s_ref, None, img_crop,
                                         train=train, dropout_keep=keep,
-                                        class_num=cfg.class_num)
+                                        class_num=cfg.class_num,
+                                        row_parallel=_row_parallel())
         regress_param = regress_param.float().reshape(b_sz, k_img, 4)
         refinement_vector = refinement_vector.float().reshape(b_sz, k_img, -1)
 

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from millieye_torch.models.darknet import leaky
+from millieye_torch.parallel import collectives as pc
 
 _BN_EPS = 1e-5
 _HEAD_BN_MOMENTUM = 0.1  # torch's default, every head BN
@@ -32,26 +33,35 @@ def batch_norm(x, p, s, train=False, weight=None,
     (torch's semantics); ``weight`` (broadcastable to x[..., 0]) masks
     padded rows out of the statistics, which are then weighted means over
     ``max(sum(weight), 1)`` rows. The new state carries no gradient.
-    Hand-written, not ``nn.BatchNorm``: that update is unweighted."""
+    Hand-written, not ``nn.BatchNorm``: that update is unweighted.
+
+    Under an active mesh the sums and counts of the statistics run over
+    every "data" rank's rows (``parallel/collectives.py``): the batch
+    statistics are the global batch's."""
     if not train:
         eps = torch.full((), _BN_EPS, dtype=s["var"].dtype, device=x.device)
         return ((x - s["mean"]) * torch.rsqrt(s["var"] + eps) * p["gamma"]
                 + p["beta"]), s
     axes = tuple(range(x.dim() - 1))
     if weight is None:
-        mean = x.mean(axes)
-        var = x.var(axes, unbiased=False)
         cnt = 1
         for d in x.shape[:-1]:
             cnt *= d
+        if pc.data_size() == 1:
+            mean = x.mean(axes)
+            var = x.var(axes, unbiased=False)
+        else:
+            cnt *= pc.data_size()
+            mean = pc.data_sum(x.sum(axes)) / cnt
+            var = pc.data_sum(((x - mean) ** 2).sum(axes)) / cnt
         var_u = var * (cnt / max(cnt - 1, 1))
     else:
-        wsum = torch.clamp(weight.sum(), min=1.0)
+        wsum = torch.clamp(pc.data_count(weight.sum()), min=1.0)
         # trailing singletons up to x.dim(): a bare [..., None] would
         # right-align [N] against [N, 1, 1, C]
         wx = weight.reshape(weight.shape + (1,) * (x.dim() - weight.dim()))
-        mean = (x * wx).sum(axes) / wsum
-        var = (((x - mean) ** 2) * wx).sum(axes) / wsum
+        mean = pc.data_sum((x * wx).sum(axes)) / wsum
+        var = pc.data_sum((((x - mean) ** 2) * wx).sum(axes)) / wsum
         var_u = var * (wsum / torch.clamp(wsum - 1.0, min=1.0))
     new_s = {"mean": (1 - momentum) * s["mean"] + momentum * mean.detach(),
              "var": (1 - momentum) * s["var"] + momentum * var_u.detach()}
@@ -65,13 +75,17 @@ def _conv2d(x, w, padding):
     return y.permute(0, 2, 3, 1)
 
 
-def conv_bn_stack_apply(params, state, x, train=False):
+def conv_bn_stack_apply(params, state, x, train=False, col_parallel=()):
     """1x1 conv + BN + leaky per stage (the 490-channel score map).
-    Returns (x, new state)."""
+    Returns (x, new state). ``col_parallel``: the stages whose weights
+    are this rank's "model" shard of the output channels; their outputs
+    are all-gathered before the bias and BN (column parallelism)."""
     new_state = []
-    for p, s in zip(params, state):
-        x, ns = batch_norm(_conv2d(x, p["w"], "same") + p["b"], p["bn"], s,
-                           train)
+    for i, (p, s) in enumerate(zip(params, state)):
+        y = _conv2d(x, p["w"], "same")
+        if i in col_parallel:
+            y = pc.model_gather(y, -1)
+        x, ns = batch_norm(y + p["b"], p["bn"], s, train)
         x = leaky(x)
         new_state.append(ns)
     return x, new_state
@@ -176,22 +190,34 @@ def ensemble_head_init(gen, class_num, hidden=32):
     }
 
 
+def _linear(x, p, row_parallel):
+    """x @ w + b; ``row_parallel``: ``w`` is this rank's "model" shard of
+    the input rows, so the product runs on this rank's slice of ``x`` and
+    the partial products are summed over "model"."""
+    if row_parallel:
+        return pc.model_sum(pc.model_split(x, -1) @ p["w"]) + p["b"]
+    return x @ p["w"] + p["b"]
+
+
 def refinement_head_apply(params, state, radar_crop, img_crop, valid=None,
-                          train=False, dropout_keep=None, class_num=1):
+                          train=False, dropout_keep=None, class_num=1,
+                          row_parallel=()):
     """radar_crop, img_crop [N, 7, 7, 10] -> (regress [N, 4], refinement
     vector, new state). module3 (``radar_net`` in params): the vector is
     [N, 1+class_num], its confidence fused with the radar crop's, whose BN
     takes ``valid`` [N] as its rows' weights in train mode. module2 (no
     ``radar_net``; ``radar_crop`` is ignored): the whole sigmoid class
     vector [N, net2_out]; ``dropout_keep`` (a bool mask of the hidden
-    layer's shape) applies its Dropout(0.5)."""
+    layer's shape) applies its Dropout(0.5). ``row_parallel``: the names
+    of ``net0``-``net2`` that run row-parallel (``_linear``)."""
     new_state = dict(state)
-    t = leaky(_flatten_chw(img_crop) @ params["net0"]["w"]
-              + params["net0"]["b"])
+    rows = set(row_parallel)
+    t = leaky(_linear(_flatten_chw(img_crop), params["net0"],
+                      "net0" in rows))
     if dropout_keep is not None:
         t = torch.where(dropout_keep, t / 0.5, torch.zeros_like(t))
-    box_regression = t @ params["net1"]["w"] + params["net1"]["b"]
-    class_vector = torch.sigmoid(t @ params["net2"]["w"] + params["net2"]["b"])
+    box_regression = _linear(t, params["net1"], "net1" in rows)
+    class_vector = torch.sigmoid(_linear(t, params["net2"], "net2" in rows))
     if "radar_net" not in params:
         return box_regression, class_vector, new_state
     rn = params["radar_net"]

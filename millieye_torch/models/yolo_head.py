@@ -6,7 +6,9 @@ the assigned cells, BCE objectness with obj_scale 1 and noobj_scale 100,
 BCE classification at the assigned cells. A mean over a boolean
 selection becomes sum(selected) / count, an empty selection dividing by
 a count clamped to 1 (the loss is 0 there, where the reference gives
-NaN). The targets and the metrics carry no gradient.
+NaN). The targets and the metrics carry no gradient. Under an active
+mesh (``parallel/``) every count is the global batch's, so a rank's loss
+and metrics are its partial sums of the global ones.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from millieye_torch.device import constant
 from millieye_torch.ops.targets import build_targets
+from millieye_torch.parallel import collectives as pc
 
 OBJ_SCALE = 1.0
 NOOBJ_SCALE = 100.0
@@ -21,7 +24,9 @@ _EPS = 1e-12
 
 
 def _masked_mean(values, mask):
-    count = torch.clamp(mask.sum(), min=1.0)
+    """sum(selected) / count, the count over the global batch: under an
+    active mesh a rank's value is its partial sum of the global mean."""
+    count = torch.clamp(pc.data_count(mask.sum()), min=1.0)
     # select, don't multiply: a NaN in a masked-out cell times 0 is NaN
     return torch.where(mask > 0, values, torch.zeros_like(values)).sum() \
         / count
@@ -86,7 +91,7 @@ def yolo_scale_loss(pred, anchors_px, stride, targets, tmask,
 
     with torch.no_grad():
         conf = conf.detach()
-        n_obj = torch.clamp(obj.sum(), min=1e-16)
+        n_obj = torch.clamp(pc.data_count(obj.sum()), min=1e-16)
         conf50 = (conf > 0.5).float()
         iou50 = (t["iou_scores"] > 0.5).float()
         iou75 = (t["iou_scores"] > 0.75).float()
@@ -100,7 +105,7 @@ def yolo_scale_loss(pred, anchors_px, stride, targets, tmask,
             "recall50": (iou50 * detected).sum() / n_obj,
             "recall75": (iou75 * detected).sum() / n_obj,
             "precision": (iou50 * detected).sum()
-            / torch.clamp(conf50.sum(), min=1e-16),
+            / torch.clamp(pc.data_count(conf50.sum()), min=1e-16),
             "conf_obj": _masked_mean(conf, obj),
             "conf_noobj": _masked_mean(conf, noobj),
         }

@@ -40,6 +40,7 @@ from typing import Any, NamedTuple
 import torch
 
 from millieye_torch.io.checkpoint import leaf_items
+from millieye_torch.parallel import collectives as pc
 
 # stage-3 freeze set: the base detector and the module2-pretrained image
 # branch; radar_net (new in module3) and the ensemble head train
@@ -200,8 +201,16 @@ def _zero_nans(tree):
 
 
 def _clip_by_global_norm(tree, max_norm):
-    leaves = tree_leaves(tree)
-    g_norm = torch.sqrt(sum((x * x).sum() for x in leaves))
+    """Under a mesh the squared norm of the leaves sharded over "model"
+    is summed over its ranks; the replicated leaves count once."""
+    m = pc.mesh()
+    sharded = m.sharded if m is not None else frozenset()
+    sq = [(tuple(k.split("/")) in sharded, (x * x).sum())
+          for k, x in leaf_items(tree)]
+    total = sum(v for s, v in sq if not s)
+    if any(s for s, _ in sq):
+        total = total + pc.model_count(sum(v for s, v in sq if s))
+    g_norm = torch.sqrt(total)
     trigger = g_norm < max_norm
     return tree_map(lambda x: torch.where(trigger, x,
                                           (x / g_norm) * max_norm), tree)

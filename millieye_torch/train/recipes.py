@@ -13,6 +13,15 @@ package's format (``io/checkpoint.py``) and resumes from such a file,
 the JAX package's too. Radar heatmaps are rasterized on the device from
 the padded point clouds, image by image (``fusion_device_batch``; the
 JAX package ``vmap``s one image's function).
+
+``Trainer(mesh=)`` (and ``mesh=`` of the three recipes) trains over a
+mesh of ranks (``parallel/``): each rank of the world builds the same
+trainer, which shards its train state (``parallel.shard_train_state``),
+runs the step under ``parallel.sharded_step`` and gives it the rank's
+slice of every batch (``parallel.shard_batch``). Rank 0 alone logs,
+writes images and saves; ``save`` gathers the sharded leaves first (a
+collective: every rank calls it), so the ``.npz`` has the one-process
+file's keys and shapes; ``resume`` loads the whole file, then shards.
 """
 from __future__ import annotations
 
@@ -22,11 +31,13 @@ import sys
 import numpy as np
 import torch
 
+from millieye_torch import parallel
 from millieye_torch.device import resolve_device
 from millieye_torch.io.checkpoint import (load_checkpoint, save_checkpoint,
                                           to_device)
 from millieye_torch.ops import letterbox as lb
 from millieye_torch.ops.rasterize import radar_heatmap
+from millieye_torch.parallel.mesh import gather_params, shard_params
 from millieye_torch.train.logging import MetricsLogger
 from millieye_torch.train.optim import (STAGE2_FROZEN, STAGE3_FROZEN,
                                         frozen_adam, tree_leaves, tree_map)
@@ -88,29 +99,54 @@ class Trainer:
     from the state ``fit`` returns."""
 
     def __init__(self, step_fn, train_state, ckpt_dir, logdir=None,
-                 log_every=10, name="stage", viz_fn=None, viz_every=50):
+                 log_every=10, name="stage", viz_fn=None, viz_every=50,
+                 mesh=None):
+        self.mesh = mesh
         self.step = step_fn
+        if mesh is not None:
+            train_state = parallel.shard_train_state(mesh, train_state)
+            self.step = parallel.sharded_step(step_fn, mesh)
+        self.lead = mesh is None or mesh.rank == 0
         self.ts = train_state
         self.ckpt_dir = ckpt_dir
-        self.logger = MetricsLogger(logdir or os.path.join(ckpt_dir, "logs"))
+        self.logger = (MetricsLogger(logdir or os.path.join(ckpt_dir, "logs"))
+                       if self.lead else None)
         self.log_every = log_every
         self.name = name
         # image summaries: viz_fn(train_state, device_batch) -> {tag:
         # [N, H, W, C] float}
         self.viz_fn = viz_fn
         self.viz_every = viz_every
-        os.makedirs(ckpt_dir, exist_ok=True)
+        if self.lead:
+            os.makedirs(ckpt_dir, exist_ok=True)
 
-    def fit(self, loader, epochs, draw, batch_fn, on_epoch_end=None):
+    def full_params(self):
+        """The parameters with every sharded leaf gathered (a collective
+        under a mesh: every rank calls it)."""
+        if self.mesh is None:
+            return self.ts.params
+        with torch.no_grad(), self.mesh.active():
+            return gather_params(self.mesh, self.ts.params)
+
+    def fit(self, loader, epochs, draw, batch_fn, on_epoch_end=None,
+            on_step=None):
         """``draw(kind, shape)``: the steps' random numbers
-        (``steps.generator_draw``)."""
+        (``steps.generator_draw``; under a mesh every rank's draws the
+        global batch's numbers, the same on every rank).
+        ``on_step(step_no, train_state, metrics)`` runs after each
+        step."""
         step_no = int(self.ts.step)
         for epoch in range(epochs):
             for batch in loader:
                 device_batch = batch_fn(batch)
+                if self.mesh is not None:
+                    device_batch = parallel.shard_batch(self.mesh,
+                                                        device_batch)
                 self.ts, metrics = self.step(self.ts, device_batch, draw)
                 step_no += 1
-                if step_no % self.log_every == 0:
+                if on_step:
+                    on_step(step_no, self.ts, metrics)
+                if self.lead and step_no % self.log_every == 0:
                     self.logger.scalars(
                         step_no, {k: v for k, v in metrics.items()
                                   if getattr(v, "dim", lambda: 0)() == 0})
@@ -123,46 +159,55 @@ class Trainer:
                               "poisoned; consider grad_clip",
                               file=sys.stderr, flush=True)
                 if self.viz_fn and step_no % self.viz_every == 0:
-                    for tag, imgs in self.viz_fn(self.ts,
-                                                 device_batch).items():
-                        self.logger.image_grid(step_no, tag, imgs)
+                    ts = self.ts._replace(params=self.full_params())
+                    if self.lead:   # rank 0's slice of the batch
+                        for tag, imgs in self.viz_fn(ts,
+                                                     device_batch).items():
+                            self.logger.image_grid(step_no, tag, imgs)
             self.save(epoch)
             if on_epoch_end:
                 on_epoch_end(epoch, self.ts)
         return self.ts
 
     def save(self, epoch):
+        """Write ``{name}_ckpt_{epoch}.npz`` (rank 0, the sharded leaves
+        gathered); returns its path."""
         path = os.path.join(self.ckpt_dir, f"{self.name}_ckpt_{epoch}.npz")
-        save_checkpoint(path, {"params": self.ts.params,
-                               "state": self.ts.state})
+        params = self.full_params()
+        if self.lead:
+            save_checkpoint(path, {"params": params, "state": self.ts.state})
         return path
 
     def resume(self, path):
         """Params and BN state from a ``.npz`` of this tree (the JAX
-        package's or the port's); the optimizer state stays."""
+        package's or the port's), sharded under a mesh; the optimizer
+        state stays."""
         restored = load_checkpoint(path, {"params": self.ts.params,
                                           "state": self.ts.state})
         dev = tree_leaves(self.ts.params)[0].device
-        self.ts = self.ts._replace(params=to_device(restored["params"], dev),
+        params = to_device(restored["params"], dev)
+        if self.mesh is not None:
+            params = shard_params(self.mesh, params)
+        self.ts = self.ts._replace(params=params,
                                    state=to_device(restored["state"], dev))
 
 
 def yolo_trainer(model, params, state, ckpt_dir, lr=1e-3, every_k=2,
-                 log_every=10, grad_clip=None):
+                 log_every=10, grad_clip=None, mesh=None):
     tx = frozen_adam(params, lr=lr, every_k=every_k, grad_clip=grad_clip)
     return Trainer(make_yolo_train_step(model, tx),
                    init_train_state(params, state, tx), ckpt_dir,
-                   name="yolo", log_every=log_every)
+                   name="yolo", log_every=log_every, mesh=mesh)
 
 
 def refine_trainer(model, params, state, ckpt_dir, lr=5e-4, every_k=2,
-                   log_every=10, grad_clip=None):
+                   log_every=10, grad_clip=None, mesh=None):
     tx = frozen_adam(params, lr=lr, frozen_prefixes=STAGE2_FROZEN,
                      every_k=every_k, grad_clip=grad_clip)
     return Trainer(make_refine_train_step(model, tx,
                                           frozen_prefixes=STAGE2_FROZEN),
                    init_train_state(params, state, tx), ckpt_dir,
-                   name="module2", log_every=log_every)
+                   name="module2", log_every=log_every, mesh=mesh)
 
 
 def fusion_viz(model, mode=0):
@@ -182,7 +227,7 @@ def fusion_viz(model, mode=0):
 
 def fusion_trainer(model, params, state, ckpt_dir, lr=5e-4, every_k=2,
                    mode=0, freeze_module2=True, viz=False, log_every=10,
-                   grad_clip=None, fold_frozen=False):
+                   grad_clip=None, fold_frozen=False, mesh=None):
     """``fold_frozen``: fold the frozen Darknet's BN inside the step, so
     the model's stem kernels (``Darknet(stem_stages=...)``) run in the
     training forward; exact for the eval-mode frozen base detector."""
@@ -194,7 +239,8 @@ def fusion_trainer(model, params, state, ckpt_dir, lr=5e-4, every_k=2,
                                           fold_frozen=fold_frozen),
                    init_train_state(params, state, tx), ckpt_dir,
                    name="module3", log_every=log_every,
-                   viz_fn=fusion_viz(model, mode) if viz else None)
+                   viz_fn=fusion_viz(model, mode) if viz else None,
+                   mesh=mesh)
 
 
 def transfer_module2_to_fusion(refine_params, refine_state, fusion_params,

@@ -18,14 +18,27 @@ NMS under ``torch.no_grad()``, so their kernels (the custom ops, which
 register no autograd) never see a tensor that requires grad. BN: the base
 detector keeps its running statistics in stages 2 and 3
 (``state["darknet"]`` is carried over); stage 1 updates them.
+
+Under an active mesh (``parallel.sharded_step``) a step is the global
+step over the ranks' batch slices: the sharded leaves the model does not
+run tensor-parallel (its ``TP_LEAVES``) are all-gathered where the step
+starts (differentiably: each rank keeps its slice of the gradient), the
+model reduces its batch statistics over "data", each rank's loss is its
+partial sum, the trainable gradients are summed over "data" in one flat
+buffer per dtype, the metrics are summed over "data", and the optimizer
+steps each rank's shards.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, NamedTuple
 
 import torch
 
+from millieye_torch.io.checkpoint import leaf_items
 from millieye_torch.models.yolo_head import yolo_loss
+from millieye_torch.parallel import collectives as pc
+from millieye_torch.parallel.mesh import gather_params, map_path
 from millieye_torch.train.optim import label_tree, tree_leaves, tree_map
 
 
@@ -67,11 +80,29 @@ def _apply(tx, ts, grads, new_bn_state):
     parameters, the BN statistics (EMAs updated outside the optimizer) or
     the optimizer state reverts to its previous value, so one poisoned
     batch cannot corrupt the run. Returns (train state, the number of
-    parameter and BN elements reverted, an int64 tensor)."""
+    parameter and BN elements reverted, an int64 tensor; under a mesh
+    the sharded leaves' counts summed over "model", the replicated ones
+    counted once)."""
     updates, opt_state = tx.update(grads, ts.opt_state, ts.params)
     params = tree_map(lambda p, u: (p + u).to(p.dtype), ts.params, updates)
-    reverted = sum((x.numel() - torch.isfinite(x).sum())
-                   for x in tree_leaves(params) + tree_leaves(new_bn_state))
+    m = pc.mesh()
+    if m is not None:   # replicated: "model" index 0's, as the gradients
+        bn = []
+        map_path(lambda _, x: bn.append(x), new_bn_state)
+        bn = iter(pc.model_broadcast(bn))
+        new_bn_state = tree_map(lambda _: next(bn), new_bn_state)
+    sharded = m.sharded if m is not None else frozenset()
+
+    def bad(x):
+        return x.numel() - torch.isfinite(x).sum()
+
+    items = leaf_items(params)
+    reverted = sum(bad(x) for k, x in items if tuple(k.split("/"))
+                   not in sharded) + sum(bad(x) for x in
+                                         tree_leaves(new_bn_state))
+    if sharded:
+        reverted = reverted + pc.model_count(sum(
+            bad(x) for k, x in items if tuple(k.split("/")) in sharded))
     params = tree_map(_keep_finite, params, ts.params)
     new_bn_state = tree_map(_keep_finite, new_bn_state, ts.state)
     opt_state = tree_map(_keep_finite, opt_state, ts.opt_state)
@@ -101,15 +132,65 @@ def _leaves_for_grad(params, frozen):
     return tree_map(prep, params, frozen), live
 
 
+def _sum_over_data(tensors):
+    """The tensors summed over the "data" ranks: one all-reduce of a flat
+    buffer per dtype."""
+    if pc.data_size() == 1:
+        return tensors
+    return pc.flat_apply(tensors, pc.data_count)
+
+
+def _replicated(tensors, paths):
+    """Under a mesh, the leaves outside ``mesh.sharded`` (``paths`` their
+    key paths) taken from "model" index 0, so that what the "model"
+    ranks compute redundantly stays bit-identical across them."""
+    m = pc.mesh()
+    if m is None or m.shape["model"] == 1:
+        return tensors
+    idx = [i for i, p in enumerate(paths) if p not in m.sharded]
+    out = list(tensors)
+    for i, t in zip(idx, pc.model_broadcast([tensors[i] for i in idx])):
+        out[i] = t
+    return out
+
+
 def _grads(loss, live_params, live, frozen):
     """The gradient tree: d loss / d leaf at the trainable leaves (zero
-    where the loss does not reach a leaf), zeros at the frozen ones."""
+    where the loss does not reach a leaf; under a mesh summed over
+    "data", the replicated leaves' taken from "model" index 0), zeros at
+    the frozen ones."""
     got = torch.autograd.grad(loss, live, allow_unused=True) if live else []
-    got = iter([torch.zeros_like(p) if g is None else g
-                for p, g in zip(live, got)])
+    got = _sum_over_data([torch.zeros_like(p) if g is None else g
+                          for p, g in zip(live, got)])
+    paths = []
+    map_path(lambda path, x: paths.append(path) if x.requires_grad
+             else None, live_params)
+    got = iter(_replicated(got, paths))
     return tree_map(lambda p, f: torch.zeros_like(p)
                     if f or not p.requires_grad else next(got),
                     live_params, frozen)
+
+
+def _mesh_params(model, params):
+    """(the parameters the model runs on, the paths it runs
+    tensor-parallel): outside a mesh ``params`` and none; under one, the
+    sharded leaves outside the model's ``TP_LEAVES`` gathered."""
+    m = pc.mesh()
+    if m is None or not m.sharded:
+        return params, frozenset()
+    tp = m.sharded & getattr(model, "TP_LEAVES", frozenset())
+    return gather_params(m, params, keep=tp), tp
+
+
+def _tensor_parallel(tp):
+    m = pc.mesh()
+    return m.active(tp=tp) if m is not None else contextlib.nullcontext()
+
+
+def _sum_metrics(metrics):
+    """Each rank's partial metrics summed over "data" (the global
+    ones)."""
+    return {k: pc.data_count(v) for k, v in metrics.items()}
 
 
 def make_yolo_train_step(model, tx):
@@ -120,13 +201,15 @@ def make_yolo_train_step(model, tx):
                                   batch["tmask"])
         frozen = tree_map(lambda _: False, ts.params)
         live_params, live = _leaves_for_grad(ts.params, frozen)
-        out = model.apply(live_params, ts.state, images, train=True)
+        params, _ = _mesh_params(model, live_params)
+        out = model.apply(params, ts.state, images, train=True)
         loss, per_scale = yolo_loss(out["preds"], model.anchors_per_scale,
                                     images.shape[1], targets, tmask)
         grads = _grads(loss, live_params, live, frozen)
         metrics = {"loss": loss.detach()}
         for i, m in enumerate(per_scale):
             metrics.update({f"scale{i}/{k}": v for k, v in m.items()})
+        metrics = _sum_metrics(metrics)
         ts, reverted = _apply(tx, ts, grads, out["state"])
         metrics["nonfinite_reverted"] = reverted
         return ts, metrics
@@ -141,13 +224,16 @@ def make_refine_train_step(model, tx, frozen_prefixes=()):
     def step(ts, batch, draw):
         frozen = _frozen_mask(ts.params, frozen_prefixes)
         live_params, live = _leaves_for_grad(ts.params, frozen)
-        out = model.apply(live_params, ts.state, batch["images"], train=True,
-                          targets=batch["targets"], tmask=batch["tmask"],
-                          draw=draw)
-        grads = _grads(out["loss"], live_params, live, frozen)
+        params, tp = _mesh_params(model, live_params)
+        with _tensor_parallel(tp):
+            out = model.apply(params, ts.state, batch["images"], train=True,
+                              targets=batch["targets"], tmask=batch["tmask"],
+                              draw=draw)
+            grads = _grads(out["loss"], live_params, live, frozen)
         # the base detector's BN statistics stay frozen
         bn_state = dict(out["state"], darknet=ts.state["darknet"])
-        metrics = dict(out["metrics"], loss=out["loss"].detach())
+        metrics = _sum_metrics(dict(out["metrics"],
+                                    loss=out["loss"].detach()))
         ts, reverted = _apply(tx, ts, grads, bn_state)
         metrics["nonfinite_reverted"] = reverted
         return ts, metrics
@@ -169,20 +255,24 @@ def make_fusion_train_step(model, tx, mode=0, frozen_prefixes=(),
     def step(ts, batch, draw):
         frozen = _frozen_mask(ts.params, frozen_prefixes)
         live_params, live = _leaves_for_grad(ts.params, frozen)
-        params, state = live_params, ts.state
+        params, tp = _mesh_params(model, live_params)
+        state = ts.state
         if fold:
             with torch.no_grad():
                 fp, fs = model.darknet.fold_batchnorm(params["darknet"],
                                                       state["darknet"])
             params = dict(params, darknet=fp)
             state = dict(state, darknet=fs)
-        out = model.apply(params, state, batch["images"], batch["radar_maps"],
-                          batch["radar_boxes"], batch["rmask"], mode=mode,
-                          train=True, targets=batch["targets"],
-                          tmask=batch["tmask"], draw=draw)
-        grads = _grads(out["loss"], live_params, live, frozen)
+        with _tensor_parallel(tp):
+            out = model.apply(params, state, batch["images"],
+                              batch["radar_maps"], batch["radar_boxes"],
+                              batch["rmask"], mode=mode, train=True,
+                              targets=batch["targets"], tmask=batch["tmask"],
+                              draw=draw)
+            grads = _grads(out["loss"], live_params, live, frozen)
         bn_state = dict(out["state"], darknet=ts.state["darknet"])
-        metrics = dict(out["metrics"], loss=out["loss"].detach())
+        metrics = _sum_metrics(dict(out["metrics"],
+                                    loss=out["loss"].detach()))
         ts, reverted = _apply(tx, ts, grads, bn_state)
         metrics["nonfinite_reverted"] = reverted
         return ts, metrics

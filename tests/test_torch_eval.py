@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_parallel_ranks as ranks
 from millieye_torch.cli import evaluate as tcli
 from millieye_torch.cli._common import build_fusion, build_refine
 from millieye_torch.data.loader import DataLoader, PaddedCollate
@@ -41,6 +42,7 @@ from millieye_torch.eval import metrics as tm
 from millieye_torch.io.checkpoint import convert
 from millieye_torch.models.darknet import Darknet as TorchDarknet
 from millieye_torch.models.zoo import tiny_yolov3_defs as torch_defs
+from millieye_torch.parallel import world
 from millieye_torch.train.recipes import fusion_device_batch
 from millieye_tpu.cli import evaluate as jcli
 from millieye_tpu.eval import harness as jh
@@ -170,7 +172,7 @@ def test_evaluate_fusion_matches_jax(mode):
     _same_result(got, want, F32_TOL)
 
 
-def test_evaluate_fusion_bf16_and_mesh():
+def test_evaluate_fusion_bf16_and_mesh(tmp_path):
     jmodel, jp, js = _jax_fusion(S, compute_dtype="bfloat16")
     model, params, state = build_fusion((jp, js), "bf16", img_size=S,
                                         device="cpu")
@@ -178,8 +180,12 @@ def test_evaluate_fusion_bf16_and_mesh():
     got = th.evaluate_fusion(model, params, state, tb)
     want = jh.evaluate_fusion(jmodel, _jnp(jp), _jnp(js), jb)
     _same_result(got, want, BF16_TOL["ap"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        th.evaluate_fusion(model, params, state, tb, mesh=object())
+    # the mesh runs: 2 gloo ranks, each evaluating its half of every batch
+    payload = str(tmp_path / "payload.pt")
+    torch.save((model, params, state, tb, 0), payload)
+    for o in world.launch(ranks.eval_rank, 2, "cpu", (2, payload),
+                          timeout=300):
+        _same_result(o["result"], got, F32_TOL)
 
 
 def test_evaluate_yolo_and_refine_match_jax():
@@ -226,8 +232,8 @@ def test_evaluate_cli_matches_jax(serving, tol, tmp_path):
 
 def test_evaluate_cli_options(tmp_path, capsys):
     """--device_cache, --model_mode 3, --plot, --class_names, --what yolo
-    on a darknet file and refine on the fusion checkpoint, and the
-    --data_parallel refusals."""
+    on a darknet file and refine on the fusion checkpoint, and
+    --data_parallel (its refusal and a mesh of ranks)."""
     from millieye_torch.io.checkpoint import save_checkpoint
     from millieye_torch.io.darknet_weights import save_darknet_weights
     names = tmp_path / "names.txt"
@@ -255,8 +261,14 @@ def test_evaluate_cli_options(tmp_path, capsys):
     assert tcli.main(yolo + ["--weights", wfile]) == tcli.main(
         yolo + ["--weights", nfile])
     assert isinstance(tcli.main(["--what", "refine"] + base), float)
-    with pytest.raises(SystemExit, match="needs that many devices"):
+    # --data_parallel: a batch it does not divide is refused; a mesh of
+    # 3 ranks (batches of 3, the tail of 2 padded) gives the mAP of one
+    # process
+    with pytest.raises(SystemExit, match="divisible"):
         tcli.main(["--what", "fusion", "--data_parallel", "2"] + base)
+    mesh = tcli.main(["--what", "fusion", "--model_mode", "3",
+                      "--data_parallel", "3"] + base, timeout=300)
+    assert abs(mesh - host) <= F32_TOL
     assert tcli.parse_args(["--what", "fusion", "--weights", "w"]).device \
         == "cuda"
 

@@ -209,7 +209,19 @@ def test_train_cli_refine_from_fusion_npz(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--data_parallel", "--model_parallel"])
-def test_train_cli_refuses_several_devices(flag):
-    with pytest.raises(SystemExit, match="ROADMAP.md §1 item 9"):
-        tcli.main(["--stage", "yolo", "--synthetic", "2", flag, "2",
-                   "--device", "cpu"])
+def test_train_cli_refuses_several_devices(flag, tmp_path):
+    """A mesh of 2 ranks trains (the ranks share the device; the JAX
+    package refuses a mesh larger than its devices); the refusals that
+    still hold raise: --device_cache with a mesh, and a batch that
+    --data_parallel does not divide."""
+    base = ["--stage", "yolo", "--synthetic", "2", "--img_size", "64",
+            "--batch_size", "2", "--epochs", "1", "--device", "cpu",
+            "--checkpoint_dir", str(tmp_path), flag, "2"]
+    with pytest.raises(SystemExit, match="device_cache"):
+        tcli.main(base + ["--device_cache"])
+    if flag == "--data_parallel":
+        with pytest.raises(SystemExit, match="divisible"):
+            tcli.main(base + ["--batch_size", "3"])
+    out = tcli.main(base, timeout=300)
+    assert [o["rank"] for o in out] == [0, 1]
+    assert os.path.exists(out[0]["checkpoint"])
