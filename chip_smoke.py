@@ -103,12 +103,15 @@ printed only when every phase passed:
      the port's writers into a temporary directory as the JAX package's
      ``.npz`` (its arrays byte-equal to the tracked file's), a darknet
      ``.weights`` of the backbone, a reference module3 ``.pth``, an
-     ultralytics-style ``.pt`` (``{"model": nn.Module}``) of the backbone
-     and a ``yolov3-tiny.conv.15`` file; each read on the host
+     ultralytics-style ``.pt`` (``{"model": nn.Module}``) of the backbone,
+     a ``yolov3-tiny.conv.15`` file and a ``save_sharded`` directory (the
+     JAX package's ``save_orbax``) written from the tree's CUDA tensors,
+     its host ms and MB reported; each read on the host
      (``load_weights_any``, ``load_fusion`` for the ``.weights`` files,
-     ``load_ultralytics_pt`` for the ``.pt`` by position too) to the tree
-     written, the backbone-only files over the checkpoint's heads, the
-     conv.15 file over ``FusionNetwork.init``'s (blocks 15-23 and heads
+     ``load_ultralytics_pt`` for the ``.pt`` by position too,
+     ``load_sharded`` for the directory) to the tree written, the
+     backbone-only files over the checkpoint's heads, the conv.15 file
+     over ``FusionNetwork.init``'s (blocks 15-23 and heads
      kept), its host ms reported; each served at ``pallas_max_s01`` on
      P1's 8 requests with K4, K1, K2, K3 and K5 on every request, held to
      the plain versions as P1 and bit-identical to P1's answers (the
@@ -202,7 +205,14 @@ printed only when every phase passed:
      same run in one process: K4 and K1 once a step on every rank, the
      frozen leaves unchanged on every rank, the replicated leaves
      bit-identical across ranks after every step, each step's loss and
-     the final checkpoint within ``PAR_TRAIN_TOL``;
+     the final checkpoint within ``PAR_TRAIN_TOL``; then every rank writes
+     the mesh's ``TrainState`` into one directory with ``save_sharded``
+     (each slice of a leaf sharded over "model" written once, each
+     rank's save s reported) and reports the digest of each of its
+     tensors; here ``load_sharded`` reads it whole: its parameters and
+     BN state bit-identical to the gathered ``.npz`` the CLI wrote, each
+     rank's tensors to the loaded tree cut by ``parallel/mesh.py``'s
+     shape rule, and a leaf sliced over "model" whose slices differ;
      (c) the ``pallas_max4`` engine window of P1's 8 frames, 2 a rank, each
      rank's bit-identical to ``batched_step_fn`` over its frames here, K9,
      K4, K1, K2, K3 and K5 once a rank; (d) ``entry.dryrun_multichip(4,
@@ -1753,6 +1763,15 @@ def write_weight_files(torch, root, model, params, state):
     return files
 
 
+def path_bytes(path):
+    """The bytes of a file, or of every file under a directory."""
+    import os
+    if not os.path.isdir(path):
+        return os.path.getsize(path)
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(path) for f in names)
+
+
 def same_tree(torch, a, b):
     """Two trees with the same key paths and bit-equal leaves."""
     from millieye_torch.io.checkpoint import leaf_items
@@ -3143,7 +3162,13 @@ class ParTrainProbe:
     """``cli.train.main``'s probe: in each rank, the launch counts from 0
     at the start, each step's launches, loss and the digest of the
     replicated leaves (parameters and BN state) after it, and the digest
-    of the frozen leaves at the start and the end."""
+    of the frozen leaves at the start and the end. With ``save_dir``,
+    ``report`` has every rank write the mesh's ``TrainState`` there with
+    ``save_sharded`` and adds the save's wall seconds and the digest of
+    each of the rank's tensors (its slices and its replicated leaves)."""
+
+    def __init__(self, save_dir=None):
+        self.save_dir = save_dir
 
     def start(self, trainer):
         self.mesh = trainer.mesh
@@ -3174,10 +3199,21 @@ class ParTrainProbe:
             if tuple(k.split("/")[1:]) not in sharded or k[0] == "s"]))
 
     def report(self, trainer):
-        return {"losses": self.losses, "launches": self.launches,
-                "digests": self.digests,
-                "frozen_same": self._frozen(trainer.ts.params)
-                == self.frozen0}
+        out = {"losses": self.losses, "launches": self.launches,
+               "digests": self.digests,
+               "frozen_same": self._frozen(trainer.ts.params)
+               == self.frozen0}
+        if self.save_dir is not None:
+            import torch
+            from millieye_torch.io.checkpoint import leaf_items, save_sharded
+            t0 = time.perf_counter()
+            save_sharded(self.save_dir, trainer.ts, mesh=trainer.mesh)
+            out["sharded"] = {
+                "save_s": time.perf_counter() - t0,
+                "digests": {k: _digest(torch, [x])
+                            for k, x in leaf_items(trainer.ts)
+                            if isinstance(x, torch.Tensor)}}
+        return out
 
 
 def par_window_rank(rank, dev, reqs):
@@ -3355,7 +3391,8 @@ def _train_part(torch, tcli, tmp, dev):
         t0 = time.perf_counter()
         out = tcli.main(PAR_TRAIN_ARGS + PAR_MESH_ARGS + [
             "--device", dev, "--checkpoint_dir", f"{tmp}/mesh"],
-            probe=ParTrainProbe(), timeout=PAR_WORLD_TIMEOUT)
+            probe=ParTrainProbe(f"{tmp}/sharded"),
+            timeout=PAR_WORLD_TIMEOUT)
         wall = time.perf_counter() - t0
     steps = PAR_TRAIN_SCENES // 8
     reps = [o["report"] for o in out]
@@ -3410,7 +3447,9 @@ def _train_part(torch, tcli, tmp, dev):
         raise AssertionError(f"P23 train: {n_all - n_in} of {n_all} "
                              f"checkpoint elements beyond the CPU "
                              f"contract (share {n_in / n_all})")
-    return {"wall_s": wall, "one_process_s": one_s, "steps": steps,
+    sharded = _sharded_part(torch, tmp, out)
+    return {"wall_s": wall, "sharded": sharded, "one_process_s": one_s,
+            "steps": steps,
             "losses": reps[0]["losses"], "one_process_losses": one.losses,
             "launches_a_step_a_rank": reps[0]["launches"][0],
             "launches_total": _total(c for rep in reps
@@ -3422,6 +3461,58 @@ def _train_part(torch, tcli, tmp, dev):
                                   for a, b in zip(rep["losses"],
                                                   one.losses)),
             "share_within_cpu_contract": n_in / n_all}
+
+
+def _sharded_part(torch, tmp, out):
+    """P23(b)'s sharded checkpoint: the directory every rank wrote, read
+    here by ``load_sharded``: its parameters and BN state bit-identical
+    to the gathered ``.npz`` the CLI wrote, each rank's tensors to the
+    loaded tree cut by ``parallel/mesh.py:_shard``'s rule (the parameters
+    and optimizer slots; the BN state is replicated), and a leaf sliced
+    over "model" whose two slices differ."""
+    from millieye_torch import parallel
+    from millieye_torch.io.checkpoint import (leaf_items, load_checkpoint,
+                                              load_sharded)
+    from millieye_torch.parallel.mesh import _shard
+    t0 = time.perf_counter()
+    got = load_sharded(f"{tmp}/sharded")
+    load_s = time.perf_counter() - t0
+    pair = {"params": got["params"], "state": got["state"]}
+    if not same_tree(torch, pair, load_checkpoint(
+            f"{tmp}/mesh/module3_ckpt_final.npz", pair)):
+        raise AssertionError("P23 sharded: the loaded parameters and BN "
+                             "state differ from the gathered .npz")
+    mesh = parallel.make_mesh(PAR_RANKS, model_axis=2,
+                              devices=["cpu"] * PAR_RANKS)
+    tensors = [(k, x) for k, x in leaf_items(got)
+               if isinstance(x, torch.Tensor)]
+    sliced = set()
+    for o in out:
+        digests = o["report"]["sharded"]["digests"]
+        if sorted(digests) != sorted(k for k, _ in tensors):
+            raise AssertionError(f"P23 sharded: rank {o['rank']}'s leaves "
+                                 f"are not the loaded tree's")
+        for k, x in tensors:
+            cut = (_shard(mesh, x, o["model"])
+                   if k.split("/")[0] in ("params", "opt_state") else x)
+            if _digest(torch, [cut]) != digests[k]:
+                raise AssertionError(f"P23 sharded: {k} of the loaded tree, "
+                                     f"cut for rank {o['rank']}, differs "
+                                     f"from that rank's")
+            if cut.shape != x.shape:
+                sliced.add(k)
+    full = dict(tensors)
+    differ = sorted(k for k in sliced if not torch.equal(
+        _shard(mesh, full[k], 0), _shard(mesh, full[k], 1)))
+    if not differ:
+        raise AssertionError(f"P23 sharded: no leaf sliced over 'model' "
+                             f"whose slices differ ({sorted(sliced)})")
+    return {"save_s_by_rank": [o["report"]["sharded"]["save_s"]
+                               for o in out],
+            "load_s": load_s,
+            "dir_mb": path_bytes(f"{tmp}/sharded") / 2 ** 20,
+            "tensors": len(tensors), "sliced": sorted(sliced),
+            "sliced_differ": differ}
 
 
 def parallel_phase(torch, cuda_lib, eng4, reqs, eval_keep, dev="cuda"):
@@ -4448,6 +4539,19 @@ def main():
                 and z0[k].tobytes() == z1[k].tobytes() for k in z0.files):
             raise AssertionError("weights: save_checkpoint's .npz differs "
                                  "from the tracked checkpoint")
+    # the sharded directory (the JAX package's save_orbax): written from
+    # the tree's CUDA tensors (DCP imported first: its import is not the
+    # save's), read back on the host by its loader below
+    import torch.distributed.checkpoint  # noqa: F401
+    from millieye_torch.io.checkpoint import (load_sharded, save_sharded,
+                                              to_device)
+    files["sharded"] = os.path.join(wdir.name, "fusion.sharded")
+    on_card = to_device({"params": ck_p, "state": ck_s}, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_sharded(files["sharded"], on_card)
+    sharded_save_ms = (time.perf_counter() - t0) * 1e3
+    del on_card
     t0 = time.perf_counter()
     init_p, init_s = model.init(torch.Generator().manual_seed(0))
     init_ms = (time.perf_counter() - t0) * 1e3
@@ -4470,7 +4574,9 @@ def main():
             model.darknet, init_p["darknet"], init_s["darknet"],
             files["pt"])), (ck_p, ck_s)),
         "yolov3-tiny.conv.15": (lambda: load_fusion(
-            model, init_p, init_s, files["tiny15"]), None)}
+            model, init_p, init_s, files["tiny15"]), None),
+        "sharded": (lambda: (lambda t: (t["params"], t["state"]))(
+            load_sharded(files["sharded"])), (ck_p, ck_s))}
     loader_ms, weight_paths = {}, {}
     for fmt, (load, want) in loaders.items():
         t0 = time.perf_counter()
@@ -4536,14 +4642,18 @@ def main():
         raise AssertionError(f"demo: frames {differ} of the {len(both)} "
                              f"both runs delivered differ between --weights "
                              f".pth and .npz")
+    file_bytes = {k: path_bytes(v) for k, v in files.items()}
     log(f"weights ({card}): save_checkpoint's .npz byte-equal to "
-        f"{CKPT} under the same keys; every format's tree equal to the "
+        f"{CKPT} under the same keys; save_sharded's directory written "
+        f"from the card in {sharded_save_ms:.3f} host ms "
+        f"({file_bytes['sharded'] / 2 ** 20:.3f} MB), read back by "
+        f"load_sharded on the host; every format's tree equal to the "
         f"one written (yolov3-tiny.conv.15: blocks 0-14 the checkpoint's, "
         f"the rest FusionNetwork.init's); host ms the seed-0 init "
         f"{init_ms:.3f}, build_fusion of {CKPT} (that init, then the load) "
         f"{build_ms:.3f}, a load into the init "
         f"{ {k: round(v, 3) for k, v in loader_ms.items()} } (file sizes "
-        f"{ {k: os.path.getsize(v) for k, v in files.items()} } bytes); "
+        f"{file_bytes} bytes); "
         f"{', '.join(p for f, p in weight_paths.items() if 'tiny' not in f)}"
         f": answers bit-identical to P1's; cli.demo on the recording "
         f"({n_frames} frames from disk, live: frames delivered "
@@ -4556,7 +4666,8 @@ def main():
     summary["weights"] = {
         "init_host_ms": init_ms, "build_fusion_npz_host_ms": build_ms,
         "loader_host_ms": loader_ms,
-        "file_bytes": {k: os.path.getsize(v) for k, v in files.items()},
+        "sharded_save_host_ms": sharded_save_ms,
+        "file_bytes": file_bytes,
         "paths": weight_paths,
         "demo": {k: {"frames": r[1]["frames"], "dropped": r[1]["dropped"],
                      "e2e_fps": r[1]["e2e_fps"], "seconds": r[2]}
@@ -4658,6 +4769,7 @@ def main():
         tot = par[part].pop("launches_total")
         launches_by_path[f"parallel {part}"] = {n: tot.get(n, 0)
                                                 for n in kernels}
+    sh = par["train"]["sharded"]
     log(f"P23 parallel ({card}): {par['ranks']} gloo ranks on "
         f"{par['device_count']} card(s); eval (4 x 1 mesh, 2 images a rank "
         f"a batch): f32 mAP {par['eval@f32']['mAP']:.6f} (one process "
@@ -4672,7 +4784,15 @@ def main():
         f"{par['train']['max_bn_fed_bias_diff_lr']:.3g} lr), largest loss "
         f"difference {par['train']['max_loss_rdiff']:.3g} relative, share "
         f"within the CPU contract "
-        f"{par['train']['share_within_cpu_contract']:.6f}; window "
+        f"{par['train']['share_within_cpu_contract']:.6f}; the sharded "
+        f"checkpoint: every rank's save_sharded "
+        f"{[round(x, 3) for x in sh['save_s_by_rank']]} s, load_sharded "
+        f"here {sh['load_s']:.3f} s ({sh['dir_mb']:.3f} MB, "
+        f"{sh['tensors']} tensors, {len(sh['sliced'])} sliced over "
+        f"'model', {len(sh['sliced_differ'])} of them with slices that "
+        f"differ), the parameters and BN state bit-identical to the "
+        f"gathered .npz, each rank's leaves to the loaded tree cut by the "
+        f"shape rule; window "
         f"bit-identical on every rank; dryrun_multichip(4) "
         f"{par['dryrun_multichip']['mesh']}; {time.time() - t:.1f} s")
     print("parallel " + json.dumps({
@@ -4690,10 +4810,15 @@ def main():
         "wall_s": {"eval@f32": par["eval@f32"]["wall_s"],
                    "eval@pallas_max_s01": par["eval@pallas_max_s01"]["wall_s"],
                    "train": par["train"]["wall_s"],
+                   "train_sharded_save_by_rank": sh["save_s_by_rank"],
+                   "train_sharded_load": sh["load_s"],
                    "train_one_process": par["train"]["one_process_s"],
                    "window": par["window@pallas_max4"]["wall_s"],
                    "dryrun": par["dryrun_multichip"]["wall_s"],
                    "phase": time.time() - t},
+        "sharded": {"dir_mb": sh["dir_mb"], "tensors": sh["tensors"],
+                    "sliced": len(sh["sliced"]),
+                    "sliced_differ": len(sh["sliced_differ"])},
         "deviations": {
             "eval@f32_mAP": abs(par["eval@f32"]["mAP"]
                                 - par["eval@f32"]["one_process_mAP"]),

@@ -1,11 +1,28 @@
 """Weights in and out: the JAX package's checkpoints and parameter trees.
 
 ``save_checkpoint`` and ``load_checkpoint`` write and read the JAX
-package's single-file ``.npz`` format (``millieye_tpu/io/checkpoint.py``;
-its orbax pair has no counterpart here): one array per leaf under
-``"{i:05d}|{key/path}"``, in the order of JAX's
+package's single-file ``.npz`` format (``millieye_tpu/io/checkpoint.py``):
+one array per leaf under ``"{i:05d}|{key/path}"``, in the order of JAX's
 ``tree_util.tree_leaves_with_path`` (``leaf_items``), with 4-D leaves
 HWIO; ``load_checkpoint`` is the port's one reader of such a file.
+
+``save_sharded`` and ``load_sharded`` are the counterpart of the JAX
+package's ``save_orbax`` and ``load_orbax``: a tree as a checkpoint
+directory of ``torch.distributed.checkpoint`` (DCP), written from one
+process or by every rank of a mesh (``parallel/mesh.py``), each rank
+writing its own slices, and read back whole in one process with no
+template. The containers come back as JAX's ``load_orbax`` gives them
+without a template: dicts as dicts (keys sorted), lists and tuples as
+lists, a named tuple as a dict of its fields, None as None, a Python
+scalar (a step counter) as itself; tensors as CPU tensors of their dtype
+and shape (4-D leaves OIHW, as written). A mesh's leaf sliced over
+"model" is written as its M slices, slice ``j`` under its own key
+``"{i:05d}|{key/path}|{j}"``: DCP keeps one copy of each key over all
+ranks, so the replicated leaves and each slice (held by every rank of
+"data") are written once, where slices under one key would be dropped
+but one. (A ``DTensor`` over a ``DeviceMesh`` would carry the same
+layout, but makes process groups of its own beside the mesh's.)
+
 ``convert`` is the one weight converter: it takes the JAX package's
 ``(params, state)`` as nested numpy arrays (a JAX tree mapped through
 ``np.asarray``) and returns the port's parameters,
@@ -17,10 +34,15 @@ every 4-D leaf of either is a convolution kernel.
 """
 from __future__ import annotations
 
+import json
 import os
+import shutil
+import warnings
 
 import numpy as np
 import torch
+
+_TREE = "_tree"         # the key of the tree's layout (JSON as uint8)
 
 
 def _to_tensor(a):
@@ -136,3 +158,114 @@ def load_checkpoint(path, like):
         tensors.append(t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4
                        else t)
     return _fill(like, iter(tensors))
+
+
+def _layout(tree, sliced, model, index, tensors):
+    """``tree`` as JSON-able nodes: {"dict": {key: node}}, {"list":
+    [node]}, None, {"value": scalar}, {"tensor": key[, "slices": M]};
+    each tensor (this rank's slice where its path is in ``sliced``) goes
+    into ``tensors`` under its key."""
+    def node(x, path):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {"dict": {str(k): node(x[k], path + (str(k),))
+                             for k in sorted(x)}}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return {"dict": {k: node(getattr(x, k), path + (k,))
+                             for k in sorted(x._fields)}}
+        if isinstance(x, (list, tuple)):
+            return {"list": [node(v, path + (str(i),))
+                             for i, v in enumerate(x)]}
+        if isinstance(x, (bool, int, float)):
+            return {"value": x}
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"save_sharded: leaf {'/'.join(path)!r} is a "
+                            f"{type(x).__name__}")
+        key = f"{len(keys):05d}|{'/'.join(path) or '_root'}"
+        keys.append(key)
+        t = x.detach().cpu().contiguous()
+        if path in sliced:
+            tensors[f"{key}|{index}"] = t
+            return {"tensor": key, "slices": model}
+        tensors[key] = t
+        return {"tensor": key}
+
+    keys = []
+    return node(tree, ())
+
+
+def save_sharded(path, tree, mesh=None):
+    """Write ``tree`` (nested dicts, lists, tuples and named tuples of
+    tensors and Python scalars) as a checkpoint directory,
+    the port's ``save_orbax``; CUDA or CPU tensors. Raises ``ValueError``
+    where ``path`` exists. ``mesh``: every rank of the mesh's world calls
+    this with its own part of the tree (the leaves of ``mesh.sliced()``
+    its slices); each slice and each replicated leaf is written once.
+    The directory appears whole when every rank is done."""
+    import torch.distributed as dist
+    import torch.distributed.checkpoint as dcp
+    path = os.path.abspath(path)
+    group, lead, sliced, model, index = None, True, frozenset(), 1, 0
+    if mesh is not None:
+        if not dist.is_initialized() or dist.get_world_size() != mesh.size:
+            raise RuntimeError(f"save_sharded: {mesh!r} needs a world of "
+                               f"{mesh.size} ranks (parallel.world.launch)")
+        group, lead = dist.group.WORLD, dist.get_rank() == 0
+        sliced, model = mesh.sliced(), mesh.shape["model"]
+        index = mesh.index("model")
+    if os.path.exists(path):
+        raise ValueError(f"Destination {path} already exists.")
+    tensors = {}
+    layout = json.dumps(_layout(tree, sliced, model, index, tensors))
+    tensors[_TREE] = torch.frombuffer(bytearray(layout.encode()),
+                                      dtype=torch.uint8)
+    partial = path + ".partial"
+    if lead:
+        shutil.rmtree(partial, ignore_errors=True)
+    if group is not None:           # every rank has checked ``path``
+        dist.barrier(group)
+    with warnings.catch_warnings():     # DCP's "a single process" note
+        warnings.filterwarnings("ignore", message="torch.distributed is")
+        dcp.save(tensors, storage_writer=dcp.FileSystemWriter(partial),
+                 process_group=group, no_dist=group is None)
+    if lead:
+        os.rename(partial, path)
+    if group is not None:
+        dist.barrier(group)
+
+
+def _build(node, tensors):
+    if node is None:
+        return None
+    if "dict" in node:
+        return {k: _build(v, tensors) for k, v in node["dict"].items()}
+    if "list" in node:
+        return [_build(v, tensors) for v in node["list"]]
+    if "value" in node:
+        return node["value"]
+    key = node["tensor"]
+    if "slices" in node:
+        return torch.cat([tensors[f"{key}|{j}"]
+                          for j in range(node["slices"])])
+    return tensors[key]
+
+
+def load_sharded(path):
+    """The tree of a ``save_sharded`` directory, read whole in this
+    process with no template (the port's ``load_orbax``): CPU tensors,
+    containers as the module docstring says. Raises
+    ``FileNotFoundError`` where ``path`` holds no checkpoint."""
+    import torch.distributed.checkpoint as dcp
+    path = os.path.abspath(path)
+    if not os.path.isfile(os.path.join(path, ".metadata")):
+        raise FileNotFoundError(f"Checkpoint at {path} not found.")
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    tensors = {k: torch.empty(m.size, dtype=m.properties.dtype)
+               for k, m in meta.items()}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is")
+        dcp.load(tensors, storage_reader=dcp.FileSystemReader(path),
+                 no_dist=True)
+    layout = json.loads(tensors.pop(_TREE).numpy().tobytes().decode())
+    return _build(layout, tensors)

@@ -7,6 +7,12 @@ import torch
 import torch.nn.functional as F
 
 
+def to_float(img_u8):
+    """uint8 [..., C] -> float32 in [0, 1] (torchvision ToTensor without
+    the CHW transpose: this port is NHWC)."""
+    return img_u8.float() / 255.0
+
+
 def pad_to_square(img, pad_value=0.0):
     """img [H, W, C] -> ([S, S, C], (left, right, top, bottom)); the
     difference splits as diff//2 leading, the rest trailing."""
@@ -54,5 +60,5 @@ def resize_bilinear_align_corners(img, size):
 def letterbox_image(img_u8, size):
     """uint8 HWC frame -> float32 [size, size, C] in [0, 1] + pads:
     ToTensor -> pad_to_square(0) -> nearest resize."""
-    img, pad = pad_to_square(img_u8.float() / 255.0, 0.0)
+    img, pad = pad_to_square(to_float(img_u8), 0.0)
     return resize_nearest(img, size), pad

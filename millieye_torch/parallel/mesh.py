@@ -48,12 +48,14 @@ class Mesh:
     rank. Inside a world: ``rank``, ``index(axis)``, ``group(axis)`` and
     ``active()``. ``sharded`` holds the key paths (tuples of strings, as
     ``io/checkpoint.py:leaf_items`` spells them) of the parameters that
-    ``shard_train_state`` sharded over "model"."""
+    ``shard_params`` sharded over "model", ``sharded_opt`` those of the
+    optimizer slots that ``shard_train_state`` sliced like them."""
 
     def __init__(self, data, model, devices):
         self.shape = {"data": data, "model": model}
         self.devices = list(devices)
         self.sharded = frozenset()
+        self.sharded_opt = frozenset()
         self.tp = frozenset()
         self._groups = None
 
@@ -71,6 +73,14 @@ class Mesh:
     @property
     def rank(self):
         return dist.get_rank()
+
+    def sliced(self):
+        """The key paths of the leaves this rank holds as a slice of axis
+        0 over "model": ``sharded``'s in a parameter tree, and in a train
+        state (a ``TrainState`` or a dict of its fields) ``sharded``'s
+        under "params" and ``sharded_opt``'s under "opt_state"."""
+        return (self.sharded | {("params",) + p for p in self.sharded}
+                | {("opt_state",) + p for p in self.sharded_opt})
 
     def index(self, axis):
         """This rank's index along "data" or "model"."""
@@ -189,12 +199,14 @@ def param_sharding(mesh, params):
                     params)
 
 
-def _shard(mesh, leaf):
-    """This rank's model shard of a full leaf, by the shape rule."""
+def _shard(mesh, leaf, index=None):
+    """The model shard of a full leaf, by the shape rule: this rank's, or
+    that of model index ``index``."""
     if not _leaf_spec(leaf, mesh.shape["model"] > 1):
         return leaf
     n = leaf.shape[0] // mesh.shape["model"]
-    return leaf.narrow(0, mesh.index("model") * n, n).clone()
+    i = mesh.index("model") if index is None else index
+    return leaf.narrow(0, i * n, n).clone()
 
 
 def shard_params(mesh, params):
@@ -257,11 +269,19 @@ def shard_train_state(mesh, ts):
     """This rank's part of a TrainState: params TP-or-replicated (their
     paths recorded on ``mesh.sharded``), BN state replicated, and every
     optimizer slot that mirrors a sharded parameter's shape sliced like
-    it."""
+    it (their paths recorded on ``mesh.sharded_opt``)."""
     params = shard_params(mesh, ts.params)
-    opt_state = map_path(lambda _, x: _shard(mesh, x)
-                         if isinstance(x, torch.Tensor) else x,
-                         ts.opt_state)
+    sliced = set()
+
+    def put(path, x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        if _leaf_spec(x, mesh.shape["model"] > 1):
+            sliced.add(path)
+        return _shard(mesh, x)
+
+    opt_state = map_path(put, ts.opt_state)
+    mesh.sharded_opt = frozenset(sliced)
     return type(ts)(params, ts.state, opt_state, ts.step)
 
 

@@ -209,6 +209,19 @@ def test_ingest_matches():
         rtol=1e-6, atol=1e-6)
 
 
+def test_to_float_matches_eager():
+    """``to_float`` on all 256 values, bit-equal to the JAX package's
+    eager ``to_float`` (jitted, XLA multiplies by the rounded reciprocal:
+    1 ulp apart)."""
+    u8 = np.arange(256, dtype=np.uint8).reshape(16, 16, 1)
+    got = tlb.to_float(torch.from_numpy(u8))
+    assert got.dtype == torch.float32
+    want = np.asarray(jlb.to_float(jnp.asarray(u8)))
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+
+
 def test_weight_converter():
     """convert gives the JAX package's leaves, conv kernels turned HWIO
     -> OIHW, and load_checkpoint of the checkpoint the same tree."""
@@ -241,7 +254,7 @@ def test_roi_reduce_validation():
 
 def test_port_imports_no_jax():
     """No module of millieye_torch, and not chip_smoke.py, imports jax,
-    optax, flax or millieye_tpu."""
+    optax, flax, orbax or millieye_tpu."""
     files = sorted((REPO / "millieye_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10
@@ -255,7 +268,7 @@ def test_port_imports_no_jax():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "optax", "flax",
-                                    "millieye_tpu"), \
+                                    "orbax", "millieye_tpu"), \
                     f"{path.relative_to(REPO)} imports {name}"
 
 

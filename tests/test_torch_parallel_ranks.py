@@ -106,3 +106,41 @@ class TrainProbe:
         return {"losses": self.losses,
                 "params": {k: v.cpu() for k, v in leaf_items(params)},
                 "mu": {k: v.cpu() for k, v in leaf_items(mu)}}
+
+
+class SaveProbe:
+    """A train ``probe`` whose ``report`` has every rank write the mesh's
+    ``TrainState`` with ``save_sharded(path, ts, mesh=)``; returns the
+    rank's own leaves (its slices and its replicated leaves) and, from
+    rank 0, the state gathered by ``gather_params`` (the parameters and
+    the optimizer slots that mirror them) as ``load_sharded`` gives a
+    tree: named tuples as dicts."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def __call__(self, step_no, ts, metrics):
+        pass
+
+    def report(self, trainer):
+        from millieye_torch.io.checkpoint import save_sharded
+        mesh, ts = trainer.mesh, trainer.ts
+        save_sharded(self.path, ts, mesh=mesh)
+        opt = ts.opt_state
+        inner = opt.inner_opt_state
+        with torch.no_grad(), mesh.active():
+            full = {"params": gather_params(mesh, ts.params),
+                    "state": ts.state, "step": ts.step,
+                    "opt_state": {
+                        "mini_step": opt.mini_step,
+                        "gradient_step": opt.gradient_step,
+                        "acc_grads": gather_params(mesh, opt.acc_grads),
+                        "inner_opt_state": {
+                            "count": inner.count,
+                            "mu": gather_params(mesh, inner.mu),
+                            "nu": gather_params(mesh, inner.nu)}}}
+        return {"own": {k: v.cpu() for k, v in leaf_items(ts)
+                        if isinstance(v, torch.Tensor)},
+                "full": ({k: v.cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in leaf_items(full)}
+                         if mesh.rank == 0 else None)}
