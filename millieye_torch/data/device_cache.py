@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from millieye_torch.device import resolve_device
+from millieye_torch.runtime.profiler import trace_annotation
 
 _F16_KEYS = ("images",)
 _HOST_KEYS = ("paths", "frame_size", "brightness")
@@ -129,11 +130,12 @@ class _CacheLoader:
                 # callers see the true count via batch["_n"]
                 chunk = np.concatenate(
                     [chunk, np.full(b - len(chunk), chunk[-1])])
-            batch = _gather(self.cache.arrays,
-                            torch.from_numpy(chunk).to(self.cache.device),
-                            f16)
-            batch["host"] = {k: v[chunk]
-                             for k, v in self.cache.host_arrays.items()}
+            with trace_annotation("millieye.ingest"):
+                batch = _gather(self.cache.arrays,
+                                torch.from_numpy(chunk).to(self.cache.device),
+                                f16)
+                batch["host"] = {k: v[chunk]
+                                 for k, v in self.cache.host_arrays.items()}
             batch["_n"] = min(b, n - lo)
             if bright is not None:
                 batch["brightness"] = float(bright[true_chunk].mean())

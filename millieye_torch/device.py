@@ -26,8 +26,10 @@ def constant(values, device, dtype=torch.float32):
     device): inside a step, a copy from pageable host memory would make
     the host wait for the card's stream. It is made outside any active
     dispatch mode, so a first call under a tracer (``torch.export``'s fake
-    tensors) caches a real tensor, which the trace takes as a constant."""
-    with _disable_current_modes():
+    tensors) caches a real tensor, which the trace takes as a constant;
+    and outside inference mode, so a first call in an evaluation's step
+    caches a tensor that a later training step can save for backward."""
+    with _disable_current_modes(), torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
 
 

@@ -57,6 +57,7 @@ from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_s2d,
                                      fused_stem_pair_select, fused_stem_stage)
 from millieye_torch.parallel import collectives as pc
+from millieye_torch.runtime.profiler import trace_annotation
 
 _BN_EPS = 1e-5
 # torch BatchNorm2d(momentum=0.9): running <- 0.1 running + 0.9 batch
@@ -464,82 +465,84 @@ class Darknet:
 
         pair_los = () if collect_act_stats else tuple(
             lo for lo in self._pair_candidates() if fused(lo) and fused(lo + 2))
-        for i, info in enumerate(self._plan):
-            t = info["type"]
-            p = params[i] if i < len(params) else {}
-            s = state[i] if i < len(state) else {}
-            prev = outputs[-1] if outputs else x_in
-            if any(lo < i <= lo + 3 for lo in pair_los):
-                x = prev              # consumed by the fused pair
-            elif i in pair_los:
-                x = self._run_pair(i, params, prev, compute_dtype)
-            elif t == "convolutional" and fused(i):
-                record(i, prev)
-                y = fused_stem_stage(
-                    prev.permute(0, 2, 3, 1).float().contiguous(),
-                    p["w"].float(), p["b"].float(),
-                    precision=self.stem_precision,
-                    out_dtype=self._store_dtype(i, compute_dtype))
-                x = y.permute(0, 3, 1, 2)
-            elif t == "convolutional" and "wi" in p:
-                # im2col: 16 stride-2 slices of the padded input, one product
-                record(i, prev)
-                dt = (torch.float32 if i in self.hi_prec_stages
-                      else compute_dtype)
-                h, w = prev.shape[2:]
-                xp = F.pad(prev, (1, 1, 1, 1))
-                z = torch.cat([xp[:, :, dy:dy + h:2, dx:dx + w:2]
-                               for dy in range(4) for dx in range(4)], 1)
-                x = phase_max(torch.einsum("nkhw,kd->ndhw", z.to(dt),
-                                           p["wi"].to(dt)), p, info)
-            elif t == "convolutional" and ("w2" in p or "q2" in p):
-                x = phase_max(conv(i, p, space_to_depth(prev), "w2", 1, 1), p,
-                              info)
-            elif t == "maxpool" and (fused(i - 1) or transformed(i - 1)):
-                x = prev              # the pool ran inside the fused stage
-            elif t == "convolutional":
-                x = conv(i, p, prev, "w", info["stride"],
-                         (info["size"] - 1) // 2)
-                if "gamma" in p and train:
-                    x, new_state[i] = _train_bn(x, p, s)
-                elif "gamma" in p:    # BN not folded away (eval mode)
-                    x = (x - s["mean"][:, None, None]) * torch.rsqrt(
-                        s["var"][:, None, None] + _BN_EPS)
-                    x = (x * p["gamma"][:, None, None]
-                         + p["beta"][:, None, None])
-                else:
-                    x = x + p["b"][:, None, None]
-                if info["act"] == "leaky":
-                    x = leaky(x)
-            elif t == "maxpool":
-                x = _maxpool(prev, info["size"], info["stride"])
-            elif t == "upsample":
-                f = info["factor"]
-                x = prev.repeat_interleave(f, 2).repeat_interleave(f, 3)
-            elif t == "route":
-                x = torch.cat([outputs[l] for l in info["layers"]], 1)
-            elif t == "shortcut":
-                x = prev + outputs[info["frm"]]
-            elif t == "yolo":
-                x = decode_yolo(prev, info["anchors"], info["classes"],
-                                img_dim, with_pred=train)
-                if train:
-                    x, pred = x
-                    preds.append(pred)
-                dets.append(x)
-            if (t == "convolutional" and self.hi_prec_store is not None
-                    and i in self.hi_prec_stages and not train
-                    and i not in pair_los):
-                # float32 arithmetic, compact storage (a pair's output is
-                # already in its second stage's store type)
-                x = x.to(self.hi_prec_store)
-            outputs.append(x)
-            if i == self.feature_tap:
-                feature_map = x.permute(0, 2, 3, 1)
-        # a truncated config (no yolo block) returns its last map, NHWC
-        out = {"feature_map": feature_map,
-               "detections": (torch.cat(dets, 1) if dets
-                              else outputs[-1].permute(0, 2, 3, 1))}
+        with trace_annotation("millieye.backbone"):
+            for i, info in enumerate(self._plan):
+                t = info["type"]
+                p = params[i] if i < len(params) else {}
+                s = state[i] if i < len(state) else {}
+                prev = outputs[-1] if outputs else x_in
+                if any(lo < i <= lo + 3 for lo in pair_los):
+                    x = prev              # consumed by the fused pair
+                elif i in pair_los:
+                    x = self._run_pair(i, params, prev, compute_dtype)
+                elif t == "convolutional" and fused(i):
+                    record(i, prev)
+                    y = fused_stem_stage(
+                        prev.permute(0, 2, 3, 1).float().contiguous(),
+                        p["w"].float(), p["b"].float(),
+                        precision=self.stem_precision,
+                        out_dtype=self._store_dtype(i, compute_dtype))
+                    x = y.permute(0, 3, 1, 2)
+                elif t == "convolutional" and "wi" in p:
+                    # im2col: 16 stride-2 slices of the padded input, one
+                    # product
+                    record(i, prev)
+                    dt = (torch.float32 if i in self.hi_prec_stages
+                          else compute_dtype)
+                    h, w = prev.shape[2:]
+                    xp = F.pad(prev, (1, 1, 1, 1))
+                    z = torch.cat([xp[:, :, dy:dy + h:2, dx:dx + w:2]
+                                   for dy in range(4) for dx in range(4)], 1)
+                    x = phase_max(torch.einsum("nkhw,kd->ndhw", z.to(dt),
+                                               p["wi"].to(dt)), p, info)
+                elif t == "convolutional" and ("w2" in p or "q2" in p):
+                    x = phase_max(conv(i, p, space_to_depth(prev), "w2", 1,
+                                       1), p, info)
+                elif t == "maxpool" and (fused(i - 1) or transformed(i - 1)):
+                    x = prev              # the pool ran inside the fused stage
+                elif t == "convolutional":
+                    x = conv(i, p, prev, "w", info["stride"],
+                             (info["size"] - 1) // 2)
+                    if "gamma" in p and train:
+                        x, new_state[i] = _train_bn(x, p, s)
+                    elif "gamma" in p:    # BN not folded away (eval mode)
+                        x = (x - s["mean"][:, None, None]) * torch.rsqrt(
+                            s["var"][:, None, None] + _BN_EPS)
+                        x = (x * p["gamma"][:, None, None]
+                             + p["beta"][:, None, None])
+                    else:
+                        x = x + p["b"][:, None, None]
+                    if info["act"] == "leaky":
+                        x = leaky(x)
+                elif t == "maxpool":
+                    x = _maxpool(prev, info["size"], info["stride"])
+                elif t == "upsample":
+                    f = info["factor"]
+                    x = prev.repeat_interleave(f, 2).repeat_interleave(f, 3)
+                elif t == "route":
+                    x = torch.cat([outputs[l] for l in info["layers"]], 1)
+                elif t == "shortcut":
+                    x = prev + outputs[info["frm"]]
+                elif t == "yolo":
+                    x = decode_yolo(prev, info["anchors"], info["classes"],
+                                    img_dim, with_pred=train)
+                    if train:
+                        x, pred = x
+                        preds.append(pred)
+                    dets.append(x)
+                if (t == "convolutional" and self.hi_prec_store is not None
+                        and i in self.hi_prec_stages and not train
+                        and i not in pair_los):
+                    # float32 arithmetic, compact storage (a pair's output is
+                    # already in its second stage's store type)
+                    x = x.to(self.hi_prec_store)
+                outputs.append(x)
+                if i == self.feature_tap:
+                    feature_map = x.permute(0, 2, 3, 1)
+            # a truncated config (no yolo block) returns its last map, NHWC
+            out = {"feature_map": feature_map,
+                   "detections": (torch.cat(dets, 1) if dets
+                                  else outputs[-1].permute(0, 2, 3, 1))}
         if train:
             # the feature tap and the decode carry no gradient (the
             # reference's .detach() of the tap)

@@ -61,6 +61,7 @@ from millieye_torch.ops.roi_kernel import (PRECISIONS, REDUCES,
                                            ps_channel_perm_pad, ps_roi_align,
                                            ps_roi_align_padded, roi_align)
 from millieye_torch.parallel import collectives as pc
+from millieye_torch.runtime.profiler import trace_annotation
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -182,89 +183,93 @@ class FusionNetwork:
                                    img_class_pred[..., None]], -1)
             return {"boxes": boxes_out, "valid": det_valid, "num_img": k_img}
 
-        # the heads train in float32, with the einsum crops
-        hd = torch.float32 if train else _DTYPES[cfg.heads_dtype]
-        p_img, s_img = _cast_floats((params["img_cnn"], state["img_cnn"]), hd)
-        p_rad, s_rad = _cast_floats((params["radar_enc"], state["radar_enc"]),
-                                    hd)
-        p_ref, s_ref = _cast_floats((params["refine"], state["refine"]), hd)
-        p_ens = _cast_floats(params["ensemble"], hd)
-        radar_maps = radar_maps.to(hd)
-        use_kernel_roi = cfg.roi_impl == "kernel" and not train
-        roi_c_out = None
-        if use_kernel_roi:
-            # permute AND pad the score-map conv's output channels (a few
-            # KB of weights and BN vectors) so the map is born in the
-            # [..., 7*128] layout kernel K2 reads
-            last_w = p_img[-1]["w"]
-            roi_c_out = last_w.shape[0] // 49
-            dst = constant(tuple(ps_channel_perm_pad(roi_c_out, 7, 7)
-                                 .tolist()), dev, torch.int64)
-            c_pad = 7 * 128
+        with trace_annotation("millieye.heads"):
+            # the heads train in float32, with the einsum crops
+            hd = torch.float32 if train else _DTYPES[cfg.heads_dtype]
+            p_img, s_img = _cast_floats((params["img_cnn"],
+                                         state["img_cnn"]), hd)
+            p_rad, s_rad = _cast_floats((params["radar_enc"],
+                                         state["radar_enc"]), hd)
+            p_ref, s_ref = _cast_floats((params["refine"], state["refine"]),
+                                        hd)
+            p_ens = _cast_floats(params["ensemble"], hd)
+            radar_maps = radar_maps.to(hd)
+            use_kernel_roi = cfg.roi_impl == "kernel" and not train
+            roi_c_out = None
+            if use_kernel_roi:
+                # permute AND pad the score-map conv's output channels (a few
+                # KB of weights and BN vectors) so the map is born in the
+                # [..., 7*128] layout kernel K2 reads
+                last_w = p_img[-1]["w"]
+                roi_c_out = last_w.shape[0] // 49
+                dst = constant(tuple(ps_channel_perm_pad(roi_c_out, 7, 7)
+                                     .tolist()), dev, torch.int64)
+                c_pad = 7 * 128
 
-            def scat(v, fill):
-                out = torch.full((c_pad,) + v.shape[1:], fill, dtype=v.dtype,
-                                 device=v.device)
-                out[dst] = v
-                return out
+                def scat(v, fill):
+                    out = torch.full((c_pad,) + v.shape[1:], fill,
+                                     dtype=v.dtype, device=v.device)
+                    out[dst] = v
+                    return out
 
-            last = dict(p_img[-1], w=scat(last_w, 0.0),
-                        b=scat(p_img[-1]["b"], 0.0),
-                        bn={"gamma": scat(p_img[-1]["bn"]["gamma"], 0.0),
-                            "beta": scat(p_img[-1]["bn"]["beta"], 0.0)})
-            p_img = p_img[:-1] + [last]
-            s_img = s_img[:-1] + [{"mean": scat(s_img[-1]["mean"], 0.0),
-                                   "var": scat(s_img[-1]["var"], 1.0)}]
-        roi_score_map, img_cnn_s = heads.conv_bn_stack_apply(
-            p_img, s_img, feature_map.to(hd), train,
-            col_parallel=(0,) if pc.model_parallel(("img_cnn", "0", "w"))
-            else ())
-        radar_score_map, radar_enc_s = heads.radar_encoder_apply(
-            p_rad, s_rad, radar_maps, train)
+                last = dict(p_img[-1], w=scat(last_w, 0.0),
+                            b=scat(p_img[-1]["b"], 0.0),
+                            bn={"gamma": scat(p_img[-1]["bn"]["gamma"], 0.0),
+                                "beta": scat(p_img[-1]["bn"]["beta"], 0.0)})
+                p_img = p_img[:-1] + [last]
+                s_img = s_img[:-1] + [{"mean": scat(s_img[-1]["mean"], 0.0),
+                                       "var": scat(s_img[-1]["var"], 1.0)}]
+            roi_score_map, img_cnn_s = heads.conv_bn_stack_apply(
+                p_img, s_img, feature_map.to(hd), train,
+                col_parallel=(0,) if pc.model_parallel(("img_cnn", "0", "w"))
+                else ())
+            radar_score_map, radar_enc_s = heads.radar_encoder_apply(
+                p_rad, s_rad, radar_maps, train)
 
-        radar_xyxy = radar_boxes * img_size
-        all_xyxy = torch.cat([img_xyxy, radar_xyxy], 1)
-        all_valid = torch.cat([det_valid, radar_mask], 1)
-        n_all = k_img + r_rad
+            radar_xyxy = radar_boxes * img_size
+            all_xyxy = torch.cat([img_xyxy, radar_xyxy], 1)
+            all_valid = torch.cat([det_valid, radar_mask], 1)
+            n_all = k_img + r_rad
 
-        smax = _eff_sampling_max(cfg, img_size)
-        if use_kernel_roi:
-            # "default": kernels K2 and K3 on bf16 operands; "split" and
-            # "highest": kernel K7 and K3 on float32 operands
-            img_crop = ps_roi_align_padded(
-                roi_score_map, all_xyxy, (7, 7), 1.0 / 16, sampling_max=smax,
-                c_out=roi_c_out, precision=cfg.roi_precision,
-                reduce=cfg.roi_reduce)
-            radar_crop = roi_align(radar_score_map, all_xyxy, (7, 7),
-                                   1.0 / 16, sampling_max=smax,
-                                   precision=cfg.roi_precision)
-        else:
-            img_crop = ps_roi_align_batched(roi_score_map, all_xyxy, (7, 7),
-                                            1.0 / 16, sampling_max=smax,
-                                            compute_dtype=hd)
-            radar_crop = roi_align_batched(radar_score_map, all_xyxy, (7, 7),
-                                           1.0 / 16, sampling_max=smax,
-                                           compute_dtype=hd)
-        img_crop = img_crop.to(hd).reshape(b_sz * n_all, 7, 7, -1)
-        radar_crop = radar_crop.to(hd).reshape(b_sz * n_all, 7, 7, -1)
+            smax = _eff_sampling_max(cfg, img_size)
+            if use_kernel_roi:
+                # "default": kernels K2 and K3 on bf16 operands; "split" and
+                # "highest": kernel K7 and K3 on float32 operands
+                img_crop = ps_roi_align_padded(
+                    roi_score_map, all_xyxy, (7, 7), 1.0 / 16,
+                    sampling_max=smax, c_out=roi_c_out,
+                    precision=cfg.roi_precision,
+                    reduce=cfg.roi_reduce)
+                radar_crop = roi_align(radar_score_map, all_xyxy, (7, 7),
+                                       1.0 / 16, sampling_max=smax,
+                                       precision=cfg.roi_precision)
+            else:
+                img_crop = ps_roi_align_batched(
+                    roi_score_map, all_xyxy, (7, 7), 1.0 / 16,
+                    sampling_max=smax, compute_dtype=hd)
+                radar_crop = roi_align_batched(
+                    radar_score_map, all_xyxy, (7, 7), 1.0 / 16,
+                    sampling_max=smax, compute_dtype=hd)
+            img_crop = img_crop.to(hd).reshape(b_sz * n_all, 7, 7, -1)
+            radar_crop = radar_crop.to(hd).reshape(b_sz * n_all, 7, 7, -1)
 
-        regress_param, refinement_vector, refine_s = \
-            heads.refinement_head_apply(
-                p_ref, s_ref, radar_crop, img_crop,
-                valid=all_valid.reshape(-1).to(hd) if train else None,
-                train=train,
-                class_num=cfg.class_num, row_parallel=_row_parallel())
-        regress_param = regress_param.float().reshape(b_sz, n_all, 4)
-        refinement_vector = refinement_vector.float().reshape(
-            b_sz, n_all, 1 + cfg.class_num)
+            regress_param, refinement_vector, refine_s = \
+                heads.refinement_head_apply(
+                    p_ref, s_ref, radar_crop, img_crop,
+                    valid=all_valid.reshape(-1).to(hd) if train else None,
+                    train=train,
+                    class_num=cfg.class_num, row_parallel=_row_parallel())
+            regress_param = regress_param.float().reshape(b_sz, n_all, 4)
+            refinement_vector = refinement_vector.float().reshape(
+                b_sz, n_all, 1 + cfg.class_num)
 
-        yolo_vector = torch.cat([img_conf[..., None],
-                                 img_cls_scores[:, :, :cfg.class_num]], -1)
-        ens = heads.ensemble_head_apply(
-            p_ens,
-            refinement_vector[:, :k_img].to(hd).reshape(b_sz * k_img, -1),
-            yolo_vector.to(hd).reshape(b_sz * k_img, -1),
-        ).float().reshape(b_sz, k_img, 2)
+            yolo_vector = torch.cat([img_conf[..., None],
+                                     img_cls_scores[:, :, :cfg.class_num]], -1)
+            ens = heads.ensemble_head_apply(
+                p_ens,
+                refinement_vector[:, :k_img].to(hd).reshape(b_sz * k_img, -1),
+                yolo_vector.to(hd).reshape(b_sz * k_img, -1),
+            ).float().reshape(b_sz, k_img, 2)
         fg = torch.cat([ens[:, :, 0], refinement_vector[:, k_img:, 0]], 1)
 
         thr = torch.cat([

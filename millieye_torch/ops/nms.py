@@ -10,6 +10,9 @@ kernel K5 (the whole-matrix kernel); above 1024 candidates the fixpoint
 iteration, as the JAX package ran its XLA fixpoint there. Outputs are
 padded to ``max_det`` rows with a validity mask. The post-merge pass
 ``nms_xyxy`` takes the same kernels, one launch for a batch of images.
+Both run inside the span ``millieye.nms``; ``batched_nms`` counts its
+frames, the candidates it scans and those it keeps (``nms.frames``,
+``nms.live``, ``nms.kept``) while a profiler session is on.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from millieye_torch.ops.boxes import iou_matrix, xywh_to_xyxy
 from millieye_torch.ops.nms_kernel import (MAX_K, nms_keep_mask_blocked,
                                            nms_keep_mask_full,
                                            nms_keep_mask_full_plain)
+from millieye_torch.runtime.profiler import count, trace_annotation
 
 
 def _class_offset(boxes, valid):
@@ -104,19 +108,22 @@ def nms_xyxy(boxes, scores, labels, valid, iou_thresh, max_out,
     valid). A leading batch axis holds independent images (the JAX
     package's ``jax.vmap`` of it): one keep-mask launch for all of them,
     each image's answer bit-identical to its own call."""
-    s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
-    order = torch.argsort(-s, dim=-1, stable=True)
-    boxes = torch.gather(boxes, -2, order[..., None].expand_as(boxes))
-    s, labels = torch.gather(s, -1, order), torch.gather(labels, -1, order)
-    valid = torch.isfinite(s)
-    shifted = boxes + (labels.to(boxes.dtype)
-                       * _class_offset(boxes, valid)[..., None])[..., None]
-    keep = _keep_mask(shifted.reshape(-1, *shifted.shape[-2:]).contiguous(),
-                      valid.reshape(-1, valid.shape[-1]), iou_thresh,
-                      plus_one).reshape(valid.shape)
-    rows = torch.cat([boxes, s[..., None], labels.to(boxes.dtype)[..., None]],
-                     -1)
-    return _compact(rows, keep, max_out)
+    with trace_annotation("millieye.nms"):
+        s = torch.where(valid, scores, torch.full_like(scores, float("-inf")))
+        order = torch.argsort(-s, dim=-1, stable=True)
+        boxes = torch.gather(boxes, -2, order[..., None].expand_as(boxes))
+        s = torch.gather(s, -1, order)
+        labels = torch.gather(labels, -1, order)
+        valid = torch.isfinite(s)
+        shifted = boxes + (labels.to(boxes.dtype)
+                           * _class_offset(boxes, valid)[..., None])[..., None]
+        keep = _keep_mask(
+            shifted.reshape(-1, *shifted.shape[-2:]).contiguous(),
+            valid.reshape(-1, valid.shape[-1]), iou_thresh,
+            plus_one).reshape(valid.shape)
+        rows = torch.cat([boxes, s[..., None],
+                          labels.to(boxes.dtype)[..., None]], -1)
+        return _compact(rows, keep, max_out)
 
 
 def _candidates(pred, conf_thresh, pre_top_k):
@@ -149,33 +156,38 @@ def batched_nms(pred, conf_thresh, iou_thresh=0.5, max_det=200,
     ``use_blocked=False`` pins the whole-matrix kernel K5 where K1 would
     run; every path returns the same keep set.
     """
-    b = pred.shape[0]
-    rows_k, bxyxy, shifted, v, class_pred = _candidates(pred, conf_thresh,
-                                                        pre_top_k)
-    k = shifted.shape[1]
-    keep = _keep_mask(shifted, v, iou_thresh, use_blocked=use_blocked)
+    with trace_annotation("millieye.nms"):
+        b = pred.shape[0]
+        rows_k, bxyxy, shifted, v, class_pred = _candidates(
+            pred, conf_thresh, pre_top_k)
+        k = shifted.shape[1]
+        keep = _keep_mask(shifted, v, iou_thresh, use_blocked=use_blocked)
+        count("nms.frames", b)
+        count("nms.live", v.sum)
+        count("nms.kept", keep.sum)
 
-    # late assembly: compact the kept candidate positions, then gather
-    # only the max_det surviving rows
-    rank = torch.cumsum(keep.long(), 1) - 1
-    ok = keep & (rank < max_det)
-    dst = torch.where(ok, rank, torch.full_like(rank, max_det))
-    pos = torch.arange(k, device=pred.device).expand(b, k)
-    sel = torch.zeros((b, max_det + 1), dtype=torch.long, device=pred.device)
-    sel.scatter_(1, dst, pos)
-    valid_out = torch.zeros((b, max_det + 1), dtype=torch.bool,
-                            device=pred.device)
-    valid_out.scatter_(1, dst, ok)
-    sel, valid_out = sel[:, :max_det], valid_out[:, :max_det]
-    rd = torch.gather(rows_k, 1, sel[..., None].expand(-1, -1,
-                                                       rows_k.shape[2]))
-    c = rd[..., 5:]
-    out = torch.cat([
-        torch.gather(bxyxy, 1, sel[..., None].expand(-1, -1, 4)),
-        rd[..., 4:5], c.amax(-1, keepdim=True),
-        torch.gather(class_pred, 1, sel)[..., None], c], -1)
-    out = torch.where(valid_out[..., None], out, torch.zeros_like(out))
-    return out, valid_out
+        # late assembly: compact the kept candidate positions, then gather
+        # only the max_det surviving rows
+        rank = torch.cumsum(keep.long(), 1) - 1
+        ok = keep & (rank < max_det)
+        dst = torch.where(ok, rank, torch.full_like(rank, max_det))
+        pos = torch.arange(k, device=pred.device).expand(b, k)
+        sel = torch.zeros((b, max_det + 1), dtype=torch.long,
+                          device=pred.device)
+        sel.scatter_(1, dst, pos)
+        valid_out = torch.zeros((b, max_det + 1), dtype=torch.bool,
+                                device=pred.device)
+        valid_out.scatter_(1, dst, ok)
+        sel, valid_out = sel[:, :max_det], valid_out[:, :max_det]
+        rd = torch.gather(rows_k, 1, sel[..., None].expand(-1, -1,
+                                                           rows_k.shape[2]))
+        c = rd[..., 5:]
+        out = torch.cat([
+            torch.gather(bxyxy, 1, sel[..., None].expand(-1, -1, 4)),
+            rd[..., 4:5], c.amax(-1, keepdim=True),
+            torch.gather(class_pred, 1, sel)[..., None], c], -1)
+        out = torch.where(valid_out[..., None], out, torch.zeros_like(out))
+        return out, valid_out
 
 
 def pre_top_k_sufficient(pred, conf_thresh, iou_thresh=0.5, max_det=200,

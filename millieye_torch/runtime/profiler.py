@@ -1,19 +1,28 @@
-"""Stage timing and profiler hooks for the streaming runtime (port of
+"""Stage timing, spans and counters (port of
 ``millieye_tpu/runtime/profiler.py``).
 
 ``StageTimer`` gives per-stage FPS from smoothed wall times, as in the
-JAX package. ``trace_annotation`` names a span in a ``torch.profiler``
-trace, and ``device_trace`` records one (host and CUDA activity) into a
-Chrome trace file.
+JAX package. ``trace_annotation`` names a span of the program (a layer:
+``millieye.ingest``, ``millieye.backbone``, ``millieye.heads``,
+``millieye.nms``) and ``count`` adds to a counter at the same boundary.
+Both act only while a ``torch.profiler`` session is on: a span is then a
+range on the profiler's clock, in the trace that holds the kernels it
+launched, and a count is kept on the device without a host sync until
+``counters()`` reads it. With no session on, each costs one check of
+the flag the profiler sets. The JAX package's ``device_trace`` (a trace
+written to a file) has no counterpart: the caller that holds the
+session writes or reduces its trace.
 """
 from __future__ import annotations
 
 import contextlib
-import os
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+_counts = []    # (name, value): the process's one profiler session's counts
 
 
 class StageTimer:
@@ -52,22 +61,47 @@ class StageTimer:
                 if e is not None}
 
 
-@contextlib.contextmanager
 def trace_annotation(name):
-    """A named span in a ``torch.profiler`` trace.
-    An error in the body propagates as it is."""
-    with record_function(name):
-        yield
+    """A named span: a context manager that, while a profiler session is
+    on, records ``name`` as a range on the host's row of the trace, with
+    the operations it launches as its children. It is a function-scope
+    record, not a user annotation, so the profiler draws no range of it
+    on the device's row: a reader of the device's busy time counts only
+    the kernels. With no session on, the shared no-op context. An error
+    in the body propagates as it is."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
-@contextlib.contextmanager
-def device_trace(logdir):
-    """Record host and CUDA activity of the enclosed block into
-    ``logdir/trace.json`` (Chrome trace format). Yields the profiler."""
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+def count(name, value):
+    """Add ``value`` to the counter ``name`` while a profiler session is
+    on; with none on, keep nothing. ``value`` is a host number, or a
+    callable that returns one or a 0-d tensor (called only while a
+    session is on, so an untraced call launches nothing). A device value
+    is kept as the tensor, with no host sync, and never updated in
+    place."""
+    if _autograd_profiler._is_profiler_enabled:
+        _counts.append((name, value() if callable(value) else value))
+
+
+def counters():
+    """{name: total} of the counts kept since the last read, and clears
+    them: one host sync for all the device values."""
+    if not _counts:
+        return {}
+    kept = _counts.copy()
+    del _counts[:len(kept)]     # a count added meanwhile stays for later
+    totals, dev = {}, {}
+    for name, v in kept:
+        if torch.is_tensor(v):
+            dev.setdefault(name, []).append(v.double())
+        else:
+            totals[name] = totals.get(name, 0) + v
+    if dev:
+        sums = [torch.stack(vs).sum() for vs in dev.values()]
+        at = sums[0].device
+        for name, s in zip(dev, torch.stack([s.to(at) for s in sums])
+                           .tolist()):
+            totals[name] = totals.get(name, 0) + s
+    return totals

@@ -38,6 +38,7 @@ from millieye_torch.io.checkpoint import (load_checkpoint, save_checkpoint,
 from millieye_torch.ops import letterbox as lb
 from millieye_torch.ops.rasterize import radar_heatmap
 from millieye_torch.parallel.mesh import gather_params, shard_params
+from millieye_torch.runtime.profiler import trace_annotation
 from millieye_torch.train.logging import MetricsLogger
 from millieye_torch.train.optim import (STAGE2_FROZEN, STAGE3_FROZEN,
                                         frozen_adam, tree_leaves, tree_map)
@@ -77,20 +78,21 @@ def fusion_device_batch(batch, img_size, device="cuda"):
     pass through unconverted, and ``batch["host"]`` keeps a numpy copy
     of ``targets`` and ``tmask``, so an evaluation never fetches them
     from the device."""
-    dev = resolve_device(device)
-    out = {k: _to(v, dev) for k, v in batch.items()
-           if k not in _HOST_BATCH_KEYS}
-    for k in ("_n", "brightness"):
-        if k in batch:
-            out[k] = batch[k]
-    out["host"] = batch.get("host") or {
-        k: np.asarray(batch[k]) for k in _HOST_COPY_KEYS if k in batch}
-    if "radar_points" in batch:
-        w, h = batch.get("frame_size", (640, 480))
-        out["radar_maps"] = _map_ingest(_to(batch["radar_points"], dev),
-                                        _to(batch["pmask"], dev),
-                                        (int(w), int(h)), img_size)
-    return out
+    with trace_annotation("millieye.ingest"):
+        dev = resolve_device(device)
+        out = {k: _to(v, dev) for k, v in batch.items()
+               if k not in _HOST_BATCH_KEYS}
+        for k in ("_n", "brightness"):
+            if k in batch:
+                out[k] = batch[k]
+        out["host"] = batch.get("host") or {
+            k: np.asarray(batch[k]) for k in _HOST_COPY_KEYS if k in batch}
+        if "radar_points" in batch:
+            w, h = batch.get("frame_size", (640, 480))
+            out["radar_maps"] = _map_ingest(_to(batch["radar_points"], dev),
+                                            _to(batch["pmask"], dev),
+                                            (int(w), int(h)), img_size)
+        return out
 
 
 class Trainer:

@@ -140,6 +140,19 @@ def test_export_then_eager_step_gives_real_tensors(tmp_path):
     assert outs["fresh"]["valid"].any()
 
 
+def test_a_constant_first_made_in_inference_mode_serves_training():
+    """``device.constant`` first called under ``torch.inference_mode`` (an
+    evaluation's step) caches a normal tensor: a later training step in
+    the same process saves it for backward."""
+    from millieye_torch import device
+    with torch.inference_mode():
+        c = device.constant(((1.5, 2.5),), "cpu")
+    assert not c.is_inference()
+    x = torch.ones(2, requires_grad=True)
+    (torch.exp(x) * c[0]).sum().backward()
+    assert torch.equal(x.grad, torch.exp(torch.ones(2)) * c[0])
+
+
 _LOAD = """
 import sys, json, numpy as np, torch
 from millieye_torch.io.export import load_serving

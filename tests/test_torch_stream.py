@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from millieye_torch.cli import demo
 from millieye_torch.cli._common import build_fusion
@@ -26,8 +27,7 @@ from millieye_torch.collection.prepare import iter_frames
 from millieye_torch.radar.pipeline import RadarParams
 from millieye_torch.radar.projection import load_calib
 from millieye_torch.runtime.engine import FusionEngine
-from millieye_torch.runtime.profiler import (StageTimer, device_trace,
-                                             trace_annotation)
+from millieye_torch.runtime.profiler import StageTimer, trace_annotation
 from millieye_torch.runtime.stream import StreamingPipeline
 from millieye_tpu.models import Darknet, tiny_yolov3_defs
 from millieye_tpu.models.fusion import FusionConfig, FusionNetwork
@@ -230,7 +230,7 @@ def test_stream_matches_jax(jax_model, engine, tmp_path):
         _match_rows(got[i], want[i], TOL_F32)
 
 
-def test_stage_timer_and_trace_hooks(tmp_path):
+def test_stage_timer_and_trace_hooks():
     t = StageTimer(("a",))
     with t("a"):
         pass
@@ -239,10 +239,13 @@ def test_stage_timer_and_trace_hooks(tmp_path):
     with pytest.raises(KeyError, match="body"):
         with trace_annotation("span"):
             raise KeyError("body")
-    with device_trace(str(tmp_path / "trace")):
-        with trace_annotation("span"):
+    # in a profiler session the span is a range holding its operations
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace_annotation("millieye.span"):
             torch.ones(4).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    span = [e for e in prof.events() if e.name == "millieye.span"]
+    assert len(span) == 1
+    assert "aten::sum" in {c.name for c in span[0].cpu_children}
 
 
 def test_demo_main(tmp_path, capsys):
