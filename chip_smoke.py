@@ -22,7 +22,9 @@ printed only when every phase passed:
      and "im2col" tap orders) at stages 0 and 2 and at block 8's shape (its
      streamed route), K13 (stochastic int8) on block 12's weight and on the
      (8, 128) carrier, each K10 and K13 case with its device time a call, and
-     K13 on ragged, 70000-tile, zero, -0.0, inf and NaN inputs; K2, K3 (bf16
+     K13 on ragged, 70000-tile, zero, -0.0, inf and NaN inputs, K14 (the
+     inference convolution's tail) at Darknet-53's shapes at batch 8;
+     K2, K3 (bf16
      and float32 "highest"), K6 ("upq", "default") and K7 ("highest") also
      with every RoI the whole frame, K3 also at "split"; K9's "highest" and
      K10's lines with their mul-then-add ceiling; the pairs at "default"
@@ -1056,6 +1058,57 @@ class KernelChecks:
                                          f"{float(ws)!r})")
             self.k13_edges.append(f"{label} (row_tile {row_tile}, scale "
                                   f"{float(s):.6g})")
+
+    # ------------------------------------------------------------- K14
+    def epilogue(self, b=8):
+        """K14 at Darknet-53's shapes at 416 px, batch ``b``, on a
+        channels_last convolution output as cuDNN gives it: 208 px x 64,
+        52 px x 256 and 13 px x 1024 in the batch-norm form with leaky,
+        and the 13 px 255-channel head in the bias form, linear;
+        bit-equal to the plain version (the eager sequence), with its
+        device time a call. Bound: bytes, each element read and written
+        once (8 bytes in float32) and the vectors. Library, timed, never
+        called by the port: ``F.batch_norm`` (eval) + ``F.leaky_relu`` in
+        float32 for the batch-norm form, ``torch.add`` of the bias for
+        the bias form."""
+        from millieye_torch.ops import epilogue
+        torch = self.torch
+        F = torch.nn.functional
+        g = torch.Generator(device=self.dev).manual_seed(14)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device=self.dev)
+
+        for c, hw, bn in ((64, 208, True), (256, 52, True), (1024, 13, True),
+                          (255, 13, False)):
+            x = (3 * randn(b, c, hw, hw)).contiguous(
+                memory_format=torch.channels_last)
+            beta = 0.1 * randn(c)
+            vecs = (beta, None, None, None)
+
+            def lib(x=x, beta=beta):
+                return torch.add(x, beta[:, None, None])
+            lib_name = "torch.add of the bias, float32"
+            if bn:
+                mean, gamma = 0.1 * randn(c), 1 + 0.1 * randn(c)
+                var = 0.5 + 1.5 * torch.rand(c, generator=g, device=self.dev)
+                vecs = (beta, mean, torch.rsqrt(var + 1e-5), gamma)
+
+                def lib(x=x, mean=mean, var=var, gamma=gamma, beta=beta):
+                    return F.leaky_relu(F.batch_norm(
+                        x, mean, var, gamma, beta, False, 0.0, 1e-5), 0.1)
+                lib_name = "F.batch_norm (eval) + F.leaky_relu, float32"
+            n_vec = sum(v is not None for v in vecs)
+            self.case(
+                "conv_epilogue", f"{hw} px x {c}, "
+                f"{'batch norm + leaky' if bn else 'bias, linear'}", b,
+                lambda x=x, vecs=vecs, bn=bn: epilogue.conv_epilogue(
+                    x, *vecs, bn),
+                lambda x=x, vecs=vecs, bn=bn: epilogue.epilogue_eager(
+                    x, *vecs, bn),
+                2 * x.numel() * 4 + n_vec * c * 4,
+                (6 if bn else 1) * x.numel(), F32_FLOP_S, lib, lib_name, 1e-5,
+                iters=50, device=True)
 
 
 def int8_conv_phase(torch, w12, rng):
@@ -2168,9 +2221,17 @@ TRAIN_SCENES = 64             # SyntheticScenes(64, seed=777), as P19
 TRAIN_BATCH = 8
 TRAIN_SIZE = 416
 TRAIN_LR = 5e-4
-# the kernels each P21 run must launch on every step, and nothing else
-TRAIN_EXPECT = {"fusion_fold": {"stem_pair": 1, "nms": 1},
-                "fusion": {"nms": 1}, "refine": {"nms": 1}, "yolo": {}}
+# the kernels each P21 run must launch on every step, and nothing else.
+# K14 (conv_epilogue) runs the tail of each plain convolution of the
+# frozen forward (eval mode under no_grad): all 13 of tiny-YOLO's in
+# float32 (stage 3 unfolded, stage 2); with --fold_frozen the 11 the
+# stem pair leaves (stage 4 in float32; the others bfloat16 with a
+# float32 bias, written float32 as the eager sequence widens them).
+# Stage 1 trains the Darknet itself (train mode): none.
+TRAIN_EXPECT = {"fusion_fold": {"stem_pair": 1, "nms": 1,
+                                "conv_epilogue": 11},
+                "fusion": {"nms": 1, "conv_epilogue": 13},
+                "refine": {"nms": 1, "conv_epilogue": 13}, "yolo": {}}
 # module3's total leaves out its category and regression terms; they are
 # reported, and the category BCE is NaN wherever a class score saturates
 # to 1.0 in float32 (its clip, 1 - 1e-12, rounds to 1.0): so in the JAX
@@ -2244,12 +2305,12 @@ def _frozen_identical(torch, params, start, frozen):
 def fold_forward_vs_plain(torch, cuda_lib, model, params, state, images,
                           zero_counts, counts):
     """(a)'s frozen forward, the folded Darknet and its NMS, as the fold
-    step runs it: K4 and K1 once; bit-identical to the run with every
-    kernel but the tensor-core ones plain; against the fully plain run
-    each image's rows within ``PAIR_PATH_TOL``, or beyond it by NMS
-    decisions alone (each run's NMS the plain NMS of its detections, and
-    the kernel run's detections under the plain run's decisions within
-    the bound). Returns (largest box difference, largest score
+    step runs it: K4 and K1 once, K14 on its 11 tails; bit-identical to
+    the run with every kernel but the tensor-core ones plain; against the
+    fully plain run each image's rows within ``PAIR_PATH_TOL``, or beyond
+    it by NMS decisions alone (each run's NMS the plain NMS of its
+    detections, and the kernel run's detections under the plain run's
+    decisions within the bound). Returns (largest box difference, largest score
     difference, anchors kept in one run only)."""
     from millieye_torch.models import fusion
     from millieye_torch.ops import stem
@@ -2265,7 +2326,7 @@ def fold_forward_vs_plain(torch, cuda_lib, model, params, state, images,
     zero_counts()
     got = fwd()
     c = counts()
-    if {k: v for k, v in c.items() if v} != {"stem_pair": 1, "nms": 1}:
+    if {k: v for k, v in c.items() if v} != TRAIN_EXPECT["fusion_fold"]:
         raise AssertionError(f"P21 frozen forward launched {c}")
     with cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS):
         keep = fwd()
@@ -2553,7 +2614,10 @@ LIVE_CFG = ("% the contract's cfg (tests/test_collection.py:57-71)",
             "profileCfg 0 60 7 3 24 0 0 166 1 256 12500 0 0 30",
             "frameCfg 0 2 16 0 55 1 0", "sensorStart")
 LIVE_PROFILED = 24             # frames of P22's profiled run
-LIVE_KERNELS = ("stem_pair", "nms", "ps_roi_align", "roi_align", "nms_full")
+# the launches of each live frame at pallas_max_s01: K14 on the 11 plain
+# convolutions the stem pair leaves (folded, bfloat16, their bias too)
+LIVE_LAUNCHES = {"stem_pair": 1, "nms": 1, "ps_roi_align": 1, "roi_align": 1,
+                 "nms_full": 1, "conv_epilogue": 11}
 
 
 def tlv_packet(frame_no, xyzv):
@@ -2753,7 +2817,7 @@ def live_phase(torch, eng, rec, frames, calib_path, counts=None,
     if counts:
         per_frame = [{k: b[k] - a[k] for k in a if b[k] != a[k]}
                      for _, a, _, b in marks]
-        want = dict.fromkeys(LIVE_KERNELS, 1)
+        want = LIVE_LAUNCHES
         bad = [i for i, c in enumerate(per_frame) if c != want]
         if bad:
             raise AssertionError(f"live: frames {bad} launched "
@@ -3103,12 +3167,16 @@ PAR_BN_FED = {"params/radar_enc/0/b", "params/radar_enc/1/b",
 PAR_WORLD_TIMEOUT = 600
 # the kernels each part must launch on every rank (a batch, a step, the
 # window), and nothing else
-PAR_NEED = {"eval@f32": {"nms": 1},
-            "eval@pallas_max_s01": dict.fromkeys(_RIGHT_PAIR, 1),
-            "train": {"stem_pair": 1, "nms": 1},
-            "window": dict.fromkeys(("stem_stage", "stem_pair", "nms",
-                                     "ps_roi_align", "roi_align",
-                                     "nms_full"), 1)}
+# (K14: every plain convolution of the unfolded float32 Darknet, 13; the
+# 11 the stem pair leaves at pallas_max_s01 and the 10 the pair and K9
+# leave at pallas_max4; with --fold_frozen, TRAIN_EXPECT's 11)
+PAR_NEED = {"eval@f32": {"nms": 1, "conv_epilogue": 13},
+            "eval@pallas_max_s01": dict(dict.fromkeys(_RIGHT_PAIR, 1),
+                                        conv_epilogue=11),
+            "train": TRAIN_EXPECT["fusion_fold"],
+            "window": dict(dict.fromkeys(("stem_stage", "stem_pair", "nms",
+                                          "ps_roi_align", "roi_align",
+                                          "nms_full"), 1), conv_epilogue=10)}
 
 
 def rank_counts():
@@ -3586,8 +3654,8 @@ def main():
     from millieye_torch.cli.demo import calibrate
     from millieye_torch.device import set_numerics
     from millieye_torch.entry import entry
-    from millieye_torch.ops import (cuda_lib, nms_kernel, quantize, roi_kernel,
-                                    stem)
+    from millieye_torch.ops import (cuda_lib, epilogue, nms_kernel, quantize,
+                                    roi_kernel, stem)
     from millieye_torch.runtime.engine import FusionEngine, fold_for_serving
 
     t_start = time.time()
@@ -3649,6 +3717,9 @@ def main():
         "quantize_stochastic": (quantize.quantize_int8_stochastic,
                                 "millieye_torch/csrc/quantize.cu",
                                 "millieye_tpu/ops/quantize.py:54"),
+        "conv_epilogue": (epilogue.conv_epilogue,
+                          "millieye_torch/csrc/epilogue.cu",
+                          "none (XLA fused this tail on the TPU)"),
     }
 
     def engine_at(preset, **cfg):
@@ -3683,6 +3754,7 @@ def main():
         checks.stem_pair_f32(b, engines["f32"].params["darknet"])
     w12 = engines["f32"].params["darknet"][12]["w"]
     checks.quantize(w12)
+    checks.epilogue()
     torch.cuda.empty_cache()
     recs = [r for rs in checks.records.values() for r in rs]
     bounded = [r for r in recs if r["tol"] is not None]

@@ -34,6 +34,14 @@ convolution runs int8 x int8 -> int32 (``int8_conv2d``).
 (``act_absmax``) for calibrating ``xs``; it runs the stem pairs as
 single stages, as the JAX package does.
 
+At inference the tail of each plain convolution (batch norm's affine
+step with the running statistics, or the folded bias, then leaky or
+nothing) is ``ops/epilogue.py:epilogue``: one launch of kernel K14 on
+the card, the eager sequence elsewhere, the same bits. Inside a profiler
+session the backbone counts ``darknet.convs`` (the plain convolution
+blocks an ``apply`` runs) and ``darknet.epilogue`` (those whose tail
+launched K14).
+
 Training (``apply(train=True)``): BN normalizes with the batch statistics
 and updates the running ones with momentum 0.9 (the reference's
 ``BatchNorm2d(momentum=0.9)``: running <- 0.1 running + 0.9 batch, the
@@ -52,12 +60,14 @@ import torch.nn.functional as F
 from millieye_torch.device import constant
 from millieye_torch.io.checkpoint import to_device
 from millieye_torch.io.config import parse_model_config
+from millieye_torch.ops import epilogue as epi
+from millieye_torch.ops.epilogue import leaky
 from millieye_torch.ops.quantize import int8_conv2d
 from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_s2d,
                                      fused_stem_pair_select, fused_stem_stage)
 from millieye_torch.parallel import collectives as pc
-from millieye_torch.runtime.profiler import trace_annotation
+from millieye_torch.runtime.profiler import count, trace_annotation
 
 _BN_EPS = 1e-5
 # torch BatchNorm2d(momentum=0.9): running <- 0.1 running + 0.9 batch
@@ -80,13 +90,6 @@ PAIR_KERNELS = {
 }
 _NO_BF16S = ("select", "phase_s01", "phase_vmem_s01")
 _DEEP_PAIR_VARIANTS = ("s2d", "s2d8")   # the only ones that pair stages 4+6
-
-
-def leaky(x):
-    """LeakyReLU(0.1) with the slope in x's dtype, as JAX's weakly typed
-    ``0.1 * x`` rounds it (bf16(0.1) != float32(0.1))."""
-    return torch.where(x > 0, x, x * torch.full((), 0.1, dtype=x.dtype,
-                                                device=x.device))
 
 
 def _maxpool(x, size, stride):
@@ -460,11 +463,12 @@ class Darknet:
             # the four output phases are the pool window; then bias, act
             n, _, h, w = y.shape
             y = y.reshape(n, 4, info["filters"], h, w).amax(1)
-            y = y + p["b"][:, None, None]
-            return leaky(y) if info["act"] == "leaky" else y
+            return epi.epilogue_eager(y, p["b"],
+                                      leaky_act=info["act"] == "leaky")
 
         pair_los = () if collect_act_stats else tuple(
             lo for lo in self._pair_candidates() if fused(lo) and fused(lo + 2))
+        convs, launches = 0, epi.conv_epilogue.launches
         with trace_annotation("millieye.backbone"):
             for i, info in enumerate(self._plan):
                 t = info["type"]
@@ -503,17 +507,19 @@ class Darknet:
                 elif t == "convolutional":
                     x = conv(i, p, prev, "w", info["stride"],
                              (info["size"] - 1) // 2)
-                    if "gamma" in p and train:
+                    convs += 1
+                    act = info["act"] == "leaky"
+                    if train and "gamma" in p:
                         x, new_state[i] = _train_bn(x, p, s)
+                        x = leaky(x) if act else x
+                    elif train:
+                        x = epi.epilogue_eager(x, p["b"], leaky_act=act)
                     elif "gamma" in p:    # BN not folded away (eval mode)
-                        x = (x - s["mean"][:, None, None]) * torch.rsqrt(
-                            s["var"][:, None, None] + _BN_EPS)
-                        x = (x * p["gamma"][:, None, None]
-                             + p["beta"][:, None, None])
+                        x = epi.epilogue(x, p["beta"], s["mean"],
+                                         torch.rsqrt(s["var"] + _BN_EPS),
+                                         p["gamma"], act)
                     else:
-                        x = x + p["b"][:, None, None]
-                    if info["act"] == "leaky":
-                        x = leaky(x)
+                        x = epi.epilogue(x, p["b"], leaky_act=act)
                 elif t == "maxpool":
                     x = _maxpool(prev, info["size"], info["stride"])
                 elif t == "upsample":
@@ -539,6 +545,9 @@ class Darknet:
                 outputs.append(x)
                 if i == self.feature_tap:
                     feature_map = x.permute(0, 2, 3, 1)
+            # the plain convolution blocks, and those whose tail ran K14
+            count("darknet.convs", convs)
+            count("darknet.epilogue", epi.conv_epilogue.launches - launches)
             # a truncated config (no yolo block) returns its last map, NHWC
             out = {"feature_map": feature_map,
                    "detections": (torch.cat(dets, 1) if dets

@@ -8,7 +8,7 @@ PyTorch header is compiled, so a build takes seconds. Libraries land in
 edited source is rebuilt and an unchanged one is reused. ``build()``
 starts one ``nvcc`` for each missing library, all at once.
 
-Every kernel wrapper calls its ``torch.library`` custom op
+Every kernel wrapper calls its ``torch.library`` op
 ``millieye::<name>`` (``kernel_op``), so that ``torch.export`` and other
 tracers see one operator with an output shape instead of a ``ctypes``
 call. The op's CUDA implementation asks ``takes_plain`` whether to run
@@ -41,6 +41,7 @@ SOURCES = {
     "roi_align": ("roi_align.cu", ()),
     "stem": ("stem.cu", ()),
     "quantize": ("quantize.cu", ()),
+    "epilogue": ("epilogue.cu", ()),
 }
 
 # the kernel wrappers' names, as they ask takes_plain and as chip_smoke.py
@@ -49,9 +50,12 @@ KERNELS = frozenset((
     "nms", "nms_full", "ps_roi_align", "ps_roi_align_vpu", "roi_align",
     "ps_roi_align_f32", "ps_roi_align_padded_f32", "stem_pair",
     "stem_pair_select", "stem_pair_packed", "stem_pair_s2d",
-    "stem_pair_deep", "stem_stage", "fused_stem", "quantize_stochastic"))
+    "stem_pair_deep", "stem_stage", "fused_stem", "quantize_stochastic",
+    "conv_epilogue"))
 
 _loaded = {}
+# the namespace every kernel_op defines its op in
+_OPS_LIB = torch.library.Library("millieye", "FRAGMENT")
 _plain_on_cuda = False
 _kept = frozenset()
 
@@ -84,29 +88,31 @@ def takes_plain(t, name):
     return t.device.type == "cpu" or (_plain_on_cuda and name not in _kept)
 
 
-def kernel_op(name, schema, plain, launch, fake, wrapper):
-    """Register the custom op ``millieye::<name>`` (``name`` from
-    ``KERNELS``) with ``schema`` and return it. On the CPU it runs
-    ``plain``; on the card ``launch``, counted on ``wrapper.launches``,
-    or ``plain`` where ``takes_plain`` says so, read at each call (a
-    replayed exported program too). ``fake`` gives the outputs' shapes
-    and dtypes while tracing, and never touches a library. The op keeps
-    ``plain``, ``launch`` and ``wrapper`` as attributes."""
+def kernel_op(name, schema, plain, launch, fake, wrapper, contiguous=True):
+    """Define the op ``millieye::<name>`` (``name`` from ``KERNELS``)
+    with ``schema`` and return it. On the CPU it runs ``plain``; on the
+    card ``launch``, counted on ``wrapper.launches``, or ``plain`` where
+    ``takes_plain`` says so, read at each call (a replayed exported
+    program too). ``fake`` gives the outputs' shapes and dtypes while
+    tracing, and never touches a library. The plain outputs are made
+    contiguous, as most kernels write theirs; with ``contiguous=False``
+    they keep the layout ``plain`` gives them, which must be the
+    kernel's. The op keeps ``plain``, ``launch`` and ``wrapper`` as
+    attributes. The implementations are registered with the dispatcher
+    directly (``torch.library.Library.impl``): a ``torch.library.
+    custom_op`` wraps each call in Python autograd and aliasing checks
+    that cost the host ~15 us a call, and these ops have no backward."""
     if name not in KERNELS:
         raise ValueError(f"kernel_op: unknown kernel {name!r}")
 
     def _plain(*args):
-        # contiguous, as the kernels write their outputs
         out = plain(*args)
+        if not contiguous:
+            return out
         if isinstance(out, tuple):
             return tuple(t.contiguous() for t in out)
         return out.contiguous()
 
-    op = torch.library.custom_op(f"millieye::{name}", _plain,
-                                 mutates_args=(), device_types="cpu",
-                                 schema=schema)
-
-    @op.register_kernel("cuda")
     def _cuda(*args):
         if takes_plain(args[0], name):
             return _plain(*args)
@@ -114,7 +120,11 @@ def kernel_op(name, schema, plain, launch, fake, wrapper):
         wrapper.launches += 1
         return out
 
-    op.register_fake(fake)
+    _OPS_LIB.define(name + schema)
+    _OPS_LIB.impl(name, _plain, "CPU")
+    _OPS_LIB.impl(name, _cuda, "CUDA")
+    torch.library.register_fake(f"millieye::{name}", fake, lib=_OPS_LIB)
+    op = getattr(torch.ops.millieye, name).default
     op.plain, op.launch, op.wrapper = _plain, launch, wrapper
     return op
 

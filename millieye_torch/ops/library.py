@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from millieye_torch.ops import nms_kernel, quantize, roi_kernel, stem
+from millieye_torch.ops import epilogue, nms_kernel, quantize, roi_kernel, stem
 
 OPS = {"nms": nms_kernel._blocked_op, "nms_full": nms_kernel._full_op,
        "ps_roi_align": roi_kernel._k2_op,
@@ -19,7 +19,8 @@ OPS = {"nms": nms_kernel._blocked_op, "nms_full": nms_kernel._full_op,
        "roi_align": roi_kernel._k3_op, "ps_roi_align_f32": roi_kernel._k6_op,
        "ps_roi_align_padded_f32": roi_kernel._k7_op,
        "stem_stage": stem._stage_op, "fused_stem": stem._nhwc_op,
-       **stem._pair_ops, "quantize_stochastic": quantize._stochastic_op}
+       **stem._pair_ops, "quantize_stochastic": quantize._stochastic_op,
+       "conv_epilogue": epilogue._op}
 
 
 def op(name):

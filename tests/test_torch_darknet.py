@@ -18,11 +18,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from millieye_torch.cli._common import build_fusion
 from millieye_torch.models import darknet as tdark
 from millieye_torch.models.darknet import Darknet, _maxpool
 from millieye_torch.models.zoo import tiny_yolov3_defs
+from millieye_torch.ops import epilogue as epi
 from millieye_torch.ops import stem as tstem
 from millieye_tpu.cli._common import serving_overrides as jax_overrides
 from millieye_tpu.io.checkpoint import load_checkpoint
@@ -253,3 +255,222 @@ def test_darknet_pair_highest(image):
                                np.asarray(want["detections"]),
                                rtol=1e-4, atol=2e-3)
     assert tstem.fused_stem_pair.launches == before      # CPU: plain
+
+
+# ----------------------------------------- the inference epilogue (K14)
+E = 64                  # the epilogue tests' image size
+
+
+def _old_eval_tail(x, p, s, act):
+    """The eager lines ``Darknet.apply`` ran after an inference
+    convolution before the tail became ``ops/epilogue.py:epilogue``,
+    kept here as they were."""
+    if "gamma" in p:
+        x = (x - s["mean"][:, None, None]) * torch.rsqrt(
+            s["var"][:, None, None] + tdark._BN_EPS)
+        x = (x * p["gamma"][:, None, None] + p["beta"][:, None, None])
+    else:
+        x = x + p["b"][:, None, None]
+    if act:
+        x = torch.where(x > 0, x, x * torch.full((), 0.1, dtype=x.dtype,
+                                                 device=x.device))
+    return x
+
+
+def _epilogue_model(form, **kw):
+    """tiny-YOLO at E px with batch-norm statistics away from the init's
+    (mean 0, var 1, beta 0): "bn" unfolded, "folded" BN folded in
+    float32, "folded_bf16" folded and cast to bfloat16."""
+    g = torch.Generator().manual_seed(5)
+    model = Darknet(tiny_yolov3_defs(num_classes=12, img_size=E), img_size=E,
+                    **kw)
+    params, state = model.init(g)
+    for p, s in zip(params, state):
+        if "gamma" in p:
+            c = p["gamma"].shape[0]
+            p["beta"] = 0.1 * torch.randn(c, generator=g)
+            s["mean"] = 0.1 * torch.randn(c, generator=g)
+            s["var"] = 0.5 + 1.5 * torch.rand(c, generator=g)
+    if form != "bn":
+        params, state = model.fold_batchnorm(
+            params, state, torch.bfloat16 if form == "folded_bf16" else None)
+    return model, params, state
+
+
+def _epilogue_images(n=2):
+    return torch.rand((n, E, E, 3), generator=torch.Generator().manual_seed(6))
+
+
+@pytest.mark.parametrize("form", ["bn", "folded", "folded_bf16"])
+def test_eval_epilogue_equals_the_old_eager_lines(form):
+    """``apply(train=False)`` on the CPU: every plain convolution block's
+    output has the bits of the old eager lines applied to that block's
+    convolution of its input, in the batch-norm form, the folded form
+    (float32 and bfloat16) and the linear YOLO-head convolutions."""
+    model, params, state = _epilogue_model(form)
+    dt = torch.bfloat16 if form == "folded_bf16" else torch.float32
+    images = _epilogue_images()
+    out = model.apply(params, state, images, compute_dtype=dt,
+                      collect_outputs=True)["outputs"]
+    checked = {"leaky": 0, "linear": 0}
+    for i, info in enumerate(model._plan):
+        if info["type"] != "convolutional":
+            continue
+        z = out[i - 1] if i else images.permute(0, 3, 1, 2)
+        y = F.conv2d(z.to(dt), params[i]["w"].to(dt), stride=info["stride"],
+                     padding=(info["size"] - 1) // 2)
+        want = _old_eval_tail(y, params[i], state[i], info["act"] == "leaky")
+        assert out[i].dtype == want.dtype and torch.equal(out[i], want), i
+        checked[info["act"]] += 1
+    assert checked == {"leaky": 11, "linear": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize("bn", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+def test_conv_epilogue_plain_equals_the_old_eager_lines(dtype, channels_last,
+                                                        bn, wide):
+    """The op's plain version (what a CPU tensor takes) in either dense
+    layout: the old eager lines' bits and dtype, with vectors in x's
+    dtype or (``wide``) in float32, which widens the result as the fold
+    step's bfloat16 convolutions with a float32 bias do; and the input's
+    memory format."""
+    g = torch.Generator().manual_seed(7)
+    x = (3 * torch.randn(2, 12, 5, 7, generator=g)).to(dtype)
+    if channels_last:
+        x = x.to(memory_format=torch.channels_last)
+    c = x.shape[1]
+    vd = torch.float32 if wide else dtype
+    p = {"b": torch.randn(c, generator=g).to(vd)}
+    s = {}
+    if bn:
+        p = {"gamma": (1 + 0.1 * torch.randn(c, generator=g)).to(vd),
+             "beta": p["b"]}
+        s = {"mean": torch.randn(c, generator=g).to(vd),
+             "var": (0.5 + torch.rand(c, generator=g)).to(vd)}
+    for act in (False, True):
+        want = _old_eval_tail(x, p, s, act)
+        if bn:
+            got = epi.conv_epilogue(x, p["beta"], s["mean"], torch.rsqrt(
+                s["var"] + tdark._BN_EPS), p["gamma"], act)
+        else:
+            got = epi.conv_epilogue(x, p["b"], leaky_act=act)
+        assert got.dtype == want.dtype == torch.promote_types(dtype, vd)
+        assert torch.equal(got, want)
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        assert got.is_contiguous(memory_format=fmt)
+
+
+def test_conv_epilogue_refuses_what_it_cannot_take():
+    """On the card the op checks its tensors before it touches the
+    library (``_kernel_form``, the launch's first step) and raises for
+    what the kernel cannot take: a layout neither dense NCHW nor
+    channels_last, float64, vectors of another size, batch norm without
+    all its vectors, and vectors whose dtypes would round the operations
+    in two dtypes. A widening mix is taken: the output dtype is the
+    eager result's, the vectors cast to it."""
+    x = torch.randn(2, 4, 3, 3)
+    b = torch.randn(4)
+    h = b.bfloat16()
+
+    def form(*args):
+        return epi._kernel_form(*args, *(None,) * (5 - len(args)))
+
+    with pytest.raises(ValueError, match="dense 4-D"):
+        form(x[:, :, :, :2], b)
+    with pytest.raises(ValueError, match="dense 4-D"):
+        form(x.double(), b.double())
+    with pytest.raises(ValueError, match=r"want \[4\] float vectors"):
+        form(x, torch.randn(3))
+    with pytest.raises(ValueError, match="together"):
+        form(x, b, b, None, b)
+    # bf16 - bf16 rounds to bfloat16, then * gamma widens to float32
+    with pytest.raises(ValueError, match="two dtypes"):
+        form(x.bfloat16(), b, h, h, b)
+    out, inner, vecs = form(
+        x.bfloat16().to(memory_format=torch.channels_last), b)
+    assert (out, inner) == (torch.float32, 1) and vecs[0] is b
+    out, inner, vecs = form(x.half(), h, h, h, h)
+    assert (out, inner) == (torch.float32, 9)
+    assert all(v.dtype == torch.float32 for v in vecs)
+    assert not epi.takes_kernel(x, b)       # a CPU tensor
+
+
+def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
+    """``epilogue`` asks ``takes_kernel`` at every inference tail and
+    sends it to the op where the card would (the spy answers for fake
+    CUDA copies of the tensors, so the CPU tensors take the op's plain
+    version there), with the eager route's bits; training
+    (``apply(train=True)``) never asks, and a forward whose parameters
+    require grad while grad mode is on is refused at every tail."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    model, params, state = _epilogue_model("bn")
+    images = _epilogue_images()
+    want = model.apply(params, state, images)
+    mode = FakeTensorMode()
+    real, real_op = epi.takes_kernel, epi._op
+    answers, calls = [], []
+
+    def on_card(t):
+        if t is None:
+            return None
+        with mode:
+            return torch.empty_strided(
+                t.shape, t.stride(), dtype=t.dtype,
+                device="cuda").requires_grad_(t.requires_grad)
+
+    def spy(*args):
+        answers.append(real(*(on_card(t) for t in args)))
+        return answers[-1]
+
+    def op(*args):
+        calls.append(args[0].shape)
+        return real_op(*args)
+
+    monkeypatch.setattr(epi, "takes_kernel", spy)
+    monkeypatch.setattr(epi, "_op", op)
+    got = model.apply(params, state, images)
+    assert answers == [True] * 13 and len(calls) == 13
+    for k in ("feature_map", "detections"):
+        assert torch.equal(got[k], want[k])
+    answers.clear()
+    calls.clear()
+    model.apply(params, state, images, train=True)
+    assert answers == [] and calls == []
+    grads = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
+             for p in params]
+    model.apply(grads, state, images)
+    assert answers == [False] * 13 and calls == []
+    answers.clear()
+    with torch.no_grad():
+        model.apply(grads, state, images)
+    assert answers == [True] * 13 and len(calls) == 13
+
+
+def test_darknet_counters_count_only_in_a_profiler_session():
+    """``darknet.convs`` counts the plain convolution blocks an ``apply``
+    runs (the s2d stages are not plain) and ``darknet.epilogue`` those
+    whose tail launched K14 (none on the CPU); outside a profiler
+    session nothing is kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from millieye_torch.runtime import profiler
+    profiler.counters()
+    model, params, state = _epilogue_model("folded")
+    s2d = Darknet(tiny_yolov3_defs(num_classes=12, img_size=E), img_size=E,
+                  s2d_stages=(0, 2))
+    images = _epilogue_images(1)
+    model.apply(params, state, images)
+    assert profiler.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        model.apply(params, state, images)
+        model.apply(params, state, images, train=True)
+    assert profiler.counters() == {"darknet.convs": 26,
+                                   "darknet.epilogue": 0}
+    with profile(activities=[ProfilerActivity.CPU]):
+        s2d.apply(s2d.fold_s2d(params), state, images)
+    assert profiler.counters() == {"darknet.convs": 11,
+                                   "darknet.epilogue": 0}
+    assert profiler.counters() == {}

@@ -18,9 +18,12 @@ repeats; they are held within ``PAIR_DEFAULT_TOL`` (2^-6) of their plain
 versions' largest output, with a floor on the share of outputs that are
 bit-equal (``_PAIR_EXACT_FLOOR``).
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from millieye_torch.device import set_numerics
 from millieye_torch.ops import nms as tnms
@@ -39,6 +42,7 @@ from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
                                            roi_align_f32_plain,
                                            roi_align_group,
                                            roi_align_kernel, roi_align_plain)
+from millieye_torch.ops import epilogue as epi
 from millieye_torch.ops import quantize as tq
 from millieye_torch.ops import stem
 from millieye_torch.ops.stem import (PAIR_DEFAULT_TOL, fused_stem,
@@ -1210,6 +1214,10 @@ def op_cases(device="cpu"):
         "stem_pair_s2d": (x, w0, b8, w1, b16, "highest", f32, False),
         "stem_pair_deep": pair[:6] + (torch.bfloat16, True),
         "quantize_stochastic": (t(rng.standard_normal((5, 7))), 3, 2),
+        "conv_epilogue": (t(rng.standard_normal((2, 8, 3, 5))), b8,
+                          t(rng.standard_normal(8)),
+                          t(rng.uniform(0.5, 2, 8)),
+                          t(rng.standard_normal(8)), True),
     }
 
 
@@ -1264,11 +1272,12 @@ def test_stem_pair_default_float32_store(cuda, n):
 
 def test_fold_step_frozen_forward_on_kernels(cuda, tmp_path):
     """One fold step's frozen forward (``TRAIN_FOLD``, the folded Darknet
-    and its NMS at 416 px, b4 of synthetic scenes) on the kernels: K4 and
-    K1 once, bit-identical to the run with only the tensor-core kernel
-    launched, within chip_smoke.PAIR_PATH_TOL of the fully plain run or
-    beyond it by NMS decisions alone (chip_smoke.fold_forward_vs_plain);
-    then the step itself: K4 and K1 once, a finite loss, no reverted
+    and its NMS at 416 px, b4 of synthetic scenes) on the kernels: K4, K1
+    and K14 (its one float32 plain convolution) once, bit-identical to
+    the run with only the tensor-core kernel launched, within
+    chip_smoke.PAIR_PATH_TOL of the fully plain run or beyond it by NMS
+    decisions alone (chip_smoke.fold_forward_vs_plain);
+    then the step itself: the same launches, a finite loss, no reverted
     element."""
     from pathlib import Path
 
@@ -1302,7 +1311,174 @@ def test_fold_step_frozen_forward_on_kernels(cuda, tmp_path):
     zero()
     _, metrics = trainer.step(trainer.ts, batch, generator_draw(
         torch.Generator(device="cuda").manual_seed(0)))
-    assert {k: v for k, v in counts().items() if v} == {"stem_pair": 1,
-                                                       "nms": 1}
+    assert {k: v for k, v in counts().items() if v} == \
+        cs.TRAIN_EXPECT["fusion_fold"]
     assert torch.isfinite(metrics["loss"])
     assert int(metrics["nonfinite_reverted"]) == 0
+
+
+# ------------------------------------------------------------------ K14
+def _epilogue_case(cuda, n, c, hw, dtype, bn, seed):
+    """A convolution output [n, c, hw, hw] channels_last in ``dtype`` and
+    its tail's vectors, from a seed: x spread over both signs with exact
+    zeros and a negative zero, batch-norm statistics away from 0 / 1."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = 3 * torch.randn(n, c, hw, hw, generator=g, device=cuda)
+    x.view(-1)[:2] = torch.tensor([0.0, -0.0], device=cuda)
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    vec = [torch.randn(c, generator=g, device=cuda).to(dtype)
+           for _ in range(3)]
+    if not bn:
+        return x, (vec[0], None, None, None)
+    var = 0.5 + 1.5 * torch.rand(c, generator=g, device=cuda).to(dtype)
+    inv = torch.rsqrt(var + 1e-5)
+    return x, (vec[0], vec[1], inv, 1 + 0.1 * vec[2])
+
+
+# Darknet-53's epilogue shapes at 416 px: (channels, side) of its BN
+# convolutions at each scale, and the linear 255-channel heads
+D53_EPILOGUES = [(32, 416), (64, 208), (128, 104), (256, 52), (512, 26),
+                 (1024, 13)]
+D53_HEADS = [(255, 13), (255, 26), (255, 52)]
+
+
+@pytest.mark.parametrize("n", [8, 1])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("c,hw,bn,act", [(c, hw, True, True)
+                                          for c, hw in D53_EPILOGUES]
+                         + [(c, hw, False, False) for c, hw in D53_HEADS])
+def test_conv_epilogue_at_darknet53_shapes(cuda, n, layout, c, hw, bn, act):
+    """K14 against its plain version, bit-equal, at every Darknet-53
+    epilogue shape at batch 8 and 1, in either dense layout (after an
+    upsample the convolutions run NCHW), one launch; the output keeps the
+    input's memory format."""
+    x, vecs = _epilogue_case(cuda, n, c, hw, torch.float32, bn, c + hw)
+    fmt = torch.channels_last
+    if layout == "nchw":
+        x, fmt = x.contiguous(), torch.contiguous_format
+    before = epi.conv_epilogue.launches
+    got = epi.conv_epilogue(x, *vecs, act)
+    assert epi.conv_epilogue.launches == before + 1
+    want = epi.epilogue_eager(x, *vecs, act)
+    assert got.is_contiguous(memory_format=fmt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("c,hw", [(256, 26), (18, 13), (255, 13), (64, 7)])
+@pytest.mark.parametrize("act", [True, False])
+def test_conv_epilogue_16_bit(cuda, dtype, layout, c, hw, act):
+    """The bias form in float16 and bfloat16 (the fusion detector's
+    folded convolutions) and the batch-norm form, each operation rounded
+    to the storage type as ATen rounds it; and both with float32 vectors
+    (the fold step's bfloat16 convolutions with a float32 bias), which
+    widen the result to float32: bit-equal to the plain version, one
+    launch, the output in the input's memory format."""
+    for bn, wide in itertools.product((False, True), (False, True)):
+        x, vecs = _epilogue_case(cuda, 4, c, hw, dtype, bn, c * hw)
+        if wide:
+            vecs = tuple(None if v is None else v.float() for v in vecs)
+        if layout == "nchw":
+            x = x.contiguous()
+        before = epi.conv_epilogue.launches
+        got = epi.epilogue(x, *vecs, act)
+        assert epi.conv_epilogue.launches == before + 1
+        want = epi.epilogue_eager(x, *vecs, act)
+        assert got.dtype == (torch.float32 if wide else dtype)
+        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert got.stride() == want.stride()
+
+
+def test_conv_epilogue_unaligned_and_promoted(cuda):
+    """Views that start off a 16-byte boundary take the one-element
+    path, bit-equal; float16 vectors under a float32 x are widened as the
+    eager sequence widens them; a float16 x under float32 vectors gives
+    the eager result's float32 from the kernel; a mix whose operations
+    would round in two dtypes raises on the card."""
+    x, (b, m, inv, g) = _epilogue_case(cuda, 2, 64, 13, torch.float32, True,
+                                       3)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    flat[1:] = x.permute(0, 2, 3, 1).reshape(-1)
+    xs = flat[1:].view(2, 13, 13, 64).permute(0, 3, 1, 2)
+    assert torch.equal(epi.conv_epilogue(xs, b, m, inv, g, True),
+                       epi.epilogue_eager(xs, b, m, inv, g, True))
+    bh = b.half()
+    assert torch.equal(epi.conv_epilogue(x, bh, leaky_act=True),
+                       epi.epilogue_eager(x, bh, leaky_act=True))
+    before = epi.conv_epilogue.launches
+    xh = x.half()
+    got = epi.epilogue(xh, b, m, inv, g, True)
+    assert epi.conv_epilogue.launches == before + 1
+    want = epi.epilogue_eager(xh, b, m, inv, g, True)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    with pytest.raises(ValueError, match="two dtypes"):
+        epi.epilogue(xh, b, m.half(), inv.half(), g, True)
+
+
+def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
+    """The op reads its input's layout when it runs, not when it was
+    traced: called directly on NCHW and channels_last it gives the plain
+    version's values in the input's layout, and on a layout that is
+    neither it raises; an exported program of a convolution and its tail
+    replays with the live call's bits and strides."""
+    from millieye_torch.ops import library
+    x, vecs = _epilogue_case(cuda, 2, 32, 12, torch.float32, True, 9)
+    op = library.op("conv_epilogue")
+    for t in (x, x.contiguous()):
+        got = op(t, *vecs, True)
+        want = epi.epilogue_eager(t, *vecs, True)
+        assert torch.equal(got, want) and got.stride() == t.stride()
+    with pytest.raises(ValueError, match="dense 4-D"):
+        op(x.permute(0, 1, 3, 2), *vecs, True)
+
+    class Tail(torch.nn.Module):
+        def __init__(self, w):
+            super().__init__()
+            self.w = w
+
+        def forward(self, z):
+            return epi.epilogue(F.conv2d(z, self.w, padding=1), *vecs, True)
+
+    w = 0.1 * torch.randn(32, 16, 3, 3, device=cuda)
+    z = torch.randn(2, 16, 12, 12, device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        live = Tail(w)(z)
+        program = torch.export.export(Tail(w), (z,))
+        before = epi.conv_epilogue.launches
+        replay = program.module()(z)
+    assert epi.conv_epilogue.launches == before + 1
+    assert torch.equal(replay, live) and replay.stride() == live.stride()
+
+
+def test_darknet53_apply_bit_equal_with_the_epilogue(cuda):
+    """One ``Darknet.apply`` of YOLOv3 on Darknet-53 at 416 px, batch 2:
+    K14 on all 75 convolutions (one launch each), and the same bits as
+    the same call inside ``cuda_lib.plain_versions()``, every block's
+    output and the detections."""
+    from millieye_torch.models.darknet import Darknet
+    from millieye_torch.models.zoo import yolov3_defs
+    from millieye_torch.ops import cuda_lib
+    g = torch.Generator().manual_seed(0)
+    model = Darknet(yolov3_defs(), img_size=416)
+    params, state = model.init(g)
+    for p, s in zip(params, state):
+        if "gamma" in p:
+            c = p["gamma"].shape[0]
+            p["beta"] = 0.1 * torch.randn(c, generator=g)
+            s["mean"] = 0.1 * torch.randn(c, generator=g)
+            s["var"] = 0.5 + 1.5 * torch.rand(c, generator=g)
+    params = [{k: v.to(cuda) for k, v in p.items()} for p in params]
+    state = [{k: v.to(cuda) for k, v in s.items()} for s in state]
+    images = torch.rand((2, 416, 416, 3), generator=g).to(cuda)
+    with torch.inference_mode():
+        before = epi.conv_epilogue.launches
+        got = model.apply(params, state, images, collect_outputs=True)
+        assert epi.conv_epilogue.launches == before + 75
+        with cuda_lib.plain_versions():
+            want = model.apply(params, state, images, collect_outputs=True)
+        assert epi.conv_epilogue.launches == before + 75
+    for a, b in zip(got["outputs"], want["outputs"]):
+        assert a.stride() == b.stride() and torch.equal(a, b)
+    assert torch.equal(got["detections"], want["detections"])
