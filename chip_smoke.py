@@ -23,7 +23,8 @@ printed only when every phase passed:
      streamed route), K13 (stochastic int8) on block 12's weight and on the
      (8, 128) carrier, each K10 and K13 case with its device time a call, and
      K13 on ragged, 70000-tile, zero, -0.0, inf and NaN inputs, K14 (the
-     inference convolution's tail) at Darknet-53's shapes at batch 8;
+     inference convolution's tail) at Darknet-53's shapes and, in its
+     Mish mode, at CSPDarknet53's (YOLOv4 at 608 px) at batch 8;
      K2, K3 (bf16
      and float32 "highest"), K6 ("upq", "default") and K7 ("highest") also
      with every RoI the whole frame, K3 also at "split"; K9's "highest" and
@@ -1061,16 +1062,18 @@ class KernelChecks:
 
     # ------------------------------------------------------------- K14
     def epilogue(self, b=8):
-        """K14 at Darknet-53's shapes at 416 px, batch ``b``, on a
-        channels_last convolution output as cuDNN gives it: 208 px x 64,
+        """K14 at batch ``b`` on a channels_last convolution output as
+        cuDNN gives it: at Darknet-53's shapes at 416 px, 208 px x 64,
         52 px x 256 and 13 px x 1024 in the batch-norm form with leaky,
-        and the 13 px 255-channel head in the bias form, linear;
-        bit-equal to the plain version (the eager sequence), with its
-        device time a call. Bound: bytes, each element read and written
-        once (8 bytes in float32) and the vectors. Library, timed, never
-        called by the port: ``F.batch_norm`` (eval) + ``F.leaky_relu`` in
-        float32 for the batch-norm form, ``torch.add`` of the bias for
-        the bias form."""
+        and the 13 px 255-channel head in the bias form, linear; at
+        CSPDarknet53's shapes at 608 px (YOLOv4), 608 px x 32, 304 px x
+        64, 152 px x 128 and 19 px x 1024 in the batch-norm form with
+        Mish; bit-equal to the plain version (the eager sequence), with
+        its device time a call. Bound: bytes, each element read and
+        written once (8 bytes in float32) and the vectors. Library, timed,
+        never called by the port: ``F.batch_norm`` (eval) then
+        ``F.leaky_relu`` or ``F.mish`` in float32 for the batch-norm form,
+        ``torch.add`` of the bias for the bias form."""
         from millieye_torch.ops import epilogue
         torch = self.torch
         F = torch.nn.functional
@@ -1079,8 +1082,14 @@ class KernelChecks:
         def randn(*shape):
             return torch.randn(*shape, generator=g, device=self.dev)
 
-        for c, hw, bn in ((64, 208, True), (256, 52, True), (1024, 13, True),
-                          (255, 13, False)):
+        # operations an element, each library function counted as one:
+        # the batch norm's four, then leaky's compare and product, or
+        # Mish's exp, log1p, tanh and product
+        ops = {"leaky": 6, "mish": 8, "linear": 1}
+        for c, hw, act in ((64, 208, "leaky"), (256, 52, "leaky"),
+                           (1024, 13, "leaky"), (255, 13, "linear"),
+                           (32, 608, "mish"), (64, 304, "mish"),
+                           (128, 152, "mish"), (1024, 19, "mish")):
             x = (3 * randn(b, c, hw, hw)).contiguous(
                 memory_format=torch.channels_last)
             beta = 0.1 * randn(c)
@@ -1089,25 +1098,31 @@ class KernelChecks:
             def lib(x=x, beta=beta):
                 return torch.add(x, beta[:, None, None])
             lib_name = "torch.add of the bias, float32"
-            if bn:
+            if act != "linear":
                 mean, gamma = 0.1 * randn(c), 1 + 0.1 * randn(c)
                 var = 0.5 + 1.5 * torch.rand(c, generator=g, device=self.dev)
                 vecs = (beta, mean, torch.rsqrt(var + 1e-5), gamma)
+                fn = {"leaky": lambda t: F.leaky_relu(t, 0.1),
+                      "mish": F.mish}[act]
 
-                def lib(x=x, mean=mean, var=var, gamma=gamma, beta=beta):
-                    return F.leaky_relu(F.batch_norm(
-                        x, mean, var, gamma, beta, False, 0.0, 1e-5), 0.1)
-                lib_name = "F.batch_norm (eval) + F.leaky_relu, float32"
+                def lib(x=x, mean=mean, var=var, gamma=gamma, beta=beta,
+                        fn=fn):
+                    return fn(F.batch_norm(x, mean, var, gamma, beta, False,
+                                           0.0, 1e-5))
+                lib_name = (f"F.batch_norm (eval) + "
+                            f"F.{'leaky_relu' if act == 'leaky' else act}, "
+                            f"float32")
             n_vec = sum(v is not None for v in vecs)
             self.case(
-                "conv_epilogue", f"{hw} px x {c}, "
-                f"{'batch norm + leaky' if bn else 'bias, linear'}", b,
-                lambda x=x, vecs=vecs, bn=bn: epilogue.conv_epilogue(
-                    x, *vecs, bn),
-                lambda x=x, vecs=vecs, bn=bn: epilogue.epilogue_eager(
-                    x, *vecs, bn),
+                "conv_epilogue", f"{hw} px x {c}, " + (
+                    "bias, linear" if act == "linear"
+                    else f"batch norm + {act}"), b,
+                lambda x=x, vecs=vecs, act=act: epilogue.conv_epilogue(
+                    x, *vecs, act),
+                lambda x=x, vecs=vecs, act=act: epilogue.epilogue_eager(
+                    x, *vecs, act),
                 2 * x.numel() * 4 + n_vec * c * 4,
-                (6 if bn else 1) * x.numel(), F32_FLOP_S, lib, lib_name, 1e-5,
+                ops[act] * x.numel(), F32_FLOP_S, lib, lib_name, 1e-5,
                 iters=50, device=True)
 
 

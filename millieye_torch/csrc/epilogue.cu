@@ -3,7 +3,9 @@
 //   batch-norm form: t = x - mean[c]; t = t * inv[c]; t = t * gamma[c];
 //                    t = t + beta[c]
 //   bias form:       t = x + bias[c]
-// then, with the activation, y = t > 0 ? t : t * slope, else y = t.
+// then the activation: linear y = t; leaky y = t > 0 ? t : t * slope;
+// mish y = t * tanh(softplus(t)), softplus(t) = t > 20 ? t :
+// log1p(exp(t)) (darknet's threshold, and F.softplus's).
 //
 // Replaces no TPU kernel: on the TPU, XLA fused this tail into the
 // convolution's consumer. In eager PyTorch it was seven full-size passes
@@ -15,9 +17,13 @@
 // operation with no contraction into an FMA (__fsub_rn, __fmul_rn,
 // __fadd_rn), and for float16 and bfloat16 storage it is computed in
 // float and rounded to the storage type after each operation, as
-// ATen's elementwise kernels do. Where the eager result's dtype is wider
-// than x's (a bfloat16 convolution with a float32 bias gives float32),
-// x is read in its own type and upcast, which is exact, and every
+// ATen's elementwise kernels do. Mish is the eager sequence's three
+// operations (F.softplus, torch.tanh, the product), each rounded to the
+// storage type, with the CUDA math library's accurate expf, log1pf and
+// tanhf, the functions ATen's softplus and tanh kernels call (no
+// fast-math intrinsics). Where the eager result's dtype is wider than
+// x's (a bfloat16 convolution with a float32 bias gives float32), x is
+// read in its own type and upcast, which is exact, and every
 // operation rounds to the result's type, as ATen's promoting kernels do;
 // the wrapper hands the vectors over in the result's type and refuses a
 // mix whose operations would round in two types. `inv` (rsqrt(var +
@@ -30,6 +36,11 @@
 // and stay in the read-only cache. Darknet-53 at 416 px, batch 8: 306 M
 // elements a step over 75 convolutions, 2.45 GB, 0.73 ms at 3.35 TB/s.
 // The arithmetic (at most 6 operations an element) is far below that.
+// Mish adds expf, log1pf and tanhf, some tens of instructions an
+// element: YOLOv4 at 608 px, batch 8, writes 758 M Mish elements a step,
+// 6.1 GB, 1.8 ms at 3.35 TB/s (0.42 G elements a millisecond), while the
+// H100's 33 T float32 instructions a second would take 60 an element for
+// 0.56 G: the bytes still bound it, by less.
 //
 // Design: one elementwise pass, no shared memory. x and y are dense
 // with the same layout; the channel of flat index i is
@@ -42,8 +53,10 @@
 // == 0) and the pointers are aligned; in NHWC the four channels'
 // vectors then load as one aligned group each where their pointers
 // allow. Elsewhere (C = 255 in NHWC, 13 x 13 in NCHW, an unaligned
-// pointer) one element at a time. Indices are 32-bit where no index
-// the grid-stride loop forms (up to n plus one stride) reaches 2^32.
+// pointer) one element at a time. The activation is a template
+// argument, so the linear and leaky instances are the code they were
+// before Mish. Indices are 32-bit where no index the grid-stride loop
+// forms (up to n plus one stride) reaches 2^32.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -119,6 +132,11 @@ __device__ __forceinline__ void store4(T* p, const float in[4]) {
   *reinterpret_cast<Four<T>*>(p) = f;
 }
 
+// the activation codes (ops/epilogue.py:ACTS)
+constexpr int kLinear = 0;
+constexpr int kLeaky = 1;
+constexpr int kMish = 2;
+
 struct Args {
   const void* x;
   void* y;
@@ -127,8 +145,7 @@ struct Args {
   const void* inv;
   const void* gamma;
   int channels;
-  bool leaky;
-  float slope;
+  float slope;          // leaky's
 };
 
 // the per-channel vectors of one channel, as floats
@@ -148,8 +165,18 @@ __device__ __forceinline__ Chan chan(const Args& a, int c) {
   return k;
 }
 
-// the eager sequence on one element, each operation rounded to T
+// Mish as the eager sequence computes it: F.softplus (x itself above the
+// threshold 20, else log1p(exp(x))), torch.tanh, then the product, each
+// rounded to T
 template <typename T>
+__device__ __forceinline__ float mish(float t) {
+  const float sp = Store<T>::round(t > 20.0f ? t : log1pf(expf(t)));
+  const float th = Store<T>::round(tanhf(sp));
+  return Store<T>::round(__fmul_rn(t, th));
+}
+
+// the eager sequence on one element, each operation rounded to T
+template <typename T, int Act>
 __device__ __forceinline__ float tail(const Args& a, const Chan& k,
                                       float t) {
   if (a.mean) {
@@ -160,14 +187,16 @@ __device__ __forceinline__ float tail(const Args& a, const Chan& k,
   } else {
     t = Store<T>::round(__fadd_rn(t, k.bias));
   }
-  if (a.leaky && !(t > 0.0f)) t = Store<T>::round(__fmul_rn(t, a.slope));
+  if (Act == kLeaky && !(t > 0.0f))
+    t = Store<T>::round(__fmul_rn(t, a.slope));
+  if (Act == kMish) t = mish<T>(t);
   return t;
 }
 
 // x in Tin; y and the vectors in Tout. vec: four elements at a time (see
 // the header); vec_chan: in NHWC, the four channels' vectors as aligned
 // groups too
-template <typename Tin, typename Tout, typename Idx>
+template <typename Tin, typename Tout, int Act, typename Idx>
 __global__ void __launch_bounds__(kThreads)
 epilogue_kernel(Args a, Idx n, Idx inner, bool vec, bool vec_chan) {
   const Tin* __restrict__ x = static_cast<const Tin*>(a.x);
@@ -192,16 +221,16 @@ epilogue_kernel(Args a, Idx n, Idx inner, bool vec, bool vec_chan) {
           }
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            t[k] = tail<Tout>(a, Chan{b[k], m[k], v[k], s[k]}, t[k]);
+            t[k] = tail<Tout, Act>(a, Chan{b[k], m[k], v[k], s[k]}, t[k]);
         } else {
 #pragma unroll
           for (int k = 0; k < 4; ++k)
-            t[k] = tail<Tout>(a, chan<Tout>(a, c + k), t[k]);
+            t[k] = tail<Tout, Act>(a, chan<Tout>(a, c + k), t[k]);
         }
       } else {
         const Chan k = chan<Tout>(a, static_cast<int>((i / inner) % channels));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) t[j] = tail<Tout>(a, k, t[j]);
+        for (int j = 0; j < 4; ++j) t[j] = tail<Tout, Act>(a, k, t[j]);
       }
       store4(y + i, t);
     }
@@ -209,8 +238,8 @@ epilogue_kernel(Args a, Idx n, Idx inner, bool vec, bool vec_chan) {
   }
   for (Idx i = first; i < n; i += stride) {
     const int c = static_cast<int>((inner == 1 ? i : i / inner) % channels);
-    y[i] = Store<Tout>::out(tail<Tout>(a, chan<Tout>(a, c),
-                                       Store<Tin>::in(x[i])));
+    y[i] = Store<Tout>::out(tail<Tout, Act>(a, chan<Tout>(a, c),
+                                            Store<Tin>::in(x[i])));
   }
 }
 
@@ -218,7 +247,7 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <typename Tin, typename Tout>
+template <typename Tin, typename Tout, int Act>
 int launch(const Args& a, long long n, long long inner, cudaStream_t st) {
   const size_t group = 4 * sizeof(Tout);
   const bool vec = aligned(a.x, 4 * sizeof(Tin)) && aligned(a.y, group)
@@ -238,15 +267,26 @@ int launch(const Args& a, long long n, long long inner, cudaStream_t st) {
                  static_cast<long long>(sms) * kBlocksPerSm)));
   // the loops form indices up to n plus one stride
   if (n + static_cast<long long>(blocks) * kThreads < (1LL << 32))
-    epilogue_kernel<Tin, Tout, uint32_t><<<blocks, kThreads, 0, st>>>(
+    epilogue_kernel<Tin, Tout, Act, uint32_t><<<blocks, kThreads, 0, st>>>(
         a, static_cast<uint32_t>(n), static_cast<uint32_t>(inner), vec,
         vec_chan);
   else
-    epilogue_kernel<Tin, Tout, unsigned long long>
+    epilogue_kernel<Tin, Tout, Act, unsigned long long>
         <<<blocks, kThreads, 0, st>>>(
             a, static_cast<unsigned long long>(n),
             static_cast<unsigned long long>(inner), vec, vec_chan);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Tin, typename Tout>
+int launch_act(const Args& a, int act, long long n, long long inner,
+               cudaStream_t st) {
+  switch (act) {
+    case kLinear: return launch<Tin, Tout, kLinear>(a, n, inner, st);
+    case kLeaky: return launch<Tin, Tout, kLeaky>(a, n, inner, st);
+    case kMish: return launch<Tin, Tout, kMish>(a, n, inner, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -261,28 +301,30 @@ const char* millieye_cuda_error_name(int code) {
 // elements of out_dtype (in_dtype, or float32), both dense, the channel
 // of element i being (i / inner) % channels; bias, mean, inv, gamma:
 // [channels] of out_dtype, mean (and with it inv and gamma) null in the
-// bias form; leaky: apply LeakyReLU with `slope` (out_dtype's value as a
-// float) after the affine step.
+// bias form; act: the activation after the affine step, 0 linear, 1
+// LeakyReLU with `slope` (out_dtype's value as a float), 2 Mish.
 int millieye_conv_epilogue(const void* x, void* y, const void* bias,
                            const void* mean, const void* inv,
                            const void* gamma, long long n, int channels,
                            long long inner, int in_dtype, int out_dtype,
-                           int leaky, float slope, void* stream) {
+                           int act, float slope, void* stream) {
   if (n <= 0 || channels <= 0 || inner <= 0 || n % (channels * inner) != 0
       || !bias || (mean && (!inv || !gamma)))
     return cudaErrorInvalidValue;
-  const Args a{x, y, bias, mean, inv, gamma, channels, leaky != 0, slope};
+  const Args a{x, y, bias, mean, inv, gamma, channels, slope};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_dtype == out_dtype) {
     switch (in_dtype) {
-      case 0: return launch<float, float>(a, n, inner, st);
-      case 1: return launch<__half, __half>(a, n, inner, st);
-      case 2: return launch<__nv_bfloat16, __nv_bfloat16>(a, n, inner, st);
+      case 0: return launch_act<float, float>(a, act, n, inner, st);
+      case 1: return launch_act<__half, __half>(a, act, n, inner, st);
+      case 2:
+        return launch_act<__nv_bfloat16, __nv_bfloat16>(a, act, n, inner,
+                                                        st);
     }
   } else if (out_dtype == 0) {
     switch (in_dtype) {
-      case 1: return launch<__half, float>(a, n, inner, st);
-      case 2: return launch<__nv_bfloat16, float>(a, n, inner, st);
+      case 1: return launch_act<__half, float>(a, act, n, inner, st);
+      case 2: return launch_act<__nv_bfloat16, float>(a, act, n, inner, st);
     }
   }
   return cudaErrorInvalidValue;

@@ -1,5 +1,6 @@
-"""cfg-driven Darknet (tiny-YOLOv3, YOLOv3 on Darknet-53) (port of
-``millieye_tpu/models/darknet.py``).
+"""cfg-driven Darknet (tiny-YOLOv3, YOLOv3 on Darknet-53, YOLOv4 on
+CSPDarknet53) (port of ``millieye_tpu/models/darknet.py``, which runs the
+first two).
 
 The graph comes from a list of block dicts (``models/zoo.py``) or a
 darknet ``.cfg`` path. Parameters are explicit: ``params`` / ``state``
@@ -34,13 +35,22 @@ convolution runs int8 x int8 -> int32 (``int8_conv2d``).
 (``act_absmax``) for calibrating ``xs``; it runs the stem pairs as
 single stages, as the JAX package does.
 
+A convolution's activation is ``linear``, ``leaky`` or ``mish``
+(``ops/epilogue.py:ACTS``); another raises. A stride-1 max pool of odd
+size k pads k // 2 on every side with -inf and keeps the size (darknet's
+``maxpool_layer``: YOLOv4's SPP); the size-2 one pads right and bottom
+with zeros, as the reference does. A ``yolo`` block's ``scale_x_y`` s
+(default 1) maps the centre's sigmoid to ``sigmoid * s - (s - 1) / 2``.
+
 At inference the tail of each plain convolution (batch norm's affine
-step with the running statistics, or the folded bias, then leaky or
-nothing) is ``ops/epilogue.py:epilogue``: one launch of kernel K14 on
+step with the running statistics, or the folded bias, then its
+activation) is ``ops/epilogue.py:epilogue``: one launch of kernel K14 on
 the card, the eager sequence elsewhere, the same bits. Inside a profiler
 session the backbone counts ``darknet.convs`` (the plain convolution
 blocks an ``apply`` runs) and ``darknet.epilogue`` (those whose tail
-launched K14).
+launched K14), and a model with Mish ``darknet.mish`` and
+``darknet.epilogue_mish`` (the same two of its Mish blocks); the span
+``millieye.spp`` holds an SPP's pools and their route.
 
 Training (``apply(train=True)``): BN normalizes with the batch statistics
 and updates the running ones with momentum 0.9 (the reference's
@@ -54,6 +64,8 @@ JAX package, and the custom ops have no backward. ``feature_map`` and
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
@@ -61,7 +73,6 @@ from millieye_torch.device import constant
 from millieye_torch.io.checkpoint import to_device
 from millieye_torch.io.config import parse_model_config
 from millieye_torch.ops import epilogue as epi
-from millieye_torch.ops.epilogue import leaky
 from millieye_torch.ops.quantize import int8_conv2d
 from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
                                      fused_stem_pair_s2d,
@@ -97,6 +108,9 @@ def _maxpool(x, size, stride):
         # the reference pads right/bottom with ZEROS (nn.ZeroPad2d), not
         # -inf: where every border activation is negative the max is 0
         x = F.pad(x, (0, 1, 0, 1))
+    elif stride == 1 and size % 2:
+        # darknet's maxpool_layer: size // 2 on every side, -inf
+        return F.max_pool2d(x, size, 1, padding=size // 2)
     return F.max_pool2d(x, size, stride)
 
 
@@ -150,13 +164,15 @@ def im2col_stem_weight(w):
     return wm
 
 
-def decode_yolo(raw, anchors, num_classes, img_dim, with_pred=False):
+def decode_yolo(raw, anchors, num_classes, img_dim, with_pred=False,
+                scale_x_y=1.0):
     """One YOLO scale: raw [N, A*(5+C), G, G] conv output (any dtype) ->
     detections [N, A*G*G, 5+C] float32 (float64 from float64) in image
-    scale, anchor-major then
-    row then column; ``with_pred`` also returns pred [N, A, G, G, 5+C]
-    (sigmoid x, y, raw w, h, sigmoid conf and classes), what the loss
-    reads."""
+    scale, anchor-major then row then column; ``with_pred`` also returns
+    pred [N, A, G, G, 5+C] (sigmoid x, y, raw w, h, sigmoid conf and
+    classes), what the loss reads. ``scale_x_y`` s (YOLOv4) takes the
+    centre's sigmoid to ``sigmoid * s - (s - 1) / 2`` before the grid
+    offset, in pred too; at 1 nothing is computed for it."""
     n, g = raw.shape[0], raw.shape[2]
     a = len(anchors)
     f = 5 + num_classes
@@ -165,6 +181,8 @@ def decode_yolo(raw, anchors, num_classes, img_dim, with_pred=False):
     stride = img_dim / g
     anc = constant(tuple(map(tuple, anchors)), raw.device)
     xy = torch.sigmoid(raw[..., 0:2])
+    if scale_x_y != 1:
+        xy = xy * scale_x_y - (scale_x_y - 1) / 2
     twh = raw[..., 2:4]
     conf = torch.sigmoid(raw[..., 4:5])
     cls = torch.sigmoid(raw[..., 5:])
@@ -250,6 +268,8 @@ class Darknet:
         self._deep_pairs = (stem_pairs == "all"
                             and base in _DEEP_PAIR_VARIANTS)
         self._plan = self._build_plan()
+        self._spp = self._spp_blocks()
+        self._mish = any(info.get("act") == "mish" for info in self._plan)
         self._validate_stem_stages()
         if self.stem_pair:
             lo = self.stem_stages[0] if self.stem_stages else 0
@@ -273,6 +293,10 @@ class Darknet:
                             stride=int(block["stride"]),
                             bn=int(block.get("batch_normalize", 0)) == 1,
                             act=block.get("activation", "linear"))
+                if info["act"] not in epi.ACTS:
+                    raise ValueError(f"block {len(plan)}: unknown activation "
+                                     f"{info['act']!r} (have "
+                                     f"{', '.join(epi.ACTS)})")
                 out = info["filters"]
             elif t == "maxpool":
                 info.update(size=int(block["size"]),
@@ -296,12 +320,29 @@ class Darknet:
                 pairs = list(zip(flat[::2], flat[1::2]))
                 info.update(anchors=tuple(pairs[m] for m in mask),
                             classes=int(block["classes"]))
+                if "scale_x_y" in block:
+                    info["scale_x_y"] = float(block["scale_x_y"])
                 out = channels[-1]
             else:
                 raise ValueError(f"unknown block type {t!r}")
             plan.append(info)
             channels.append(out)
         return plan
+
+    def _spp_blocks(self):
+        """{first block: last block} of each SPP: from a stride-1 max pool
+        of odd size above 1 to the first route that reads it."""
+        spans, i = {}, 0
+        while i < len(self._plan):
+            info = self._plan[i]
+            if (info["type"] == "maxpool" and info["stride"] == 1
+                    and info["size"] % 2 and info["size"] > 1):
+                end = next((j for j in range(i + 1, len(self._plan))
+                            if i in self._plan[j].get("layers", ())), i)
+                spans[i] = end
+                i = end
+            i += 1
+        return spans
 
     def _referenced(self):
         referenced = {self.feature_tap}
@@ -463,14 +504,19 @@ class Darknet:
             # the four output phases are the pool window; then bias, act
             n, _, h, w = y.shape
             y = y.reshape(n, 4, info["filters"], h, w).amax(1)
-            return epi.epilogue_eager(y, p["b"],
-                                      leaky_act=info["act"] == "leaky")
+            return epi.epilogue_eager(y, p["b"], act=info["act"])
 
         pair_los = () if collect_act_stats else tuple(
             lo for lo in self._pair_candidates() if fused(lo) and fused(lo + 2))
         convs, launches = 0, epi.conv_epilogue.launches
-        with trace_annotation("millieye.backbone"):
+        mish, mish_launches = 0, 0
+        spp_end = None
+        with trace_annotation("millieye.backbone"), \
+                contextlib.ExitStack() as spp:
             for i, info in enumerate(self._plan):
+                if i in self._spp:
+                    spp.enter_context(trace_annotation("millieye.spp"))
+                    spp_end = self._spp[i]
                 t = info["type"]
                 p = params[i] if i < len(params) else {}
                 s = state[i] if i < len(state) else {}
@@ -508,18 +554,21 @@ class Darknet:
                     x = conv(i, p, prev, "w", info["stride"],
                              (info["size"] - 1) // 2)
                     convs += 1
-                    act = info["act"] == "leaky"
+                    act, before = info["act"], epi.conv_epilogue.launches
                     if train and "gamma" in p:
                         x, new_state[i] = _train_bn(x, p, s)
-                        x = leaky(x) if act else x
+                        x = epi.activate(x, act)
                     elif train:
-                        x = epi.epilogue_eager(x, p["b"], leaky_act=act)
+                        x = epi.epilogue_eager(x, p["b"], act=act)
                     elif "gamma" in p:    # BN not folded away (eval mode)
                         x = epi.epilogue(x, p["beta"], s["mean"],
                                          torch.rsqrt(s["var"] + _BN_EPS),
                                          p["gamma"], act)
                     else:
-                        x = epi.epilogue(x, p["b"], leaky_act=act)
+                        x = epi.epilogue(x, p["b"], act=act)
+                    if act == "mish":
+                        mish += 1
+                        mish_launches += epi.conv_epilogue.launches - before
                 elif t == "maxpool":
                     x = _maxpool(prev, info["size"], info["stride"])
                 elif t == "upsample":
@@ -531,7 +580,8 @@ class Darknet:
                     x = prev + outputs[info["frm"]]
                 elif t == "yolo":
                     x = decode_yolo(prev, info["anchors"], info["classes"],
-                                    img_dim, with_pred=train)
+                                    img_dim, with_pred=train,
+                                    scale_x_y=info.get("scale_x_y", 1.0))
                     if train:
                         x, pred = x
                         preds.append(pred)
@@ -545,9 +595,14 @@ class Darknet:
                 outputs.append(x)
                 if i == self.feature_tap:
                     feature_map = x.permute(0, 2, 3, 1)
+                if i == spp_end:
+                    spp.close()
             # the plain convolution blocks, and those whose tail ran K14
             count("darknet.convs", convs)
             count("darknet.epilogue", epi.conv_epilogue.launches - launches)
+            if self._mish:
+                count("darknet.mish", mish)
+                count("darknet.epilogue_mish", mish_launches)
             # a truncated config (no yolo block) returns its last map, NHWC
             out = {"feature_map": feature_map,
                    "detections": (torch.cat(dets, 1) if dets
@@ -628,4 +683,4 @@ class Darknet:
         linear YOLO head convs, whose raw outputs feed the decode."""
         return tuple(i for i, info in enumerate(self._plan)
                      if info["type"] == "convolutional"
-                     and info["act"] != "leaky")
+                     and info["act"] == "linear")

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from millieye_torch.models.darknet import leaky
+from millieye_torch.ops.epilogue import leaky
 from millieye_torch.parallel import collectives as pc
 
 _BN_EPS = 1e-5

@@ -2,11 +2,12 @@
 
 After an inference convolution ``Darknet.apply`` runs batch norm's affine
 step with the running statistics (or the bias of a folded convolution),
-then LeakyReLU(0.1) or nothing. ``epilogue_eager`` is that sequence as
-eager PyTorch runs it, one full-size pass an operation:
-``(x - mean) * inv``, ``* gamma + beta`` (``inv = rsqrt(var + eps)``,
-computed by the caller on the ``[C]`` vector), or ``x + bias``; then
-``leaky``. ``conv_epilogue`` (K14, ``millieye_torch/csrc/epilogue.cu``)
+then its activation (``ACTS``): nothing, LeakyReLU(0.1) or Mish.
+``epilogue_eager`` is that sequence as eager PyTorch runs it, one
+full-size pass an operation: ``(x - mean) * inv``, ``* gamma + beta``
+(``inv = rsqrt(var + eps)``, computed by the caller on the ``[C]``
+vector), or ``x + bias``; then ``leaky`` or ``mish``. ``conv_epilogue``
+(K14, ``millieye_torch/csrc/epilogue.cu``)
 computes the same bits in one pass over the convolution's output: it
 replaces no TPU kernel (on the TPU, XLA fused this tail), and its bound
 is the bytes it reads and writes once.
@@ -28,11 +29,25 @@ import ctypes
 import functools
 
 import torch
+import torch.nn.functional as F
 
 from millieye_torch.ops import cuda_lib
 
 # the kernel's dtype codes
 _DTYPES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# the activations a tail may end in (a darknet block's ``activation``);
+# the op takes a name's index here as its code
+ACTS = ("linear", "leaky", "mish")
+_CODES = {name: code for code, name in enumerate(ACTS)}
+
+
+def act_code(act):
+    """The op's code of ``act``, a name of ``ACTS``."""
+    try:
+        return _CODES[act]
+    except (KeyError, TypeError):
+        raise ValueError(f"unknown activation {act!r} (have "
+                         f"{', '.join(ACTS)})") from None
 
 
 def leaky(x):
@@ -42,18 +57,30 @@ def leaky(x):
                                                 device=x.device))
 
 
-def epilogue_eager(x, bias, mean=None, inv=None, gamma=None,
-                   leaky_act=False):
+def mish(x):
+    """Mish, ``x * tanh(softplus(x))``, softplus with darknet's threshold
+    20 (``F.softplus``'s: above it, x itself); three eager operations,
+    each rounded to x's dtype."""
+    return x * torch.tanh(F.softplus(x))
+
+
+def activate(x, act):
+    """The activation ``act``, a name of ``ACTS``, on x."""
+    code = act_code(act)
+    return x if code == 0 else leaky(x) if code == 1 else mish(x)
+
+
+def epilogue_eager(x, bias, mean=None, inv=None, gamma=None, act="linear"):
     """The eager sequence on NCHW-indexed x: with ``mean`` (batch norm)
     ``(x - mean) * inv`` then ``* gamma + bias``, else ``x + bias``; then
-    ``leaky`` if ``leaky_act``. The result has x's memory format and the
-    dtypes' promotion."""
+    the activation ``act``, a name of ``ACTS``. The result has x's memory
+    format and the dtypes' promotion."""
     if mean is not None:
         x = (x - mean[:, None, None]) * inv[:, None, None]
         x = x * gamma[:, None, None] + bias[:, None, None]
     else:
         x = x + bias[:, None, None]
-    return leaky(x) if leaky_act else x
+    return activate(x, act)
 
 
 def takes_kernel(x, bias, mean=None, inv=None, gamma=None):
@@ -63,20 +90,20 @@ def takes_kernel(x, bias, mean=None, inv=None, gamma=None):
                                                     gamma)))
 
 
-def epilogue(x, bias, mean=None, inv=None, gamma=None, leaky_act=False):
+def epilogue(x, bias, mean=None, inv=None, gamma=None, act="linear"):
     """The tail of an inference convolution of NCHW-indexed ``x``: K14
     where ``takes_kernel`` holds, else ``epilogue_eager``; the same bits,
     dtype and memory format either way."""
     if takes_kernel(x, bias, mean, inv, gamma):
-        return _op(x, bias, mean, inv, gamma, bool(leaky_act))
-    return epilogue_eager(x, bias, mean, inv, gamma, leaky_act)
+        return _op(x, bias, mean, inv, gamma, act_code(act))
+    return epilogue_eager(x, bias, mean, inv, gamma, act)
 
 
-def conv_epilogue(x, bias, mean=None, inv=None, gamma=None, leaky_act=False):
+def conv_epilogue(x, bias, mean=None, inv=None, gamma=None, act="linear"):
     """K14: ``epilogue_eager`` of a 4-D NCHW-indexed x in one pass, through
     the op (the plain version on the CPU); the output has x's memory
     format and the eager result's dtype."""
-    return _op(x, bias, mean, inv, gamma, bool(leaky_act))
+    return _op(x, bias, mean, inv, gamma, act_code(act))
 
 
 def _out_dtype(x, vecs):
@@ -146,7 +173,7 @@ def _slope(dtype):
     return torch.full((), 0.1, dtype=dtype).item()
 
 
-def _launch(x, bias, mean, inv, gamma, leaky_act):
+def _launch(x, bias, mean, inv, gamma, act):
     # the layout is read here, at each call: a replayed exported program
     # may hand over another one than the trace saw
     out, inner, vecs = _kernel_form(x, bias, mean, inv, gamma)
@@ -158,13 +185,19 @@ def _launch(x, bias, mean, inv, gamma, leaky_act):
         x.data_ptr(), y.data_ptr(),
         *(None if v is None else v.data_ptr() for v in vecs),
         x.numel(), x.shape[1], inner, _DTYPES[x.dtype], _DTYPES[out],
-        int(leaky_act), _slope(out),
+        act, _slope(out),
         torch._C._cuda_getCurrentRawStream(x.get_device()))
     cuda_lib.check(lib, rc, "conv_epilogue")
     return y
 
 
-def _fake(x, bias, mean, inv, gamma, leaky_act):
+def _plain(x, bias, mean, inv, gamma, code):
+    if not 0 <= code < len(ACTS):
+        raise ValueError(f"conv_epilogue: unknown activation code {code}")
+    return epilogue_eager(x, bias, mean, inv, gamma, ACTS[code])
+
+
+def _fake(x, bias, mean, inv, gamma, act):
     return torch.empty_like(x, dtype=_out_dtype(
         x, [v for v in (bias, mean, inv, gamma) if v is not None]))
 
@@ -172,5 +205,5 @@ def _fake(x, bias, mean, inv, gamma, leaky_act):
 conv_epilogue.launches = 0
 _op = cuda_lib.kernel_op(
     "conv_epilogue", "(Tensor x, Tensor bias, Tensor? mean, Tensor? inv, "
-    "Tensor? gamma, bool leaky_act) -> Tensor", epilogue_eager, _launch,
+    "Tensor? gamma, int act) -> Tensor", _plain, _launch,
     _fake, conv_epilogue, contiguous=False)

@@ -350,13 +350,13 @@ def test_conv_epilogue_plain_equals_the_old_eager_lines(dtype, channels_last,
              "beta": p["b"]}
         s = {"mean": torch.randn(c, generator=g).to(vd),
              "var": (0.5 + torch.rand(c, generator=g)).to(vd)}
-    for act in (False, True):
-        want = _old_eval_tail(x, p, s, act)
+    for act in ("linear", "leaky"):
+        want = _old_eval_tail(x, p, s, act == "leaky")
         if bn:
             got = epi.conv_epilogue(x, p["beta"], s["mean"], torch.rsqrt(
                 s["var"] + tdark._BN_EPS), p["gamma"], act)
         else:
-            got = epi.conv_epilogue(x, p["b"], leaky_act=act)
+            got = epi.conv_epilogue(x, p["b"], act=act)
         assert got.dtype == want.dtype == torch.promote_types(dtype, vd)
         assert torch.equal(got, want)
         fmt = torch.channels_last if channels_last else torch.contiguous_format

@@ -1344,9 +1344,9 @@ D53_HEADS = [(255, 13), (255, 26), (255, 52)]
 
 @pytest.mark.parametrize("n", [8, 1])
 @pytest.mark.parametrize("layout", ["channels_last", "nchw"])
-@pytest.mark.parametrize("c,hw,bn,act", [(c, hw, True, True)
+@pytest.mark.parametrize("c,hw,bn,act", [(c, hw, True, "leaky")
                                           for c, hw in D53_EPILOGUES]
-                         + [(c, hw, False, False) for c, hw in D53_HEADS])
+                         + [(c, hw, False, "linear") for c, hw in D53_HEADS])
 def test_conv_epilogue_at_darknet53_shapes(cuda, n, layout, c, hw, bn, act):
     """K14 against its plain version, bit-equal, at every Darknet-53
     epilogue shape at batch 8 and 1, in either dense layout (after an
@@ -1367,7 +1367,7 @@ def test_conv_epilogue_at_darknet53_shapes(cuda, n, layout, c, hw, bn, act):
 @pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
 @pytest.mark.parametrize("layout", ["channels_last", "nchw"])
 @pytest.mark.parametrize("c,hw", [(256, 26), (18, 13), (255, 13), (64, 7)])
-@pytest.mark.parametrize("act", [True, False])
+@pytest.mark.parametrize("act", ["leaky", "linear"])
 def test_conv_epilogue_16_bit(cuda, dtype, layout, c, hw, act):
     """The bias form in float16 and bfloat16 (the fusion detector's
     folded convolutions) and the batch-norm form, each operation rounded
@@ -1401,19 +1401,19 @@ def test_conv_epilogue_unaligned_and_promoted(cuda):
     flat = torch.empty(x.numel() + 1, device=cuda)
     flat[1:] = x.permute(0, 2, 3, 1).reshape(-1)
     xs = flat[1:].view(2, 13, 13, 64).permute(0, 3, 1, 2)
-    assert torch.equal(epi.conv_epilogue(xs, b, m, inv, g, True),
-                       epi.epilogue_eager(xs, b, m, inv, g, True))
+    assert torch.equal(epi.conv_epilogue(xs, b, m, inv, g, "leaky"),
+                       epi.epilogue_eager(xs, b, m, inv, g, "leaky"))
     bh = b.half()
-    assert torch.equal(epi.conv_epilogue(x, bh, leaky_act=True),
-                       epi.epilogue_eager(x, bh, leaky_act=True))
+    assert torch.equal(epi.conv_epilogue(x, bh, act="leaky"),
+                       epi.epilogue_eager(x, bh, act="leaky"))
     before = epi.conv_epilogue.launches
     xh = x.half()
-    got = epi.epilogue(xh, b, m, inv, g, True)
+    got = epi.epilogue(xh, b, m, inv, g, "leaky")
     assert epi.conv_epilogue.launches == before + 1
-    want = epi.epilogue_eager(xh, b, m, inv, g, True)
+    want = epi.epilogue_eager(xh, b, m, inv, g, "leaky")
     assert got.dtype == torch.float32 and torch.equal(got, want)
     with pytest.raises(ValueError, match="two dtypes"):
-        epi.epilogue(xh, b, m.half(), inv.half(), g, True)
+        epi.epilogue(xh, b, m.half(), inv.half(), g, "leaky")
 
 
 def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
@@ -1426,11 +1426,11 @@ def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
     x, vecs = _epilogue_case(cuda, 2, 32, 12, torch.float32, True, 9)
     op = library.op("conv_epilogue")
     for t in (x, x.contiguous()):
-        got = op(t, *vecs, True)
-        want = epi.epilogue_eager(t, *vecs, True)
+        got = op(t, *vecs, 1)
+        want = epi.epilogue_eager(t, *vecs, "leaky")
         assert torch.equal(got, want) and got.stride() == t.stride()
     with pytest.raises(ValueError, match="dense 4-D"):
-        op(x.permute(0, 1, 3, 2), *vecs, True)
+        op(x.permute(0, 1, 3, 2), *vecs, 1)
 
     class Tail(torch.nn.Module):
         def __init__(self, w):
@@ -1438,7 +1438,7 @@ def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
             self.w = w
 
         def forward(self, z):
-            return epi.epilogue(F.conv2d(z, self.w, padding=1), *vecs, True)
+            return epi.epilogue(F.conv2d(z, self.w, padding=1), *vecs, "leaky")
 
     w = 0.1 * torch.randn(32, 16, 3, 3, device=cuda)
     z = torch.randn(2, 16, 12, 12, device=cuda).contiguous(
@@ -1450,6 +1450,130 @@ def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
         replay = program.module()(z)
     assert epi.conv_epilogue.launches == before + 1
     assert torch.equal(replay, live) and replay.stride() == live.stride()
+
+
+# CSPDarknet53's Mish epilogue shapes at 608 px: (channels, side) of its
+# convolutions at each stride; the largest gap in float32 ulps between
+# K14's Mish and the eager tail on the card (expf, log1pf and tanhf from
+# the CUDA math library in both)
+V4_MISH = [(32, 608), (64, 304), (32, 304), (128, 152), (64, 152),
+           (256, 76), (128, 76), (512, 38), (256, 38), (1024, 19), (512, 19)]
+MISH_ULPS = 0
+
+
+def _ulps(a, b):
+    """The largest distance in units in the last place between two float32
+    tensors of finite values (0 for equal bits, and for 0 against -0)."""
+    def key(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((key(a) - key(b)).abs().max())
+
+
+@pytest.mark.parametrize("n", [8, 1])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("c,hw", V4_MISH)
+def test_conv_epilogue_mish_at_yolov4_shapes(cuda, n, layout, c, hw):
+    """K14 in Mish mode against its plain version (batch norm's four
+    operations, ``F.softplus``, ``torch.tanh``, the product) at every
+    CSPDarknet53 shape at batch 8 and 1, in either dense layout, with
+    inputs widened past softplus's threshold of 20 on both sides: within
+    ``MISH_ULPS``, one launch, the input's memory format."""
+    x, vecs = _epilogue_case(cuda, n, c, hw, torch.float32, True, c + hw)
+    x = x * 4
+    fmt = torch.channels_last
+    if layout == "nchw":
+        x, fmt = x.contiguous(), torch.contiguous_format
+    before = epi.conv_epilogue.launches
+    got = epi.conv_epilogue(x, *vecs, "mish")
+    assert epi.conv_epilogue.launches == before + 1
+    want = epi.epilogue_eager(x, *vecs, "mish")
+    assert got.is_contiguous(memory_format=fmt)
+    assert bool(torch.isfinite(got).all())
+    assert _ulps(got, want) <= MISH_ULPS
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("c,hw", [(256, 26), (255, 13), (64, 7)])
+def test_conv_epilogue_mish_16_bit(cuda, dtype, c, hw):
+    """Mish in float16 and bfloat16 storage, each of its operations
+    rounded to the storage type as ATen rounds it, and widened to float32
+    by float32 vectors, in either form and layout: the plain version's
+    bits (a 16-bit rounding hides the float32 ulps), one launch."""
+    for bn, wide, nchw in itertools.product((False, True), repeat=3):
+        x, vecs = _epilogue_case(cuda, 4, c, hw, dtype, bn, c * hw + 1)
+        if wide:
+            vecs = tuple(None if v is None else v.float() for v in vecs)
+        if nchw:
+            x = x.contiguous()
+        before = epi.conv_epilogue.launches
+        got = epi.epilogue(x, *vecs, "mish")
+        assert epi.conv_epilogue.launches == before + 1
+        want = epi.epilogue_eager(x, *vecs, "mish")
+        assert got.dtype == want.dtype and got.stride() == want.stride()
+        if wide:
+            assert _ulps(got, want) <= MISH_ULPS
+        else:
+            assert torch.equal(got, want)
+
+
+def test_conv_epilogue_mish_over_every_float32_range(cuda):
+    """Mish on the card over x from -100 to 100 and the edges of softplus's
+    threshold: the eager tail within ``MISH_ULPS``, x itself above 20,
+    ``F.mish`` within 2 ulps of a float32 tanh's error."""
+    x = torch.cat([torch.linspace(-100, 100, 2_000_003, device=cuda),
+                   torch.tensor([20.0, 20.000002, 19.999998, -20.0, 0.0,
+                                 -0.0, 1e-30, -1e-30], device=cuda)])
+    x = x.view(1, 1, 1, -1)
+    zero = torch.zeros(1, device=cuda)
+    got = epi.conv_epilogue(x, zero, act="mish")
+    want = epi.epilogue_eager(x, zero, act="mish")
+    assert _ulps(got, want) <= MISH_ULPS
+    assert torch.equal(got[x > 20], x[x > 20])
+    assert torch.allclose(got, F.mish(x), rtol=1e-6, atol=1e-30)
+
+
+def test_yolov4_apply_bit_equal_with_the_epilogue(cuda):
+    """One ``Darknet.apply`` of YOLOv4 at 256 px, batch 2: K14 on all 110
+    convolutions, 72 of them in Mish mode, and the bits of the same call
+    inside ``cuda_lib.plain_versions()`` (within ``MISH_ULPS`` at the
+    first Mish block, which reads the same input), every block's output
+    and the detections where ``MISH_ULPS`` is 0."""
+    from millieye_torch.models.darknet import Darknet
+    from millieye_torch.models.zoo import yolov4_defs
+    from millieye_torch.ops import cuda_lib
+    from millieye_torch.runtime import profiler
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(0)
+    model = Darknet(yolov4_defs(80, 256), img_size=256)
+    params, state = model.init(g)
+    for p, s in zip(params, state):
+        if "gamma" in p:
+            c = p["gamma"].shape[0]
+            p["beta"] = 0.1 * torch.randn(c, generator=g)
+            s["mean"] = 0.1 * torch.randn(c, generator=g)
+            s["var"] = 0.5 + 1.5 * torch.rand(c, generator=g)
+    params = [{k: v.to(cuda) for k, v in p.items()} for p in params]
+    state = [{k: v.to(cuda) for k, v in s.items()} for s in state]
+    images = torch.rand((2, 256, 256, 3), generator=g).to(cuda)
+    profiler.counters()
+    with torch.inference_mode():
+        before = epi.conv_epilogue.launches
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = model.apply(params, state, images, collect_outputs=True)
+        assert epi.conv_epilogue.launches == before + 110
+        with cuda_lib.plain_versions():
+            want = model.apply(params, state, images, collect_outputs=True)
+        assert epi.conv_epilogue.launches == before + 110
+    assert profiler.counters() == {"darknet.convs": 110,
+                                   "darknet.epilogue": 110,
+                                   "darknet.mish": 72,
+                                   "darknet.epilogue_mish": 72}
+    assert _ulps(got["outputs"][0], want["outputs"][0]) <= MISH_ULPS
+    if MISH_ULPS == 0:
+        for a, b in zip(got["outputs"], want["outputs"]):
+            assert a.stride() == b.stride() and torch.equal(a, b)
+        assert torch.equal(got["detections"], want["detections"])
 
 
 def test_darknet53_apply_bit_equal_with_the_epilogue(cuda):
