@@ -24,7 +24,14 @@ printed only when every phase passed:
      (8, 128) carrier, each K10 and K13 case with its device time a call, and
      K13 on ragged, 70000-tile, zero, -0.0, inf and NaN inputs, K14 (the
      inference convolution's tail) at Darknet-53's shapes and, in its
-     Mish mode, at CSPDarknet53's (YOLOv4 at 608 px) at batch 8;
+     Mish mode, at CSPDarknet53's (YOLOv4 at 608 px) at batch 8; K15 (the
+     float32 convolution) at both networks' main shapes at batch 8, within
+     1e-5 of its plain version and at most twice its error against the
+     float64 convolution, timed against ``F.conv2d`` (cuDNN float32); K15
+     sums in its own order, so the paths below keep it launching in their
+     plain runs (``keep=K15``), and after P22 it is held the same way to
+     its plain version at every convolution they launched it at, and at
+     YOLOv4's at 608 px b8 (``ConvShapes``, ``KernelChecks.conv_paths``);
      K2, K3 (bf16
      and float32 "highest"), K6 ("upq", "default") and K7 ("highest") also
      with every RoI the whole frame, K3 also at "split"; K9's "highest" and
@@ -64,12 +71,13 @@ printed only when every phase passed:
      launch counts are set to 0 before each path and read after it; every
      kernel the path (or direct op) names must have launched on every request;
      the answers, the window's too, must be finite, of the right shape and
-     bit-identical to the same path inside ``cuda_lib.plain_versions()``, or,
-     for a path that runs a tensor-core kernel, bit-identical to the same path
-     inside ``cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS)`` (every
-     other kernel's plain version) and within ``PAIR_PATH_TOL`` of the fully
-     plain path, or beyond it by NMS decisions alone, proven on the recorded
-     inputs of both NMS passes (``nms_flips``); the window's answers (held the
+     bit-identical to the same path inside ``cuda_lib.plain_versions(keep=
+     K15)``, or, for a path that runs a tensor-core kernel, bit-identical to
+     the same path inside ``cuda_lib.plain_versions(keep=stem.
+     TENSOR_CORE_KERNELS + K15)`` (every other kernel's plain version) and
+     within ``PAIR_PATH_TOL`` of the plain path (K15 kept), or beyond it
+     by NMS decisions alone, proven on the recorded inputs of both NMS
+     passes (``nms_flips``); the window's answers (held the
      same way) must also equal the per-frame answers (matched by box within a
      stated tolerance, with at most one row of a frame on one side only, where
      the batch-8 convolutions sum in another order); the ``f32`` window to the
@@ -143,7 +151,7 @@ printed only when every phase passed:
      and ``--what refine`` on the ``.npz``; each run's launches counted
      per batch (the preset's kernels on every batch; the eval step has no
      post-merge NMS, so no K5), the run repeated inside
-     ``cuda_lib.plain_versions()``: at ``f32``, ``int8_acts``, yolo and
+     ``cuda_lib.plain_versions(keep=K15)``: at ``f32``, ``int8_acts``, yolo and
      refine every batch bit-identical and the same mAP, at the tensor-core
      presets each image's rows within ``PAIR_PATH_TOL`` or beyond it by
      pre-merge NMS decisions alone (``eval_flips``), both mAPs printed;
@@ -173,7 +181,7 @@ printed only when every phase passed:
      Darknet's BN statistics bit-identical after the run, the trained ones
      moved; steps/s after the first (host clock, synchronised), device ms
      and busy share of one profiled step, peak allocated memory. (a)'s
-     frozen forward again inside ``plain_versions()`` (the rows within
+     frozen forward again inside ``plain_versions(keep=K15)`` (the rows within
      ``PAIR_PATH_TOL``, or beyond it by NMS decisions alone) and its first
      two steps (the loss within ``TRAIN_LOSS_RTOL``); (d)'s first step
      against the CPU's and against its float64 gradient
@@ -259,6 +267,13 @@ WINDOW_TOL = dict(box=0.5, score=2e-2, flipped=1)
 # NMS of their own inputs, and the answers meet within it once one run
 # takes the other's decisions
 PAIR_PATH_TOL = dict(WINDOW_TOL, box=1.0)
+# K15, the float32 convolution, sums K in its own order (in two halves,
+# or in split ranges), so a path held bit-identical to its plain run keeps
+# K15 launching there (``keep=K15``); K15 itself is held within K15_TOL
+# of its plain version's largest output at every convolution those paths
+# launch it at (``ConvShapes``, ``KernelChecks.conv_paths``)
+K15 = ("conv2d_nhwc",)
+K15_TOL = 1e-5
 # P18, Darknet-53 on the card against the CPU, float32 with TF32 off on
 # both (summation order only): the feature map within 1e-3 of its largest
 # magnitude, the detections (pixels and sigmoid scores) within 1e-3;
@@ -441,6 +456,27 @@ def stochastic_stats(q, scale):
     if not abs(mean - 0.3) < 0.003 or q[0, 0] != 127:
         raise AssertionError(f"K13 carrier: mean {mean}, q[0, 0] {q[0, 0]}")
     return mean, p39
+
+
+class ConvShapes:
+    """The distinct convolutions K15 launched at while ``start()``ed:
+    each launch's (batch, H, W, Cin, Cout, kh, kw, stride, pad), as it
+    asks ``ops/conv.py:plan`` for them (in this process only)."""
+
+    def __init__(self, kconv):
+        self.kconv, self.dims, self._plan = kconv, set(), None
+
+    def start(self):
+        plan = self._plan = self.kconv.plan
+
+        def spy(dims, ld, forced=None):
+            self.dims.add(tuple(dims))
+            return plan(dims, ld, forced)
+        self.kconv.plan = spy
+
+    def stop(self):
+        self.kconv.plan = self._plan
+        return sorted(self.dims)
 
 
 class KernelChecks:
@@ -1061,6 +1097,106 @@ class KernelChecks:
                                   f"{float(s):.6g})")
 
     # ------------------------------------------------------------- K14
+    # ------------------------------------------------------------- K15
+    def conv(self, b=8):
+        """K15 at batch ``b`` at the main float32 convolutions of the two
+        benchmarked configurations, a channels_last input as the runner
+        gives it: Darknet-53 at 416 px (the 3-channel first convolution,
+        then the 3x3 convolution at each side, 208 to 13 px) and
+        CSPDarknet53 at 608 px (the first convolution, the 3x3 at each
+        side 304 to 19 px), and the 19 px 255-channel head. Held within
+        1e-5 of its plain version's largest output (K sums in another
+        order) and, against the float64 convolution, at most twice the
+        error of cuDNN's float32 convolution (TF32 off), which it replaced
+        (the plain version's product, cuBLAS's, sums in yet another
+        order). Bound: operations at the float32 peak. Library, timed,
+        never called by the port: ``F.conv2d`` in float32."""
+        from millieye_torch.ops import conv
+        torch = self.torch
+        F = torch.nn.functional
+        g = torch.Generator(device=self.dev).manual_seed(15)
+        cases = [("d53", 416, 3, 32, 3, 1), ("d53", 208, 32, 64, 3, 1),
+                 ("d53", 104, 64, 128, 3, 1), ("d53", 52, 128, 256, 3, 1),
+                 ("d53", 26, 256, 512, 3, 1), ("d53", 13, 512, 1024, 3, 1),
+                 ("v4", 608, 3, 32, 3, 1), ("v4", 304, 32, 64, 3, 1),
+                 ("v4", 152, 64, 64, 3, 1), ("v4", 76, 128, 128, 3, 1),
+                 ("v4", 38, 256, 256, 3, 1), ("v4", 19, 512, 1024, 3, 1),
+                 ("v4", 19, 1024, 255, 1, 1)]
+        for net, hw, cin, cout, k, st in cases:
+            x = torch.randn((b, hw, hw, cin), generator=g,
+                            device=self.dev).permute(0, 3, 1, 2)
+            w = torch.randn((cout, cin, k, k), generator=g,
+                            device=self.dev) / (k * k * cin) ** 0.5
+            wp, pad = conv.pack_weight(w), (k - 1) // 2
+            ho = (hw + 2 * pad - k) // st + 1
+            flops = 2 * b * ho * ho * cout * cin * k * k
+            nbytes = 4 * (x.numel() + w.numel() + b * ho * ho * cout)
+            ref = F.conv2d(x.double(), w.double(), stride=st, padding=pad)
+            err64 = [float((f().double() - ref).abs().max()) for f in (
+                lambda: conv.conv2d_nhwc(x, w, st, pad),
+                lambda: F.conv2d(x, w, stride=st, padding=pad),
+                lambda: conv._op.plain(x, wp, cout, st, pad))]
+            del ref
+            if not err64[0] <= 2 * err64[1]:
+                raise AssertionError(
+                    f"conv2d_nhwc {net} {hw} px {cin}->{cout} b{b}: off the "
+                    f"float64 convolution by {err64[0]}, more than twice "
+                    f"cuDNN float32's {err64[1]}")
+            self.case(
+                "conv2d_nhwc", f"{net} {hw} px {cin}->{cout} {k}x{k}", b,
+                lambda x=x, w=w, st=st, pad=pad: conv.conv2d_nhwc(
+                    x, w, st, pad),
+                lambda x=x, wp=wp, cout=cout, st=st, pad=pad:
+                conv._op.plain(x, wp, cout, st, pad),
+                nbytes, flops, F32_FLOP_S,
+                lambda x=x, w=w, st=st, pad=pad: F.conv2d(
+                    x, w, stride=st, padding=pad),
+                "F.conv2d float32, TF32 off (cuDNN)", K15_TOL, iters=20,
+                tol=K15_TOL, device=True,
+                note=f"against float64: K15 {err64[0]:.3g}, cuDNN float32 "
+                     f"{err64[1]:.3g}, the plain product {err64[2]:.3g}")
+            del x, w, wp
+
+    def conv_paths(self, dims):
+        """K15 at each convolution of ``dims`` (``ConvShapes``'s, as the
+        paths launched it), on seeded inputs: within K15_TOL of its plain
+        version's largest output, and against the float64 convolution at
+        most twice as far off as cuDNN's float32 convolution (TF32 off).
+        Not timed. Returns one (dims, error against the plain version as
+        a share of its largest output, float64 errors of K15, cuDNN and
+        the plain version) a convolution."""
+        from millieye_torch.ops import conv
+        torch = self.torch
+        F = torch.nn.functional
+        g = torch.Generator(device=self.dev).manual_seed(16)
+        out = []
+        for d in dims:
+            n, h, w_, cin, cout, kh, kw, st, pad = d
+            x = torch.randn((n, h, w_, cin), generator=g,
+                            device=self.dev).permute(0, 3, 1, 2)
+            w = torch.randn((cout, cin, kh, kw), generator=g,
+                            device=self.dev) / (kh * kw * cin) ** 0.5
+            got = conv.conv2d_nhwc(x, w, st, pad)
+            want = conv._op.plain(x, conv.pack_weight(w), cout, st, pad)
+            lib = F.conv2d(x, w, stride=st, padding=pad)
+            ref = F.conv2d(x.double(), w.double(), stride=st, padding=pad)
+            e64 = [float((t.double() - ref).abs().max())
+                   for t in (got, lib, want)]
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not (got.shape == want.shape and err <= K15_TOL * scale):
+                raise AssertionError(f"conv2d_nhwc at {d}: off its plain "
+                                     f"version by {err}, beyond {K15_TOL} "
+                                     f"of its largest output {scale}")
+            if not e64[0] <= 2 * e64[1]:
+                raise AssertionError(f"conv2d_nhwc at {d}: off the float64 "
+                                     f"convolution by {e64[0]}, more than "
+                                     f"twice cuDNN float32's {e64[1]}")
+            out.append((d, err / scale, *e64))
+            del x, w, got, want, lib, ref
+        torch.cuda.empty_cache()
+        return out
+
     def epilogue(self, b=8):
         """K14 at batch ``b`` on a channels_last convolution output as
         cuDNN gives it: at Darknet-53's shapes at 416 px, 208 px x 64,
@@ -1502,7 +1638,7 @@ def nms_flip_proof(torch, cuda_lib, eng, got, want, got_in, want_in, tol):
     if not ok:
         return (False, f"the NMS inputs differ beyond {tol} (box {db}, "
                 f"score {ds}, {fl} rows on one side only)", 0)
-    with cuda_lib.plain_versions():
+    with cuda_lib.plain_versions(keep=K15):
         for side, c, out in (("kernel", got_in, got), ("plain", want_in,
                                                        want)):
             r, v = (a.cpu().numpy() for a in eng._post(*c))
@@ -1585,7 +1721,7 @@ def pre_merge_is_nms(torch, cuda_lib, got, want):
     from millieye_torch.models import fusion
     for side, recs in (("kernel", got), ("plain", want)):
         for r in recs:
-            with cuda_lib.plain_versions():
+            with cuda_lib.plain_versions(keep=K15):
                 out, valid = fusion.batched_nms(r["pred"], *r["args"],
                                                 **r["kw"])
             if not (torch.equal(out, r["out"])
@@ -1618,7 +1754,7 @@ def nms_flips(torch, cuda_lib, eng, call, first, tol):
     with pre_merge_nms(torch) as got_nms, post_merge_inputs(eng) as got_in:
         got = call()
     with pre_merge_nms(torch) as want_nms, post_merge_inputs(eng) as \
-            want_in, cuda_lib.plain_versions():
+            want_in, cuda_lib.plain_versions(keep=K15):
         want = call()
     if not all(np.array_equal(g[0], f[0]) and np.array_equal(g[1], f[1])
                for g, f in zip(got, first)):
@@ -1631,7 +1767,7 @@ def nms_flips(torch, cuda_lib, eng, call, first, tol):
             got2 = call()
         with pre_merge_nms(torch, inject=got_nms), \
                 post_merge_inputs(eng) as want2_in, \
-                cuda_lib.plain_versions():
+                cuda_lib.plain_versions(keep=K15):
             want2 = call()
         pairs = [(got2, want, got2_in, want_in), (got, want2, got_in,
                                                   want2_in)]
@@ -1929,7 +2065,7 @@ def yolov3_phase(torch, cuda_lib, root, size=416, batch=8):
     before = nms_kernel.nms_keep_mask_blocked.launches
     kd, kv = batched_nms(det53, 0.3, 0.5, max_det=100, pre_top_k=512)
     k1 = nms_kernel.nms_keep_mask_blocked.launches - before
-    with cuda_lib.plain_versions():
+    with cuda_lib.plain_versions(keep=K15):
         pd, pv = batched_nms(det53, 0.3, 0.5, max_det=100, pre_top_k=512)
     if k1 != 1 or not (torch.equal(kd, pd) and torch.equal(kv, pv)):
         raise AssertionError(f"yolov3: K1 launched {k1} times, or its "
@@ -2055,7 +2191,8 @@ def eval_flips(torch, cuda_lib, rec, tol):
     with torch.inference_mode():
         with pre_merge_nms(torch) as got_nms:
             got = _np_out(forward(batch))
-        with pre_merge_nms(torch) as want_nms, cuda_lib.plain_versions():
+        with pre_merge_nms(torch) as want_nms, \
+                cuda_lib.plain_versions(keep=K15):
             want = _np_out(forward(batch))
         if not all(np.array_equal(a, b) for a, b in zip(got,
                                                         _np_out(rec["out"]))):
@@ -2066,7 +2203,8 @@ def eval_flips(torch, cuda_lib, rec, tol):
                                  "with the same NMS decisions")
         with pre_merge_nms(torch, inject=want_nms):
             got2 = _np_out(forward(batch))
-        with pre_merge_nms(torch, inject=got_nms), cuda_lib.plain_versions():
+        with pre_merge_nms(torch, inject=got_nms), \
+                cuda_lib.plain_versions(keep=K15):
             want2 = _np_out(forward(batch))
     for a, b in ((got2, want), (got, want2)):
         for i in range(len(a[0])):
@@ -2084,7 +2222,7 @@ def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts,
                keep=None):
     """P19: ``cli.evaluate.main`` in this process on the card, each run of
     ``eval_runs`` with its launches counted, again inside
-    ``plain_versions()``, and held to it; the device cache's batches
+    ``plain_versions(keep=K15)``, and held to it; the device cache's batches
     against the host collate's; one profiled run. Returns (summary,
     {label: launches}); ``keep`` (a dict) gets (mAP, records) of each
     run its keys name, for P23."""
@@ -2122,7 +2260,7 @@ def eval_phase(torch, cuda_lib, weights_file, zero_counts, counts,
                                  f"{need})")
         if keep is not None and label in keep:
             keep[label] = (m_ap, seen)
-        with cuda_lib.plain_versions():
+        with cuda_lib.plain_versions(keep=K15):
             m_plain, wall_plain, pseen, _ = run(argv)
         got = [_np_out(r["out"]) for r in seen]
         want = [_np_out(r["out"]) for r in pseen]
@@ -2242,11 +2380,15 @@ TRAIN_LR = 5e-4
 # float32 (stage 3 unfolded, stage 2); with --fold_frozen the 11 the
 # stem pair leaves (stage 4 in float32; the others bfloat16 with a
 # float32 bias, written float32 as the eager sequence widens them).
-# Stage 1 trains the Darknet itself (train mode): none.
+# K15 (conv2d_nhwc) runs each float32 one's convolution: the 13, or
+# stage 4's with --fold_frozen. Stage 1 trains the Darknet itself (train
+# mode): none.
 TRAIN_EXPECT = {"fusion_fold": {"stem_pair": 1, "nms": 1,
-                                "conv_epilogue": 11},
-                "fusion": {"nms": 1, "conv_epilogue": 13},
-                "refine": {"nms": 1, "conv_epilogue": 13}, "yolo": {}}
+                                "conv_epilogue": 11, "conv2d_nhwc": 1},
+                "fusion": {"nms": 1, "conv_epilogue": 13,
+                           "conv2d_nhwc": 13},
+                "refine": {"nms": 1, "conv_epilogue": 13,
+                           "conv2d_nhwc": 13}, "yolo": {}}
 # module3's total leaves out its category and regression terms; they are
 # reported, and the category BCE is NaN wherever a class score saturates
 # to 1.0 in float32 (its clip, 1 - 1e-12, rounds to 1.0): so in the JAX
@@ -2343,12 +2485,12 @@ def fold_forward_vs_plain(torch, cuda_lib, model, params, state, images,
     c = counts()
     if {k: v for k, v in c.items() if v} != TRAIN_EXPECT["fusion_fold"]:
         raise AssertionError(f"P21 frozen forward launched {c}")
-    with cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS):
+    with cuda_lib.plain_versions(keep=stem.TENSOR_CORE_KERNELS + K15):
         keep = fwd()
     if not same_answer(got, keep):
         raise AssertionError("P21 frozen forward: not bit-identical to its "
                              "run with only the tensor-core kernels")
-    with cuda_lib.plain_versions():
+    with cuda_lib.plain_versions(keep=K15):
         want = fwd()
     rows = [rows_match((got[0][i], got[1][i]), (want[0][i], want[1][i]),
                        PAIR_PATH_TOL) for i in range(len(got[1]))]
@@ -2356,7 +2498,8 @@ def fold_forward_vs_plain(torch, cuda_lib, model, params, state, images,
     if not all(r[0] for r in rows):
         with pre_merge_nms(torch) as got_nms:
             fwd()
-        with pre_merge_nms(torch) as want_nms, cuda_lib.plain_versions():
+        with pre_merge_nms(torch) as want_nms, \
+                cuda_lib.plain_versions(keep=K15):
             fwd()
         anchors = pre_merge_is_nms(torch, cuda_lib, got_nms, want_nms)
         with pre_merge_nms(torch, inject=want_nms):
@@ -2373,7 +2516,7 @@ def fold_forward_vs_plain(torch, cuda_lib, model, params, state, images,
 def fold_step_vs_plain(torch, cuda_lib, trainer, batch, dev="cuda"):
     """(a)'s first two steps (one optimizer update at every_k 2) from the
     same start and the same draws, with the kernels and inside
-    ``plain_versions()``: (loss, plain loss, largest difference of the
+    ``plain_versions(keep=K15)``: (loss, plain loss, largest difference of the
     trained leaves after the update, frozen leaves identical)."""
     from millieye_torch.train.optim import (STAGE3_FROZEN, label_tree,
                                             tree_leaves)
@@ -2387,7 +2530,7 @@ def fold_step_vs_plain(torch, cuda_lib, trainer, batch, dev="cuda"):
         return loss, ts.params
 
     loss, got = run()
-    with cuda_lib.plain_versions():
+    with cuda_lib.plain_versions(keep=K15):
         plain_loss, want = run()
     labels = tree_leaves(label_tree(got, STAGE3_FROZEN))
     d_trained, frozen_same = 0.0, True
@@ -2477,8 +2620,8 @@ def train_phase(torch, cuda_lib, zero_counts, counts, card, dev="cuda"):
     (``TRAIN_EXPECT``); every metric finite and ``nonfinite_reverted`` 0;
     the frozen leaves (and the Darknet's BN statistics) bit-identical
     after the run and the trained ones moved. (a) again inside
-    ``plain_versions()``: its frozen forward (``fold_forward_vs_plain``)
-    and its first two steps (``fold_step_vs_plain``); (d)'s first step
+    ``plain_versions(keep=K15)``: its frozen forward
+    (``fold_forward_vs_plain``) and its first two steps (``fold_step_vs_plain``); (d)'s first step
     against the CPU's (``yolo_step_vs_cpu``). Returns (summary, {run:
     launches})."""
     import tempfile
@@ -2630,9 +2773,10 @@ LIVE_CFG = ("% the contract's cfg (tests/test_collection.py:57-71)",
             "frameCfg 0 2 16 0 55 1 0", "sensorStart")
 LIVE_PROFILED = 24             # frames of P22's profiled run
 # the launches of each live frame at pallas_max_s01: K14 on the 11 plain
-# convolutions the stem pair leaves (folded, bfloat16, their bias too)
+# convolutions the stem pair leaves (folded, bfloat16, their bias too);
+# K15 on the one of them in float32 (stage 4)
 LIVE_LAUNCHES = {"stem_pair": 1, "nms": 1, "ps_roi_align": 1, "roi_align": 1,
-                 "nms_full": 1, "conv_epilogue": 11}
+                 "nms_full": 1, "conv_epilogue": 11, "conv2d_nhwc": 1}
 
 
 def tlv_packet(frame_no, xyzv):
@@ -2979,8 +3123,9 @@ def export_phase(torch, cuda_lib, engines, reqs, p1_host_ms):
     inputs (the 8 requests, as 8 calls at b1 or one at b8): its answers
     bit-identical to the live ``FusionNetwork.apply``, its launches the
     preset's kernels once a call, and, inside ``plain_versions()``, the
-    plain versions (no launch, bit-identical to the live graph's plain
-    run); then what a custom op costs the host against a direct launch.
+    plain versions (no launch, K15's too, bit-identical to the live
+    graph's plain run); then what a custom op costs the host
+    against a direct launch.
     Returns (summary, {label: launches})."""
     import io
     import os
@@ -3184,10 +3329,12 @@ PAR_WORLD_TIMEOUT = 600
 # window), and nothing else
 # (K14: every plain convolution of the unfolded float32 Darknet, 13; the
 # 11 the stem pair leaves at pallas_max_s01 and the 10 the pair and K9
-# leave at pallas_max4; with --fold_frozen, TRAIN_EXPECT's 11)
-PAR_NEED = {"eval@f32": {"nms": 1, "conv_epilogue": 13},
+# leave at pallas_max4; with --fold_frozen, TRAIN_EXPECT's 11. K15: the
+# float32 ones of them, 13 at f32, stage 4 at pallas_max_s01)
+PAR_NEED = {"eval@f32": {"nms": 1, "conv_epilogue": 13,
+                         "conv2d_nhwc": 13},
             "eval@pallas_max_s01": dict(dict.fromkeys(_RIGHT_PAIR, 1),
-                                        conv_epilogue=11),
+                                        conv_epilogue=11, conv2d_nhwc=1),
             "train": TRAIN_EXPECT["fusion_fold"],
             "window": dict(dict.fromkeys(("stem_stage", "stem_pair", "nms",
                                           "ps_roi_align", "roi_align",
@@ -3651,6 +3798,28 @@ def parallel_phase(torch, cuda_lib, eng4, reqs, eval_keep, dev="cuda"):
     return summary
 
 
+def yolov4_forward(torch, b=8, size=608):
+    """One YOLOv4 forward at ``size`` px, batch ``b``, float32 eval on
+    the card from the seed-0 init, as the benchmark's ``yolov4-608-b8``
+    runs it: so that a running ``ConvShapes`` holds CSPDarknet53's
+    convolutions. Raises unless the detections are finite."""
+    from millieye_torch.models.darknet import Darknet
+    from millieye_torch.models.zoo import yolov4_defs
+    dev = torch.device("cuda")
+    model = Darknet(yolov4_defs(80, size), img_size=size)
+    params, state = model.init(torch.Generator().manual_seed(0))
+    params = [{k: v.to(dev) for k, v in p.items()} for p in params]
+    state = [{k: v.to(dev) for k, v in s.items()} for s in state]
+    images = torch.rand((b, size, size, 3),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    with torch.inference_mode():
+        det = model.apply(params, state, images)["detections"]
+    if not bool(torch.isfinite(det).all()):
+        raise AssertionError("YOLOv4 forward: detections not finite")
+    del params, state, images, det
+    torch.cuda.empty_cache()
+
+
 def window_tensors(torch, engine, reqs, device="cuda"):
     """The requests as one window's tensors on the card."""
     packed = [engine.pack_radar(pts, props) for _, pts, props in reqs]
@@ -3671,6 +3840,7 @@ def main():
     from millieye_torch.entry import entry
     from millieye_torch.ops import (cuda_lib, epilogue, nms_kernel, quantize,
                                     roi_kernel, stem)
+    from millieye_torch.ops import conv as kconv
     from millieye_torch.runtime.engine import FusionEngine, fold_for_serving
 
     t_start = time.time()
@@ -3735,6 +3905,8 @@ def main():
         "conv_epilogue": (epilogue.conv_epilogue,
                           "millieye_torch/csrc/epilogue.cu",
                           "none (XLA fused this tail on the TPU)"),
+        "conv2d_nhwc": (kconv.conv2d_nhwc, "millieye_torch/csrc/conv.cu",
+                        "none (XLA ran these convolutions on the TPU)"),
     }
 
     def engine_at(preset, **cfg):
@@ -3770,13 +3942,14 @@ def main():
     w12 = engines["f32"].params["darknet"][12]["w"]
     checks.quantize(w12)
     checks.epilogue()
+    checks.conv()
     torch.cuda.empty_cache()
     recs = [r for rs in checks.records.values() for r in rs]
     bounded = [r for r in recs if r["tol"] is not None]
     log(f"kernel phase: {len(recs) - len(bounded)} cases bit-equal to their "
         f"plain versions, {len(bounded)} (the tensor-core kernels at "
-        f"'default') within {stem.PAIR_DEFAULT_TOL:.3g} of their plain "
-        f"versions' largest output, at worst 2^"
+        f"'default' within {stem.PAIR_DEFAULT_TOL:.3g}, K15 within 1e-5) of "
+        f"their plain versions' largest output, at worst 2^"
         f"{max(np.log2(max(r['err'], 1e-30) / r['scale']) for r in bounded):.2f}"
         f" of it, at least {min(r['exact'] for r in bounded):.5f} of the "
         f"outputs bit-equal; {time.time() - t:.1f} s")
@@ -3810,6 +3983,10 @@ def main():
             f"version, exact share {r['exact_share']:.5f}")
     log(f"batch cap: {time.time() - t:.1f} s")
 
+    # every convolution K15 runs at from here to P22 is held to its plain
+    # version after P22 (the paths keep K15 in their plain runs)
+    conv_shapes = ConvShapes(kconv)
+    conv_shapes.start()
     rng = np.random.default_rng(1)      # the requests' own stream
     reqs = requests(rng, N_REQUESTS)
     launches_by_path, answers_by_path, summary = {}, {}, {}
@@ -3827,7 +4004,7 @@ def main():
         paired rows, rows on one side only, and the anchors the pre-merge
         NMS and the inputs the post-merge NMS kept in one run only)."""
         boxes, valid = got
-        with cuda_lib.plain_versions():
+        with cuda_lib.plain_versions(keep=K15):
             ref = call()
         same = (np.array_equal(boxes, ref[0])
                 and np.array_equal(valid, ref[1]))
@@ -3837,7 +4014,7 @@ def main():
                     f"{path}: kernels and plain versions disagree\n"
                     f"{boxes[valid]}\n{ref[0][ref[1]]}")
             return same, 0.0, 0.0, 0, (0, 0)
-        with cuda_lib.plain_versions(keep=tc_kernels):
+        with cuda_lib.plain_versions(keep=tc_kernels + K15):
             kept = call()
         if not (np.array_equal(boxes, kept[0])
                 and np.array_equal(valid, kept[1])):
@@ -3907,7 +4084,7 @@ def main():
                 f"{moved[1]} inputs kept by the post-merge NMS in one run "
                 f"only)" if path in tc_paths
                 else "every answer bit-identical to the same path inside "
-                "cuda_lib.plain_versions()")
+                "cuda_lib.plain_versions(keep=K15)")
         log(f"path {path}: {len(calls)} calls at 416 px, batch 1; launches "
             f"{used}; valid rows per answer {n_valid}; {held}; p50 "
             f"{np.median(timed):.2f} ms, max "
@@ -4056,7 +4233,7 @@ def main():
                                   for k, (fn, *_) in kernels.items()}
         if launches_by_path[path][name] != len(calls):
             raise AssertionError(f"{path}: {launches_by_path[path]}")
-        with cuda_lib.plain_versions():
+        with cuda_lib.plain_versions(keep=K15):
             if not all(torch.equal(o, call()) for o, call in zip(outs,
                                                                  calls)):
                 raise AssertionError(f"{path}: kernel and plain version "
@@ -4138,13 +4315,13 @@ def main():
     if wrows.shape != (N_REQUESTS,) + rows(eng) \
             or not np.isfinite(wrows).all():
         raise AssertionError(f"batched window: bad answer {wrows.shape}")
-    with cuda_lib.plain_versions(keep=tc_kernels):
+    with cuda_lib.plain_versions(keep=tc_kernels + K15):
         krows, kvalid = step(*tens)
     if not (np.array_equal(wrows, krows.cpu().numpy())
             and np.array_equal(wvalid, kvalid.cpu().numpy())):
         raise AssertionError("batched window: differs from its run with only "
                              "the tensor-core kernels launched")
-    with cuda_lib.plain_versions():
+    with cuda_lib.plain_versions(keep=K15):
         prows, pvalid = step(*tens)
     prows, pvalid = prows.cpu().numpy(), pvalid.cpu().numpy()
     window_plain_same, wp_box, wp_score, wp_flips, wp_moved = (0, 0.0, 0.0,
@@ -4233,11 +4410,11 @@ def main():
     if frows.shape != (N_REQUESTS,) + rows(eng) \
             or not np.isfinite(frows).all():
         raise AssertionError(f"f32 window: bad answer {frows.shape}")
-    with cuda_lib.plain_versions():
+    with cuda_lib.plain_versions(keep=K15):
         prows, pvalid = (a.cpu().numpy() for a in fstep(*ftens))
     if not (np.array_equal(frows, prows) and np.array_equal(fvalid, pvalid)):
         raise AssertionError("f32 window: differs from the same window "
-                             "inside cuda_lib.plain_versions()")
+                             "inside cuda_lib.plain_versions(keep=K15)")
     window_nms_per_frame(torch, eng, fstep, ftens, (frows, fvalid))
     f32_err, f32_exact = 0.0, 0
     for i, (want, want_valid) in enumerate(answers_by_path["f32"]):
@@ -4251,8 +4428,8 @@ def main():
         f32_exact += int(np.array_equal(frows[i], want))
     log(f"batched window of {N_REQUESTS} frames at f32: launches "
         f"{ {k: v for k, v in launches.items() if v} }; bit-identical to "
-        f"the same window inside cuda_lib.plain_versions(), its post-merge "
-        f"NMS one K5 launch, bit-identical to it frame by frame; against the "
+        f"the same window inside cuda_lib.plain_versions(keep=K15), its "
+        f"post-merge NMS one K5 launch, bit-identical to it frame by frame; against the "
         f"per-frame answers valid equal, {f32_exact} of {N_REQUESTS} rows "
         f"arrays bit-identical, the largest row difference {f32_err:.3g} "
         f"(the reference's rtol 1e-4, atol 1e-4)")
@@ -4502,12 +4679,12 @@ def main():
             raise AssertionError(f"stream windows {idx[0]}-{idx[-1]}: the "
                                  f"stream differs from batched_step_fn on "
                                  f"the stacked arrays")
-        with cuda_lib.plain_versions(keep=tc_kernels):
+        with cuda_lib.plain_versions(keep=tc_kernels + K15):
             kr, kv = (a.cpu().numpy() for a in step(*tens))
         if not same_answer((wr, wv), (kr, kv)):
             raise AssertionError("stream windows: differ from the run with "
                                  "only the tensor-core kernels launched")
-        with cuda_lib.plain_versions():
+        with cuda_lib.plain_versions(keep=K15):
             pr, pv = (a.cpu().numpy() for a in step(*tens))
         beyond = False
         for j in range(len(idx)):
@@ -4844,6 +5021,28 @@ def main():
         f"{time.time() - t:.1f} s")
     wdir.cleanup()
     stream_dir.cleanup()
+
+    # K15 against its plain version at every convolution the paths above
+    # launched it at, and at YOLOv4's (the benchmark's second network)
+    t = time.time()
+    yolov4_forward(torch)
+    rows = checks.conv_paths(conv_shapes.stop())
+    dims = [r[0] for r in rows]
+    worst = max(rows, key=lambda r: r[2] / r[3])
+    summary["k15_paths"] = [
+        dict(dims=r[0], plain_err=r[1], err64=r[2:]) for r in rows]
+    log(f"K15 at the paths' convolutions ({card}): {len(rows)} distinct "
+        f"(batch, H, W, Cin, Cout, kh, kw, stride, pad) from P1-P22 and a "
+        f"YOLOv4 forward at 608 px b8: batches "
+        f"{sorted({d[0] for d in dims})}, {sum(d[7] == 2 for d in dims)} "
+        f"at stride 2, {sum(d[5] == 1 for d in dims)} 1x1, "
+        f"{sum(d[4] % 4 != 0 for d in dims)} with Cout not a multiple of "
+        f"4, {sum(d[3] % 4 != 0 for d in dims)} on the small-K route; "
+        f"each within {K15_TOL} of its plain version's largest output (at "
+        f"worst {max(r[1] for r in rows):.3g}) and against float64 at "
+        f"worst {worst[2] / worst[3]:.3f} of cuDNN float32's error (at "
+        f"{worst[0]}: K15 {worst[2]:.3g}, cuDNN {worst[3]:.3g}, the plain "
+        f"product {worst[4]:.3g}); {time.time() - t:.1f} s")
 
     # P23: parallel/ on 4 gloo ranks sharing the card
     t = time.time()

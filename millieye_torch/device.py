@@ -4,7 +4,12 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.utils._python_dispatch import _disable_current_modes
+from torch.utils.weak import WeakIdKeyDictionary
+
+# per_tensor's results: {tensor: {fn: (tensor's version, result)}}
+_PER_TENSOR = WeakIdKeyDictionary()
 
 
 def resolve_device(device="cuda"):
@@ -31,6 +36,32 @@ def constant(values, device, dtype=torch.float32):
     caches a tensor that a later training step can save for backward."""
     with _disable_current_modes(), torch.inference_mode(False):
         return torch.tensor(values, dtype=dtype, device=device)
+
+
+def per_tensor(t, fn):
+    """``fn(t)``, made once per tensor ``t`` and kept while ``t`` lives
+    (made again after an in-place change to it): what an inference step
+    would otherwise recompute from the same weights each call. It is
+    made outside any active dispatch mode, so a first call under a tracer
+    caches a real tensor, which the trace takes as a constant; and
+    outside inference mode and without grad, so a result made in an
+    evaluation step serves any later step. A tracer's fake tensor, an
+    inference tensor (it has no version counter to tell a change by) and
+    a tensor that wants a gradient here take ``fn(t)`` at each call."""
+    if (isinstance(t, FakeTensor) or t.is_inference()
+            or (t.requires_grad and torch.is_grad_enabled())):
+        return fn(t)
+    made = _PER_TENSOR.get(t)
+    hit = None if made is None else made.get(fn)
+    if hit is not None and hit[0] == t._version:
+        return hit[1]
+    with _disable_current_modes(), torch.inference_mode(False), \
+            torch.no_grad():
+        out = fn(t)
+    if made is None:
+        made = _PER_TENSOR[t] = {}
+    made[fn] = (t._version, out)
+    return out
 
 
 def set_numerics():

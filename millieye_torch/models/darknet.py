@@ -42,15 +42,20 @@ size k pads k // 2 on every side with -inf and keeps the size (darknet's
 with zeros, as the reference does. A ``yolo`` block's ``scale_x_y`` s
 (default 1) maps the centre's sigmoid to ``sigmoid * s - (s - 1) / 2``.
 
-At inference the tail of each plain convolution (batch norm's affine
-step with the running statistics, or the folded bias, then its
-activation) is ``ops/epilogue.py:epilogue``: one launch of kernel K14 on
-the card, the eager sequence elsewhere, the same bits. Inside a profiler
-session the backbone counts ``darknet.convs`` (the plain convolution
-blocks an ``apply`` runs) and ``darknet.epilogue`` (those whose tail
-launched K14), and a model with Mish ``darknet.mish`` and
-``darknet.epilogue_mish`` (the same two of its Mish blocks); the span
-``millieye.spp`` holds an SPP's pools and their route.
+At inference a plain float32 convolution on the card (no int8 slot, not
+an s2d, im2col or fused stem form, no gradient wanted) is kernel K15
+(``ops/conv.py:route``), on its input made channels_last; every other
+convolution is ``F.conv2d``. The tail of each plain
+convolution (batch norm's affine step with the running statistics, or
+the folded bias, then its activation) is ``ops/epilogue.py:epilogue``:
+one launch of kernel K14 on the card, the eager sequence elsewhere, the
+same bits. Inside a profiler session the backbone counts
+``darknet.convs`` (the plain convolution blocks an ``apply`` runs),
+``darknet.conv_kernel`` (those whose convolution launched K15) and
+``darknet.epilogue`` (those whose tail launched K14), and a model with
+Mish ``darknet.mish`` and ``darknet.epilogue_mish`` (the same two of its
+Mish blocks); the span ``millieye.spp`` holds an SPP's pools and their
+route.
 
 Training (``apply(train=True)``): BN normalizes with the batch statistics
 and updates the running ones with momentum 0.9 (the reference's
@@ -69,9 +74,10 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
-from millieye_torch.device import constant
+from millieye_torch.device import constant, per_tensor
 from millieye_torch.io.checkpoint import to_device
 from millieye_torch.io.config import parse_model_config
+from millieye_torch.ops import conv as kconv
 from millieye_torch.ops import epilogue as epi
 from millieye_torch.ops.quantize import int8_conv2d
 from millieye_torch.ops.stem import (fused_stem_pair, fused_stem_pair_packed,
@@ -195,6 +201,17 @@ def decode_yolo(raw, anchors, num_classes, img_dim, with_pred=False,
     if with_pred:
         return det, torch.cat([xy, twh, conf, cls], -1)
     return det
+
+
+def _bn_inv(var):
+    """``rsqrt(var + eps)`` of a running variance, as eval-mode batch norm
+    scales by it: made once per variance tensor (``device.per_tensor``),
+    so that an inference step launches nothing for it."""
+    return per_tensor(var, _rsqrt_eps)
+
+
+def _rsqrt_eps(var):
+    return torch.rsqrt(var + _BN_EPS)
 
 
 def _train_bn(x, p, s):
@@ -497,8 +514,12 @@ class Darknet:
                 return y.to(compute_dtype) * sc.view(1, -1, 1, 1)
             dt = (torch.float32 if i in self.hi_prec_stages
                   else compute_dtype)
-            return F.conv2d(z.to(dt), weight(p, key).to(dt), stride=stride,
-                            padding=pad)
+            z, w = z.to(dt), weight(p, key).to(dt)
+            if (key == "w" and key in p and not train
+                    and kconv.takes_kernel(z, w, stride, pad)):
+                # a plain float32 inference convolution: kernel K15
+                return kconv.route(z, w, stride, pad)
+            return F.conv2d(z, w, stride=stride, padding=pad)
 
         def phase_max(y, p, info):
             # the four output phases are the pool window; then bias, act
@@ -508,7 +529,10 @@ class Darknet:
 
         pair_los = () if collect_act_stats else tuple(
             lo for lo in self._pair_candidates() if fused(lo) and fused(lo + 2))
+        # the blocks a fused pair's launch covers after its first
+        consumed = {lo + d for lo in pair_los for d in (1, 2, 3)}
         convs, launches = 0, epi.conv_epilogue.launches
+        conv_launches = kconv.conv2d_nhwc.launches
         mish, mish_launches = 0, 0
         spp_end = None
         with trace_annotation("millieye.backbone"), \
@@ -521,7 +545,7 @@ class Darknet:
                 p = params[i] if i < len(params) else {}
                 s = state[i] if i < len(state) else {}
                 prev = outputs[-1] if outputs else x_in
-                if any(lo < i <= lo + 3 for lo in pair_los):
+                if i in consumed:
                     x = prev              # consumed by the fused pair
                 elif i in pair_los:
                     x = self._run_pair(i, params, prev, compute_dtype)
@@ -562,8 +586,7 @@ class Darknet:
                         x = epi.epilogue_eager(x, p["b"], act=act)
                     elif "gamma" in p:    # BN not folded away (eval mode)
                         x = epi.epilogue(x, p["beta"], s["mean"],
-                                         torch.rsqrt(s["var"] + _BN_EPS),
-                                         p["gamma"], act)
+                                         _bn_inv(s["var"]), p["gamma"], act)
                     else:
                         x = epi.epilogue(x, p["b"], act=act)
                     if act == "mish":
@@ -597,9 +620,12 @@ class Darknet:
                     feature_map = x.permute(0, 2, 3, 1)
                 if i == spp_end:
                     spp.close()
-            # the plain convolution blocks, and those whose tail ran K14
+            # the plain convolution blocks, those that ran K15 and those
+            # whose tail ran K14
             count("darknet.convs", convs)
             count("darknet.epilogue", epi.conv_epilogue.launches - launches)
+            count("darknet.conv_kernel",
+                  kconv.conv2d_nhwc.launches - conv_launches)
             if self._mish:
                 count("darknet.mish", mish)
                 count("darknet.epilogue_mish", mish_launches)

@@ -42,6 +42,7 @@ SOURCES = {
     "stem": ("stem.cu", ()),
     "quantize": ("quantize.cu", ()),
     "epilogue": ("epilogue.cu", ()),
+    "conv": ("conv.cu", ()),
 }
 
 # the kernel wrappers' names, as they ask takes_plain and as chip_smoke.py
@@ -51,7 +52,7 @@ KERNELS = frozenset((
     "ps_roi_align_f32", "ps_roi_align_padded_f32", "stem_pair",
     "stem_pair_select", "stem_pair_packed", "stem_pair_s2d",
     "stem_pair_deep", "stem_stage", "fused_stem", "quantize_stochastic",
-    "conv_epilogue"))
+    "conv_epilogue", "conv2d_nhwc"))
 
 _loaded = {}
 # the namespace every kernel_op defines its op in

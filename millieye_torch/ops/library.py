@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from millieye_torch.ops import epilogue, nms_kernel, quantize, roi_kernel, stem
+from millieye_torch.ops import (conv, epilogue, nms_kernel, quantize,
+                                roi_kernel, stem)
 
 OPS = {"nms": nms_kernel._blocked_op, "nms_full": nms_kernel._full_op,
        "ps_roi_align": roi_kernel._k2_op,
@@ -20,7 +21,7 @@ OPS = {"nms": nms_kernel._blocked_op, "nms_full": nms_kernel._full_op,
        "ps_roi_align_padded_f32": roi_kernel._k7_op,
        "stem_stage": stem._stage_op, "fused_stem": stem._nhwc_op,
        **stem._pair_ops, "quantize_stochastic": quantize._stochastic_op,
-       "conv_epilogue": epilogue._op}
+       "conv_epilogue": epilogue._op, "conv2d_nhwc": conv._op}
 
 
 def op(name):

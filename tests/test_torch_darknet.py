@@ -451,8 +451,9 @@ def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
 
 def test_darknet_counters_count_only_in_a_profiler_session():
     """``darknet.convs`` counts the plain convolution blocks an ``apply``
-    runs (the s2d stages are not plain) and ``darknet.epilogue`` those
-    whose tail launched K14 (none on the CPU); outside a profiler
+    runs (the s2d stages are not plain), ``darknet.conv_kernel`` those
+    whose convolution launched K15 and ``darknet.epilogue`` those whose
+    tail launched K14 (none of either on the CPU); outside a profiler
     session nothing is kept."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -468,9 +469,11 @@ def test_darknet_counters_count_only_in_a_profiler_session():
         model.apply(params, state, images)
         model.apply(params, state, images, train=True)
     assert profiler.counters() == {"darknet.convs": 26,
+                                   "darknet.conv_kernel": 0,
                                    "darknet.epilogue": 0}
     with profile(activities=[ProfilerActivity.CPU]):
         s2d.apply(s2d.fold_s2d(params), state, images)
     assert profiler.counters() == {"darknet.convs": 11,
+                                   "darknet.conv_kernel": 0,
                                    "darknet.epilogue": 0}
     assert profiler.counters() == {}

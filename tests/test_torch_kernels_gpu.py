@@ -42,6 +42,9 @@ from millieye_torch.ops.roi_kernel import (ps_channel_perm_pad,
                                            roi_align_f32_plain,
                                            roi_align_group,
                                            roi_align_kernel, roi_align_plain)
+from millieye_torch.models.darknet import Darknet
+from millieye_torch.models.zoo import yolov3_defs, yolov4_defs
+from millieye_torch.ops import conv as kconv
 from millieye_torch.ops import epilogue as epi
 from millieye_torch.ops import quantize as tq
 from millieye_torch.ops import stem
@@ -1218,6 +1221,9 @@ def op_cases(device="cpu"):
                           t(rng.standard_normal(8)),
                           t(rng.uniform(0.5, 2, 8)),
                           t(rng.standard_normal(8)), True),
+        "conv2d_nhwc": (t(rng.standard_normal((2, 9, 7, 8))).permute(
+            0, 3, 1, 2), kconv.pack_weight(w1[:14].contiguous()), 14, 2,
+            1),
     }
 
 
@@ -1225,8 +1231,9 @@ def op_cases(device="cpu"):
 def test_custom_op_on_the_card(cuda, name):
     """Each ``millieye::`` op on the card: one launch, bit-identical to a
     direct launch of its kernel (the wrapper's path before the ops), held
-    to its plain version by the rules above, and its fake output of the
-    real output's shape and dtype."""
+    to its plain version by the rules above (K15 within float32 rounding
+    of it, in the same layout), and its fake output of the real output's
+    shape and dtype."""
     from millieye_torch.ops import library
     args = op_cases(cuda)[name]
     op = library.OPS[name]
@@ -1249,7 +1256,12 @@ def test_custom_op_on_the_card(cuda, name):
     for g, d, p, f in zip(got, direct, plain, fake):
         assert g.dtype == d.dtype and torch.equal(g, d)
         assert (f.shape, f.dtype, f.device) == (g.shape, g.dtype, g.device)
-        if tensor_core:
+        if name == "conv2d_nhwc":
+            # K15 sums in its own order (K in two halves, or split): held
+            # within float32 rounding of its plain version's product
+            assert g.stride() == p.stride() == f.stride()
+            assert float((g - p).abs().max()) <= 1e-5 * float(p.abs().max())
+        elif tensor_core:
             scale = float(p.float().abs().max())
             assert float((g.float() - p.float()).abs().max()) \
                 <= PAIR_DEFAULT_TOL * scale
@@ -1538,7 +1550,8 @@ def test_yolov4_apply_bit_equal_with_the_epilogue(cuda):
     convolutions, 72 of them in Mish mode, and the bits of the same call
     inside ``cuda_lib.plain_versions()`` (within ``MISH_ULPS`` at the
     first Mish block, which reads the same input), every block's output
-    and the detections where ``MISH_ULPS`` is 0."""
+    and the detections where ``MISH_ULPS`` is 0. The convolutions run
+    K15 in both calls (the plain call keeps it)."""
     from millieye_torch.models.darknet import Darknet
     from millieye_torch.models.zoo import yolov4_defs
     from millieye_torch.ops import cuda_lib
@@ -1562,10 +1575,11 @@ def test_yolov4_apply_bit_equal_with_the_epilogue(cuda):
         with profile(activities=[ProfilerActivity.CPU]):
             got = model.apply(params, state, images, collect_outputs=True)
         assert epi.conv_epilogue.launches == before + 110
-        with cuda_lib.plain_versions():
+        with cuda_lib.plain_versions(keep=("conv2d_nhwc",)):
             want = model.apply(params, state, images, collect_outputs=True)
         assert epi.conv_epilogue.launches == before + 110
     assert profiler.counters() == {"darknet.convs": 110,
+                                   "darknet.conv_kernel": 110,
                                    "darknet.epilogue": 110,
                                    "darknet.mish": 72,
                                    "darknet.epilogue_mish": 72}
@@ -1580,7 +1594,8 @@ def test_darknet53_apply_bit_equal_with_the_epilogue(cuda):
     """One ``Darknet.apply`` of YOLOv3 on Darknet-53 at 416 px, batch 2:
     K14 on all 75 convolutions (one launch each), and the same bits as
     the same call inside ``cuda_lib.plain_versions()``, every block's
-    output and the detections."""
+    output and the detections (the convolutions run K15 in both calls:
+    the plain call keeps it)."""
     from millieye_torch.models.darknet import Darknet
     from millieye_torch.models.zoo import yolov3_defs
     from millieye_torch.ops import cuda_lib
@@ -1600,9 +1615,194 @@ def test_darknet53_apply_bit_equal_with_the_epilogue(cuda):
         before = epi.conv_epilogue.launches
         got = model.apply(params, state, images, collect_outputs=True)
         assert epi.conv_epilogue.launches == before + 75
-        with cuda_lib.plain_versions():
+        with cuda_lib.plain_versions(keep=("conv2d_nhwc",)):
             want = model.apply(params, state, images, collect_outputs=True)
         assert epi.conv_epilogue.launches == before + 75
     for a, b in zip(got["outputs"], want["outputs"]):
         assert a.stride() == b.stride() and torch.equal(a, b)
     assert torch.equal(got["detections"], want["detections"])
+
+
+def _plain_conv_shapes(defs, size):
+    """The distinct plain convolutions of ``defs`` at ``size`` px as
+    (Cin, Cout, k, stride, input side), from the blocks' plan."""
+    chans, sides, out = [], [], set()
+    c, side = 3, size
+    for info in Darknet(defs, img_size=size)._plan:
+        t = info["type"]
+        if t == "convolutional":
+            k, st = info["size"], info["stride"]
+            out.add((c, info["filters"], k, st, side))
+            c, side = info["filters"], (side + 2 * ((k - 1) // 2) - k) // st + 1
+        elif t == "maxpool" and info["stride"] > 1:
+            side //= info["stride"]
+        elif t == "upsample":
+            side *= info["factor"]
+        elif t == "route":
+            c = sum(chans[i] for i in info["layers"])
+            side = sides[info["layers"][0]]
+        chans.append(c)
+        sides.append(side)
+    return sorted(out)
+
+
+# every distinct plain convolution of the two benchmarked configurations
+CONV_SHAPES = ([("yolov3-d53-416",) + c
+                for c in _plain_conv_shapes(yolov3_defs(), 416)]
+               + [("yolov4-608",) + c
+                  for c in _plain_conv_shapes(yolov4_defs(80, 608), 608)])
+
+
+def _conv_case(cuda, n, cin, cout, k, h, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((n, h, h, cin), device=cuda, generator=g).permute(
+        0, 3, 1, 2)
+    w = torch.randn((cout, cin, k, k), device=cuda,
+                    generator=g) / (k * k * cin) ** 0.5
+    return x, w
+
+
+@pytest.mark.parametrize("n", [8, 1])
+@pytest.mark.parametrize("net,cin,cout,k,s,h", CONV_SHAPES)
+def test_conv2d_nhwc_at_darknet_shapes(cuda, net, cin, cout, k, s, h, n):
+    """K15 at every plain convolution of ``yolov3-d53-416`` and
+    ``yolov4-608``, at batch 8 and 1: one launch a call, a channels_last
+    float32 output, the same bits from two launches (a split of K sums
+    its parts in a fixed order), and its largest error against the
+    float64 convolution at most twice cuDNN's float32 convolution's (TF32
+    off) on the same inputs."""
+    x, w = _conv_case(cuda, n, cin, cout, k, h, cin * 7 + cout + h + n)
+    pad = (k - 1) // 2
+    before = kconv.conv2d_nhwc.launches
+    got = kconv.conv2d_nhwc(x, w, s, pad)
+    again = kconv.conv2d_nhwc(x, w, s, pad)
+    torch.cuda.synchronize()
+    assert kconv.conv2d_nhwc.launches == before + 2
+    assert got.dtype == torch.float32
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, again)
+    ref = F.conv2d(x.double(), w.double(), stride=s, padding=pad)
+    lib = F.conv2d(x, w, stride=s, padding=pad)
+    assert got.shape == ref.shape
+    err = (got.double() - ref).abs().max().item()
+    lib_err = (lib.double() - ref).abs().max().item()
+    assert err <= 2 * lib_err, (err, lib_err)
+
+
+# (batch, Cin, Cout, k, stride, side): ragged rows and channels, the
+# small-K route, odd sides
+_TILE_CASES = [(3, 64, 255, 3, 1, 13), (2, 8, 20, 1, 2, 9),
+               (1, 128, 96, 3, 2, 27), (2, 3, 32, 3, 2, 15),
+               (2, 3, 7, 3, 1, 10)]
+
+
+@pytest.mark.parametrize("case", _TILE_CASES)
+def test_conv2d_nhwc_every_tile_and_split(cuda, case):
+    """Every tile the kernel has, and splits of K in 1, 2, 3 and 5
+    parts, at shapes whose rows and channels do not fill a tile: the
+    same bits twice, and within twice cuDNN's float32 error of the
+    float64 convolution."""
+    n, cin, cout, k, s, h = case
+    x, w = _conv_case(cuda, n, cin, cout, k, h, sum(case))
+    pad = (k - 1) // 2
+    ref = F.conv2d(x.double(), w.double(), stride=s, padding=pad)
+    lib_err = (F.conv2d(x, w, stride=s, padding=pad).double()
+               - ref).abs().max().item()
+    tiles = ["small"] if cin % 4 else ["main", "narrow"]
+    for name in tiles:
+        for splits in (1, 2, 3, 5):
+            with kconv.tile(name, splits):
+                got = kconv.conv2d_nhwc(x, w, s, pad)
+                again = kconv.conv2d_nhwc(x, w, s, pad)
+            assert torch.equal(got, again), (name, splits)
+            err = (got.double() - ref).abs().max().item()
+            assert err <= 2 * lib_err, (name, splits, err, lib_err)
+
+
+def test_conv2d_nhwc_raises_on_what_it_does_not_take(cuda):
+    x, w = _conv_case(cuda, 1, 8, 16, 3, 12, 0)
+    for bad_x, bad_w, k_pad in ((x.bfloat16(), w.bfloat16(), 1),
+                                (x.half(), w, 1),
+                                (x.contiguous(), w, 1),
+                                (x, w[:, :4].contiguous(), 1),
+                                (x, torch.randn(16, 8, 5, 5, device=cuda), 2),
+                                (x, torch.randn(16, 8, 2, 2, device=cuda), 0)):
+        with pytest.raises(ValueError, match="conv2d_nhwc"):
+            kconv.conv2d_nhwc(bad_x, bad_w, 1, k_pad)
+    # the op itself, handed a contiguous NCHW input, unpacked weights or
+    # a Cout its weights do not hold
+    op = kconv._op
+    with pytest.raises(ValueError, match="conv2d_nhwc"):
+        op(x.contiguous(), kconv.pack_weight(w), 16, 1, 1)
+    with pytest.raises(ValueError, match="conv2d_nhwc"):
+        op(x, w, 16, 1, 1)
+    with pytest.raises(ValueError, match="conv2d_nhwc"):
+        op(x, kconv.pack_weight(w), 12, 1, 1)
+
+
+def test_conv2d_nhwc_inside_plain_versions(cuda):
+    """``plain_versions(keep=("conv2d_nhwc",))`` keeps K15 launching (the
+    same bits); ``plain_versions()`` runs its plain version (no launch),
+    within cuDNN's error of the float64 convolution's."""
+    from millieye_torch.ops import cuda_lib
+    x, w = _conv_case(cuda, 2, 64, 128, 3, 26, 1)
+    got = kconv.conv2d_nhwc(x, w, 1, 1)
+    before = kconv.conv2d_nhwc.launches
+    with cuda_lib.plain_versions(keep=("conv2d_nhwc",)):
+        kept = kconv.conv2d_nhwc(x, w, 1, 1)
+    assert kconv.conv2d_nhwc.launches == before + 1
+    assert torch.equal(kept, got)
+    with cuda_lib.plain_versions():
+        plain = kconv.conv2d_nhwc(x, w, 1, 1)
+    assert kconv.conv2d_nhwc.launches == before + 1
+    assert plain.is_contiguous(memory_format=torch.channels_last)
+    ref = F.conv2d(x.double(), w.double(), padding=1)
+    lib_err = (F.conv2d(x, w, padding=1).double() - ref).abs().max()
+    assert (plain.double() - ref).abs().max() <= 2 * lib_err
+
+
+def test_conv2d_nhwc_on_inference_tensors(cuda):
+    """Weights made under ``torch.inference_mode`` (no version counter),
+    and a float32 copy cast from bfloat16 weights at each call, as a
+    bfloat16 model's float32 stage makes it: the kernel runs on them,
+    each call, with the bits of the same weights made outside inference
+    mode."""
+    x, w = _conv_case(cuda, 2, 32, 64, 3, 20, 2)
+    want = kconv.conv2d_nhwc(x, w, 2, 1)
+    wb = w.bfloat16()
+    want_b = kconv.conv2d_nhwc(x, wb.float(), 2, 1)
+    with torch.inference_mode():
+        wi = w.clone()
+        before = kconv.conv2d_nhwc.launches
+        got = [kconv.conv2d_nhwc(x, wi, 2, 1) for _ in range(2)]
+        got_b = [kconv.conv2d_nhwc(x, wb.to(torch.float32), 2, 1)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        assert kconv.conv2d_nhwc.launches == before + 4
+    assert wi.is_inference()
+    assert all(torch.equal(g, want) for g in got)
+    assert all(torch.equal(g, want_b) for g in got_b)
+
+
+def test_darknet53_apply_runs_every_convolution_on_the_kernel(cuda):
+    """One ``Darknet.apply`` of YOLOv3 on Darknet-53 at 416 px, batch 8,
+    inside a profiler session: 75 launches of K15, and the counters
+    ``darknet.conv_kernel`` and ``darknet.convs`` both 75."""
+    from millieye_torch.runtime import profiler
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(0)
+    model = Darknet(yolov3_defs(), img_size=416)
+    params, state = model.init(g)
+    params = [{k: v.to(cuda) for k, v in p.items()} for p in params]
+    state = [{k: v.to(cuda) for k, v in s.items()} for s in state]
+    images = torch.rand((8, 416, 416, 3), generator=g).to(cuda)
+    profiler.counters()
+    with torch.inference_mode():
+        before = kconv.conv2d_nhwc.launches
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = model.apply(params, state, images)
+        torch.cuda.synchronize()
+    assert kconv.conv2d_nhwc.launches == before + 75
+    counts = profiler.counters()
+    assert counts["darknet.conv_kernel"] == counts["darknet.convs"] == 75
+    assert torch.isfinite(out["detections"]).all()

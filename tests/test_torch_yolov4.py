@@ -317,7 +317,8 @@ def test_int8_skip_names_the_linear_convs_only():
 
 def test_mish_counters_and_the_spp_span():
     """In a profiler session a YOLOv4 ``apply`` counts its 72 Mish blocks
-    (``darknet.mish``; none launched K14 on the CPU), and ``millieye.spp``
+    (``darknet.mish``; none launched K14 on the CPU, and no convolution
+    K15), and ``millieye.spp``
     holds the SPP's three pools and their route, inside
     ``millieye.backbone``; a model without Mish keeps no Mish counter."""
     from torch.profiler import ProfilerActivity, profile
@@ -330,6 +331,7 @@ def test_mish_counters_and_the_spp_span():
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         model.apply(params, state, images)
     assert profiler.counters() == {"darknet.convs": 110,
+                                   "darknet.conv_kernel": 0,
                                    "darknet.epilogue": 0,
                                    "darknet.mish": 72,
                                    "darknet.epilogue_mish": 0}
@@ -343,7 +345,9 @@ def test_mish_counters_and_the_spp_span():
     tp, ts = tiny.init(torch.Generator().manual_seed(14))
     with profile(activities=[ProfilerActivity.CPU]):
         tiny.apply(tp, ts, images)
-    assert set(profiler.counters()) == {"darknet.convs", "darknet.epilogue"}
+    assert set(profiler.counters()) == {"darknet.convs",
+                                        "darknet.conv_kernel",
+                                        "darknet.epilogue"}
 
 
 def test_train_mode_mish_matches_the_reference_batch_statistics(yolov4):
