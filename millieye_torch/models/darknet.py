@@ -42,20 +42,22 @@ size k pads k // 2 on every side with -inf and keeps the size (darknet's
 with zeros, as the reference does. A ``yolo`` block's ``scale_x_y`` s
 (default 1) maps the centre's sigmoid to ``sigmoid * s - (s - 1) / 2``.
 
-At inference a plain float32 convolution on the card (no int8 slot, not
-an s2d, im2col or fused stem form, no gradient wanted) is kernel K15
-(``ops/conv.py:route``), on its input made channels_last; every other
-convolution is ``F.conv2d``. The tail of each plain
-convolution (batch norm's affine step with the running statistics, or
-the folded bias, then its activation) is ``ops/epilogue.py:epilogue``:
-one launch of kernel K14 on the card, the eager sequence elsewhere, the
-same bits. Inside a profiler session the backbone counts
-``darknet.convs`` (the plain convolution blocks an ``apply`` runs),
-``darknet.conv_kernel`` (those whose convolution launched K15) and
-``darknet.epilogue`` (those whose tail launched K14), and a model with
-Mish ``darknet.mish`` and ``darknet.epilogue_mish`` (the same two of its
-Mish blocks); the span ``millieye.spp`` holds an SPP's pools and their
-route.
+The config settles, once when the model is built, each block's kind (a
+plain convolution, a stem stage's form and its pool, or its type), the
+stem pairs and whether K15 takes each convolution's shapes
+(``ops/conv.py:takes_form``); a call asks the rest once (``_call_kinds``:
+a stage's slots, ``train``, ``collect_act_stats``). A plain convolution
+block (``_conv_block``) on the card's kernels (``on_card``) runs a
+float32 convolution K15 takes as ``conv2d_nhwc`` and its tail (batch
+norm's affine step with the running statistics or the folded bias, then
+the activation) as K14, ``conv_epilogue``; elsewhere ``F.conv2d`` and
+``epilogue_eager``, the same bits. Inside a profiler session the
+backbone counts ``darknet.convs`` (the plain convolution blocks an
+``apply`` runs), ``darknet.conv_kernel`` (those whose convolution
+launched K15) and ``darknet.epilogue`` (those whose tail launched K14),
+and a model with Mish ``darknet.mish`` and ``darknet.epilogue_mish``
+(the same two of its Mish blocks); the span ``millieye.spp`` holds an
+SPP's pools and their route.
 
 Training (``apply(train=True)``): BN normalizes with the batch statistics
 and updates the running ones with momentum 0.9 (the reference's
@@ -236,6 +238,17 @@ def _train_bn(x, p, s):
     return y * p["gamma"][:, None, None] + p["beta"][:, None, None], new_s
 
 
+def on_card(x, p, s):
+    """Whether a plain convolution block on input ``x`` with parameters
+    ``p`` and state ``s`` runs on the card's kernels, K15 where its form
+    holds and K14: ``x`` on the card, and no gradient wanted from it or
+    its slots (the ops have no backward). The one question the block
+    asks of its tensors."""
+    return x.is_cuda and not (torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for d in (p, s)
+                               for t in d.values())))
+
+
 class Darknet:
     """Layer plan + forward (eval or train) over explicit parameters."""
 
@@ -294,8 +307,20 @@ class Darknet:
                 raise ValueError("stem_pair needs two consecutive fused "
                                  "stages (lo, lo+2) in stem_stages, got "
                                  f"{self.stem_stages}")
-            for lo in self._pair_candidates():
-                self._validate_stem_pair(lo)
+        self._pairs = self._pair_candidates()
+        for lo in self._pairs:
+            self._validate_stem_pair(lo)
+        # each block's kind: its type, or a stage's form and "pass" for
+        # its pool, which runs inside the stage (``_call_kinds``)
+        self._kinds = [info["type"] for info in self._plan]
+        for kind, stages in (("stem", self.stem_stages),
+                             ("s2d", self.s2d_stages),
+                             ("im2col", self.im2col_stages)):
+            for i in stages:
+                self._kinds[i:i + 2] = kind, "pass"
+        self._k15 = [info["type"] == "convolutional" and kconv.takes_form(
+            info["in_ch"], info["size"], info["size"], info["stride"],
+            (info["size"] - 1) // 2) for info in self._plan]
 
     def _build_plan(self):
         """Per-block channel counts and anchor sets."""
@@ -434,6 +459,53 @@ class Darknet:
             return self.hi_prec_store or torch.float32
         return compute_dtype
 
+    def _call_kinds(self, params, train, collect_act_stats):
+        """Each block's kind in this call: a stage runs its form where its
+        parameters carry the form's slots (a fused stage's folded ``w``,
+        only at inference: the kernels have no backward; ``w2`` or ``q2``;
+        ``wi``), else as a plain convolution and its pool; two fused
+        stages of a pair run as one kernel, except while collecting
+        activation statistics."""
+        kinds = list(self._kinds)
+        for i in self.stem_stages + self.s2d_stages + self.im2col_stages:
+            p = params[i]
+            if not (kinds[i] == "stem" and not train and "w" in p
+                    and "gamma" not in p
+                    or kinds[i] == "s2d" and ("w2" in p or "q2" in p)
+                    or kinds[i] == "im2col" and "wi" in p):
+                kinds[i:i + 2] = "convolutional", "maxpool"
+        if not collect_act_stats:
+            for lo in self._pairs:
+                if kinds[lo] == kinds[lo + 2] == "stem":
+                    kinds[lo:lo + 4] = "pair", "pass", "pass", "pass"
+        return kinds
+
+    def _stem_stage(self, i, p, x, compute_dtype):
+        """Fused stem stage i as one launch of kernel K9."""
+        y = fused_stem_stage(x.permute(0, 2, 3, 1).float().contiguous(),
+                             p["w"].float(), p["b"].float(),
+                             precision=self.stem_precision,
+                             out_dtype=self._store_dtype(i, compute_dtype))
+        return y.permute(0, 3, 1, 2)
+
+    def _im2col_stage(self, i, p, x, compute_dtype):
+        """im2col stage i: 16 stride-2 slices of the padded input, one
+        product with ``wi``."""
+        dt = torch.float32 if i in self.hi_prec_stages else compute_dtype
+        h, w = x.shape[2:]
+        xp = F.pad(x, (1, 1, 1, 1))
+        z = torch.cat([xp[:, :, dy:dy + h:2, dx:dx + w:2]
+                       for dy in range(4) for dx in range(4)], 1)
+        return self._phase_max(i, p, torch.einsum(
+            "nkhw,kd->ndhw", z.to(dt), p["wi"].to(dt)))
+
+    def _phase_max(self, i, p, y):
+        """The max over stage i's four output phases (the pool window),
+        then its bias and activation."""
+        n, _, h, w = y.shape
+        y = y.reshape(n, 4, self._plan[i]["filters"], h, w).amax(1)
+        return epi.epilogue_eager(y, p["b"], act=self._plan[i]["act"])
+
     def init(self, gen, device="cpu"):
         """(params, state) from an explicit ``torch.Generator``, the JAX
         package's ``weights_init_normal`` layout: conv weights (OIHW) ~
@@ -475,133 +547,52 @@ class Darknet:
         outputs, dets, preds = [], [], []
         new_state = list(state)
         feature_map = None
-        act_absmax = [torch.zeros((), device=images.device)] * len(self._plan)
-
-        def fused(j):
-            # the kernels bake bias + leaky + pool: folded weights only,
-            # and never in training (the custom ops have no backward)
-            return (j in self.stem_stages and not train and "w" in params[j]
-                    and "gamma" not in params[j])
-
-        def transformed(j):
-            # s2d / im2col stages on their folded slots
-            return (j in self.s2d_stages and ("w2" in params[j]
-                                              or "q2" in params[j])
-                    or j in self.im2col_stages and "wi" in params[j])
-
-        def record(i, z):
-            if collect_act_stats:
-                act_absmax[i] = z.abs().amax().float()
-
-        def weight(p, key):
-            # int8 slots dequantize in the graph
-            if key in p:
-                return p[key]
-            q = p["q" if key == "w" else "q2"]
-            return q.to(compute_dtype) * p["scale"].to(compute_dtype)
-
-        def conv(i, p, z, key, stride, pad):
-            record(i, z)
-            qk = "q" if key == "w" else "q2"
-            if qk in p and "xs" in p:
-                # int8 activations: the input quantized with its calibrated
-                # scale, an exact int32 convolution, dequantized by
-                # xs * the per-channel weight scale
-                zq = torch.round(z.float() / p["xs"]).clamp(-127, 127).to(
-                    torch.int8)
-                y = int8_conv2d(zq, p[qk], stride, pad)
-                sc = (p["xs"] * p["scale"]).to(compute_dtype)
-                return y.to(compute_dtype) * sc.view(1, -1, 1, 1)
-            dt = (torch.float32 if i in self.hi_prec_stages
-                  else compute_dtype)
-            z, w = z.to(dt), weight(p, key).to(dt)
-            if (key == "w" and key in p and not train
-                    and kconv.takes_kernel(z, w, stride, pad)):
-                # a plain float32 inference convolution: kernel K15
-                return kconv.route(z, w, stride, pad)
-            return F.conv2d(z, w, stride=stride, padding=pad)
-
-        def phase_max(y, p, info):
-            # the four output phases are the pool window; then bias, act
-            n, _, h, w = y.shape
-            y = y.reshape(n, 4, info["filters"], h, w).amax(1)
-            return epi.epilogue_eager(y, p["b"], act=info["act"])
-
-        pair_los = () if collect_act_stats else tuple(
-            lo for lo in self._pair_candidates() if fused(lo) and fused(lo + 2))
-        # the blocks a fused pair's launch covers after its first
-        consumed = {lo + d for lo in pair_los for d in (1, 2, 3)}
+        act_absmax = ([torch.zeros((), device=images.device)] * len(self._plan)
+                      if collect_act_stats else None)
+        kinds = self._call_kinds(params, train, collect_act_stats)
         convs, launches = 0, epi.conv_epilogue.launches
         conv_launches = kconv.conv2d_nhwc.launches
         mish, mish_launches = 0, 0
         spp_end = None
         with trace_annotation("millieye.backbone"), \
                 contextlib.ExitStack() as spp:
-            for i, info in enumerate(self._plan):
+            for i, (info, kind) in enumerate(zip(self._plan, kinds)):
                 if i in self._spp:
                     spp.enter_context(trace_annotation("millieye.spp"))
                     spp_end = self._spp[i]
-                t = info["type"]
                 p = params[i] if i < len(params) else {}
-                s = state[i] if i < len(state) else {}
                 prev = outputs[-1] if outputs else x_in
-                if i in consumed:
-                    x = prev              # consumed by the fused pair
-                elif i in pair_los:
-                    x = self._run_pair(i, params, prev, compute_dtype)
-                elif t == "convolutional" and fused(i):
-                    record(i, prev)
-                    y = fused_stem_stage(
-                        prev.permute(0, 2, 3, 1).float().contiguous(),
-                        p["w"].float(), p["b"].float(),
-                        precision=self.stem_precision,
-                        out_dtype=self._store_dtype(i, compute_dtype))
-                    x = y.permute(0, 3, 1, 2)
-                elif t == "convolutional" and "wi" in p:
-                    # im2col: 16 stride-2 slices of the padded input, one
-                    # product
-                    record(i, prev)
-                    dt = (torch.float32 if i in self.hi_prec_stages
-                          else compute_dtype)
-                    h, w = prev.shape[2:]
-                    xp = F.pad(prev, (1, 1, 1, 1))
-                    z = torch.cat([xp[:, :, dy:dy + h:2, dx:dx + w:2]
-                                   for dy in range(4) for dx in range(4)], 1)
-                    x = phase_max(torch.einsum("nkhw,kd->ndhw", z.to(dt),
-                                               p["wi"].to(dt)), p, info)
-                elif t == "convolutional" and ("w2" in p or "q2" in p):
-                    x = phase_max(conv(i, p, space_to_depth(prev), "w2", 1,
-                                       1), p, info)
-                elif t == "maxpool" and (fused(i - 1) or transformed(i - 1)):
-                    x = prev              # the pool ran inside the fused stage
-                elif t == "convolutional":
-                    x = conv(i, p, prev, "w", info["stride"],
-                             (info["size"] - 1) // 2)
+                if collect_act_stats and info["type"] == "convolutional":
+                    act_absmax[i] = prev.abs().amax().float()
+                if kind == "convolutional":
+                    before = epi.conv_epilogue.launches
+                    x = self._conv_block(i, prev, p, new_state,
+                                         compute_dtype, train)
                     convs += 1
-                    act, before = info["act"], epi.conv_epilogue.launches
-                    if train and "gamma" in p:
-                        x, new_state[i] = _train_bn(x, p, s)
-                        x = epi.activate(x, act)
-                    elif train:
-                        x = epi.epilogue_eager(x, p["b"], act=act)
-                    elif "gamma" in p:    # BN not folded away (eval mode)
-                        x = epi.epilogue(x, p["beta"], s["mean"],
-                                         _bn_inv(s["var"]), p["gamma"], act)
-                    else:
-                        x = epi.epilogue(x, p["b"], act=act)
-                    if act == "mish":
+                    if info["act"] == "mish":
                         mish += 1
                         mish_launches += epi.conv_epilogue.launches - before
-                elif t == "maxpool":
+                elif kind == "pass":
+                    x = prev          # a fused pair or stage ran this block
+                elif kind == "pair":
+                    x = self._run_pair(i, params, prev, compute_dtype)
+                elif kind == "stem":
+                    x = self._stem_stage(i, p, prev, compute_dtype)
+                elif kind == "s2d":
+                    x = self._phase_max(i, p, self._conv(
+                        i, p, space_to_depth(prev), "w2", 1, 1, compute_dtype))
+                elif kind == "im2col":
+                    x = self._im2col_stage(i, p, prev, compute_dtype)
+                elif kind == "maxpool":
                     x = _maxpool(prev, info["size"], info["stride"])
-                elif t == "upsample":
+                elif kind == "upsample":
                     f = info["factor"]
                     x = prev.repeat_interleave(f, 2).repeat_interleave(f, 3)
-                elif t == "route":
+                elif kind == "route":
                     x = torch.cat([outputs[l] for l in info["layers"]], 1)
-                elif t == "shortcut":
+                elif kind == "shortcut":
                     x = prev + outputs[info["frm"]]
-                elif t == "yolo":
+                elif kind == "yolo":
                     x = decode_yolo(prev, info["anchors"], info["classes"],
                                     img_dim, with_pred=train,
                                     scale_x_y=info.get("scale_x_y", 1.0))
@@ -609,9 +600,10 @@ class Darknet:
                         x, pred = x
                         preds.append(pred)
                     dets.append(x)
-                if (t == "convolutional" and self.hi_prec_store is not None
+                if (info["type"] == "convolutional"
+                        and self.hi_prec_store is not None
                         and i in self.hi_prec_stages and not train
-                        and i not in pair_los):
+                        and kind != "pair"):
                     # float32 arithmetic, compact storage (a pair's output is
                     # already in its second stage's store type)
                     x = x.to(self.hi_prec_store)
@@ -644,6 +636,47 @@ class Darknet:
         if collect_outputs:
             out["outputs"] = outputs
         return out
+
+    def _conv_block(self, i, x, p, state, compute_dtype, train):
+        """Plain convolution block i on ``x``: ``_conv``, then the tail:
+        batch norm on the batch's statistics (``state[i]`` takes the new
+        running ones) or the bias in training, batch norm's affine step
+        with the running statistics or the folded bias at inference, then
+        the activation. ``on_card`` decides whether K15 and K14 run."""
+        s = state[i] if i < len(state) else {}
+        card = not train and on_card(x, p, s)
+        info = self._plan[i]
+        y = self._conv(i, p, x, "w", info["stride"], (info["size"] - 1) // 2,
+                       compute_dtype, card and self._k15[i])
+        if train and "gamma" in p:
+            y, state[i] = _train_bn(y, p, s)
+            return epi.activate(y, info["act"])
+        vecs = ((p["beta"], s["mean"], _bn_inv(s["var"]), p["gamma"])
+                if "gamma" in p else (p["b"],))
+        if card:
+            return epi.conv_epilogue(y, *vecs, act=info["act"])
+        return epi.epilogue_eager(y, *vecs, act=info["act"])
+
+    def _conv(self, i, p, z, key, stride, pad, compute_dtype, k15=False):
+        """Block i's convolution of ``z`` with the slot ``key`` ("w", or
+        an s2d stage's "w2"): int8 x int8 -> int32 on an int8 slot with an
+        input scale ``xs``, dequantized; else in the block's dtype on the
+        weights (an int8 slot dequantized), as K15 where ``k15`` holds for
+        float32 and float weights."""
+        qk = "q" if key == "w" else "q2"
+        if qk in p and "xs" in p:
+            zq = torch.round(z.float() / p["xs"]).clamp(-127, 127).to(
+                torch.int8)
+            y = int8_conv2d(zq, p[qk], stride, pad)
+            sc = (p["xs"] * p["scale"]).to(compute_dtype)
+            return y.to(compute_dtype) * sc.view(1, -1, 1, 1)
+        dt = torch.float32 if i in self.hi_prec_stages else compute_dtype
+        w = (p[key] if key in p
+             else p[qk].to(compute_dtype) * p["scale"].to(compute_dtype))
+        z, w = z.to(dt), w.to(dt)
+        if k15 and key in p and dt == torch.float32:
+            return kconv.conv2d_nhwc(z, w, stride, pad)
+        return F.conv2d(z, w, stride=stride, padding=pad)
 
     def fold_batchnorm(self, params, state, dtype=None):
         """Bake eval-mode BN into conv weight + bias. ``dtype`` casts the

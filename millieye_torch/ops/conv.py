@@ -2,14 +2,15 @@
 plain version.
 
 ``conv2d_nhwc(x, w, stride, pad)`` is ``F.conv2d(x, w, stride=stride,
-padding=pad)`` for an NCHW-indexed float32 ``x`` stored channels_last
-(NHWC) and OIHW float32 weights ``w``: kernel 1x1 or 3x3, padding (k -
-1) // 2, stride 1 or 2, groups 1, dilation 1; Cin a multiple of 4, or kh
-* kw * Cin <= 32 (the 3-channel first convolution). The output is
-float32 and channels_last. ``pack_weight`` repacks ``w`` to [kh, kw,
-Cin, Cout] once per weight tensor, Cout padded with zeros to a multiple
-of 4 (kept while the tensor lives, and made again after an in-place
-change to it); the op ``millieye::conv2d_nhwc`` takes the packed weights and Cout.
+padding=pad)`` for an NCHW-indexed float32 ``x`` (made channels_last,
+NHWC, where it is not) and OIHW float32 weights ``w``: kernel 1x1 or
+3x3, padding (k - 1) // 2, stride 1 or 2, groups 1, dilation 1; Cin a
+multiple of 4, or kh * kw * Cin <= 32 (the 3-channel first
+convolution). The output is float32 and channels_last. ``pack_weight``
+repacks ``w`` to [kh, kw, Cin, Cout] once per weight tensor, Cout padded
+with zeros to a multiple of 4 (kept while the tensor lives, and made
+again after an in-place change to it); the op ``millieye::conv2d_nhwc``
+takes the packed weights and Cout.
 
 K15 (``millieye_torch/csrc/conv.cu``) is an implicit GEMM on the CUDA
 cores, exact float32 (FFMA, no TF32): each output sums its products over
@@ -26,9 +27,9 @@ tests and timing.
 
 On a CPU tensor the op runs the plain version; on a CUDA tensor the
 kernel, or it raises where the kernel cannot take the tensors
-(``conv_form``), outside ``cuda_lib.plain_versions()``. ``takes_kernel`` is the router's test: a CUDA
-float32 input and weights, no gradient wanted, and a form the kernel
-takes. ``conv2d_nhwc.launches`` counts kernel launches.
+(``conv_form``), outside ``cuda_lib.plain_versions()``. ``takes_form``
+states the kernel's form from the shapes alone, as a model's config
+settles them. ``conv2d_nhwc.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -52,46 +53,32 @@ TILES = ("main", "narrow", "small")
 _forced = None
 
 
-def conv_form(x, w, stride, pad, layout=True):
+def takes_form(cin, kh, kw, stride, pad):
+    """Whether the kernel takes a convolution of ``cin`` input channels
+    with a kh x kw kernel at ``stride`` and ``pad``: a square kernel of
+    ``KERNEL_SIZES``, a stride of ``STRIDES``, padding (k - 1) // 2, and
+    Cin a multiple of 4 or kh * kw * Cin <= ``SMALL_K``."""
+    return (kh == kw and kh in KERNEL_SIZES and stride in STRIDES
+            and pad == (kh - 1) // 2
+            and (cin % 4 == 0 or kh * kw * cin <= SMALL_K))
+
+
+def conv_form(x, w, stride, pad):
     """Raise ValueError unless the kernel takes input ``x`` (NCHW-indexed,
-    channels_last; with ``layout=False`` in any layout) and OIHW weights
-    ``w`` at ``stride`` and ``pad``."""
+    in either layout) and OIHW weights ``w`` at ``stride`` and ``pad``:
+    4-D float32 tensors, groups 1, and ``takes_form``."""
     if x.dim() != 4 or x.dtype != torch.float32 or w.dtype != torch.float32:
         raise ValueError(f"conv2d_nhwc: want 4-D float32 tensors, got "
                          f"{x.dtype} {tuple(x.shape)}, weights {w.dtype}")
-    if layout and not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError(f"conv2d_nhwc: want a channels_last input, got "
-                         f"strides {x.stride()}")
     if w.dim() != 4 or w.shape[1] != x.shape[1]:
         raise ValueError(f"conv2d_nhwc: weights {tuple(w.shape)} for "
                          f"{x.shape[1]} input channels (groups 1 only)")
-    k = w.shape[2]
-    if k not in KERNEL_SIZES or w.shape[3] != k:
-        raise ValueError(f"conv2d_nhwc: kernel {tuple(w.shape[2:])}, want "
-                         f"one of {KERNEL_SIZES} square")
-    if stride not in STRIDES or pad != (k - 1) // 2:
-        raise ValueError(f"conv2d_nhwc: stride {stride}, padding {pad}; "
-                         f"want a stride of {STRIDES}, padding {(k - 1) // 2}")
-    cin = x.shape[1]
-    if cin % 4 and k * k * cin > SMALL_K:
-        raise ValueError(f"conv2d_nhwc: {cin} input channels: want a "
-                         f"multiple of 4, or kh * kw * Cin <= {SMALL_K}")
-
-
-def takes_kernel(x, w, stride, pad):
-    """Whether the router takes K15 for ``F.conv2d(x, w, stride=stride,
-    padding=pad)``: CUDA float32 tensors, no gradient wanted, and a form
-    the kernel takes (the input in either layout: the router makes it
-    channels_last)."""
-    if not x.is_cuda or x.dtype != torch.float32 or w.dtype != torch.float32:
-        return False
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return False
-    try:
-        conv_form(x, w, stride, pad, layout=False)
-    except ValueError:
-        return False
-    return True
+    if not takes_form(x.shape[1], w.shape[2], w.shape[3], stride, pad):
+        raise ValueError(f"conv2d_nhwc: {x.shape[1]} input channels, kernel "
+                         f"{tuple(w.shape[2:])}, stride {stride}, padding "
+                         f"{pad}; want a square kernel of {KERNEL_SIZES}, a "
+                         f"stride of {STRIDES}, padding (k - 1) // 2, and Cin "
+                         f"a multiple of 4 or kh * kw * Cin <= {SMALL_K}")
 
 
 def pack_weight(w):
@@ -110,17 +97,11 @@ def _pack(w):
 
 
 def conv2d_nhwc(x, w, stride=1, pad=0):
-    """K15: ``F.conv2d(x, w, stride=stride, padding=pad)`` of a
-    channels_last float32 ``x`` and OIHW float32 ``w`` through the op (the
-    plain version on the CPU); the output is channels_last float32."""
+    """K15: ``F.conv2d(x, w, stride=stride, padding=pad)`` of a float32
+    ``x`` and OIHW float32 ``w`` through the op (the plain version on the
+    CPU), ``x`` made channels_last where it is not; the output is
+    channels_last float32."""
     conv_form(x, w, stride, pad)
-    return _op(x, pack_weight(w), w.shape[0], stride, pad)
-
-
-def route(x, w, stride, pad):
-    """``conv2d_nhwc`` as the router calls it once ``takes_kernel`` holds:
-    the input made channels_last, the form not checked a second time (the
-    host's time a call is most of the op's cost at small maps)."""
     return _op(x.contiguous(memory_format=torch.channels_last),
                pack_weight(w), w.shape[0], stride, pad)
 

@@ -12,16 +12,13 @@ computes the same bits in one pass over the convolution's output: it
 replaces no TPU kernel (on the TPU, XLA fused this tail), and its bound
 is the bytes it reads and writes once.
 
-``epilogue`` is what the model calls: the custom op
-``millieye::conv_epilogue`` where ``takes_kernel`` says so (a CUDA
-tensor, and no tensor that requires grad while grad mode is on: the op
-has no backward), the eager sequence everywhere else, the CPU and
-training included. On a CPU tensor the op runs the plain version; on a
-CUDA tensor the kernel, or it raises where the kernel cannot take the
-tensors (``_kernel_form``), outside ``cuda_lib.plain_versions()``. The
-kernel writes the eager result's dtype: a bfloat16 convolution with a
-float32 bias gives float32, computed from the exact upcast.
-``conv_epilogue.launches`` counts kernel launches.
+On a CPU tensor the op runs the plain version; on a CUDA tensor the
+kernel, or it raises where the kernel cannot take the tensors
+(``_kernel_form``), outside ``cuda_lib.plain_versions()``; it has no
+backward. ``Darknet.apply`` chooses between the two (``models/
+darknet.py:on_card``). The kernel writes the eager result's dtype: a
+bfloat16 convolution with a float32 bias gives float32, computed from
+the exact upcast. ``conv_epilogue.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -81,22 +78,6 @@ def epilogue_eager(x, bias, mean=None, inv=None, gamma=None, act="linear"):
     else:
         x = x + bias[:, None, None]
     return activate(x, act)
-
-
-def takes_kernel(x, bias, mean=None, inv=None, gamma=None):
-    """Whether ``epilogue`` takes the op (see module)."""
-    return x.is_cuda and not (torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, bias, mean, inv,
-                                                    gamma)))
-
-
-def epilogue(x, bias, mean=None, inv=None, gamma=None, act="linear"):
-    """The tail of an inference convolution of NCHW-indexed ``x``: K14
-    where ``takes_kernel`` holds, else ``epilogue_eager``; the same bits,
-    dtype and memory format either way."""
-    if takes_kernel(x, bias, mean, inv, gamma):
-        return _op(x, bias, mean, inv, gamma, act_code(act))
-    return epilogue_eager(x, bias, mean, inv, gamma, act)
 
 
 def conv_epilogue(x, bias, mean=None, inv=None, gamma=None, act="linear"):

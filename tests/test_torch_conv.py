@@ -2,17 +2,20 @@
 version against ``F.conv2d``, the packed weights, the forms the op
 refuses, the shapes and ints the profiler records for the op (what the
 benchmark's ``conv.roofline`` counts from), and the Darknet runner's
-routing: a float32 plain inference convolution on the card reaches the
-op, on a channels_last input; training, 16-bit compute, int8 slots and
-the s2d stages never do. The kernel itself runs only on the card
+choice: a float32 plain inference convolution on the card's kernels
+(``darknet.on_card``) reaches the op, on a channels_last input;
+training, 16-bit compute, int8 slots and the s2d stages never do. The
+kernel itself runs only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 import pytest
 import torch
 import torch.nn.functional as F
 from torch._subclasses.fake_tensor import FakeTensorMode
 
+from millieye_torch.models import darknet as tdark
 from millieye_torch.models.darknet import Darknet
-from millieye_torch.models.zoo import tiny_yolov3_defs
+from millieye_torch.models.zoo import (tiny_yolov3_defs, yolov3_defs,
+                                       yolov4_defs)
 from millieye_torch.ops import conv as kconv
 from millieye_torch.ops import quantize as tq
 
@@ -21,7 +24,7 @@ E = 64                  # the routing tests' image size
 
 def _on_card(t, mode):
     """A fake CUDA copy of ``t`` (layout and ``requires_grad`` kept): what
-    the router's test sees on the card."""
+    the runner's predicate sees on the card."""
     with mode:
         return torch.empty_strided(
             t.shape, t.stride(), dtype=t.dtype,
@@ -94,25 +97,64 @@ def _bad_forms():
 
 @pytest.mark.parametrize("case", _bad_forms(), ids=lambda c: c[0])
 def test_the_op_refuses_what_the_kernel_does_not_take(case):
+    """``conv2d_nhwc`` raises on every form but an NCHW input, which it
+    makes channels_last itself; ``takes_form``, the form's shapes alone,
+    refuses the kernel sizes, strides, paddings and channel counts."""
     name, x, w, s, p = case
-    with pytest.raises(ValueError, match="conv2d_nhwc"):
-        kconv.conv2d_nhwc(x, w, s, p)
-    mode = FakeTensorMode()
-    # the router makes an NCHW input channels_last; the rest it refuses
-    assert kconv.takes_kernel(_on_card(x, mode), _on_card(w, mode), s, p) \
-        == (name == "nchw input")
+    if name == "nchw input":
+        got = kconv.conv2d_nhwc(x, w, s, p)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(got, kconv.conv2d_nhwc(
+            x.contiguous(memory_format=torch.channels_last), w, s, p))
+    else:
+        with pytest.raises(ValueError, match="conv2d_nhwc"):
+            kconv.conv2d_nhwc(x, w, s, p)
+    assert kconv.takes_form(x.shape[1], w.shape[2], w.shape[3], s, p) == (
+        name in ("bf16", "f16", "nchw input", "groups 2"))
 
 
 def test_takes_kernel_wants_the_card_float32_and_no_gradient():
+    """``darknet.on_card``, the runner's one predicate: a block's input on
+    the card and no gradient wanted from it, its parameters or its state.
+    Float32 is the block's own test (the s2d, int8 and 16-bit tests
+    below)."""
     mode = FakeTensorMode()
     x, w = _nhwc(1, 8, 6, 6, 0), torch.randn(4, 8, 3, 3)
     xc, wc = _on_card(x, mode), _on_card(w, mode)
-    assert kconv.takes_kernel(xc, wc, 1, 1)
-    assert not kconv.takes_kernel(x, w, 1, 1)          # a CPU tensor
+    assert tdark.on_card(xc, {"w": wc}, {})
+    assert not tdark.on_card(x, {"w": w}, {})          # a CPU tensor
     wg = _on_card(w.clone().requires_grad_(True), mode)
-    assert not kconv.takes_kernel(xc, wg, 1, 1)
+    assert not tdark.on_card(xc, {"w": wg}, {})
+    assert not tdark.on_card(xc, {"w": wc}, {"var": wg})
+    assert not tdark.on_card(xc.requires_grad_(True), {"w": wc}, {})
     with torch.no_grad():
-        assert kconv.takes_kernel(xc, wg, 1, 1)
+        assert tdark.on_card(xc, {"w": wg}, {"var": wg})
+
+
+@pytest.mark.parametrize("defs", [tiny_yolov3_defs, yolov3_defs,
+                                  yolov4_defs])
+def test_the_built_answer_is_what_the_op_takes(defs):
+    """For every convolution block of tiny-YOLOv3, YOLOv3 and YOLOv4 the
+    answer fixed when the model is built (``_k15``) is whether
+    ``conv2d_nhwc`` takes the block's shapes (meta tensors: no data);
+    and every one of them does, as the benchmark's shares need."""
+    model = Darknet(defs(img_size=64), img_size=64)
+    took = []
+    for i, info in enumerate(model._plan):
+        if info["type"] != "convolutional":
+            assert not model._k15[i]
+            continue
+        k = info["size"]
+        x = torch.empty((1, info["in_ch"], 8, 8), device="meta")
+        w = torch.empty((info["filters"], info["in_ch"], k, k), device="meta")
+        try:
+            kconv.conv2d_nhwc(x, w, info["stride"], (k - 1) // 2)
+        except ValueError:
+            took.append(False)
+        else:
+            took.append(True)
+        assert model._k15[i] == took[-1], i
+    assert all(took)
 
 
 def test_the_profiler_records_the_shapes_and_ints_the_roofline_counts():
@@ -155,18 +197,18 @@ def _images(n=2):
 
 @pytest.fixture
 def routed(monkeypatch):
-    """The router's test answered for fake CUDA copies of the tensors (as
-    the card would answer), and the op replaced by its plain version on
-    the CPU, counting a launch: yields (answers, calls), the test's
-    answers and the inputs that reached the op as (shape, channels_last,
-    stride)."""
+    """The runner's predicate ``on_card`` answered for fake CUDA copies of
+    the tensors (as the card would answer), and the op replaced by its
+    plain version on the CPU, counting a launch: yields (answers, calls),
+    the predicate's answers and the inputs that reached the op as (shape,
+    channels_last, stride)."""
     mode = FakeTensorMode()
-    real = kconv.takes_kernel
+    real = tdark.on_card
     answers, calls = [], []
 
-    def spy(x, w, stride, pad):
-        answers.append(real(_on_card(x, mode), _on_card(w, mode), stride,
-                            pad))
+    def spy(x, p, s):
+        answers.append(real(_on_card(x, mode), *(
+            {k: _on_card(v, mode) for k, v in d.items()} for d in (p, s))))
         return answers[-1]
 
     def op(x, wp, cout, stride, pad):
@@ -175,7 +217,7 @@ def routed(monkeypatch):
         kconv.conv2d_nhwc.launches += 1
         return kconv._plain(x, wp, cout, stride, pad)
 
-    monkeypatch.setattr(kconv, "takes_kernel", spy)
+    monkeypatch.setattr(tdark, "on_card", spy)
     monkeypatch.setattr(kconv, "_op", op)
     monkeypatch.setattr(kconv.conv2d_nhwc, "launches",
                         kconv.conv2d_nhwc.launches)
@@ -185,10 +227,11 @@ def routed(monkeypatch):
 @pytest.mark.parametrize("form", ["bn", "folded"])
 def test_a_float32_inference_convolution_reaches_the_op(routed, form):
     """Every one of tiny-YOLO's 13 plain float32 convolutions asks and
-    reaches the op, on a channels_last input, and the answer is the
-    unrouted one (within float32 rounding: the CPU's convolution sums a
-    channels_last input in another order than a contiguous one); the
-    profiler's counter ``darknet.conv_kernel`` counts them."""
+    reaches the op, on a channels_last input, and the answer is the one
+    off the card's kernels (within float32 rounding: the CPU's
+    convolution sums a channels_last input in another order than a
+    contiguous one); the profiler's counter ``darknet.conv_kernel``
+    counts them."""
     from torch.profiler import ProfilerActivity, profile
 
     from millieye_torch.runtime import profiler
@@ -203,7 +246,7 @@ def test_a_float32_inference_convolution_reaches_the_op(routed, form):
     assert profiler.counters()["darknet.conv_kernel"] == 13
     answers.clear()
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(kconv, "takes_kernel", lambda *a: False)
+        mp.setattr(tdark, "on_card", lambda *a: False)
         want = model.apply(params, state, images)
     for k in ("feature_map", "detections"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
@@ -221,13 +264,15 @@ def test_training_and_16_bit_compute_never_reach_the_op(routed):
     answers.clear()
     model, params, state = _model("folded_bf16")
     model.apply(params, state, _images(), compute_dtype=torch.bfloat16)
-    assert answers == [False] * 13 and calls == []
+    # on the card's kernels (K14 takes the tails), but not float32
+    assert answers == [True] * 13 and calls == []
 
 
 @pytest.mark.parametrize("acts", [False, True])
 def test_int8_slots_never_reach_the_op(routed, acts):
     """int8 weights (dequantized in the graph) and int8 activations
-    (``int8_conv2d``) keep their paths."""
+    (``int8_conv2d``) keep their paths, on the card's kernels too (K14
+    takes their tails)."""
     answers, calls = routed
     model, params, state = _model("folded")
     absmax = None
@@ -238,7 +283,7 @@ def test_int8_slots_never_reach_the_op(routed, acts):
         calls.clear()
     qp = tq.quantize_darknet(params, act_absmax=absmax)
     model.apply(qp, state, _images())
-    assert calls == [] and not any(answers)
+    assert calls == [] and answers == [True] * 13
 
 
 def test_the_s2d_stages_never_reach_the_op(routed):
@@ -255,7 +300,7 @@ def test_tensors_made_in_inference_mode_are_packed_at_each_call(routed):
     """A weight or a running variance made under ``torch.inference_mode``
     has no version counter: its packing and ``rsqrt(var + eps)`` are
     made at each call and not kept, and the op runs on it; so does the
-    runner, routing all 13 convolutions of a model made in inference
+    runner, taking all 13 convolutions of a model made in inference
     mode, and the float32 block 4 of a bfloat16 model, which casts its
     weights at each call."""
     from millieye_torch.models.darknet import _BN_EPS, _bn_inv
@@ -286,6 +331,6 @@ def test_tensors_made_in_inference_mode_are_packed_at_each_call(routed):
     model, params, state = _model("folded_bf16", hi_prec_stages=(4,))
     with torch.inference_mode():
         model.apply(params, state, _images(), compute_dtype=torch.bfloat16)
-    # block 4 is the third convolution
-    assert answers == [False] * 2 + [True] + [False] * 10
-    assert len(calls) == 1
+    # block 4, the third convolution: 32 channels at 16 px
+    assert answers == [True] * 13
+    assert calls == [((2, 32, 16, 16), True, 1)]

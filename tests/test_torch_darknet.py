@@ -263,7 +263,7 @@ E = 64                  # the epilogue tests' image size
 
 def _old_eval_tail(x, p, s, act):
     """The eager lines ``Darknet.apply`` ran after an inference
-    convolution before the tail became ``ops/epilogue.py:epilogue``,
+    convolution before the tail became K14 or its eager sequence,
     kept here as they were."""
     if "gamma" in p:
         x = (x - s["mean"][:, None, None]) * torch.rsqrt(
@@ -395,41 +395,46 @@ def test_conv_epilogue_refuses_what_it_cannot_take():
     out, inner, vecs = form(x.half(), h, h, h, h)
     assert (out, inner) == (torch.float32, 9)
     assert all(v.dtype == torch.float32 for v in vecs)
-    assert not epi.takes_kernel(x, b)       # a CPU tensor
+    assert not tdark.on_card(x, {"b": b}, {})       # a CPU tensor
 
 
 def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
-    """``epilogue`` asks ``takes_kernel`` at every inference tail and
-    sends it to the op where the card would (the spy answers for fake
-    CUDA copies of the tensors, so the CPU tensors take the op's plain
-    version there), with the eager route's bits; training
-    (``apply(train=True)``) never asks, and a forward whose parameters
-    require grad while grad mode is on is refused at every tail."""
+    """The runner asks its one predicate ``on_card`` at every inference
+    tail and sends the tail to the op where the card would (the spy
+    answers for fake CUDA copies of the tensors, so the CPU tensors take
+    the op's plain version there), with the bits of the eager tail after
+    the same convolutions; training (``apply(train=True)``) never asks,
+    and a forward whose parameters require grad while grad mode is on is
+    refused at every tail."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     model, params, state = _epilogue_model("bn")
     images = _epilogue_images()
-    want = model.apply(params, state, images)
     mode = FakeTensorMode()
-    real, real_op = epi.takes_kernel, epi._op
+    real, real_op = tdark.on_card, epi._op
     answers, calls = [], []
 
     def on_card(t):
-        if t is None:
-            return None
         with mode:
             return torch.empty_strided(
                 t.shape, t.stride(), dtype=t.dtype,
                 device="cuda").requires_grad_(t.requires_grad)
 
-    def spy(*args):
-        answers.append(real(*(on_card(t) for t in args)))
+    def spy(x, p, s):
+        answers.append(real(on_card(x), *(
+            {k: on_card(v) for k, v in d.items()} for d in (p, s))))
         return answers[-1]
 
     def op(*args):
         calls.append(args[0].shape)
         return real_op(*args)
 
-    monkeypatch.setattr(epi, "takes_kernel", spy)
+    with monkeypatch.context() as mp:
+        # the same convolutions (K15's plain version), the eager tail
+        mp.setattr(tdark, "on_card", lambda *a: True)
+        mp.setattr(epi, "_op", lambda x, b, m, inv, g, code:
+                   epi.epilogue_eager(x, b, m, inv, g, epi.ACTS[code]))
+        want = model.apply(params, state, images)
+    monkeypatch.setattr(tdark, "on_card", spy)
     monkeypatch.setattr(epi, "_op", op)
     got = model.apply(params, state, images)
     assert answers == [True] * 13 and len(calls) == 13
@@ -477,3 +482,36 @@ def test_darknet_counters_count_only_in_a_profiler_session():
                                    "darknet.conv_kernel": 0,
                                    "darknet.epilogue": 0}
     assert profiler.counters() == {}
+
+
+@pytest.mark.parametrize("net,want", [
+    ("yolov3", {"darknet.convs": 75, "darknet.conv_kernel": 75,
+                "darknet.epilogue": 75}),
+    ("yolov4", {"darknet.convs": 110, "darknet.conv_kernel": 110,
+                "darknet.epilogue": 110, "darknet.mish": 72,
+                "darknet.epilogue_mish": 72})], ids=["darknet53", "yolov4"])
+def test_the_counters_on_the_card_kernels(monkeypatch, net, want):
+    """With the runner's predicate ``on_card`` forced on, and each op
+    counting a launch where the card would launch it (its plain version
+    runs here), one ``apply`` of YOLOv3 on Darknet-53 and of YOLOv4 (64
+    px) counts every plain convolution block's K15 and K14 launch, and
+    every Mish block's K14 launch: the benchmark's shares read 100."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from millieye_torch.models import zoo
+    from millieye_torch.ops import conv as kconv
+    from millieye_torch.runtime import profiler
+    for mod, wrapper in ((kconv, kconv.conv2d_nhwc),
+                         (epi, epi.conv_epilogue)):
+        def op(*args, real=mod._op, wrapper=wrapper):
+            wrapper.launches += 1
+            return real(*args)
+        monkeypatch.setattr(mod, "_op", op)
+        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
+    monkeypatch.setattr(tdark, "on_card", lambda *a: True)
+    model = Darknet(getattr(zoo, net + "_defs")(80, 64), img_size=64)
+    params, state = model.init(torch.Generator().manual_seed(15))
+    profiler.counters()
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+        model.apply(params, state, _epilogue_images(1))
+    assert profiler.counters() == want

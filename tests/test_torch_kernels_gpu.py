@@ -1394,7 +1394,7 @@ def test_conv_epilogue_16_bit(cuda, dtype, layout, c, hw, act):
         if layout == "nchw":
             x = x.contiguous()
         before = epi.conv_epilogue.launches
-        got = epi.epilogue(x, *vecs, act)
+        got = epi.conv_epilogue(x, *vecs, act)
         assert epi.conv_epilogue.launches == before + 1
         want = epi.epilogue_eager(x, *vecs, act)
         assert got.dtype == (torch.float32 if wide else dtype)
@@ -1420,12 +1420,12 @@ def test_conv_epilogue_unaligned_and_promoted(cuda):
                        epi.epilogue_eager(x, bh, act="leaky"))
     before = epi.conv_epilogue.launches
     xh = x.half()
-    got = epi.epilogue(xh, b, m, inv, g, "leaky")
+    got = epi.conv_epilogue(xh, b, m, inv, g, "leaky")
     assert epi.conv_epilogue.launches == before + 1
     want = epi.epilogue_eager(xh, b, m, inv, g, "leaky")
     assert got.dtype == torch.float32 and torch.equal(got, want)
     with pytest.raises(ValueError, match="two dtypes"):
-        epi.epilogue(xh, b, m.half(), inv.half(), g, "leaky")
+        epi.conv_epilogue(xh, b, m.half(), inv.half(), g, "leaky")
 
 
 def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
@@ -1450,7 +1450,8 @@ def test_conv_epilogue_takes_the_layout_at_each_call(cuda):
             self.w = w
 
         def forward(self, z):
-            return epi.epilogue(F.conv2d(z, self.w, padding=1), *vecs, "leaky")
+            return epi.conv_epilogue(F.conv2d(z, self.w, padding=1), *vecs,
+                                     "leaky")
 
     w = 0.1 * torch.randn(32, 16, 3, 3, device=cuda)
     z = torch.randn(2, 16, 12, 12, device=cuda).contiguous(
@@ -1519,7 +1520,7 @@ def test_conv_epilogue_mish_16_bit(cuda, dtype, c, hw):
         if nchw:
             x = x.contiguous()
         before = epi.conv_epilogue.launches
-        got = epi.epilogue(x, *vecs, "mish")
+        got = epi.conv_epilogue(x, *vecs, "mish")
         assert epi.conv_epilogue.launches == before + 1
         want = epi.epilogue_eager(x, *vecs, "mish")
         assert got.dtype == want.dtype and got.stride() == want.stride()
@@ -1723,14 +1724,16 @@ def test_conv2d_nhwc_raises_on_what_it_does_not_take(cuda):
     x, w = _conv_case(cuda, 1, 8, 16, 3, 12, 0)
     for bad_x, bad_w, k_pad in ((x.bfloat16(), w.bfloat16(), 1),
                                 (x.half(), w, 1),
-                                (x.contiguous(), w, 1),
                                 (x, w[:, :4].contiguous(), 1),
                                 (x, torch.randn(16, 8, 5, 5, device=cuda), 2),
                                 (x, torch.randn(16, 8, 2, 2, device=cuda), 0)):
         with pytest.raises(ValueError, match="conv2d_nhwc"):
             kconv.conv2d_nhwc(bad_x, bad_w, 1, k_pad)
-    # the op itself, handed a contiguous NCHW input, unpacked weights or
-    # a Cout its weights do not hold
+    # a contiguous NCHW input the wrapper makes channels_last; the op
+    # itself, handed one, unpacked weights or a Cout its weights do not
+    # hold, raises
+    assert torch.equal(kconv.conv2d_nhwc(x.contiguous(), w, 1, 1),
+                       kconv.conv2d_nhwc(x, w, 1, 1))
     op = kconv._op
     with pytest.raises(ValueError, match="conv2d_nhwc"):
         op(x.contiguous(), kconv.pack_weight(w), 16, 1, 1)
