@@ -31,8 +31,11 @@ printed only when every phase passed:
      sums in its own order, so the paths below keep it launching in their
      plain runs (``keep=K15``), and after P22 it is held the same way to
      its plain version at every convolution they launched it at, and at
-     YOLOv4's at 608 px b8 (``ConvShapes``, ``KernelChecks.conv_paths``);
-     K2, K3 (bf16
+     Darknet-53's at 416 px and YOLOv4's at 608 px b8 (``ConvShapes``,
+     ``KernelChecks.conv_paths``), and each of those launches that took a
+     tail (and a shortcut's add) in its store is held bit-equal to K15,
+     then K14, then the eager add (``KernelChecks.conv_tail``: the paths'
+     own plain runs keep the fused store on both sides); K2, K3 (bf16
      and float32 "highest"), K6 ("upq", "default") and K7 ("highest") also
      with every RoI the whole frame, K3 also at "split"; K9's "highest" and
      K10's lines with their mul-then-add ceiling; the pairs at "default"
@@ -461,21 +464,32 @@ def stochastic_stats(q, scale):
 class ConvShapes:
     """The distinct convolutions K15 launched at while ``start()``ed:
     each launch's (batch, H, W, Cin, Cout, kh, kw, stride, pad), as it
-    asks ``ops/conv.py:plan`` for them (in this process only)."""
+    asks ``ops/conv.py:plan`` for them, and in ``tails`` those of them
+    that took a tail in the store, with its form: (dims, batch norm, the
+    activation's code, a residual added), as the launch then hands it to
+    ``ops/conv.py:_tail_ptrs`` (in this process only)."""
 
     def __init__(self, kconv):
-        self.kconv, self.dims, self._plan = kconv, set(), None
+        self.kconv, self.dims, self.tails = kconv, set(), set()
+        self._saved = self._last = None
 
     def start(self):
-        plan = self._plan = self.kconv.plan
+        plan, ptrs = self._saved = self.kconv.plan, self.kconv._tail_ptrs
 
         def spy(dims, ld, forced=None):
-            self.dims.add(tuple(dims))
+            self._last = tuple(dims)
+            self.dims.add(self._last)
             return plan(dims, ld, forced)
-        self.kconv.plan = spy
+
+        def tail_spy(y, cout, bias, mean, inv, gamma, act, residual):
+            # _launch plans its launch, then reads the tail's pointers
+            self.tails.add((self._last, mean is not None, act,
+                            residual is not None))
+            return ptrs(y, cout, bias, mean, inv, gamma, act, residual)
+        self.kconv.plan, self.kconv._tail_ptrs = spy, tail_spy
 
     def stop(self):
-        self.kconv.plan = self._plan
+        self.kconv.plan, self.kconv._tail_ptrs = self._saved
         return sorted(self.dims)
 
 
@@ -1156,6 +1170,65 @@ class KernelChecks:
                 note=f"against float64: K15 {err64[0]:.3g}, cuDNN float32 "
                      f"{err64[1]:.3g}, the plain product {err64[2]:.3g}")
             del x, w, wp
+
+    def conv_tail(self, tails):
+        """K15 with the tail in its store at each of ``tails``
+        (``ConvShapes``'s: every launch the paths, and the Darknet-53 and
+        YOLOv4 forwards, made with a tail, in its form: batch norm or the
+        bias, leaky or linear, a shortcut's add or none), on seeded
+        inputs: bit-equal to K15, then K14, then the eager add (the
+        "plain" and the timed "library" call here: the launches the store
+        replaces). The paths' own plain runs keep K15 launching
+        (``keep=K15``), its store included, so this is where those
+        launches are held to the unfused sequence. Bound: the larger of
+        the operations at the float32 peak and the bytes (input, weights,
+        output, the residual). Returns the labels."""
+        from millieye_torch.ops import conv, epilogue
+        torch = self.torch
+        g = torch.Generator(device=self.dev).manual_seed(17)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=self.dev)
+
+        def unfused(x, w, st, pad, vecs, act, res):
+            y = epilogue.conv_epilogue(conv.conv2d_nhwc(x, w, st, pad), *vecs,
+                                       act=act)
+            return y if res is None else y + res
+
+        labels = []
+        for dims, bn, code, add in sorted(tails):
+            n, h, w_, cin, cout, kh, kw, st, pad = dims
+            act = epilogue.ACTS[code]
+            x = randn(n, h, w_, cin).permute(0, 3, 1, 2)
+            w = randn(cout, cin, kh, kw) / (kh * kw * cin) ** 0.5
+            ho, wo = conv.out_size(h, kh, st, pad), conv.out_size(w_, kw, st,
+                                                                 pad)
+            vecs = [0.1 * randn(cout)]
+            if bn:
+                vecs += [0.1 * randn(cout),
+                         torch.rsqrt(0.5 + torch.rand(cout, generator=g,
+                                                      device=self.dev)),
+                         1 + 0.1 * randn(cout)]
+            res = randn(n, ho, wo, cout).permute(0, 3, 1, 2) if add else None
+            flops = 2 * n * ho * wo * cout * cin * kh * kw
+            nbytes = 4 * (x.numel() + w.numel()
+                          + n * ho * wo * cout * (2 if add else 1))
+            args = (x, w, st, pad, vecs, act, res)
+            label = (f"tail {h}x{w_} px {cin}->{cout} {kh}x{kw} s{st} "
+                     f"{'bn' if bn else 'bias'}+{act}"
+                     + (" +add" if add else ""))
+            self.case(
+                "conv2d_nhwc", label, n,
+                lambda a=args: conv.conv2d_nhwc(
+                    *a[:4], *a[4], act=a[5], residual=a[6]),
+                lambda a=args: unfused(*a), nbytes, flops, F32_FLOP_S,
+                lambda a=args: unfused(*a), "K15, then K14, then the eager "
+                "add (the launches the store replaces)", 0.0, iters=20,
+                device=True)
+            labels.append(f"{label} b{n}")
+            del x, w, res, vecs, args
+        torch.cuda.empty_cache()
+        return labels
 
     def conv_paths(self, dims):
         """K15 at each convolution of ``dims`` (``ConvShapes``'s, as the
@@ -2375,20 +2448,18 @@ TRAIN_BATCH = 8
 TRAIN_SIZE = 416
 TRAIN_LR = 5e-4
 # the kernels each P21 run must launch on every step, and nothing else.
-# K14 (conv_epilogue) runs the tail of each plain convolution of the
-# frozen forward (eval mode under no_grad): all 13 of tiny-YOLO's in
-# float32 (stage 3 unfolded, stage 2); with --fold_frozen the 11 the
-# stem pair leaves (stage 4 in float32; the others bfloat16 with a
-# float32 bias, written float32 as the eager sequence widens them).
-# K15 (conv2d_nhwc) runs each float32 one's convolution: the 13, or
-# stage 4's with --fold_frozen. Stage 1 trains the Darknet itself (train
-# mode): none.
+# K15 (conv2d_nhwc) runs each float32 plain convolution of the frozen
+# forward (eval mode under no_grad): all 13 of tiny-YOLO's in float32
+# (stage 3 unfolded, stage 2), each with its leaky or linear tail in its
+# store, so K14 runs none of them; with --fold_frozen (bfloat16) stage
+# 4's alone, and K14 (conv_epilogue) the tails of the 11 the stem pair
+# leaves (stage 4 in float32; the others bfloat16 with a float32 bias,
+# written float32 as the eager sequence widens them). Stage 1 trains the
+# Darknet itself (train mode): none.
 TRAIN_EXPECT = {"fusion_fold": {"stem_pair": 1, "nms": 1,
                                 "conv_epilogue": 11, "conv2d_nhwc": 1},
-                "fusion": {"nms": 1, "conv_epilogue": 13,
-                           "conv2d_nhwc": 13},
-                "refine": {"nms": 1, "conv_epilogue": 13,
-                           "conv2d_nhwc": 13}, "yolo": {}}
+                "fusion": {"nms": 1, "conv2d_nhwc": 13},
+                "refine": {"nms": 1, "conv2d_nhwc": 13}, "yolo": {}}
 # module3's total leaves out its category and regression terms; they are
 # reported, and the category BCE is NaN wherever a class score saturates
 # to 1.0 in float32 (its clip, 1 - 1e-12, rounds to 1.0): so in the JAX
@@ -3327,12 +3398,11 @@ PAR_BN_FED = {"params/radar_enc/0/b", "params/radar_enc/1/b",
 PAR_WORLD_TIMEOUT = 600
 # the kernels each part must launch on every rank (a batch, a step, the
 # window), and nothing else
-# (K14: every plain convolution of the unfolded float32 Darknet, 13; the
-# 11 the stem pair leaves at pallas_max_s01 and the 10 the pair and K9
-# leave at pallas_max4; with --fold_frozen, TRAIN_EXPECT's 11. K15: the
-# float32 ones of them, 13 at f32, stage 4 at pallas_max_s01)
-PAR_NEED = {"eval@f32": {"nms": 1, "conv_epilogue": 13,
-                         "conv2d_nhwc": 13},
+# (K15: the float32 plain convolutions, 13 at f32 with their tails in
+# its store, stage 4 at pallas_max_s01; K14: the 11 tails the stem pair
+# leaves at pallas_max_s01 (bfloat16) and the 10 the pair and K9 leave at
+# pallas_max4; with --fold_frozen, TRAIN_EXPECT's 11)
+PAR_NEED = {"eval@f32": {"nms": 1, "conv2d_nhwc": 13},
             "eval@pallas_max_s01": dict(dict.fromkeys(_RIGHT_PAIR, 1),
                                         conv_epilogue=11, conv2d_nhwc=1),
             "train": TRAIN_EXPECT["fusion_fold"],
@@ -3798,15 +3868,15 @@ def parallel_phase(torch, cuda_lib, eng4, reqs, eval_keep, dev="cuda"):
     return summary
 
 
-def yolov4_forward(torch, b=8, size=608):
-    """One YOLOv4 forward at ``size`` px, batch ``b``, float32 eval on
-    the card from the seed-0 init, as the benchmark's ``yolov4-608-b8``
-    runs it: so that a running ``ConvShapes`` holds CSPDarknet53's
-    convolutions. Raises unless the detections are finite."""
+def darknet_forward(torch, defs, size, b=8):
+    """One forward of the Darknet ``defs`` at ``size`` px, batch ``b``,
+    float32 eval on the card from the seed-0 init, as the benchmark's
+    ``d53-416-b8`` and ``yolov4-608-b8`` run them: so that a running
+    ``ConvShapes`` holds the network's convolutions and the tails in
+    K15's store. Raises unless the detections are finite."""
     from millieye_torch.models.darknet import Darknet
-    from millieye_torch.models.zoo import yolov4_defs
     dev = torch.device("cuda")
-    model = Darknet(yolov4_defs(80, size), img_size=size)
+    model = Darknet(defs, img_size=size)
     params, state = model.init(torch.Generator().manual_seed(0))
     params = [{k: v.to(dev) for k, v in p.items()} for p in params]
     state = [{k: v.to(dev) for k, v in s.items()} for s in state]
@@ -3815,7 +3885,8 @@ def yolov4_forward(torch, b=8, size=608):
     with torch.inference_mode():
         det = model.apply(params, state, images)["detections"]
     if not bool(torch.isfinite(det).all()):
-        raise AssertionError("YOLOv4 forward: detections not finite")
+        raise AssertionError(f"Darknet forward at {size} px: detections "
+                             f"not finite")
     del params, state, images, det
     torch.cuda.empty_cache()
 
@@ -5023,17 +5094,21 @@ def main():
     stream_dir.cleanup()
 
     # K15 against its plain version at every convolution the paths above
-    # launched it at, and at YOLOv4's (the benchmark's second network)
+    # launched it at, and at Darknet-53's and YOLOv4's (the benchmark's
+    # networks); each launch with a tail in its store against K15, then
+    # K14, then the eager add
+    from millieye_torch.models.zoo import yolov3_defs, yolov4_defs
     t = time.time()
-    yolov4_forward(torch)
+    darknet_forward(torch, yolov3_defs(), 416)
+    darknet_forward(torch, yolov4_defs(80, 608), 608)
     rows = checks.conv_paths(conv_shapes.stop())
     dims = [r[0] for r in rows]
     worst = max(rows, key=lambda r: r[2] / r[3])
     summary["k15_paths"] = [
         dict(dims=r[0], plain_err=r[1], err64=r[2:]) for r in rows]
     log(f"K15 at the paths' convolutions ({card}): {len(rows)} distinct "
-        f"(batch, H, W, Cin, Cout, kh, kw, stride, pad) from P1-P22 and a "
-        f"YOLOv4 forward at 608 px b8: batches "
+        f"(batch, H, W, Cin, Cout, kh, kw, stride, pad) from P1-P22 and "
+        f"the Darknet-53 and YOLOv4 forwards at b8: batches "
         f"{sorted({d[0] for d in dims})}, {sum(d[7] == 2 for d in dims)} "
         f"at stride 2, {sum(d[5] == 1 for d in dims)} 1x1, "
         f"{sum(d[4] % 4 != 0 for d in dims)} with Cout not a multiple of "
@@ -5043,6 +5118,19 @@ def main():
         f"worst {worst[2] / worst[3]:.3f} of cuDNN float32's error (at "
         f"{worst[0]}: K15 {worst[2]:.3g}, cuDNN {worst[3]:.3g}, the plain "
         f"product {worst[4]:.3g}); {time.time() - t:.1f} s")
+    t = time.time()
+    tails = sorted(conv_shapes.tails)
+    summary["k15_tails"] = checks.conv_tail(tails)
+    log(f"K15's store at the paths' tails ({card}): {len(tails)} distinct "
+        f"launches with a tail (batches {sorted({d[0][0] for d in tails})}; "
+        f"{sum(d[1] for d in tails)} batch norm + leaky, "
+        f"{sum(not d[1] and d[2] == 1 for d in tails)} bias + leaky, "
+        f"{sum(not d[1] and d[2] == 0 for d in tails)} bias + linear; "
+        f"{sum(d[3] for d in tails)} with the add, "
+        f"{sum(d[0][4] % 4 != 0 for d in tails)} with Cout not a multiple "
+        f"of 4, {sum(d[0][3] % 4 != 0 for d in tails)} on the small-K "
+        f"route), each bit-equal to K15, then K14, then the eager add; "
+        f"{time.time() - t:.1f} s")
 
     # P23: parallel/ on 4 gloo ranks sharing the card
     t = time.time()

@@ -61,12 +61,60 @@
 // Cin consecutive floats of one input row. Cout % 4 != 0 (the 255-channel
 // heads) reads B's zero padding and stores through each warp's region of
 // shared memory, a row of 32 channels an instruction.
+//
+// The tail in the store (the tail's pointers of millieye_conv2d_nhwc):
+// the eval-mode tail of a Darknet convolution, batch norm's affine step
+// with the running statistics then leaky, or the folded bias then leaky
+// or linear (tail.cuh, kernel K14's own function and order; no Darknet
+// configuration has batch norm then linear), and then, where a linear
+// shortcut
+// follows the convolution, the add of the shortcut's other input
+// (residual [m, cout], one __fadd_rn, as the eager `prev + outputs[frm]`
+// rounds it), applied in registers to the final float32 sums as they
+// are stored: so each output is written once and never read back, where
+// K14 and the add each were a pass over it (8 and 12 bytes an element).
+// The tail acts on the final sum only: after the second half is added in
+// the halves route, and under split-K in the summing kernel's write,
+// after the slices are added in order; the output's bits are those of
+// the convolution, then K14, then the eager add. The tail's form is a
+// template argument (EPI) of the
+// convolution and the summing kernels, so the kernels without a tail
+// are the code they were before. The block reads its channels' vectors
+// into shared memory, and asks L2 for the residual's lines, before its
+// main loop, so that the store waits on neither. Measured on an H100
+// SXM, 700 W, at batch 8, at the layers of Darknet-53 and CSPDarknet53:
+// the launch beats K15, then K14, then the add at every layer but some
+// 3x3 ones with K >= 1152 and no shortcut after them, which run up to
+// 2.5% slower than K15 and K14 (the store's extra ~4 us a block, and ptxas
+// schedules the main loop a little differently); a store that kept the
+// tail's vectors and form in registers, or staged the tile in shared
+// memory, cost more.
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
 
+#include "tail.cuh"
+
 namespace {
+
+using tail_ops::Chan;
+using tail_ops::kLeaky;
+using tail_ops::kLinear;
+
+// leaky's slope in float32: 0.1 rounded to nearest, as ops/epilogue.py's
+// leaky makes it for a float32 tensor
+constexpr float kSlope = 0.1f;
+
+// the tail the store applies (bias null: none)
+struct Tail {
+  const float* bias;    // beta in the batch-norm form
+  const float* mean;    // null in the bias form
+  const float* inv;
+  const float* gamma;
+  const float* res;     // the shortcut's other input [m, cout], or null
+  int act;              // kLinear or kLeaky
+};
 
 struct Params {
   const float* x;       // [batch, H, W, C]
@@ -78,7 +126,54 @@ struct Params {
   int splits;
   int halves;           // 1: each split's K range summed in two halves
   long long split_stride;   // elements between the workspace's slices
+  Tail tail;            // applied by the final store of an EPI kernel
 };
+
+// The tail forms the convolution kernel is compiled for (its EPI): none,
+// the bias then linear or leaky, or the batch-norm form then leaky. The
+// form is fixed in the instance: read from the parameters at each
+// output, the choice cost the store more instructions than the tail
+// itself.
+constexpr int kEpiNone = 0, kEpiBias = 1, kEpiBiasLeaky = 2,
+              kEpiBnLeaky = 3;
+__host__ __device__ constexpr bool epi_bn(int e) { return e == kEpiBnLeaky; }
+__host__ __device__ constexpr int epi_act(int e) {
+  return e >= kEpiBiasLeaky ? kLeaky : kLinear;
+}
+
+// The block's per-channel vectors in shared memory, read at the kernel's
+// start (their load hides under the main loop, not in the store): vs[c],
+// vs[BN + c], vs[2 BN + c], vs[3 BN + c] the bias, mean, inv and gamma
+// of channel n0 + c (zero past cout; the last three in the batch-norm
+// form only)
+template <class T, int EPI>
+__device__ __forceinline__ void load_vectors(const Params& p, float* vs,
+                                             int n0) {
+  for (int c = threadIdx.x; c < T::BN; c += T::THREADS) {
+    const int n = n0 + c;
+    const bool in = n < p.cout;
+    vs[c] = in ? __ldg(p.tail.bias + n) : 0.0f;
+    if constexpr (epi_bn(EPI)) {
+      vs[T::BN + c] = in ? __ldg(p.tail.mean + n) : 0.0f;
+      vs[2 * T::BN + c] = in ? __ldg(p.tail.inv + n) : 0.0f;
+      vs[3 * T::BN + c] = in ? __ldg(p.tail.gamma + n) : 0.0f;
+    }
+  }
+}
+
+// local channel c's vectors
+template <class T, int EPI>
+__device__ __forceinline__ Chan chan_s(const float* vs, int c) {
+  if constexpr (epi_bn(EPI))
+    return Chan{vs[c], vs[T::BN + c], vs[2 * T::BN + c], vs[3 * T::BN + c]};
+  return Chan{vs[c], 0.0f, 0.0f, 0.0f};
+}
+
+// EPI's tail of one float32 output
+template <int EPI>
+__device__ __forceinline__ float tail_e(const Chan& k, float v) {
+  return tail_ops::tail<float, epi_act(EPI)>(epi_bn(EPI), kSlope, k, v);
+}
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -330,16 +425,70 @@ __device__ __forceinline__ void store_tile(const Params& p, int split,
   }
 }
 
+// The thread's final outputs with the tail (cout % 4 == 0, one split),
+// as store_tile, a group of four channels at a time: their vectors from
+// shared memory (vs, local channel c), the first half added where `add`,
+// EPI's tail, then the residual's add where p.tail.res.
+template <class T, int EPI>
+__device__ __forceinline__ void store_tile_tail(const Params& p, int row,
+                                                int n0, int bcol,
+                                                const float (&acc)[8][8],
+                                                bool add, const float* vs) {
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const int c = bcol + 16 * f, n = n0 + c;
+    if (n >= p.cout) continue;
+    Chan k[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) k[j] = chan_s<T, EPI>(vs, c + j);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = row + i + (i >= 4 ? 28 : 0);
+      if (m >= p.m) continue;
+      const long long o = static_cast<long long>(m) * p.cout + n;
+      float4 v = make_float4(acc[i][4 * f], acc[i][4 * f + 1],
+                             acc[i][4 * f + 2], acc[i][4 * f + 3]);
+      if (add) {
+        const float4 h = *reinterpret_cast<const float4*>(p.y + o);
+        v.x = h.x + v.x;
+        v.y = h.y + v.y;
+        v.z = h.z + v.z;
+        v.w = h.w + v.w;
+      }
+      v.x = tail_e<EPI>(k[0], v.x);
+      v.y = tail_e<EPI>(k[1], v.y);
+      v.z = tail_e<EPI>(k[2], v.z);
+      v.w = tail_e<EPI>(k[3], v.w);
+      if (p.tail.res) {
+        const float4 r = __ldg(reinterpret_cast<const float4*>(p.tail.res
+                                                               + o));
+        v.x = __fadd_rn(v.x, r.x);
+        v.y = __fadd_rn(v.y, r.y);
+        v.z = __fadd_rn(v.z, r.z);
+        v.w = __fadd_rn(v.w, r.w);
+      }
+      *reinterpret_cast<float4*>(p.y + o) = v;
+    }
+  }
+}
+
+// the L2 prefetch of a line, for the residual the store reads at the end
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
 // The ragged-channel store (cout % 4 != 0, rows not 16-byte aligned): a
 // warp writes its 64 x 32 outputs into its own region of shared memory
 // (rows of 33 floats), then stores them a row at a time, lane l at
 // channel l: each instruction one contiguous run of 32 floats. With
-// `add`, as store_tile.
-template <class T>
+// `add`, as store_tile; with EPI, then EPI's tail (the vectors of local
+// channel col0 - n0 + lane from vs) and the residual's add.
+template <class T, int EPI>
 __device__ __forceinline__ void store_tile_ragged(const Params& p, int split,
                                                   int row0, int col0,
                                                   const float (&acc)[8][8],
-                                                  bool add, float* region) {
+                                                  bool add, float* region,
+                                                  int n0, const float* vs) {
   const int lane = threadIdx.x % 32;
   const int lr = (lane / 4) * 4, lc = (lane % 4) * 4;
 #pragma unroll
@@ -351,6 +500,22 @@ __device__ __forceinline__ void store_tile_ragged(const Params& p, int split,
   __syncwarp();
   float* out = p.y + split * p.split_stride;
   const int n = col0 + lane;
+  if constexpr (EPI != kEpiNone) {
+    const Chan k = chan_s<T, EPI>(vs, n - n0);
+    for (int r = 0; r < 64; ++r) {
+      const int m = row0 + r;
+      if (m < p.m && n < p.cout) {
+        const long long o = static_cast<long long>(m) * p.cout + n;
+        float v = region[r * kStageLd + lane];
+        if (add) v = out[o] + v;
+        v = tail_e<EPI>(k, v);
+        if (p.tail.res) v = __fadd_rn(v, __ldg(p.tail.res + o));
+        out[o] = v;
+      }
+    }
+    __syncwarp();
+    return;
+  }
   for (int r = 0; r < 64; ++r) {
     const int m = row0 + r;
     if (m < p.m && n < p.cout) {
@@ -362,22 +527,29 @@ __device__ __forceinline__ void store_tile_ragged(const Params& p, int split,
   __syncwarp();
 }
 
-// a thread's outputs by the store its channels allow
-template <class T, bool VEC_OUT>
+// a thread's outputs by the store its channels allow, with EPI's tail
+// (vs: the block's vectors in shared memory; region: this warp's
+// staging region for the ragged store)
+template <class T, bool VEC_OUT, int EPI>
 __device__ __forceinline__ void store(const Params& p, int split, int m0,
                                       int n0, int arow, int bcol,
                                       const float (&acc)[8][8], bool add,
-                                      float* region) {
-  if constexpr (VEC_OUT) {
+                                      float* region, const float* vs) {
+  if constexpr (VEC_OUT && EPI != kEpiNone) {
+    store_tile_tail<T, EPI>(p, m0 + arow, n0, bcol, acc, add, vs);
+  } else if constexpr (VEC_OUT) {
     store_tile<T>(p, split, m0 + arow, n0 + bcol, acc, add);
   } else {
     const int warp = threadIdx.x / 32;
-    store_tile_ragged<T>(p, split, m0 + (warp % T::WARPS_M) * 64,
-                         n0 + (warp / T::WARPS_M) * 32, acc, add, region);
+    store_tile_ragged<T, EPI>(p, split, m0 + (warp % T::WARPS_M) * 64,
+                              n0 + (warp / T::WARPS_M) * 32, acc, add,
+                              region, n0, vs);
   }
 }
 
-template <class T, bool SMALL_K, bool VEC_OUT, int MIN_BLOCKS>
+// EPI (not kEpiNone): the final store applies p.tail in that form (one
+// split only)
+template <class T, bool SMALL_K, bool VEC_OUT, int MIN_BLOCKS, int EPI>
 __global__ void __launch_bounds__(T::THREADS, MIN_BLOCKS)
 conv_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
@@ -385,6 +557,8 @@ conv_kernel(Params p) {
   float* bs = smem + 2 * T::A_FLOATS;        // two B buffers
   // this warp's staging region (ragged-channel stores only)
   float* region = bs + 2 * T::B_FLOATS + (threadIdx.x / 32) * 64 * kStageLd;
+  // the tail's vectors, after the buffers and the staging regions
+  float* vs = bs + 2 * T::B_FLOATS + (VEC_OUT ? 0 : T::STAGE_FLOATS);
 
   const int m0 = blockIdx.x * T::BM, n0 = blockIdx.y * T::BN;
   // this block's k tiles: split blockIdx.z of p.splits, in even shares
@@ -402,6 +576,19 @@ conv_kernel(Params p) {
   const int wm = warp % T::WARPS_M, wn = warp / T::WARPS_M;
   const int arow = wm * 64 + (lane / 4) * 4;
   const int bcol = wn * 32 + (lane % 4) * 4;
+  if constexpr (EPI != kEpiNone) {
+    // read before the main loop's first barrier, used after its last
+    load_vectors<T, EPI>(p, vs, n0);
+    if (VEC_OUT && p.tail.res && n0 + bcol < p.cout) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int m = m0 + arow + i + (i >= 4 ? 28 : 0);
+        if (m < p.m)
+          prefetch_l2(p.tail.res + static_cast<long long>(m) * p.cout + n0
+                      + bcol);
+      }
+    }
+  }
 
   float acc[8][8];
 #pragma unroll
@@ -435,7 +622,8 @@ conv_kernel(Params p) {
       mma_tile<T>(as + buf * T::A_FLOATS, bs + buf * T::B_FLOATS, arow,
                   bcol, acc);
       if (t + 1 == mid && mid < tiles) {
-        store<T, VEC_OUT>(p, split, m0, n0, arow, bcol, acc, false, region);
+        store<T, VEC_OUT, kEpiNone>(p, split, m0, n0, arow, bcol, acc,
+                                    false, region, vs);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -448,15 +636,80 @@ conv_kernel(Params p) {
       __syncthreads();
     }
   }
-  store<T, VEC_OUT>(p, split, m0, n0, arow, bcol, acc, mid < tiles, region);
+  store<T, VEC_OUT, EPI>(p, split, m0, n0, arow, bcol, acc, mid < tiles,
+                         region, vs);
 }
 
-// y[i] = ws[0][i] + ws[1][i] + ... + ws[splits - 1][i], in that order
+// y[i] = ws[0][i] + ws[1][i] + ... + ws[splits - 1][i], in that order;
+// with EPI, then t's tail in that form and the residual's add (element
+// i's channel i % cout)
+template <int EPI>
 __global__ void __launch_bounds__(256)
 split_sum_kernel(const float* __restrict__ ws, float* __restrict__ y,
-                 long long n, int splits) {
+                 long long n, int splits, Tail t, int cout) {
   const long long stride = static_cast<long long>(gridDim.x) * 256;
   long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if constexpr (EPI != kEpiNone) {
+    // element i's channel, carried from one step of the loop to the next
+    // (a remainder an element would cost more than the sum); n < 2^31
+    if (cout % 4 == 0) {
+      const float4* w4 = reinterpret_cast<const float4*>(ws);
+      float4* y4 = reinterpret_cast<float4*>(y);
+      const int step = static_cast<int>(4 * stride) % cout;
+      int c = static_cast<int>(4 * i) % cout;
+      for (; i < n / 4; i += stride) {
+        float4 s = w4[i];
+        for (int k = 1; k < splits; ++k) {
+          const float4 v = w4[i + k * (n / 4)];
+          s.x += v.x;
+          s.y += v.y;
+          s.z += v.z;
+          s.w += v.w;
+        }
+        const float4 b = __ldg(reinterpret_cast<const float4*>(t.bias + c));
+        float4 m = make_float4(0.0f, 0.0f, 0.0f, 0.0f), v = m, g = m;
+        if constexpr (epi_bn(EPI)) {
+          m = __ldg(reinterpret_cast<const float4*>(t.mean + c));
+          v = __ldg(reinterpret_cast<const float4*>(t.inv + c));
+          g = __ldg(reinterpret_cast<const float4*>(t.gamma + c));
+        }
+        s.x = tail_e<EPI>(Chan{b.x, m.x, v.x, g.x}, s.x);
+        s.y = tail_e<EPI>(Chan{b.y, m.y, v.y, g.y}, s.y);
+        s.z = tail_e<EPI>(Chan{b.z, m.z, v.z, g.z}, s.z);
+        s.w = tail_e<EPI>(Chan{b.w, m.w, v.w, g.w}, s.w);
+        if (t.res) {
+          const float4 r = __ldg(reinterpret_cast<const float4*>(t.res)
+                                 + i);
+          s.x = __fadd_rn(s.x, r.x);
+          s.y = __fadd_rn(s.y, r.y);
+          s.z = __fadd_rn(s.z, r.z);
+          s.w = __fadd_rn(s.w, r.w);
+        }
+        y4[i] = s;
+        c += step;
+        if (c >= cout) c -= cout;
+      }
+    } else {
+      const int step = static_cast<int>(stride) % cout;
+      int c = static_cast<int>(i) % cout;
+      for (; i < n; i += stride) {
+        float s = ws[i];
+        for (int k = 1; k < splits; ++k) s += ws[i + k * n];
+        Chan q{__ldg(t.bias + c), 0.0f, 0.0f, 0.0f};
+        if constexpr (epi_bn(EPI)) {
+          q.mean = __ldg(t.mean + c);
+          q.inv = __ldg(t.inv + c);
+          q.gamma = __ldg(t.gamma + c);
+        }
+        s = tail_e<EPI>(q, s);
+        if (t.res) s = __fadd_rn(s, __ldg(t.res + i));
+        y[i] = s;
+        c += step;
+        if (c >= cout) c -= cout;
+      }
+    }
+    return;
+  }
   if (n % 4 == 0) {
     const float4* w4 = reinterpret_cast<const float4*>(ws);
     float4* y4 = reinterpret_cast<float4*>(y);
@@ -508,10 +761,11 @@ constexpr CfgInfo kInfo[kCfgs] = {
     {Small::BM, Small::BN, Small::BK, Small::THREADS, 6, 0.5},
 };
 
-template <class T, bool SMALL_K, bool VEC_OUT, int MIN_BLOCKS>
+template <class T, bool SMALL_K, bool VEC_OUT, int MIN_BLOCKS, int EPI>
 int launch_tile(const Params& p, cudaStream_t st) {
-  auto kern = conv_kernel<T, SMALL_K, VEC_OUT, MIN_BLOCKS>;
-  const int smem = T::SMEM + (VEC_OUT ? 0 : T::STAGE_FLOATS * 4);
+  auto kern = conv_kernel<T, SMALL_K, VEC_OUT, MIN_BLOCKS, EPI>;
+  const int smem = T::SMEM + (VEC_OUT ? 0 : T::STAGE_FLOATS * 4)
+                   + (EPI == kEpiNone ? 0 : 4 * T::BN * 4);
   // the shared-memory opt-in, once a device
   static bool ready[kMaxDevices] = {};
   int dev = 0;
@@ -529,11 +783,56 @@ int launch_tile(const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T, bool SMALL_K, int MIN_BLOCKS, int EPI>
+int launch_c(const Params& p, cudaStream_t st) {
+  return p.cout % 4 == 0
+             ? launch_tile<T, SMALL_K, true, MIN_BLOCKS, EPI>(p, st)
+             : launch_tile<T, SMALL_K, false, MIN_BLOCKS, EPI>(p, st);
+}
+
+// the form of tail t (kEpiNone without one; the entry refuses batch norm
+// then linear)
+int epi_of(const Tail& t) {
+  if (!t.bias) return kEpiNone;
+  if (t.mean) return kEpiBnLeaky;
+  return t.act == kLeaky ? kEpiBiasLeaky : kEpiBias;
+}
+
+// the tail in the convolution's store, in its form, where it is the only
+// split (else in the summing kernel)
 template <class T, bool SMALL_K, int MIN_BLOCKS>
 int launch_b(const Params& p, cudaStream_t st) {
-  return p.cout % 4 == 0
-             ? launch_tile<T, SMALL_K, true, MIN_BLOCKS>(p, st)
-             : launch_tile<T, SMALL_K, false, MIN_BLOCKS>(p, st);
+  switch (p.splits == 1 ? epi_of(p.tail) : kEpiNone) {
+    case kEpiBias: return launch_c<T, SMALL_K, MIN_BLOCKS, kEpiBias>(p, st);
+    case kEpiBiasLeaky:
+      return launch_c<T, SMALL_K, MIN_BLOCKS, kEpiBiasLeaky>(p, st);
+    case kEpiBnLeaky:
+      return launch_c<T, SMALL_K, MIN_BLOCKS, kEpiBnLeaky>(p, st);
+  }
+  return launch_c<T, SMALL_K, MIN_BLOCKS, kEpiNone>(p, st);
+}
+
+// the summing launch, with t's tail in its form
+void launch_sum(const float* ws, float* y, long long n, int splits,
+                const Tail& t, int cout, int blocks, cudaStream_t st) {
+  switch (epi_of(t)) {
+    case kEpiBias:
+      split_sum_kernel<kEpiBias><<<blocks, 256, 0, st>>>(ws, y, n, splits, t,
+                                                         cout);
+      break;
+    case kEpiBiasLeaky:
+      split_sum_kernel<kEpiBiasLeaky><<<blocks, 256, 0, st>>>(ws, y, n,
+                                                              splits, t,
+                                                              cout);
+      break;
+    case kEpiBnLeaky:
+      split_sum_kernel<kEpiBnLeaky><<<blocks, 256, 0, st>>>(ws, y, n, splits,
+                                                            t, cout);
+      break;
+    default:
+      split_sum_kernel<kEpiNone><<<blocks, 256, 0, st>>>(ws, y, n, splits, t,
+                                                         cout);
+  }
 }
 
 int sm_count() {
@@ -577,6 +876,68 @@ double cost(int cfg, int splits, long long m, int n, int k) {
   }
   if (splits > 1) t += 8.0 * splits * m * n / 3.0e12 * 1e6 + 3.0;
   return t;
+}
+
+}  // namespace
+
+extern "C" int millieye_conv2d_plan(int batch, int h, int w, int c, int cout,
+                                    int kh, int kw, int stride, int pad,
+                                    int force_cfg, int force_splits, int* cfg,
+                                    int* splits);
+
+namespace {
+
+// the convolution with `tail` in its store (tail.bias null: none)
+int conv2d(const float* x, const float* w, float* y, float* ws,
+           const int* a, const Tail& tail, void* stream) {
+  const int batch = a[0], h = a[1], wd = a[2], c = a[3], cout = a[4];
+  const int ldw = a[5], kh = a[6], kw = a[7], stride = a[8], pad = a[9];
+  const int cfg = a[10], splits = a[11];
+  int check_cfg = 0, check_splits = 0;
+  int rc = millieye_conv2d_plan(batch, h, wd, c, cout, kh, kw, stride, pad,
+                                cfg, splits, &check_cfg, &check_splits);
+  if (rc != 0) return rc;
+  if (check_splits != splits || (splits > 1 && !ws) || ldw % 4 != 0
+      || ldw < cout
+      || static_cast<long long>(kh) * kw * c * ldw >= (1LL << 31))
+    return cudaErrorInvalidValue;
+  Params p;
+  p.x = x;
+  p.w = w;
+  p.batch = batch;
+  p.h = h;
+  p.w_in = wd;
+  p.c = c;
+  p.cout = cout;
+  p.ldw = ldw;
+  p.kh = kh;
+  p.kw = kw;
+  p.stride = stride;
+  p.pad = pad;
+  p.ho = (h + 2 * pad - kh) / stride + 1;
+  p.wo = (wd + 2 * pad - kw) / stride + 1;
+  p.m = batch * p.ho * p.wo;
+  p.k = kh * kw * c;
+  p.k_tiles = (p.k + kInfo[cfg].bk - 1) / kInfo[cfg].bk;
+  p.splits = splits;
+  p.halves = p.k >= kHalvesK;
+  p.y = splits > 1 ? ws : y;
+  p.split_stride = static_cast<long long>(p.m) * cout;
+  p.tail = tail;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (cfg) {
+    case kMain: rc = launch_b<Main, false, 3>(p, st); break;
+    case kNarrow: rc = launch_b<Narrow, false, 6>(p, st); break;
+    case kSmall: rc = launch_b<Small, true, 6>(p, st); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (rc != 0 || splits == 1) return rc;
+  const long long n = p.split_stride;
+  const long long work = n % 4 == 0 ? n / 4 : n;
+  const int blocks = static_cast<int>(std::max<long long>(1, std::min<
+      long long>((work + 255) / 256, static_cast<long long>(sm_count()) * 8)));
+  launch_sum(ws, y, n, splits, tail, cout, blocks, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -645,57 +1006,31 @@ int millieye_conv2d_plan(int batch, int h, int w, int c, int cout, int kh,
 // side, as planned: cfg and splits from millieye_conv2d_plan; with splits
 // > 1, ws holds splits * batch * Ho * Wo * cout floats. The ints come as
 // one array, a = {batch, h, w, c, cout, ldw, kh, kw, stride, pad, cfg,
-// splits}: the caller keeps it for the shape, and a call passes six
-// arguments.
+// splits}: the caller keeps it for the shape. With bias, the tail in the
+// store: bias, mean, inv, gamma [cout] float32 (mean, inv and gamma null
+// in the bias form; each 16-byte aligned where cout % 4 == 0), act 0
+// linear (the bias form only) or 1 leaky, then, with res (y's shape and
+// layout, 16-byte aligned where cout % 4 == 0), the add of res; without
+// bias, no tail (the other four pointers null). Returns 0, or
+// cudaErrorInvalidValue for what it does not take.
 int millieye_conv2d_nhwc(const float* x, const float* w, float* y, float* ws,
-                         const int* a, void* stream) {
-  const int batch = a[0], h = a[1], wd = a[2], c = a[3], cout = a[4];
-  const int ldw = a[5], kh = a[6], kw = a[7], stride = a[8], pad = a[9];
-  const int cfg = a[10], splits = a[11];
-  int check_cfg = 0, check_splits = 0;
-  int rc = millieye_conv2d_plan(batch, h, wd, c, cout, kh, kw, stride, pad,
-                                cfg, splits, &check_cfg, &check_splits);
-  if (rc != 0) return rc;
-  if (check_splits != splits || (splits > 1 && !ws) || ldw % 4 != 0
-      || ldw < cout
-      || static_cast<long long>(kh) * kw * c * ldw >= (1LL << 31))
+                         const int* a, const float* bias, const float* mean,
+                         const float* inv, const float* gamma,
+                         const float* res, int act, void* stream) {
+  if (!bias)
+    return mean || inv || gamma || res
+               ? cudaErrorInvalidValue
+               : conv2d(x, w, y, ws, a, Tail{}, stream);
+  const auto misaligned = [&](const float* v) {
+    return a[4] % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 != 0;
+  };
+  if ((act != kLinear && act != kLeaky) || !mean != !inv || !mean != !gamma
+      || (mean && act != kLeaky) || misaligned(bias)
+      || (mean && (misaligned(mean) || misaligned(inv) || misaligned(gamma)))
+      || (res && misaligned(res)))
     return cudaErrorInvalidValue;
-  Params p;
-  p.x = x;
-  p.w = w;
-  p.batch = batch;
-  p.h = h;
-  p.w_in = wd;
-  p.c = c;
-  p.cout = cout;
-  p.ldw = ldw;
-  p.kh = kh;
-  p.kw = kw;
-  p.stride = stride;
-  p.pad = pad;
-  p.ho = (h + 2 * pad - kh) / stride + 1;
-  p.wo = (wd + 2 * pad - kw) / stride + 1;
-  p.m = batch * p.ho * p.wo;
-  p.k = kh * kw * c;
-  p.k_tiles = (p.k + kInfo[cfg].bk - 1) / kInfo[cfg].bk;
-  p.splits = splits;
-  p.halves = p.k >= kHalvesK;
-  p.y = splits > 1 ? ws : y;
-  p.split_stride = static_cast<long long>(p.m) * cout;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cfg) {
-    case kMain: rc = launch_b<Main, false, 3>(p, st); break;
-    case kNarrow: rc = launch_b<Narrow, false, 6>(p, st); break;
-    case kSmall: rc = launch_b<Small, true, 6>(p, st); break;
-    default: return cudaErrorInvalidValue;
-  }
-  if (rc != 0 || splits == 1) return rc;
-  const long long n = p.split_stride;
-  const long long work = n % 4 == 0 ? n / 4 : n;
-  const int blocks = static_cast<int>(std::max<long long>(1, std::min<
-      long long>((work + 255) / 256, static_cast<long long>(sm_count()) * 8)));
-  split_sum_kernel<<<blocks, 256, 0, st>>>(ws, y, n, splits);
-  return static_cast<int>(cudaGetLastError());
+  return conv2d(x, w, y, ws, a, Tail{bias, mean, inv, gamma, res, act},
+                stream);
 }
 
 }  // extern "C"

@@ -29,7 +29,9 @@
 // mix whose operations would round in two types. `inv` (rsqrt(var +
 // eps)) and the slope (0.1 in the result's type) come from the wrapper,
 // computed as the eager sequence computes them, so kernel and plain
-// version are bit-equal.
+// version are bit-equal. The tail itself is tail.cuh's, which K15 also
+// applies in its store to the float32 convolutions whose activation is
+// leaky or linear; the Mish tails and 16-bit outputs run here.
 //
 // Bound on an H100: bytes. A float32 element is read and written once,
 // 8 bytes (4 for 16-bit types); the per-channel vectors are a few KB
@@ -64,44 +66,18 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "tail.cuh"
+
 namespace {
+
+using tail_ops::Chan;
+using tail_ops::kLeaky;
+using tail_ops::kLinear;
+using tail_ops::kMish;
+using tail_ops::Store;
 
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 8;      // 2048 resident threads an SM
-
-// storage type <-> float, and the rounding of a float result to the
-// storage type (the identity for float32)
-template <typename T> struct Store;
-
-template <> struct Store<float> {
-  static __device__ __forceinline__ float in(float v) { return v; }
-  static __device__ __forceinline__ float out(float v) { return v; }
-  static __device__ __forceinline__ float round(float v) { return v; }
-};
-
-template <> struct Store<__half> {
-  static __device__ __forceinline__ float in(__half v) {
-    return __half2float(v);
-  }
-  static __device__ __forceinline__ __half out(float v) {
-    return __float2half_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __half2float(__float2half_rn(v));
-  }
-};
-
-template <> struct Store<__nv_bfloat16> {
-  static __device__ __forceinline__ float in(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 out(float v) {
-    return __float2bfloat16_rn(v);
-  }
-  static __device__ __forceinline__ float round(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-};
 
 // four consecutive values of T as one aligned access
 template <typename T> struct alignas(4 * sizeof(T)) Four {
@@ -132,11 +108,6 @@ __device__ __forceinline__ void store4(T* p, const float in[4]) {
   *reinterpret_cast<Four<T>*>(p) = f;
 }
 
-// the activation codes (ops/epilogue.py:ACTS)
-constexpr int kLinear = 0;
-constexpr int kLeaky = 1;
-constexpr int kMish = 2;
-
 struct Args {
   const void* x;
   void* y;
@@ -148,10 +119,13 @@ struct Args {
   float slope;          // leaky's
 };
 
-// the per-channel vectors of one channel, as floats
-struct Chan {
-  float bias, mean, inv, gamma;
-};
+// the eager sequence on one element (tail.cuh), each operation rounded
+// to T
+template <typename T, int Act>
+__device__ __forceinline__ float tail(const Args& a, const Chan& k,
+                                      float t) {
+  return tail_ops::tail<T, Act>(a.mean != nullptr, a.slope, k, t);
+}
 
 template <typename T>
 __device__ __forceinline__ Chan chan(const Args& a, int c) {
@@ -163,34 +137,6 @@ __device__ __forceinline__ Chan chan(const Args& a, int c) {
     k.gamma = Store<T>::in(static_cast<const T*>(a.gamma)[c]);
   }
   return k;
-}
-
-// Mish as the eager sequence computes it: F.softplus (x itself above the
-// threshold 20, else log1p(exp(x))), torch.tanh, then the product, each
-// rounded to T
-template <typename T>
-__device__ __forceinline__ float mish(float t) {
-  const float sp = Store<T>::round(t > 20.0f ? t : log1pf(expf(t)));
-  const float th = Store<T>::round(tanhf(sp));
-  return Store<T>::round(__fmul_rn(t, th));
-}
-
-// the eager sequence on one element, each operation rounded to T
-template <typename T, int Act>
-__device__ __forceinline__ float tail(const Args& a, const Chan& k,
-                                      float t) {
-  if (a.mean) {
-    t = Store<T>::round(__fsub_rn(t, k.mean));
-    t = Store<T>::round(__fmul_rn(t, k.inv));
-    t = Store<T>::round(__fmul_rn(t, k.gamma));
-    t = Store<T>::round(__fadd_rn(t, k.bias));
-  } else {
-    t = Store<T>::round(__fadd_rn(t, k.bias));
-  }
-  if (Act == kLeaky && !(t > 0.0f))
-    t = Store<T>::round(__fmul_rn(t, a.slope));
-  if (Act == kMish) t = mish<T>(t);
-  return t;
 }
 
 // x in Tin; y and the vectors in Tout. vec: four elements at a time (see

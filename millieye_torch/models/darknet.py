@@ -46,18 +46,31 @@ The config settles, once when the model is built, each block's kind (a
 plain convolution, a stem stage's form and its pool, or its type), the
 stem pairs and whether K15 takes each convolution's shapes
 (``ops/conv.py:takes_form``); a call asks the rest once (``_call_kinds``:
-a stage's slots, ``train``, ``collect_act_stats``). A plain convolution
-block (``_conv_block``) on the card's kernels (``on_card``) runs a
-float32 convolution K15 takes as ``conv2d_nhwc`` and its tail (batch
-norm's affine step with the running statistics or the folded bias, then
-the activation) as K14, ``conv_epilogue``; elsewhere ``F.conv2d`` and
-``epilogue_eager``, the same bits. Inside a profiler session the
-backbone counts ``darknet.convs`` (the plain convolution blocks an
-``apply`` runs), ``darknet.conv_kernel`` (those whose convolution
-launched K15) and ``darknet.epilogue`` (those whose tail launched K14),
-and a model with Mish ``darknet.mish`` and ``darknet.epilogue_mish``
-(the same two of its Mish blocks); the span ``millieye.spp`` holds an
-SPP's pools and their route.
+a stage's slots, ``train``, ``collect_act_stats``, ``collect_outputs``,
+the compute dtype). A plain convolution block (``_conv_block``) on the
+card's kernels (``on_card``) runs a float32 convolution K15 takes as
+``conv2d_nhwc`` and its tail (batch norm's affine step with the running
+statistics or the folded bias, then the activation) as K14,
+``conv_epilogue``; elsewhere ``F.conv2d`` and ``epilogue_eager``, the
+same bits. A plain convolution whose tail K15's store takes
+(``ops/conv.py:takes_tail``: batch norm then leaky, the bias then leaky
+or linear) and whose shapes K15 takes is of the kind "conv_tail": at
+float32 inference on the card's kernels its tail runs in K15's store,
+one launch; where a linear shortcut follows it and nothing else reads
+its output (no route, no other shortcut, not the feature tap), it is of
+the kind "conv_add" and the shortcut's add runs there too, the shortcut
+(kind "pass") repeating the fused output. Training, 16-bit compute, an int8 slot and
+``collect_outputs`` (which wants every block's own output) run those
+blocks as plain convolutions and the shortcut as its own add, the same
+bits. Inside a profiler session the backbone counts ``darknet.convs``
+(the plain convolution blocks an ``apply`` runs),
+``darknet.conv_kernel`` (those whose convolution launched K15),
+``darknet.epilogue`` (those whose tail ran in one pass: K14 or K15's
+store), ``darknet.tail_in_conv`` (those whose tail ran in K15's store)
+and ``darknet.add_in_conv`` (the shortcuts added there), and a model
+with Mish ``darknet.mish`` and ``darknet.epilogue_mish`` (its Mish
+blocks, and those whose tail launched K14); the span ``millieye.spp``
+holds an SPP's pools and their route.
 
 Training (``apply(train=True)``): BN normalizes with the batch statistics
 and updates the running ones with momentum 0.9 (the reference's
@@ -321,6 +334,32 @@ class Darknet:
         self._k15 = [info["type"] == "convolutional" and kconv.takes_form(
             info["in_ch"], info["size"], info["size"], info["stride"],
             (info["size"] - 1) // 2) for info in self._plan]
+        self._fused = self._fuse_tails()
+
+    def _fuse_tails(self):
+        """Mark the plain convolutions whose tail may run in K15's store
+        ("conv_tail") and those whose following shortcut may add there
+        too ("conv_add", the shortcut "pass"); returns their indices. A
+        store type for the float32 stages (``hi_prec_store``) keeps every
+        tail out: its blocks' outputs are 16-bit."""
+        if self.hi_prec_store is not None:
+            return ()
+        referenced = self._referenced()
+        fused = []
+        for i, info in enumerate(self._plan):
+            if not (self._kinds[i] == "convolutional" and self._k15[i]
+                    and kconv.takes_tail(info["bn"], info["act"])):
+                continue
+            nxt = i + 1 < len(self._plan) and self._plan[i + 1]
+            add = (nxt and nxt["type"] == "shortcut"
+                   and self.block_defs[i + 1].get("activation",
+                                                  "linear") == "linear"
+                   and i not in referenced)
+            self._kinds[i] = "conv_add" if add else "conv_tail"
+            if add:
+                self._kinds[i + 1] = "pass"
+            fused.append(i)
+        return tuple(fused)
 
     def _build_plan(self):
         """Per-block channel counts and anchor sets."""
@@ -459,14 +498,26 @@ class Darknet:
             return self.hi_prec_store or torch.float32
         return compute_dtype
 
-    def _call_kinds(self, params, train, collect_act_stats):
+    def _call_kinds(self, params, train, collect_act_stats, collect_outputs,
+                    compute_dtype):
         """Each block's kind in this call: a stage runs its form where its
         parameters carry the form's slots (a fused stage's folded ``w``,
         only at inference: the kernels have no backward; ``w2`` or ``q2``;
         ``wi``), else as a plain convolution and its pool; two fused
         stages of a pair run as one kernel, except while collecting
-        activation statistics."""
+        activation statistics. A tail (and an add) runs in K15's store
+        at float32 inference on a float32 weight slot; in training,
+        16-bit compute, on an int8 slot and with ``collect_outputs`` its
+        block runs as a plain convolution, and its shortcut as an add."""
         kinds = list(self._kinds)
+        plain = train or collect_outputs or compute_dtype != torch.float32
+        for i in self._fused:
+            p = params[i]
+            if plain or "w" not in p or p["w"].dtype != torch.float32 \
+                    or "q" in p and "xs" in p:
+                if kinds[i] == "conv_add":
+                    kinds[i + 1] = "shortcut"
+                kinds[i] = "convolutional"
         for i in self.stem_stages + self.s2d_stages + self.im2col_stages:
             p = params[i]
             if not (kinds[i] == "stem" and not train and "w" in p
@@ -549,10 +600,12 @@ class Darknet:
         feature_map = None
         act_absmax = ([torch.zeros((), device=images.device)] * len(self._plan)
                       if collect_act_stats else None)
-        kinds = self._call_kinds(params, train, collect_act_stats)
+        kinds = self._call_kinds(params, train, collect_act_stats,
+                                 collect_outputs, compute_dtype)
         convs, launches = 0, epi.conv_epilogue.launches
         conv_launches = kconv.conv2d_nhwc.launches
         mish, mish_launches = 0, 0
+        tails, adds = 0, 0
         spp_end = None
         with trace_annotation("millieye.backbone"), \
                 contextlib.ExitStack() as spp:
@@ -572,6 +625,17 @@ class Darknet:
                     if info["act"] == "mish":
                         mish += 1
                         mish_launches += epi.conv_epilogue.launches - before
+                elif kind in ("conv_tail", "conv_add"):
+                    before = kconv.conv2d_nhwc.launches
+                    res = (outputs[self._plan[i + 1]["frm"]]
+                           if kind == "conv_add" else None)
+                    x = self._conv_block(i, prev, p, new_state,
+                                         compute_dtype, train, True, res)
+                    convs += 1
+                    fused = kconv.conv2d_nhwc.launches - before
+                    tails += fused
+                    if res is not None:
+                        adds += fused
                 elif kind == "pass":
                     x = prev          # a fused pair or stage ran this block
                 elif kind == "pair":
@@ -612,12 +676,17 @@ class Darknet:
                     feature_map = x.permute(0, 2, 3, 1)
                 if i == spp_end:
                     spp.close()
-            # the plain convolution blocks, those that ran K15 and those
-            # whose tail ran K14
+            # the plain convolution blocks, those that ran K15, those whose
+            # tail ran in one pass (K14's launches and K15's store: what
+            # the eager sequence did in seven) and those of them whose
+            # tail ran in K15's store, and the shortcuts added there
             count("darknet.convs", convs)
-            count("darknet.epilogue", epi.conv_epilogue.launches - launches)
+            count("darknet.epilogue",
+                  epi.conv_epilogue.launches - launches + tails)
             count("darknet.conv_kernel",
                   kconv.conv2d_nhwc.launches - conv_launches)
+            count("darknet.tail_in_conv", tails)
+            count("darknet.add_in_conv", adds)
             if self._mish:
                 count("darknet.mish", mish)
                 count("darknet.epilogue_mish", mish_launches)
@@ -637,25 +706,38 @@ class Darknet:
             out["outputs"] = outputs
         return out
 
-    def _conv_block(self, i, x, p, state, compute_dtype, train):
+    def _conv_block(self, i, x, p, state, compute_dtype, train,
+                    fused=False, residual=None):
         """Plain convolution block i on ``x``: ``_conv``, then the tail:
         batch norm on the batch's statistics (``state[i]`` takes the new
         running ones) or the bias in training, batch norm's affine step
         with the running statistics or the folded bias at inference, then
-        the activation. ``on_card`` decides whether K15 and K14 run."""
+        the activation; then ``+ residual`` where given (a shortcut's).
+        ``on_card`` decides whether K15 and K14 run; a ``fused`` block
+        (``_call_kinds`` found it float32 on a float32 slot) on the card
+        runs all of it as one launch of K15."""
         s = state[i] if i < len(state) else {}
         card = not train and on_card(x, p, s)
         info = self._plan[i]
-        y = self._conv(i, p, x, "w", info["stride"], (info["size"] - 1) // 2,
-                       compute_dtype, card and self._k15[i])
+        stride, pad = info["stride"], (info["size"] - 1) // 2
         if train and "gamma" in p:
-            y, state[i] = _train_bn(y, p, s)
+            y, state[i] = _train_bn(
+                self._conv(i, p, x, "w", stride, pad, compute_dtype), p, s)
             return epi.activate(y, info["act"])
         vecs = ((p["beta"], s["mean"], _bn_inv(s["var"]), p["gamma"])
                 if "gamma" in p else (p["b"],))
+        if fused and card:
+            if x.dtype != torch.float32:
+                x = x.float()
+            return kconv.conv2d_nhwc(x, p["w"], stride, pad, *vecs,
+                                     act=info["act"], residual=residual)
+        y = self._conv(i, p, x, "w", stride, pad, compute_dtype,
+                       card and self._k15[i])
         if card:
-            return epi.conv_epilogue(y, *vecs, act=info["act"])
-        return epi.epilogue_eager(y, *vecs, act=info["act"])
+            y = epi.conv_epilogue(y, *vecs, act=info["act"])
+        else:
+            y = epi.epilogue_eager(y, *vecs, act=info["act"])
+        return y if residual is None else y + residual
 
     def _conv(self, i, p, z, key, stride, pad, compute_dtype, k15=False):
         """Block i's convolution of ``z`` with the slot ``key`` ("w", or

@@ -25,11 +25,26 @@ operations at the 67 TFLOP/s float32 peak. The tile and the split are
 chosen from the shapes alone (``plan``); ``tile()`` forces one, for
 tests and timing.
 
+The convolution's tail may run in the kernel's store: given the
+per-channel vectors of ``ops/epilogue.py:epilogue_eager`` (``bias``, or
+batch norm's ``bias``, ``mean``, ``inv`` and ``gamma``) and an
+activation the store takes (``takes_tail``: batch norm then leaky, the
+bias then leaky or linear), each output is that tail's, K14's own
+arithmetic, and with ``residual`` (a tensor of the output's shape) that
+tail plus ``residual``, as a linear shortcut adds it: the bits of the
+convolution, then ``conv_epilogue``, then the eager add, written once.
+The op ``millieye::conv2d_nhwc`` takes the vectors, the activation's
+code and the residual after its first five arguments, which stay as
+they were (the benchmark counts a launch's operations from them); the
+kernel's one C entry takes null pointers for no tail. Mish tails run in
+K14.
+
 On a CPU tensor the op runs the plain version; on a CUDA tensor the
 kernel, or it raises where the kernel cannot take the tensors
-(``conv_form``), outside ``cuda_lib.plain_versions()``. ``takes_form``
-states the kernel's form from the shapes alone, as a model's config
-settles them. ``conv2d_nhwc.launches`` counts kernel launches.
+(``conv_form``, ``_tail_ptrs``), outside ``cuda_lib.plain_versions()``.
+``takes_form`` states the kernel's form from the shapes alone, as a
+model's config settles them. ``conv2d_nhwc.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -42,6 +57,7 @@ import torch.nn.functional as F
 
 from millieye_torch.device import per_tensor
 from millieye_torch.ops import cuda_lib
+from millieye_torch.ops import epilogue as epi
 
 KERNEL_SIZES = (1, 3)
 STRIDES = (1, 2)
@@ -61,6 +77,14 @@ def takes_form(cin, kh, kw, stride, pad):
     return (kh == kw and kh in KERNEL_SIZES and stride in STRIDES
             and pad == (kh - 1) // 2
             and (cin % 4 == 0 or kh * kw * cin <= SMALL_K))
+
+
+def takes_tail(bn, act):
+    """Whether the kernel's store takes the tail of batch norm (``bn``)
+    or of the bias, then the activation ``act``: batch norm then leaky,
+    the bias then leaky or linear. Mish runs in K14; no configuration has
+    batch norm then linear."""
+    return act == "leaky" or (act == "linear" and not bn)
 
 
 def conv_form(x, w, stride, pad):
@@ -96,14 +120,21 @@ def _pack(w):
     return rows
 
 
-def conv2d_nhwc(x, w, stride=1, pad=0):
+def conv2d_nhwc(x, w, stride=1, pad=0, bias=None, mean=None, inv=None,
+                gamma=None, act="linear", residual=None):
     """K15: ``F.conv2d(x, w, stride=stride, padding=pad)`` of a float32
     ``x`` and OIHW float32 ``w`` through the op (the plain version on the
     CPU), ``x`` made channels_last where it is not; the output is
-    channels_last float32."""
+    channels_last float32. With ``bias``, the tail ``epilogue_eager(y,
+    bias, mean, inv, gamma, act)`` (a form ``takes_tail``) in the
+    kernel's store, then ``+ residual`` where given (made channels_last
+    where it is not)."""
     conv_form(x, w, stride, pad)
-    return _op(x.contiguous(memory_format=torch.channels_last),
-               pack_weight(w), w.shape[0], stride, pad)
+    x = x.contiguous(memory_format=torch.channels_last)
+    if residual is not None:
+        residual = residual.contiguous(memory_format=torch.channels_last)
+    return _op(x, pack_weight(w), w.shape[0], stride, pad, bias, mean, inv,
+               gamma, epi.act_code(act), residual)
 
 
 @contextlib.contextmanager
@@ -125,7 +156,13 @@ def out_size(size, k, stride, pad):
     return (size + 2 * pad - k) // stride + 1
 
 
-def _plain(x, wp, cout, stride, pad):
+def _plain(x, wp, cout, stride, pad, bias=None, mean=None, inv=None,
+           gamma=None, act=0, residual=None):
+    if bias is not None or residual is not None:
+        _tail_args(bias, mean, inv, gamma, act)
+        y = _plain(x, wp, cout, stride, pad)
+        y = epi.epilogue_eager(y, bias, mean, inv, gamma, epi.ACTS[act])
+        return y if residual is None else y + residual
     kh, kw, cin, _ = wp.shape
     n, _, h, w = x.shape
     ho, wo = out_size(h, kh, stride, pad), out_size(w, kw, stride, pad)
@@ -144,7 +181,8 @@ def _lib():
     lib.millieye_conv2d_plan.argtypes = [ctypes.c_int] * 11 + [
         ctypes.POINTER(ctypes.c_int)] * 2
     lib.millieye_conv2d_plan.restype = ctypes.c_int
-    lib.millieye_conv2d_nhwc.argtypes = [ctypes.c_void_p] * 6
+    lib.millieye_conv2d_nhwc.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_void_p]
     lib.millieye_conv2d_nhwc.restype = ctypes.c_int
     return lib
 
@@ -170,7 +208,60 @@ def plan(dims, ld, forced=None):
              cout))
 
 
-def _launch(x, wp, cout, stride, pad):
+def _tail_args(bias, mean, inv, gamma, act):
+    if bias is None:
+        raise ValueError("conv2d_nhwc: a residual comes after a tail: want "
+                         "its bias too")
+    if act not in (0, 1):
+        raise ValueError(f"conv2d_nhwc: the tail's activation code {act}; "
+                         f"want linear or leaky (0, 1): Mish runs in K14")
+    if (mean is None) != (inv is None) or (mean is None) != (gamma is None):
+        raise ValueError("conv2d_nhwc: batch norm's tail wants mean, inv "
+                         "and gamma, the bias form none of them")
+    if mean is not None and act != 1:
+        raise ValueError("conv2d_nhwc: batch norm then linear: the store "
+                         "takes batch norm then leaky (takes_tail)")
+
+
+# the tail's addresses of a launch without one
+_NO_TAIL = (None,) * 5
+
+
+def _tail_ptrs(y, cout, bias, mean, inv, gamma, act, residual):
+    """The addresses of the tail's tensors (bias, mean, inv, gamma,
+    residual; None where not given), or ValueError where the kernel does
+    not take their form (``_tail_args``; [cout] dense float32 vectors on
+    y's device, a channels_last float32 residual of y's shape,
+    NCHW-indexed). The C entry checks that they are 16-byte aligned."""
+    _tail_args(bias, mean, inv, gamma, act)
+    dev = y.get_device()
+    ptrs = []
+    for v in (bias, mean, inv, gamma):
+        if v is None:
+            ptrs.append(None)
+        elif (v.dtype != torch.float32 or v.shape != (cout,)
+              or not v.is_contiguous() or v.get_device() != dev):
+            raise ValueError(f"conv2d_nhwc: the tail wants dense float32 "
+                             f"[{cout}] vectors on {y.device}; got "
+                             f"{v.dtype} {tuple(v.shape)} strides "
+                             f"{v.stride()} on {v.device}")
+        else:
+            ptrs.append(v.data_ptr())
+    if residual is None:
+        return (*ptrs, None)
+    if (residual.dtype != torch.float32 or residual.shape != y.shape
+            or not residual.is_contiguous(memory_format=torch.channels_last)
+            or residual.get_device() != dev):
+        raise ValueError(f"conv2d_nhwc: want a channels_last float32 "
+                         f"residual of the output's shape {tuple(y.shape)} "
+                         f"on {y.device}; got {residual.dtype} "
+                         f"{tuple(residual.shape)} strides "
+                         f"{residual.stride()} on {residual.device}")
+    return (*ptrs, residual.data_ptr())
+
+
+def _launch(x, wp, cout, stride, pad, bias=None, mean=None, inv=None,
+            gamma=None, act=0, residual=None):
     # the weights' layout is the op's contract; the input's is read here,
     # at each call. The checks and the plan are what this op's host time
     # a call is made of, beside the launch: kept to what the kernel needs
@@ -193,15 +284,19 @@ def _launch(x, wp, cout, stride, pad):
     ws = (torch.empty(splits * y.numel(), device=x.device)
           if splits > 1 else None)
     lib = _lib()
+    out = y.permute(0, 3, 1, 2)
+    tail = (_NO_TAIL if bias is None and residual is None else
+            _tail_ptrs(out, cout, bias, mean, inv, gamma, act, residual))
     rc = lib.millieye_conv2d_nhwc(
         x.data_ptr(), wp.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), args,
+        None if ws is None else ws.data_ptr(), args, *tail, act,
         torch._C._cuda_getCurrentRawStream(x.get_device()))
     cuda_lib.check(lib, rc, "conv2d_nhwc")
-    return y.permute(0, 3, 1, 2)
+    return out
 
 
-def _fake(x, wp, cout, stride, pad):
+def _fake(x, wp, cout, stride, pad, bias=None, mean=None, inv=None,
+          gamma=None, act=0, residual=None):
     kh, kw = wp.shape[:2]
     return x.new_empty((x.shape[0], cout, out_size(x.shape[2], kh, stride,
                                                    pad),
@@ -212,5 +307,7 @@ def _fake(x, wp, cout, stride, pad):
 conv2d_nhwc.launches = 0
 _op = cuda_lib.kernel_op(
     "conv2d_nhwc",
-    "(Tensor x, Tensor w, int cout, int stride, int pad) -> Tensor",
+    "(Tensor x, Tensor w, int cout, int stride, int pad, Tensor? bias=None, "
+    "Tensor? mean=None, Tensor? inv=None, Tensor? gamma=None, int act=0, "
+    "Tensor? residual=None) -> Tensor",
     _plain, _launch, _fake, conv2d_nhwc, contiguous=False)

@@ -4,8 +4,9 @@ Each source under ``millieye_torch/csrc/`` is compiled by ``nvcc`` into a
 shared library with a plain C interface and loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds. Libraries land in
 ``build/millieye_torch/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and its flags, so an
-edited source is rebuilt and an unchanged one is reused. ``build()``
+``.gitignore``), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and its flags, so an edited source is rebuilt and an
+unchanged one is reused. ``build()``
 starts one ``nvcc`` for each missing library, all at once.
 
 Every kernel wrapper calls its ``torch.library`` op
@@ -142,6 +143,9 @@ def _nvcc():
 def library_path(name):
     src, extra = SOURCES[name]
     digest = hashlib.sha256((_CSRC / src).read_bytes())
+    # the shared headers (tail.cuh) too: an edited one rebuilds them all
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS + extra).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 

@@ -113,6 +113,121 @@ def test_the_op_refuses_what_the_kernel_does_not_take(case):
         name in ("bf16", "f16", "nchw input", "groups 2"))
 
 
+def _vectors(cout, bn, seed):
+    g = torch.Generator().manual_seed(seed)
+    beta = 0.1 * torch.randn(cout, generator=g)
+    if not bn:
+        return (beta,)
+    return (beta, 0.1 * torch.randn(cout, generator=g),
+            torch.rsqrt(torch.rand(cout, generator=g) + 0.5 + 1e-5),
+            1 + 0.1 * torch.randn(cout, generator=g))
+
+
+# (batch, Cin, Cout, k, stride, side, batch norm, activation)
+_TAILS = [(2, 16, 32, 3, 1, 9, True, "leaky"),
+          (2, 16, 32, 3, 2, 9, True, "leaky"),
+          (1, 32, 64, 1, 1, 6, True, "leaky"),
+          (2, 3, 32, 3, 1, 10, True, "leaky"),
+          (1, 32, 255, 1, 1, 5, False, "linear"),
+          (1, 16, 24, 3, 1, 7, False, "leaky"),
+          (1, 16, 20, 1, 1, 7, False, "linear")]
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["tail", "tail+add"])
+@pytest.mark.parametrize("n,cin,cout,k,s,side,bn,act", _TAILS)
+def test_the_tail_in_the_store_is_conv_then_epilogue_then_add(
+        n, cin, cout, k, s, side, bn, act, add):
+    """The op with a tail in its store (batch norm + leaky, the bias +
+    linear of the 255-channel heads, and the other pairs), with and
+    without a shortcut's residual: its plain version is the plain
+    convolution, then ``epilogue_eager``, then the eager add, the same
+    bits, channels_last float32; on the CPU no launch."""
+    from millieye_torch.ops import epilogue as epi
+    x = _nhwc(n, cin, side, side, cin + cout + k)
+    g = torch.Generator().manual_seed(side)
+    w = torch.randn((cout, cin, k, k), generator=g) / (k * k * cin) ** 0.5
+    vecs = _vectors(cout, bn, cout)
+    pad = (k - 1) // 2
+    y = kconv.conv2d_nhwc(x, w, s, pad)
+    res = torch.randn(y.shape, generator=g) if add else None
+    before = kconv.conv2d_nhwc.launches
+    got = kconv.conv2d_nhwc(x, w, s, pad, *vecs, act=act, residual=res)
+    assert kconv.conv2d_nhwc.launches == before
+    want = epi.epilogue_eager(y, *vecs, act=act)
+    if add:
+        want = want + res
+    assert got.dtype == torch.float32 and got.shape == y.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    # the op itself, handed the packed weights and the code
+    op = kconv._op(x.contiguous(memory_format=torch.channels_last),
+                   kconv.pack_weight(w), cout, s, pad, *vecs,
+                   *(None,) * (4 - len(vecs)), epi.act_code(act),
+                   None if res is None
+                   else res.contiguous(memory_format=torch.channels_last))
+    assert torch.equal(op, want)
+
+
+def _bad_tails():
+    y = torch.empty((2, 8, 5, 5)).contiguous(memory_format=torch.channels_last)
+    v = torch.rand(8)
+    bn = (v, torch.rand(8), torch.rand(8), torch.rand(8))
+    return [
+        ("float64 bias", (v.double(),), None, 1),
+        ("bias of 7", (torch.rand(7),), None, 1),
+        ("bias strided", (torch.rand(16)[::2],), None, 1),
+        ("bias of 8 x 1", (torch.rand(8, 1),), None, 1),
+        ("mean without gamma", (v, bn[1], bn[2], None), None, 1),
+        ("inv without mean", (v, None, bn[2], bn[3]), None, 1),
+        ("inv float16", (v, bn[1], bn[2].half(), bn[3]), None, 1),
+        ("batch norm then linear", bn, None, 0),
+        ("nchw residual", bn, torch.rand(2, 8, 5, 5), 1),
+        ("residual of another shape", bn, torch.rand(
+            2, 8, 5, 4).contiguous(memory_format=torch.channels_last), 1),
+        ("float16 residual", bn, torch.rand(2, 8, 5, 5).half().contiguous(
+            memory_format=torch.channels_last), 1),
+    ], y
+
+
+@pytest.mark.parametrize("case", _bad_tails()[0], ids=lambda c: c[0])
+def test_the_op_refuses_tails_the_kernel_does_not_take(case):
+    """What the kernel's store takes, and the op checks on the card: [Cout]
+    dense float32 vectors on the output's device (batch norm's four, then
+    leaky, or the bias alone), and a channels_last float32 residual of
+    the output's shape. It raises on every other; it never falls back.
+    (That they are 16-byte aligned the kernel's C entry checks: a card
+    test.)"""
+    _, vecs, res, act = case
+    y = _bad_tails()[1]
+    vecs = tuple(vecs) + (None,) * (4 - len(vecs))
+    with pytest.raises(ValueError, match="conv2d_nhwc"):
+        kconv._tail_ptrs(y, 8, *vecs, act, res)
+
+
+def test_the_op_takes_linear_and_leaky_tails_only():
+    """A tail is batch norm then leaky, or the bias then leaky or linear
+    (``takes_tail``): Mish, batch norm then linear, and a residual with
+    no tail before it, are refused, on the CPU as on the card; the
+    vectors and residual the kernel takes pass its check."""
+    assert [kconv.takes_tail(bn, act) for bn in (True, False)
+            for act in ("leaky", "linear", "mish")] == [
+        True, False, False, True, True, False]
+    x, w = _nhwc(1, 8, 6, 6, 0), torch.randn(4, 8, 3, 3)
+    b = torch.rand(4)
+    with pytest.raises(ValueError, match="Mish runs in K14"):
+        kconv.conv2d_nhwc(x, w, 1, 1, b, act="mish")
+    with pytest.raises(ValueError, match="batch norm then linear"):
+        kconv.conv2d_nhwc(x, w, 1, 1, b, b, b, b, act="linear")
+    with pytest.raises(ValueError, match="tail"):
+        kconv.conv2d_nhwc(x, w, 1, 1, residual=torch.rand(1, 4, 6, 6))
+    y = kconv.conv2d_nhwc(x, w, 1, 1)
+    ptrs = kconv._tail_ptrs(y, 4, b, None, None, None, 1,
+                            torch.rand(y.shape).contiguous(
+                                memory_format=torch.channels_last))
+    assert ptrs[0] == b.data_ptr() and ptrs[1:4] == (None,) * 3
+    assert ptrs[4] is not None
+
+
 def test_takes_kernel_wants_the_card_float32_and_no_gradient():
     """``darknet.on_card``, the runner's one predicate: a block's input on
     the card and no gradient wanted from it, its parameters or its state.
@@ -176,6 +291,24 @@ def test_the_profiler_records_the_shapes_and_ints_the_roofline_counts():
     cout, stride, pad = ev[0].concrete_inputs[2:5]
     ho = (h + 2 * pad - kh) // stride + 1
     assert y.shape == (n, cout, ho, ho) and ho == 6
+    # a launch with its tail and a residual in the store records the same
+    # at 0-4, and the benchmark's reader counts it as the plain launch
+    from perfbench.run import load_module
+    flops = load_module("metrics", "conv.roofline").launch_flops
+    vecs = [torch.rand(21) + 0.5 for _ in range(4)]
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        kconv.conv2d_nhwc(x, w, 2, 1, *vecs, act="leaky",
+                          residual=torch.randn(y.shape))
+    fused = [e for e in p.events() if e.name == "millieye::conv2d_nhwc"]
+    assert len(fused) == 1
+    assert fused[0].input_shapes[:2] == ev[0].input_shapes[:2]
+    assert list(fused[0].concrete_inputs[2:5]) == [21, 2, 1]
+    assert fused[0].input_shapes[5:9] == [[21]] * 4
+    assert fused[0].input_shapes[10] == list(y.shape)
+    want = 2 * n * ho * ho * cout * cin * kh * kw
+    assert flops(ev[0].input_shapes, list(ev[0].concrete_inputs)) == want
+    assert flops(fused[0].input_shapes,
+                 list(fused[0].concrete_inputs)) == want
 
 
 def _model(form, **kw):
@@ -199,29 +332,32 @@ def _images(n=2):
 def routed(monkeypatch):
     """The runner's predicate ``on_card`` answered for fake CUDA copies of
     the tensors (as the card would answer), and the op replaced by its
-    plain version on the CPU, counting a launch: yields (answers, calls),
-    the predicate's answers and the inputs that reached the op as (shape,
-    channels_last, stride)."""
+    plain version on the CPU, counting a launch: yields (answers, calls,
+    tails), the predicate's answers, the inputs that reached the op as
+    (shape, channels_last, stride) and each call's tail in the store as
+    (activation code, whether a residual came), or None."""
     mode = FakeTensorMode()
     real = tdark.on_card
-    answers, calls = [], []
+    answers, calls, tails = [], [], []
 
     def spy(x, p, s):
         answers.append(real(_on_card(x, mode), *(
             {k: _on_card(v, mode) for k, v in d.items()} for d in (p, s))))
         return answers[-1]
 
-    def op(x, wp, cout, stride, pad):
+    def op(x, wp, cout, stride, pad, *tail):
         calls.append((tuple(x.shape), x.is_contiguous(
             memory_format=torch.channels_last), stride))
+        tails.append((tail[4], tail[5] is not None)
+                     if tail and tail[0] is not None else None)
         kconv.conv2d_nhwc.launches += 1
-        return kconv._plain(x, wp, cout, stride, pad)
+        return kconv._plain(x, wp, cout, stride, pad, *tail)
 
     monkeypatch.setattr(tdark, "on_card", spy)
     monkeypatch.setattr(kconv, "_op", op)
     monkeypatch.setattr(kconv.conv2d_nhwc, "launches",
                         kconv.conv2d_nhwc.launches)
-    return answers, calls
+    return answers, calls, tails
 
 
 @pytest.mark.parametrize("form", ["bn", "folded"])
@@ -230,12 +366,13 @@ def test_a_float32_inference_convolution_reaches_the_op(routed, form):
     reaches the op, on a channels_last input, and the answer is the one
     off the card's kernels (within float32 rounding: the CPU's
     convolution sums a channels_last input in another order than a
-    contiguous one); the profiler's counter ``darknet.conv_kernel``
-    counts them."""
+    contiguous one); each takes its tail (leaky, the heads' linear) in
+    the op's store; the profiler's counters ``darknet.conv_kernel`` and
+    ``darknet.tail_in_conv`` count them."""
     from torch.profiler import ProfilerActivity, profile
 
     from millieye_torch.runtime import profiler
-    answers, calls = routed
+    answers, calls, tails = routed
     model, params, state = _model(form)
     images = _images()
     profiler.counters()
@@ -243,7 +380,11 @@ def test_a_float32_inference_convolution_reaches_the_op(routed, form):
         got = model.apply(params, state, images)
     assert answers == [True] * 13 and len(calls) == 13
     assert all(cl for _, cl, _ in calls)
-    assert profiler.counters()["darknet.conv_kernel"] == 13
+    assert tails == [(1, False)] * 9 + [(0, False)] + [(1, False)] * 2 + [
+        (0, False)]
+    counts = profiler.counters()
+    assert counts["darknet.conv_kernel"] == counts["darknet.tail_in_conv"] \
+        == counts["darknet.epilogue"] == 13
     answers.clear()
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tdark, "on_card", lambda *a: False)
@@ -252,8 +393,113 @@ def test_a_float32_inference_convolution_reaches_the_op(routed, form):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("defs,tails,adds", [
+    (tiny_yolov3_defs, 13, 0), (yolov3_defs, 75, 23), (yolov4_defs, 38, 0)],
+    ids=["tiny", "darknet53", "yolov4"])
+def test_the_tail_kinds_are_fixed_when_the_model_is_built(defs, tails,
+                                                          adds):
+    """Every plain convolution with a leaky or linear tail that K15 takes
+    is "conv_tail" or, where a linear shortcut follows and nothing else
+    reads its output, "conv_add" with the shortcut "pass": Darknet-53's
+    75 tails and all 23 shortcut adds, YOLOv4's 35 leaky and 3 linear
+    tails (its 72 Mish convolutions stay plain, so do the shortcuts after
+    them), tiny-YOLO's 13. A store type for the float32 stages keeps
+    them all plain."""
+    model = Darknet(defs(img_size=64), img_size=64)
+    kinds = model._kinds
+    assert kinds.count("conv_tail") + kinds.count("conv_add") == tails
+    assert len(model._fused) == tails
+    assert kinds.count("conv_add") == adds
+    assert kinds.count("shortcut") == sum(
+        info["type"] == "shortcut" for info in model._plan) - adds
+    referenced = model._referenced()
+    for i, kind in enumerate(kinds):
+        info = model._plan[i]
+        if kind == "conv_add":
+            assert kinds[i + 1] == "pass" and i not in referenced
+            assert model._plan[i + 1]["type"] == "shortcut"
+        if info["type"] == "convolutional" and info["act"] == "mish":
+            assert kind == "convolutional"
+    assert kinds.count("convolutional") == sum(
+        info.get("act") == "mish" for info in model._plan)
+    kept = Darknet(defs(img_size=64), img_size=64, hi_prec_stages=(0,),
+                   hi_prec_store=torch.float16)
+    assert kept._fused == () and "conv_tail" not in kept._kinds
+
+
+def test_the_tail_leaves_the_store_where_the_call_needs_it(routed):
+    """Training, a gradient wanted, 16-bit compute, int8 slots,
+    ``collect_outputs`` (every block's own output) and a CPU call run
+    today's path: no tail reaches the convolution's store (K14 or the
+    eager tail, then the eager add); a float32 inference call on the
+    card's kernels sends all 13 of tiny-YOLO's tails there."""
+    answers, calls, tails = routed
+    model, params, state = _model("bn")
+    model.apply(params, state, _images())
+    assert len(tails) == 13 and None not in tails
+    tails.clear()
+    calls.clear()
+    model.apply(params, state, _images(), train=True)
+    grads = [{k: v.clone().requires_grad_(True) for k, v in p.items()}
+             for p in params]
+    model.apply(grads, state, _images())
+    assert calls == [] and tails == []
+    model.apply(params, state, _images(), collect_outputs=True)
+    assert len(calls) == 13 and tails == [None] * 13
+    tails.clear()
+    calls.clear()
+    qp = tq.quantize_darknet(model.fold_batchnorm(params, state)[0])
+    model.apply(qp, state, _images())
+    assert calls == [] and tails == []
+    bf, bs = _model("folded_bf16")[1:]
+    model.apply(bf, bs, _images(), compute_dtype=torch.bfloat16)
+    assert calls == [] and tails == []
+    # bfloat16 weights at float32 compute: K15 on their float32 copies,
+    # the tails after it
+    model.apply(bf, bs, _images())
+    assert len(calls) == 13 and tails == [None] * 13
+
+
+def test_a_cpu_call_sends_no_tail_to_the_op(monkeypatch):
+    """On CPU tensors the runner's predicate says no: every block runs
+    ``F.conv2d`` and the eager tail, and nothing reaches the op."""
+    calls = []
+    real = kconv._op
+
+    def op(*args):
+        calls.append(len(args))
+        return real(*args)
+    monkeypatch.setattr(kconv, "_op", op)
+    model, params, state = _model("bn")
+    model.apply(params, state, _images())
+    assert calls == []
+
+
+def test_the_fused_shortcuts_give_the_bits_of_the_eager_adds(monkeypatch):
+    """YOLOv3 on Darknet-53 at 64 px with the card's path forced (the
+    ops' plain versions on the CPU): the tails and adds in the
+    convolution's store give the bits of the same convolutions, then the
+    eager tails, then the eager shortcut adds (``collect_outputs``)."""
+    monkeypatch.setattr(tdark, "on_card", lambda *a: True)
+    model = Darknet(yolov3_defs(img_size=64), img_size=64)
+    g = torch.Generator().manual_seed(21)
+    params, state = model.init(g)
+    for p, s in zip(params, state):
+        if "gamma" in p:
+            c = p["gamma"].shape[0]
+            p["beta"] = 0.1 * torch.randn(c, generator=g)
+            s["mean"] = 0.1 * torch.randn(c, generator=g)
+            s["var"] = 0.5 + torch.rand(c, generator=g)
+    images = torch.rand((1, 64, 64, 3), generator=g)
+    with torch.no_grad():
+        got = model.apply(params, state, images)
+        want = model.apply(params, state, images, collect_outputs=True)
+    for k in ("feature_map", "detections"):
+        assert torch.equal(got[k], want[k])
+
+
 def test_training_and_16_bit_compute_never_reach_the_op(routed):
-    answers, calls = routed
+    answers, calls, _ = routed
     model, params, state = _model("bn")
     model.apply(params, state, _images(), train=True)
     assert answers == [] and calls == []
@@ -273,7 +519,7 @@ def test_int8_slots_never_reach_the_op(routed, acts):
     """int8 weights (dequantized in the graph) and int8 activations
     (``int8_conv2d``) keep their paths, on the card's kernels too (K14
     takes their tails)."""
-    answers, calls = routed
+    answers, calls, _ = routed
     model, params, state = _model("folded")
     absmax = None
     if acts:
@@ -289,7 +535,7 @@ def test_int8_slots_never_reach_the_op(routed, acts):
 def test_the_s2d_stages_never_reach_the_op(routed):
     """With stages 0 and 2 as space-to-depth convolutions, those two stay
     ``F.conv2d``; the 11 plain convolutions reach the op."""
-    answers, calls = routed
+    answers, calls, _ = routed
     model, params, state = _model("folded", s2d_stages=(0, 2))
     model.apply(model.fold_s2d(params), state, _images())
     assert answers == [True] * 11 and len(calls) == 11
@@ -304,7 +550,7 @@ def test_tensors_made_in_inference_mode_are_packed_at_each_call(routed):
     mode, and the float32 block 4 of a bfloat16 model, which casts its
     weights at each call."""
     from millieye_torch.models.darknet import _BN_EPS, _bn_inv
-    answers, calls = routed
+    answers, calls, _ = routed
     with torch.inference_mode():
         x = _nhwc(2, 8, 9, 9, 3)
         w = torch.randn((20, 8, 3, 3)) / 72 ** 0.5

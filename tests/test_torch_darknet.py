@@ -400,17 +400,20 @@ def test_conv_epilogue_refuses_what_it_cannot_take():
 
 def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
     """The runner asks its one predicate ``on_card`` at every inference
-    tail and sends the tail to the op where the card would (the spy
+    tail and sends the tail to an op where the card would (the spy
     answers for fake CUDA copies of the tensors, so the CPU tensors take
-    the op's plain version there), with the bits of the eager tail after
-    the same convolutions; training (``apply(train=True)``) never asks,
-    and a forward whose parameters require grad while grad mode is on is
-    refused at every tail."""
+    the op's plain version there): at float32 the convolution's op with
+    the tail in its store, else K14's. The bits are the eager tail's
+    after the same convolutions; training (``apply(train=True)``) never
+    asks, and a forward whose parameters require grad while grad mode is
+    on is refused at every tail."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from millieye_torch.ops import conv as kconv
     model, params, state = _epilogue_model("bn")
     images = _epilogue_images()
     mode = FakeTensorMode()
-    real, real_op = tdark.on_card, epi._op
+    real, real_op, real_conv = tdark.on_card, epi._op, kconv._op
     answers, calls = [], []
 
     def on_card(t):
@@ -428,6 +431,11 @@ def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
         calls.append(args[0].shape)
         return real_op(*args)
 
+    def conv_op(*args):
+        if len(args) > 5 and args[5] is not None:     # a tail in the store
+            calls.append(args[0].shape)
+        return real_conv(*args)
+
     with monkeypatch.context() as mp:
         # the same convolutions (K15's plain version), the eager tail
         mp.setattr(tdark, "on_card", lambda *a: True)
@@ -436,6 +444,7 @@ def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
         want = model.apply(params, state, images)
     monkeypatch.setattr(tdark, "on_card", spy)
     monkeypatch.setattr(epi, "_op", op)
+    monkeypatch.setattr(kconv, "_op", conv_op)
     got = model.apply(params, state, images)
     assert answers == [True] * 13 and len(calls) == 13
     for k in ("feature_map", "detections"):
@@ -457,9 +466,11 @@ def test_epilogue_reaches_the_op_only_at_inference(monkeypatch):
 def test_darknet_counters_count_only_in_a_profiler_session():
     """``darknet.convs`` counts the plain convolution blocks an ``apply``
     runs (the s2d stages are not plain), ``darknet.conv_kernel`` those
-    whose convolution launched K15 and ``darknet.epilogue`` those whose
-    tail launched K14 (none of either on the CPU); outside a profiler
-    session nothing is kept."""
+    whose convolution launched K15, ``darknet.epilogue`` those whose
+    tail ran in one pass (K14 or K15's store), ``darknet.tail_in_conv``
+    those of K15's store and ``darknet.add_in_conv`` the shortcuts added
+    there (none of any on the CPU); outside a profiler session nothing
+    is kept."""
     from torch.profiler import ProfilerActivity, profile
 
     from millieye_torch.runtime import profiler
@@ -475,27 +486,37 @@ def test_darknet_counters_count_only_in_a_profiler_session():
         model.apply(params, state, images, train=True)
     assert profiler.counters() == {"darknet.convs": 26,
                                    "darknet.conv_kernel": 0,
-                                   "darknet.epilogue": 0}
+                                   "darknet.epilogue": 0,
+                                   "darknet.tail_in_conv": 0,
+                                   "darknet.add_in_conv": 0}
     with profile(activities=[ProfilerActivity.CPU]):
         s2d.apply(s2d.fold_s2d(params), state, images)
     assert profiler.counters() == {"darknet.convs": 11,
                                    "darknet.conv_kernel": 0,
-                                   "darknet.epilogue": 0}
+                                   "darknet.epilogue": 0,
+                                   "darknet.tail_in_conv": 0,
+                                   "darknet.add_in_conv": 0}
     assert profiler.counters() == {}
 
 
-@pytest.mark.parametrize("net,want", [
+@pytest.mark.parametrize("net,want,k14", [
     ("yolov3", {"darknet.convs": 75, "darknet.conv_kernel": 75,
-                "darknet.epilogue": 75}),
+                "darknet.epilogue": 75, "darknet.tail_in_conv": 75,
+                "darknet.add_in_conv": 23}, 0),
     ("yolov4", {"darknet.convs": 110, "darknet.conv_kernel": 110,
-                "darknet.epilogue": 110, "darknet.mish": 72,
-                "darknet.epilogue_mish": 72})], ids=["darknet53", "yolov4"])
-def test_the_counters_on_the_card_kernels(monkeypatch, net, want):
+                "darknet.epilogue": 110, "darknet.tail_in_conv": 38,
+                "darknet.add_in_conv": 0, "darknet.mish": 72,
+                "darknet.epilogue_mish": 72}, 72)],
+    ids=["darknet53", "yolov4"])
+def test_the_counters_on_the_card_kernels(monkeypatch, net, want, k14):
     """With the runner's predicate ``on_card`` forced on, and each op
     counting a launch where the card would launch it (its plain version
     runs here), one ``apply`` of YOLOv3 on Darknet-53 and of YOLOv4 (64
-    px) counts every plain convolution block's K15 and K14 launch, and
-    every Mish block's K14 launch: the benchmark's shares read 100."""
+    px) counts every plain convolution block's K15 launch and its tail
+    in one pass: Darknet-53's 75 leaky and linear tails and 23 shortcut
+    adds in K15's store and no K14 launch; YOLOv4's 38 leaky and linear
+    tails in the store, its 72 Mish tails as K14's 72 launches: the
+    benchmark's shares read 100."""
     from torch.profiler import ProfilerActivity, profile
 
     from millieye_torch.models import zoo
@@ -512,6 +533,8 @@ def test_the_counters_on_the_card_kernels(monkeypatch, net, want):
     model = Darknet(getattr(zoo, net + "_defs")(80, 64), img_size=64)
     params, state = model.init(torch.Generator().manual_seed(15))
     profiler.counters()
+    k14_before = epi.conv_epilogue.launches
     with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
         model.apply(params, state, _epilogue_images(1))
     assert profiler.counters() == want
+    assert epi.conv_epilogue.launches - k14_before == k14

@@ -1582,6 +1582,8 @@ def test_yolov4_apply_bit_equal_with_the_epilogue(cuda):
     assert profiler.counters() == {"darknet.convs": 110,
                                    "darknet.conv_kernel": 110,
                                    "darknet.epilogue": 110,
+                                   "darknet.tail_in_conv": 0,
+                                   "darknet.add_in_conv": 0,
                                    "darknet.mish": 72,
                                    "darknet.epilogue_mish": 72}
     assert _ulps(got["outputs"][0], want["outputs"][0]) <= MISH_ULPS
@@ -1809,3 +1811,213 @@ def test_darknet53_apply_runs_every_convolution_on_the_kernel(cuda):
     counts = profiler.counters()
     assert counts["darknet.conv_kernel"] == counts["darknet.convs"] == 75
     assert torch.isfinite(out["detections"]).all()
+
+
+def _tail_conv_shapes(defs, size):
+    """The distinct convolutions of ``defs`` at ``size`` px whose tail runs
+    in K15's store, as (Cin, Cout, k, stride, input side, batch norm,
+    activation, a shortcut's add), from the model's kinds."""
+    model = Darknet(defs, img_size=size)
+    chans, sides, out = [], [], set()
+    c, side = 3, size
+    for i, info in enumerate(model._plan):
+        t = info["type"]
+        if t == "convolutional":
+            k, st = info["size"], info["stride"]
+            if model._kinds[i] in ("conv_tail", "conv_add"):
+                out.add((c, info["filters"], k, st, side, info["bn"],
+                         info["act"], model._kinds[i] == "conv_add"))
+            c, side = info["filters"], (side + 2 * ((k - 1) // 2) - k) // st + 1
+        elif t == "maxpool" and info["stride"] > 1:
+            side //= info["stride"]
+        elif t == "upsample":
+            side *= info["factor"]
+        elif t == "route":
+            c = sum(chans[i] for i in info["layers"])
+            side = sides[info["layers"][0]]
+        chans.append(c)
+        sides.append(side)
+    return sorted(out)
+
+
+# every distinct convolution whose tail K15 takes in its store, in the two
+# benchmarked configurations: the split-K layers (13 px 3x3 512->1024, 13
+# and 26 px 1x1), the halves route (K >= 256) and the ragged 255-channel
+# heads among them
+TAIL_SHAPES = ([("yolov3-d53-416",) + c
+                for c in _tail_conv_shapes(yolov3_defs(), 416)]
+               + [("yolov4-608",) + c
+                  for c in _tail_conv_shapes(yolov4_defs(80, 608), 608)])
+
+
+def _tail_vectors(cuda, cout, bn, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    beta = 0.1 * torch.randn(cout, device=cuda, generator=g)
+    if not bn:
+        return (beta,)
+    return (beta, 0.1 * torch.randn(cout, device=cuda, generator=g),
+            torch.rsqrt(0.5 + 1.5 * torch.rand(cout, device=cuda, generator=g)
+                        + 1e-5),
+            1 + 0.1 * torch.randn(cout, device=cuda, generator=g))
+
+
+def _unfused(x, w, s, pad, vecs, act, res):
+    """K15, then K14, then the eager add: the sequence the store replaces."""
+    y = epi.conv_epilogue(kconv.conv2d_nhwc(x, w, s, pad), *vecs, act=act)
+    return y if res is None else y + res
+
+
+@pytest.mark.parametrize("net,cin,cout,k,s,h,bn,act,add", TAIL_SHAPES)
+def test_conv2d_nhwc_tail_at_darknet_shapes(cuda, net, cin, cout, k, s, h,
+                                            bn, act, add):
+    """K15 with the tail, and the shortcut's add where the runner fuses it,
+    in its store, at every such convolution of ``yolov3-d53-416`` and
+    ``yolov4-608`` at batch 8: one launch, the bits of K15 then K14 then
+    the eager add (two launches more), whatever tile and split of K the
+    shape takes."""
+    x, w = _conv_case(cuda, 8, cin, cout, k, h, cin * 5 + cout + h)
+    pad = (k - 1) // 2
+    vecs = _tail_vectors(cuda, cout, bn, cout + h)
+    res = None
+    if add:
+        g = torch.Generator(device=cuda).manual_seed(h)
+        ho = (h + 2 * pad - k) // s + 1
+        res = torch.randn((8, ho, ho, cout), device=cuda,
+                          generator=g).permute(0, 3, 1, 2)
+    before, k14 = kconv.conv2d_nhwc.launches, epi.conv_epilogue.launches
+    got = kconv.conv2d_nhwc(x, w, s, pad, *vecs, act=act, residual=res)
+    torch.cuda.synchronize()
+    assert kconv.conv2d_nhwc.launches == before + 1
+    assert epi.conv_epilogue.launches == k14
+    want = _unfused(x, w, s, pad, vecs, act, res)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", _TILE_CASES)
+def test_conv2d_nhwc_tail_every_tile_and_split(cuda, case):
+    """The tail and the add in the store at every tile and at splits of K
+    in 1, 2, 3 and 5 parts (the split's tail in the summing kernel), on
+    shapes whose rows and channels do not fill a tile, in every form the
+    store takes (batch norm then leaky, the bias then leaky or linear):
+    the bits of the same tile and split without the tail, then K14, then
+    the eager add."""
+    n, cin, cout, k, s, h = case
+    x, w = _conv_case(cuda, n, cin, cout, k, h, sum(case) + 1)
+    pad = (k - 1) // 2
+    ho = (h + 2 * pad - k) // s + 1
+    res = torch.randn((n, ho, ho, cout), device=cuda).permute(0, 3, 1, 2)
+    tiles = ["small"] if cin % 4 else ["main", "narrow"]
+    for name in tiles:
+        for splits in (1, 2, 3, 5):
+            for (bn, act), r in itertools.product(
+                    ((True, "leaky"), (False, "leaky"), (False, "linear")),
+                    (None, res)):
+                vecs = _tail_vectors(cuda, cout, bn, splits)
+                with kconv.tile(name, splits):
+                    got = kconv.conv2d_nhwc(x, w, s, pad, *vecs, act=act,
+                                            residual=r)
+                    want = _unfused(x, w, s, pad, vecs, act, r)
+                assert torch.equal(got, want), (name, splits, bn, act,
+                                                r is None)
+
+
+def test_conv2d_nhwc_tail_raises_on_what_it_does_not_take(cuda):
+    """On the card the op refuses a Mish tail, batch norm then linear,
+    vectors of another length or dtype and a residual that is not
+    channels_last float32 of the output's shape (ValueError), and
+    vectors or a residual that are not 16-byte aligned (the C entry's
+    check, RuntimeError): it raises, never falls back."""
+    x, w = _conv_case(cuda, 2, 16, 32, 3, 12, 3)
+    wp = kconv.pack_weight(w)
+    xc = x.contiguous(memory_format=torch.channels_last)
+    b = torch.rand(32, device=cuda)
+    y = kconv.conv2d_nhwc(x, w, 1, 1)
+    res = torch.rand_like(y)
+    for args in ((b, None, None, None, 2, None),
+                 (b[:16], None, None, None, 1, None),
+                 (b.double(), None, None, None, 1, None),
+                 (b, b, None, b, 1, None),
+                 (b, b, b, b, 0, None),
+                 (b, None, None, None, 1, res.contiguous()),
+                 (b, None, None, None, 1, res[:1]),
+                 (None, None, None, None, 1, res)):
+        with pytest.raises(ValueError, match="conv2d_nhwc"):
+            kconv._op(xc, wp, 32, 1, 1, *args)
+    odd = torch.rand(33, device=cuda)[1:]
+    flat = torch.rand(res.numel() + 1, device=cuda)[1:]
+    odd_res = flat.view(2, 12, 12, 32).permute(0, 3, 1, 2)
+    for args in ((odd, None, None, None, 1, None),
+                 (b, odd, b, b, 1, None),
+                 (b, None, None, None, 1, odd_res)):
+        with pytest.raises(RuntimeError, match="cudaErrorInvalidValue"):
+            kconv._op(xc, wp, 32, 1, 1, *args)
+    assert torch.equal(kconv._op(xc, wp, 32, 1, 1, b, None, None, None, 1,
+                                 res),
+                       epi.conv_epilogue(y, b, act="leaky") + res)
+
+
+def _seeded(defs, size, g, cuda):
+    model = Darknet(defs, img_size=size)
+    params, state = model.init(g)
+    for p, s in zip(params, state):
+        if "gamma" in p:
+            c = p["gamma"].shape[0]
+            p["beta"] = 0.1 * torch.randn(c, generator=g)
+            s["mean"] = 0.1 * torch.randn(c, generator=g)
+            s["var"] = 0.5 + 1.5 * torch.rand(c, generator=g)
+    params = [{k: v.to(cuda) for k, v in p.items()} for p in params]
+    state = [{k: v.to(cuda) for k, v in s.items()} for s in state]
+    return model, params, state
+
+
+@pytest.mark.parametrize("net,size,counts,k14,adds", [
+    ("yolov3", 416, {"darknet.convs": 75, "darknet.conv_kernel": 75,
+                     "darknet.epilogue": 75, "darknet.tail_in_conv": 75,
+                     "darknet.add_in_conv": 23}, 0, 23),
+    ("yolov4", 608, {"darknet.convs": 110, "darknet.conv_kernel": 110,
+                     "darknet.epilogue": 110, "darknet.tail_in_conv": 38,
+                     "darknet.add_in_conv": 0, "darknet.mish": 72,
+                     "darknet.epilogue_mish": 72}, 72, 0)],
+    ids=["darknet53", "yolov4"])
+def test_apply_runs_the_tails_and_adds_in_the_store(cuda, net, size, counts,
+                                                    k14, adds):
+    """One ``Darknet.apply`` at batch 8 inside a profiler session:
+    Darknet-53 launches K15 75 times, K14 never and no shortcut's eager
+    add; YOLOv4 launches K15 110 times and K14 72 times, all Mish; the
+    counters agree, and the feature map and detections are the bits of
+    the same call on today's path (``collect_outputs``: K15, K14, the
+    eager adds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from millieye_torch.models import zoo
+    from millieye_torch.runtime import profiler
+    g = torch.Generator().manual_seed(0)
+    defs = getattr(zoo, net + "_defs")(80, size)
+    model, params, state = _seeded(defs, size, g, cuda)
+    images = torch.rand((8, size, size, 3), generator=g).to(cuda)
+
+    def run(**kw):
+        before = (kconv.conv2d_nhwc.launches, epi.conv_epilogue.launches)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = model.apply(params, state, images, **kw)
+        torch.cuda.synchronize()
+        added = sum(e.name == "aten::add" for e in prof.events())
+        return out, (kconv.conv2d_nhwc.launches - before[0],
+                     epi.conv_epilogue.launches - before[1]), added
+
+    with torch.inference_mode():
+        # once each first: what a first call makes once (batch norm's
+        # rsqrt(var + eps), the packed weights) is then kept
+        model.apply(params, state, images)
+        model.apply(params, state, images, collect_outputs=True)
+        profiler.counters()
+        got, launches, added = run()
+        assert profiler.counters() == counts
+        want, plain_launches, plain_added = run(collect_outputs=True)
+    assert launches == (counts["darknet.convs"], k14)
+    assert plain_launches == (counts["darknet.convs"],
+                              counts["darknet.convs"])
+    assert plain_added - added == adds
+    for k in ("feature_map", "detections"):
+        assert torch.equal(got[k], want[k])

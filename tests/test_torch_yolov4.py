@@ -333,6 +333,8 @@ def test_mish_counters_and_the_spp_span():
     assert profiler.counters() == {"darknet.convs": 110,
                                    "darknet.conv_kernel": 0,
                                    "darknet.epilogue": 0,
+                                   "darknet.tail_in_conv": 0,
+                                   "darknet.add_in_conv": 0,
                                    "darknet.mish": 72,
                                    "darknet.epilogue_mish": 0}
     spp = [e for e in prof.events() if e.name == "millieye.spp"]
@@ -347,7 +349,9 @@ def test_mish_counters_and_the_spp_span():
         tiny.apply(tp, ts, images)
     assert set(profiler.counters()) == {"darknet.convs",
                                         "darknet.conv_kernel",
-                                        "darknet.epilogue"}
+                                        "darknet.epilogue",
+                                        "darknet.tail_in_conv",
+                                        "darknet.add_in_conv"}
 
 
 def test_train_mode_mish_matches_the_reference_batch_statistics(yolov4):
